@@ -5,7 +5,9 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds); ``load_host`` does the same for a host C++ source with
 g++. Libraries land in ``csrc/build/`` under a name that carries a hash of
 the source and the flags, so an edited source is rebuilt and a second
-process reuses the first one's build. Nothing here runs at import.
+process reuses the first one's build. Different sources may build at once
+from several threads (``chip_smoke.py`` starts them together). Nothing here
+runs at import.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ BUILD_DIR = CSRC / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}  # one per library: builds of different sources overlap
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building in this process, nvcc's stderr: ptxas report)
 build_info: dict[str, tuple[float, str]] = {}
@@ -57,6 +60,8 @@ def load_host(name: str, src: Path, flags: tuple[str, ...]) -> ctypes.CDLL:
 
 def _load(name: str, src: Path, cmd: list[str]) -> ctypes.CDLL:
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         # The compiler's own path stays out of the hash, so a build is reused

@@ -23,13 +23,12 @@ import time
 import numpy as np
 import torch
 
-from formula_vad_tpu.config import SIMULATOR_STAT_CONFIG, SimConfig, StatConfig, sim_config_from_dict
-from formula_vad_tpu.eval import SpeechSegment, formats, init_and_run, report
-from formula_vad_tpu.io_ import AudioSource, ogg
-from formula_vad_tpu.io_ import native as io_native
-from formula_vad_tpu.io_.wav import write_wav
-
 from .. import device as device_mod
+from ..config import SIMULATOR_STAT_CONFIG, SimConfig, StatConfig, sim_config_from_dict
+from ..eval import SpeechSegment, formats, init_and_run, report
+from ..io_ import AudioSource, ogg
+from ..io_ import native as io_native
+from ..io_.wav import write_wav
 from ..models.nsnet2 import NSNet2
 from ..models.registry import load_denoiser
 from ..parallel.runner import BatchRunner

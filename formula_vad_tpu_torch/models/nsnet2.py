@@ -15,7 +15,11 @@ layer-1 input projection and the FF head stay ``torch.matmul`` over the
 whole sequence, as the JAX package computes them outside its kernel too.
 
 Like the reference's per-chunk ONNX run, ``forward`` always starts the GRUs
-from h = 0.
+from h = 0. Under the int8 tier (``ops/precision.set_quant("int8")`` or
+``FVAD_QUANT=int8``) a network whose GRUs both have linear_before_reset = 1
+runs ``nsnet2_q8.forward_q8`` instead, as the reference's
+``apply_streaming`` routes to ``apply_streaming_q8``; lbr = 0 weights keep
+the float path.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops import precision
 
 N_BINS = 161
 HIDDEN = 400
@@ -76,6 +82,10 @@ class NSNet2(nn.Module):
     def forward(self, features: torch.Tensor, out_frames: int | None = None) -> torch.Tensor:
         """features [..., T, 161] -> gains [..., T_out, 161], T_out = out_frames
         (the last frames only; the head skips the dropped ones) or T."""
+        if precision.quant_int8() and self.gru1.linear_before_reset and self.gru2.linear_before_reset:
+            from .nsnet2_q8 import forward_q8
+
+            return forward_q8(self, features, out_frames)
         from .nsnet2_cuda import gru_stack
 
         lead, t = features.shape[:-2], features.shape[-2]

@@ -4,6 +4,7 @@ registry.py``:70).
 Specs: ``None`` / ``"demo"`` -> the packaged demo weights
 (``formula_vad_tpu/data/nsnet2_demo.npz``); ``"random"`` -> Glorot-random
 NSNet2 from a seeded ``torch.Generator``; ``"*.npz"`` -> weights from disk.
+The model lands on the card unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import os
 
 import torch
 
+from .. import device as device_mod
 from . import nsnet2
 
 log = logging.getLogger("fvad.pipeline")
@@ -23,7 +25,8 @@ DEMO_WEIGHTS = os.path.join(
 )
 
 
-def load_denoiser(spec: str | None, *, seed: int = 0, device="cpu") -> nsnet2.NSNet2:
+def load_denoiser(spec: str | None, *, seed: int = 0, device: str | torch.device = "cuda") -> nsnet2.NSNet2:
+    dev = device if isinstance(device, torch.device) else device_mod.resolve(device)
     if spec is None or spec == "demo":
         if not os.path.exists(DEMO_WEIGHTS):
             raise FileNotFoundError(f"packaged demo weights missing: {DEMO_WEIGHTS}")
@@ -39,4 +42,4 @@ def load_denoiser(spec: str | None, *, seed: int = 0, device="cpu") -> nsnet2.NS
         raise NotImplementedError("the spectral_gate denoiser is not ported yet (ROADMAP: port queue, spectral_gate)")
     else:
         raise ValueError(f"unsupported denoiser spec: {spec}")
-    return net.to(device)
+    return net.to(dev)

@@ -15,8 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from formula_vad_tpu.config import VADConfig
-
+from ..config import VADConfig
 from ..models.nsnet2 import NSNet2
 from ..pipeline import fsm_host, offline, vad
 

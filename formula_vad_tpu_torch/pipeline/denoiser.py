@@ -6,8 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from formula_vad_tpu.config import NSNET2_N_FFT
-
+from ..config import NSNET2_N_FFT
 from ..ops import windows
 
 FEATURE_P_MIN = np.float32(1e-12)  # power floor before log10

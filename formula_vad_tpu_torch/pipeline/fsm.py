@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from formula_vad_tpu.config import VADMachineConfig
+from ..config import VADMachineConfig
 
 CLOSED, OPENING, OPEN, CLOSING = 0, 1, 2, 3
 EV_NONE, EV_STARTED, EV_COMPLETED, EV_ABORTED = 0, 1, 2, 3

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from formula_vad_tpu.config import (
+from ..config import (
     NSNET2_CHUNK_16K,
     NSNET2_CONTEXT_FRAMES,
     NSNET2_N_BINS,
@@ -27,7 +27,6 @@ from formula_vad_tpu.config import (
     NSNET2_N_FRAMES,
     NSNET2_N_HOP,
 )
-
 from ..models.nsnet2 import NSNet2
 from ..ops import resample, stft, volume
 from . import denoiser as den_mod

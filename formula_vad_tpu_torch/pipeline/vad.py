@@ -8,8 +8,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from formula_vad_tpu.config import VADConfig, VADMachineConfig
-
+from ..config import VADConfig, VADMachineConfig
 from ..ops import dft, windows
 from . import fsm
 

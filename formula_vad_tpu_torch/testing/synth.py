@@ -15,8 +15,7 @@ import os
 
 import numpy as np
 
-from formula_vad_tpu.io_.wav import write_wav
-
+from ..io_.wav import write_wav
 from ..pipeline import fsm
 
 SR = 48000

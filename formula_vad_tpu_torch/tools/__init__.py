@@ -32,3 +32,18 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, launches: int, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in one
+    CUDA graph, whose replay is timed as ``cuda_ms`` times a call, divided by
+    ``launches``. The host's cost of each launch stays out of the number."""
+    import torch
+
+    fn()  # outside the capture: builds, allocator pools, library handles
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches

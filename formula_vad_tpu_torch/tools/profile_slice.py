@@ -1,6 +1,6 @@
 """Where the batched scoring slice spends its time on one GPU.
 
-    python -m formula_vad_tpu_torch.tools.profile_slice [--out FILE]
+    python -m formula_vad_tpu_torch.tools.profile_slice [--quant off|int8] [--out FILE]
 
 On one synthetic batch (21 streams x 20 s of stereo 48 kHz audio, the
 batched scoring shape; the packaged demo weights), in one process:
@@ -15,6 +15,9 @@ batched scoring shape; the packaged demo weights), in one process:
    time (the union of its kernel and copy intervals) and the share of the
    wall it covers, and the ops with the most device time. ``--out`` gets
    the whole op table.
+
+``--quant int8`` runs all of it under the int8 denoiser tier
+(``ops/precision.set_quant``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from .. import device as device_mod
 from ..models.registry import load_denoiser
+from ..ops import precision
 from ..parallel.runner import BatchRunner
 from ..testing.synth import synth_stream
 from . import card, cuda_ms
@@ -64,10 +68,12 @@ def _busy_ms(events) -> tuple[float, float]:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the profiler's op table here")
+    ap.add_argument("--quant", choices=("off", "int8"), default="off", help="the denoiser model's quantization tier")
     args = ap.parse_args(argv)
 
     dev = device_mod.resolve("cuda")
-    print(f"profile_slice on {card()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    precision.set_quant(args.quant)
+    print(f"profile_slice (quant {args.quant}) on {card()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     rng = np.random.default_rng(1)
     audio = np.stack([synth_stream(rng, SECONDS)[0] for _ in range(STREAMS)])
     audio_sec = STREAMS * SECONDS
@@ -114,8 +120,9 @@ def main(argv: list[str] | None = None) -> int:
         print("profiler: the trace holds no device events; use the CUDA-event split of chip_smoke.py")
     else:
         busy, kernels = _busy_ms(device_events)
+        n_kernels = sum(not e.name.lower().startswith(("memcpy", "memset")) for e in device_events)
         print(f"profiled device-FSM run: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-              f"({100 * busy / wall_ms:.1f}% of the wall; kernels alone {kernels:.2f} ms, "
+              f"({100 * busy / wall_ms:.1f}% of the wall; kernels alone {kernels:.2f} ms in {n_kernels} launches, "
               f"{100 * kernels / wall_ms:.1f}%), idle {wall_ms - busy:.2f} ms")
         by_name: dict[str, list[float]] = {}
         for e in device_events:

@@ -6,17 +6,22 @@ without it:
 
 Bars: the GRU kernel within 1e-4 of its plain version (CUDA's expf/tanhf
 and the summation order differ by ulps over 54 steps); the FSM kernel bit
-for bit equal to the native host decoder; the slice's segments on the GPU
-equal to the CPU run's.
+for bit equal to the native host decoder; the int8 matmul kernel bit for bit
+equal to its plain version; the slice's segments on the GPU equal to the CPU
+run's. Under the int8 tier the GPU and CPU runs give the same segment count
+with every boundary within one FSM window: a one-ulp difference before
+quantization can move a value into the next int8 step.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from formula_vad_tpu.config import VADConfig, VADMachineConfig
 from formula_vad_tpu_torch import device as device_mod
+from formula_vad_tpu_torch.config import VADConfig, VADMachineConfig
 from formula_vad_tpu_torch.models import nsnet2_cuda, registry
+from formula_vad_tpu_torch.ops import matmul_q8 as mq
+from formula_vad_tpu_torch.ops import precision
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host
 from formula_vad_tpu_torch.testing.synth import fsm_inputs, fsm_per_row_params, synth_stream
@@ -119,15 +124,74 @@ def test_slice_on_gpu_equals_cpu(net, cuda_device):
     counts = (nsnet2_cuda.gru_stack.launches, fsm_cuda.scan_windows.launches)
     gpu = BatchRunner(net, VADConfig()).run(audio, lengths)
     assert nsnet2_cuda.gru_stack.launches > counts[0] and fsm_cuda.scan_windows.launches > counts[1]
-    cpu = BatchRunner(registry.load_denoiser("demo"), VADConfig()).run(audio, lengths)
+    cpu = BatchRunner(registry.load_denoiser("demo", device="cpu"), VADConfig()).run(audio, lengths)
     assert [r.segments for r in gpu] == [r.segments for r in cpu]
     assert sum(len(r.segments) for r in gpu) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "r, k, n", [(37, 161, 400), (100, 161, 161), (300, 600, 161), (129, 600, 600), (5, 7, 3), (1680, 400, 1200)]
+)
+def test_matmul_q8_kernel_matches_plain(cuda_device, r, k, n):
+    rng = np.random.default_rng(r * k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, (r, k)).astype(np.int8)).to(cuda_device)
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda_device)
+    s = torch.from_numpy((rng.random(n) * 1e-3).astype(np.float32)).to(cuda_device)
+    row = torch.from_numpy(rng.random((r, 1)).astype(np.float32) * 2.0).to(cuda_device)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device)
+    for w in (mq.Q8Weight.pack(b, s), mq.Q8Weight.pack(b, s, bias)):
+        for order in mq.ORDERS:
+            for rs in (None, row):
+                for dtype in mq.OUT_DTYPES:
+                    before = mq.matmul_q8.launches
+                    got = mq.matmul_q8(a, w, rs, order=order, out_dtype=dtype)
+                    want = mq.matmul_q8_reference(a, w, rs, order=order, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    assert mq.matmul_q8.launches == before + 1
+                    assert torch.equal(got, want), (order, rs is not None, dtype, w.bias is not None)
+    exact = (a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(np.int64)).astype(np.float32)
+    got = mq.matmul_q8(a, mq.Q8Weight.pack(b, torch.ones(n, device=cuda_device)))
+    assert got.cpu().numpy().tobytes() == exact.tobytes()
+
+
+@pytest.mark.cuda
+def test_matmul_q8_kernel_refuses_what_it_does_not_take(cuda_device):
+    b = torch.ones((32, 16), dtype=torch.int8, device=cuda_device)
+    w = mq.Q8Weight.pack(b, torch.ones(16, device=cuda_device))
+    a = torch.ones((64, 64), dtype=torch.int8, device=cuda_device)
+    for bad in (a[:, :32].float(), a[:, :32], a[:32].t()):
+        with pytest.raises(ValueError):
+            mq.matmul_q8(bad, w)
+    with pytest.raises(ValueError, match="weight"):
+        mq.matmul_q8(a[:, :32].contiguous(), mq.Q8Weight.pack(b.cpu(), torch.ones(16)))
+
+
+@pytest.mark.cuda
+def test_int8_slice_on_gpu_matches_cpu(net, cuda_device):
+    rng = np.random.default_rng(3)
+    audio = np.stack([synth_stream(rng, 20.0)[0] for _ in range(3)])
+    lengths = [audio.shape[-1], audio.shape[-1] - 50_000, audio.shape[-1] - 200_000]
+    counts = (nsnet2_cuda.gru_stack.launches, mq.matmul_q8.launches)
+    precision.set_quant("int8")
+    try:
+        gpu = BatchRunner(net, VADConfig()).run(audio, lengths)
+        assert nsnet2_cuda.gru_stack.launches == counts[0]
+        assert mq.matmul_q8.launches == counts[1] + 167
+        cpu = BatchRunner(registry.load_denoiser("demo", device="cpu"), VADConfig()).run(audio, lengths)
+    finally:
+        precision.set_quant("off")
+    assert sum(len(r.segments) for r in gpu) > 0
+    for g, c in zip(gpu, cpu):
+        assert len(g.segments) == len(c.segments)
+        for a, b in zip(g.segments, c.segments):
+            assert abs(a["sample_from"] - b["sample_from"]) <= FFT and abs(a["sample_to"] - b["sample_to"]) <= FFT
 
 
 def test_wrappers_refuse_other_devices():
     """Neither wrapper silently runs a tensor that is on neither the CPU nor
     a GPU (here: the meta device)."""
-    net = registry.load_denoiser("demo")
+    net = registry.load_denoiser("demo", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         nsnet2_cuda.gru_stack(net, torch.empty((2, 3, 1200), device="meta"))
     shape, params = fsm.statics_from_config(VADMachineConfig(), SR, FFT)

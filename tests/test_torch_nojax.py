@@ -1,6 +1,7 @@
-"""The port never imports jax: it must import and score with jax blocked,
-and no module of it may name jax or a jax-dependent module of the JAX
-package (the machine the port runs on has no jax installed)."""
+"""The port never imports jax, nor anything of the JAX package: it must
+import and score with both blocked, and no module of it may name either (the
+machine the port runs on has no jax installed). What it needs from the JAX
+package's jax-free modules it keeps as copies, held here to their originals."""
 
 import ast
 import os
@@ -12,14 +13,17 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "formula_vad_tpu_torch"
-# The JAX package's modules that import no jax, which the port may reuse.
-JAX_FREE = ("formula_vad_tpu", "formula_vad_tpu.config", "formula_vad_tpu.io_", "formula_vad_tpu.eval")
-JAX_FREE_PREFIXES = ("formula_vad_tpu.io_.", "formula_vad_tpu.eval.")
-FORBIDDEN = ("formula_vad_tpu.eval.denoise_quality",)
+REFERENCE = REPO / "formula_vad_tpu"
+COPIES = (
+    ["config.py"]
+    + [f"eval/{m}.py" for m in ("__init__", "evaluator", "formats", "report", "statistics")]
+    + [f"io_/{m}.py" for m in ("__init__", "audio", "wav", "ogg", "flac", "aiff", "au", "caf", "native")]
+)
 
 BLOCKED_RUN = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["formula_vad_tpu"] = None  # and so does any import of the JAX package
 import numpy as np
 import formula_vad_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(formula_vad_tpu_torch.__path__, "formula_vad_tpu_torch.")]
@@ -29,8 +33,9 @@ from formula_vad_tpu_torch.testing.synth import synth_stream
 from formula_vad_tpu_torch.models.registry import load_denoiser
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 audio, _ = synth_stream(np.random.default_rng(0), 1.0)
-(res,) = BatchRunner(load_denoiser("demo")).run(audio[None])
-assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+(res,) = BatchRunner(load_denoiser("demo", device="cpu")).run(audio[None])
+loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+assert not loaded & {"jax", "formula_vad_tpu"}, loaded
 print("modules", len(names), "segments", len(res.segments))
 """
 
@@ -56,11 +61,7 @@ def test_no_module_names_jax():
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):
-            top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "optax"), f"{path}: imports {mod}"
-            if top == "formula_vad_tpu":
-                ok = mod in JAX_FREE or mod.startswith(JAX_FREE_PREFIXES)
-                assert ok and mod not in FORBIDDEN, f"{path}: imports {mod}, which needs jax"
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "optax", "formula_vad_tpu"), f"{path}: imports {mod}"
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -91,3 +92,16 @@ def test_reference_modules_the_port_copies_need_jax(module):
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode != 0 and "import of jax halted" in proc.stderr
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copies_equal_their_originals(rel):
+    got, want = (PACKAGE / rel).read_bytes(), (REFERENCE / rel).read_bytes()
+    if rel != "config.py":
+        assert got == want
+        return
+    # The module docstring's line naming where the upstream sources lay is
+    # reworded in the copy; no other byte differs.
+    got, want = got.splitlines(), want.splitlines()
+    assert len(got) == len(want)
+    assert [i for i, (a, b) in enumerate(zip(got, want)) if a != b] == [3]

@@ -7,6 +7,7 @@ The CUDA kernel itself is tested on a GPU by test_torch_cuda.py.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -117,12 +118,22 @@ def test_lbr0_plain_version_matches_jax():
 
 
 def test_registry_specs():
-    demo = registry.load_denoiser(None)
-    assert torch.equal(demo.gru1.wh, registry.load_denoiser("demo").gru1.wh)
-    a = registry.load_denoiser("random", seed=3)
-    b = registry.load_denoiser("random", seed=3)
-    assert torch.equal(a.ff2.w, b.ff2.w) and not torch.equal(a.ff2.w, registry.load_denoiser("random", seed=4).ff2.w)
+    load = functools.partial(registry.load_denoiser, device="cpu")
+    demo = load(None)
+    assert torch.equal(demo.gru1.wh, load("demo").gru1.wh)
+    a = load("random", seed=3)
+    b = load("random", seed=3)
+    assert torch.equal(a.ff2.w, b.ff2.w) and not torch.equal(a.ff2.w, load("random", seed=4).ff2.w)
     assert float(a.ff2.w.abs().max()) <= float(np.sqrt(6.0 / 1200)) + 1e-7
     for spec in ("model.onnx", "spectral_gate", "spectral_gate:0.2,0.9,0.1"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.load_denoiser(spec)
+            load(spec)
+
+
+def test_registry_defaults_to_the_card(monkeypatch):
+    """Without ``device="cpu"`` the model goes to the GPU, and without one
+    visible the call raises rather than carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.load_denoiser("demo")
+    assert registry.load_denoiser("demo", device=torch.device("cpu")).fc_in.w.device.type == "cpu"

@@ -18,13 +18,14 @@ import pytest
 import torch
 
 from formula_vad_tpu.apps import simulator as jsim
-from formula_vad_tpu.config import SimConfig, VADConfig, VADMachineConfig
+from formula_vad_tpu.config import VADConfig as JVADConfig
 from formula_vad_tpu.models import nsnet2 as jnsnet2
 from formula_vad_tpu.models.registry import DEMO_WEIGHTS
 from formula_vad_tpu.pipeline import offline as joffline
 from formula_vad_tpu.pipeline import vad as jvad
 from formula_vad_tpu.testing import synth as jsynth
 from formula_vad_tpu_torch.apps import simulator as sim
+from formula_vad_tpu_torch.config import SimConfig, VADConfig, VADMachineConfig
 from formula_vad_tpu_torch.models import registry
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 from formula_vad_tpu_torch.pipeline import offline, vad
@@ -109,26 +110,26 @@ def test_simulator_writes_clips(runs):
 def test_window_inputs_batch_matches_jax(audio):
     n_valid = np.array([audio.shape[-1] // 24000, audio.shape[-1] // 24000 - 3], np.int32)
     t = (audio.shape[-1] // 24000) * 24000
-    jst = jvad.statics_from_config(VADConfig())
+    jst = jvad.statics_from_config(JVADConfig())
     want = joffline.window_inputs_batch(
         jnsnet2.load_npz(DEMO_WEIGHTS), jst, jnp.asarray(audio[..., :t]), jnp.asarray(n_valid)
     )
     st = vad.statics_from_config(VADConfig())
     with torch.inference_mode():
         got = offline.window_inputs_batch(
-            registry.load_denoiser("demo"), st, torch.from_numpy(audio[..., :t]), torch.from_numpy(n_valid)
+            registry.load_denoiser("demo", device="cpu"), st, torch.from_numpy(audio[..., :t]), torch.from_numpy(n_valid)
         )
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-5, atol=1e-7)
     assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
     with torch.inference_mode():
-        one = offline.window_inputs(registry.load_denoiser("demo"), st, torch.from_numpy(audio[1, :, :t]), int(n_valid[1]))
+        one = offline.window_inputs(registry.load_denoiser("demo", device="cpu"), st, torch.from_numpy(audio[1, :, :t]), int(n_valid[1]))
     for a, b in zip(one, got):
         assert torch.equal(a, b[1]), "one stream alone must equal its row of the batch"
 
 
 def test_device_fsm_equals_host_decoder(audio):
-    net = registry.load_denoiser("demo")
+    net = registry.load_denoiser("demo", device="cpu")
     lengths = [audio.shape[-1], audio.shape[-1] - 70_000]
     device_fsm = BatchRunner(net).run(audio, lengths)
     host_fsm = BatchRunner(net, use_host_fsm=True).run(audio, lengths)
@@ -136,7 +137,7 @@ def test_device_fsm_equals_host_decoder(audio):
 
 
 def test_unported_paths_raise(corpus, monkeypatch):
-    net = registry.load_denoiser("demo")
+    net = registry.load_denoiser("demo", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchRunner(net, VADConfig(alt_vad_machine_configs=[VADMachineConfig()]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -154,7 +155,7 @@ def test_unported_paths_raise(corpus, monkeypatch):
 def test_denoise_carry_chaining_and_span(audio):
     """Chaining slabs through the carry equals one whole-stream run, and
     ``denoise_span`` (the clips' re-denoise) equals the same chunks of it."""
-    net = registry.load_denoiser("demo")
+    net = registry.load_denoiser("demo", device="cpu")
     x = torch.from_numpy(audio[:1, :, : 6 * 24000])
     with torch.inference_mode():
         whole = offline.denoise_offline(net, x)
