@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs seven phases; any failed check raises and the script exits non-zero.
+runs nine phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -31,11 +31,34 @@ runs seven phases; any failed check raises and the script exits non-zero.
    and no GRU-kernel launch per run; segments against the float tier's),
    then the simulator with FVAD_QUANT=int8 on cuda and on cpu: the same
    segment count, every boundary within one FSM window.
+8. The per-gate GRU kernels 4, 5 and 6 (models/nsnet2_gates_cuda.py). First
+   their own path, the experiment tool tools/gru_kernel_exp.py, once over
+   all its variants (launch counters from that run). Then each kernel
+   against its plain version at [1680, 54], on random weights with random
+   GRU biases so that every bias term counts, in float32 (max |dh2| <= 1e-4,
+   kernel 1's bar) and bf16 (mean |dh2| <= 3e-5: another float32 summation
+   order now and then moves an h value across a bf16 rounding step, ~4e-6
+   on the mean; the bar must sit 10x below the plain bf16 form's mean
+   distance from the plain float32 form, measured here, so that the check
+   shows the bf16 rounding points are reproduced; and max |dh2| <= 6e-3,
+   one bf16 step below 1 plus float32 drift, against a single wild value);
+   kernel 6 with tile = all rows, 840 and 416 bit for bit equal. Kernel,
+   plain and bound times; the library yardstick is cuDNN's two-layer
+   torch.nn.GRU, in float32 for the float32 forms and in float16 for the
+   bf16 forms (the nearest call whose weights cuDNN compacts once; it
+   stores h in 16 bits, another function). cuDNN's bf16 GRU, which
+   compacts its weights on every call, is timed beside it.
+9. The bf16 tier end to end: BatchRunner on the slice under
+   set_matmul_precision("default") (real-time factor; exactly 1 kernel-5
+   launch and no gru_stack launch per run; segments against the float
+   tier's), then the simulator with --precision default on cuda and on
+   cpu: the same segment count, every boundary within one FSM window.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 card's peak for their type (67 TFLOP/s float32 without tensor cores,
-1,979 TOP/s int8), the H100 SXM data-sheet rates.
+989 TFLOP/s bf16 and 1,979 TOP/s int8 tensor cores), the H100 SXM
+data-sheet rates.
 
 The last two lines of stdout are a JSON line describing each kernel and
 the final {"ok": true, "device": ...} line. Exits non-zero, printing no
@@ -64,6 +87,8 @@ GRU_TOL = 1e-4
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9  # float32 outside the tensor cores: 67 TFLOP/s
 INT8_OPS_PER_MS = 1979e9  # int8 tensor cores, dense: 1,979 TOP/s
+BF16_OPS_PER_MS = 989e9  # bf16 tensor cores, dense: 989 TFLOP/s
+BF16_MEAN, BF16_MAX = 3e-5, 6e-3  # the bf16 forms' bars against their plain versions (phase 8)
 Q8_STEPS = 54  # GRU steps per chunk: 3 in-scan int8 products each
 # The int8 tier's products on the slice: (name, R, K, N, launches per
 # forward, epilogue order, with a per-row scale). 1,680 rows x 54 frames;
@@ -95,7 +120,7 @@ def phase_device() -> str:
     import torch
 
     from formula_vad_tpu_torch import _build
-    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
     from formula_vad_tpu_torch.ops import matmul_q8
     from formula_vad_tpu_torch.pipeline import fsm_cuda
     from formula_vad_tpu_torch.tools import card
@@ -105,7 +130,7 @@ def phase_device() -> str:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, all at once
-        for build in [pool.submit(mod._lib) for mod in (nsnet2_cuda, fsm_cuda, matmul_q8)]:
+        for build in [pool.submit(mod._lib) for mod in (nsnet2_cuda, fsm_cuda, matmul_q8, nsnet2_gates_cuda)]:
             build.result()
     log(f"kernel build + load (parallel): {time.perf_counter() - t0:.2f} s")
     for name, (secs, report) in _build.build_info.items():
@@ -114,16 +139,17 @@ def phase_device() -> str:
     return smi
 
 
-def cudnn_gru(net, dev):
+def cudnn_gru(net, dev, dtype=None):
     """The library yardstick for the GRU kernel: a two-layer torch.nn.GRU run
     by cuDNN on the same weights, permuted from ONNX z|r|n to PyTorch's
-    r|z|n gate order (both are the linear-before-reset form). It also
-    computes layer 1's input projection. Only this script calls it."""
+    r|z|n gate order (both are the linear-before-reset form), in float32 or
+    ``dtype``. It also computes layer 1's input projection. Only this script
+    calls it."""
     import torch
 
     from formula_vad_tpu_torch.models.nsnet2 import HIDDEN
 
-    gru = torch.nn.GRU(HIDDEN, HIDDEN, num_layers=2, batch_first=True).to(dev)
+    gru = torch.nn.GRU(HIDDEN, HIDDEN, num_layers=2, batch_first=True, device=dev, dtype=dtype)
     h = torch.arange(HIDDEN, device=dev)
     perm = torch.cat([h + HIDDEN, h, h + 2 * HIDDEN])
     with torch.no_grad():
@@ -300,13 +326,14 @@ def phase_slice(runner, audio, smi: str) -> tuple[dict, list, float]:
     return launches, results, wall
 
 
-def run_simulators(corpus: str, plans: dict[str, tuple[str, dict]]) -> dict[str, str]:
+def run_simulators(corpus: str, plans: dict[str, tuple]) -> dict[str, str]:
     """Run the simulator entry point once per plan name -> (device, extra
-    environment); returns each run's output directory."""
+    environment[, extra arguments]); returns each run's output directory."""
     outs = {}
-    for name, (dev, extra_env) in plans.items():
+    for name, (dev, extra_env, *extra_args) in plans.items():
         env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""), **extra_env)
         cmd = [sys.executable, "-m", "formula_vad_tpu_torch.apps.simulator", "-i", os.path.join(corpus, f"plan_{name}.json")]
+        cmd += [arg for args in extra_args for arg in args]
         if dev == "cpu":
             cmd += ["--device", "cpu"]
         t0 = time.perf_counter()
@@ -315,7 +342,8 @@ def run_simulators(corpus: str, plans: dict[str, tuple[str, dict]]) -> dict[str,
             raise AssertionError(f"simulator plan {name} (--device {dev}, {extra_env}) failed:\n{proc.stderr[-4000:]}")
         (run_dir,) = os.listdir(os.path.join(corpus, f"out_{name}"))
         outs[name] = os.path.join(corpus, f"out_{name}", run_dir)
-        log(f"simulator plan {name} (--device {dev}, {extra_env or 'default tier'}): {time.perf_counter() - t0:.1f} s")
+        tier = " ".join([*(f"{k}={v}" for k, v in extra_env.items()), *(a for args in extra_args for a in args)])
+        log(f"simulator plan {name} (--device {dev}, {tier or 'default tier'}): {time.perf_counter() - t0:.1f} s")
     return outs
 
 
@@ -477,16 +505,198 @@ def phase_q8_slice(runner, audio, float_results, float_wall: float, corpus: str,
         f"segments found by one tier only: {differ}")
 
     outs = run_simulators(corpus, {"int8_cuda": ("cuda", {"FVAD_QUANT": "int8"}), "int8_cpu": ("cpu", {"FVAD_QUANT": "int8"})})
+    compare_simulators("int8", outs["int8_cuda"], outs["int8_cpu"])
+    return launches
+
+
+def compare_simulators(tier: str, gpu_dir: str, cpu_dir: str) -> None:
+    """A non-parity tier's cuda and cpu simulator runs: the same segment
+    count on every stream, every boundary within one FSM window."""
     for i in range(CORPUS_STREAMS):
-        gpu, cpu = segment_spans(outs["int8_cuda"], i), segment_spans(outs["int8_cpu"], i)
+        gpu, cpu = segment_spans(gpu_dir, i), segment_spans(cpu_dir, i)
         if len(gpu) != len(cpu) or not gpu:
-            raise AssertionError(f"int8 simulator s{i}: {len(gpu)} segments on cuda, {len(cpu)} on cpu")
+            raise AssertionError(f"{tier} simulator s{i}: {len(gpu)} segments on cuda, {len(cpu)} on cpu")
         worst = max(abs(a - b) for g, c in zip(gpu, cpu) for a, b in zip(g, c))
         if worst > WINDOW_SEC + 1e-4:  # the files round to 0.1 ms
-            raise AssertionError(f"int8 simulator s{i}: a boundary moved {worst:.4f} s between cuda and cpu")
-        log(f"int8 simulator s{i}: {len(gpu)} segments on cuda and cpu, boundaries within {worst:.4f} s")
-    same = read_text(outs["int8_cuda"], "report.txt") == read_text(outs["int8_cpu"], "report.txt")
-    log(f"int8 simulator report.txt identical on cuda and cpu: {same}")
+            raise AssertionError(f"{tier} simulator s{i}: a boundary moved {worst:.4f} s between cuda and cpu")
+        log(f"{tier} simulator s{i}: {len(gpu)} segments on cuda and cpu, boundaries within {worst:.4f} s")
+    same = read_text(gpu_dir, "report.txt") == read_text(cpu_dir, "report.txt")
+    log(f"{tier} simulator report.txt identical on cuda and cpu: {same}")
+
+
+GATE_KERNELS = (  # (wrapper in models/nsnet2_gates_cuda.py, kernel, the TPU kernel it replaces)
+    ("gru_gates", 4, "benchmarks/gru_kernel_exp.py:105"),
+    ("gru_gates_p", 5, "benchmarks/gru_kernel_exp.py:220"),
+    ("gru_gates_f", 6, "benchmarks/gru_kernel_exp.py:401"),
+)
+
+
+def biased_net(dev):
+    """The random-init network with random GRU biases (N(0, 0.3), numpy seed
+    3): the packaged and the random weights have biases of ~0.005 and 0, too
+    small for the checks to see a kernel that drops or misplaces one. Each
+    such fault moves the plain bf16 kernel-5 output's mean |dh2| by 8e-3 or
+    more at 64 rows, 280x the BF16_MEAN bar."""
+    import torch
+
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+
+    net = load_denoiser("random", device=dev)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for g in (net.gru1, net.gru2):
+            for b in (g.bi, g.bh):
+                b.copy_(torch.from_numpy(rng.normal(0.0, 0.3, tuple(b.shape)).astype(np.float32)))
+    return net
+
+
+def phase_gates(dev) -> tuple[list[dict], dict]:
+    """Path A (the experiment tool, its own random weights) once with the
+    counters at 0, then each per-gate kernel against its plain version on
+    ``biased_net``; -> (kernel rows, path-A launches)."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+    from formula_vad_tpu_torch.tools import cuda_ms
+    from formula_vad_tpu_torch.tools import gru_kernel_exp as exp
+
+    feats = exp.features(GRU_ROWS, dev)
+    wrappers = {name: getattr(gates, name) for name, _, _ in GATE_KERNELS}
+    for fn in wrappers.values():
+        fn.launches = 0
+    exp.run(load_denoiser("random", device=dev), feats, list(exp.VARIANTS), iters=3)
+    torch.cuda.synchronize()
+    path_a = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"experiment tool (path A) launches over all variants: {path_a}")
+    if min(path_a.values()) <= 0:
+        raise AssertionError(f"a per-gate kernel never launched on the tool's path: {path_a}")
+
+    net = biased_net(dev)
+    ops = 3 * 2 * GRU_ROWS * 400 * 1200 * GRU_STEPS
+    rows = []
+    # The library yardsticks: cuDNN's GRU in float32 for the float32 forms;
+    # for the bf16 forms cuDNN's GRU in float16, whose weights
+    # flatten_parameters compacts once (it leaves bf16 weights alone, so a
+    # bf16 GRU compacts them again on every call; timed too, for the record).
+    grus = {dtype: cudnn_gru(net, dev, dtype) for dtype in (torch.float32, torch.float16, torch.bfloat16)}
+    with torch.inference_mode():
+        gi = exp._gi_gates(net, feats[0])
+        x = net.fc_in(feats[0])
+        gru_ms = {}
+        for dtype, gru in grus.items():
+            xd = x.to(dtype)
+            gru_ms[dtype] = cuda_ms(lambda: gru(xd))
+        log(f"cuDNN two-layer GRU [{GRU_ROWS}, {GRU_STEPS}]: float32 {gru_ms[torch.float32]:.3f} ms, float16 "
+            f"{gru_ms[torch.float16]:.3f} ms (weights compacted once), bf16 {gru_ms[torch.bfloat16]:.3f} ms "
+            f"(weights compacted on every call)")
+        library_ms = {torch.float32: gru_ms[torch.float32], torch.bfloat16: gru_ms[torch.float16]}
+        for name, kind, replaces in GATE_KERNELS:
+            wrapper = wrappers[name]
+            plain = getattr(gates, f"{name}_reference")
+            forms = []
+            for dtype in gates.DTYPES:
+                gw = gates.gate_weights(net, dtype)
+                args = gi if kind == 5 else tuple(g.to(dtype) for g in gi)  # the kernel's own gi dtype
+                got = wrapper(net, *args, dtype=dtype)
+                want = plain(gw, *args)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got.float()).all()):
+                    raise AssertionError(f"{name} {dtype} produced non-finite values")
+                d = (got.float() - want.float()).abs()
+                err, mean = float(d.max()), float(d.mean())
+                if dtype == torch.float32:
+                    ok, bar = err <= GRU_TOL, f"max <= {GRU_TOL}"
+                else:
+                    f32 = plain(gates.gate_weights(net, torch.float32), *gi)
+                    dist = (want.float() - f32).abs()
+                    dist_max, dist_mean = float(dist.max()), float(dist.mean())
+                    if not 10 * BF16_MEAN < dist_mean:
+                        raise AssertionError(f"{name}: the bf16 mean bar does not tell bf16 from float32 here "
+                                             f"(plain bf16 vs f32: mean {dist_mean:.3e})")
+                    ok = mean <= BF16_MEAN and err <= BF16_MAX
+                    bar = (f"mean <= {BF16_MEAN}, max <= {BF16_MAX}; plain bf16 vs plain f32: mean {dist_mean:.3e}, "
+                           f"max {dist_max:.3e}")
+                log(f"{name} (kernel {kind}) {str(dtype)[6:]} vs plain on the card: max |dh2| = {err:.3e}, "
+                    f"mean {mean:.3e} ({bar})")
+                if not ok:
+                    raise AssertionError(f"{name} {dtype} disagrees with its plain version: max {err}, mean {mean}")
+                if kind == 6:
+                    for tile in (840, 416):
+                        if not torch.equal(wrapper(net, *args, dtype=dtype, tile=tile), got):
+                            raise AssertionError(f"{name} {dtype}: tile {tile} changed the result")
+                    log(f"{name} {str(dtype)[6:]}: tile = all rows, 840 and 416 give identical bits")
+                ms = cuda_ms(lambda: wrapper(net, *args, dtype=dtype))
+                plain_ms = cuda_ms(lambda: plain(gw, *args), reps=3)
+                nbytes = sum(a.nbytes for a in args) + got.nbytes + 9 * 400 * 400 * dtype.itemsize + gw.b8.nbytes
+                bound_ms, bound_by = bound(nbytes, ops, F32_OPS_PER_MS if dtype == torch.float32 else BF16_OPS_PER_MS)
+                lib = "cuDNN GRU f32" if dtype == torch.float32 else "cuDNN GRU fp16 (stores h in fp16: another function)"
+                log(f"{name} {str(dtype)[6:]} [{GRU_ROWS}, {GRU_STEPS}]: kernel {ms:.3f} ms ({ops / 1e9 / ms:.2f} TFLOP/s), "
+                    f"plain {plain_ms:.3f} ms, {lib} {library_ms[dtype]:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
+                    f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                forms.append({"dtype": str(dtype)[6:], "max_abs_err": err, "mean_abs_err": mean, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": library_ms[dtype]})
+            # The line's numbers are the bf16 form's: kernel 5's form on the
+            # bf16 tier; both forms are under "forms".
+            top = {k: v for k, v in forms[1].items() if k not in ("dtype", "mean_abs_err")}
+            rows.append({"name": name, "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_gates.cu",
+                         "replaces": replaces, **top, "forms": forms, "cudnn_bf16_ms": gru_ms[torch.bfloat16]})
+    return rows, path_a
+
+
+def phase_bf16_slice(runner, audio, float_results, float_wall: float, corpus: str, smi: str) -> dict:
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
+    from formula_vad_tpu_torch.ops import precision
+    from formula_vad_tpu_torch.pipeline import fsm_cuda, offline
+    from formula_vad_tpu_torch.tools import cuda_ms
+
+    audio_sec = SLICE_STREAMS * SLICE_SECONDS
+    net, st = runner.net, runner.st
+    counters = {"gru_gates_p": nsnet2_gates_cuda.gru_gates_p, "gru_stack": nsnet2_cuda.gru_stack,
+                "scan_windows": fsm_cuda.scan_windows}
+    feats = torch.from_numpy(
+        np.random.default_rng(0).normal(-3.0, 1.5, (GRU_ROWS, GRU_STEPS, 161)).astype(np.float32)
+    ).to(runner.device)
+    x = torch.from_numpy(audio).to(runner.device)
+    with torch.inference_mode():
+        float_model_ms = cuda_ms(lambda: net(feats, out_frames=50), reps=3)
+        float_gains = net(feats, out_frames=50)
+    precision.set_matmul_precision("default")
+    try:
+        results, walls, launches = timed_runs(runner, audio, counters)
+        log(f"bf16 slice launches over 3 runs: {launches}")
+        if launches != {"gru_gates_p": 3, "gru_stack": 0, "scan_windows": 3}:
+            raise AssertionError(f"the bf16 slice launched {launches}, not 1 kernel-5 launch per run and no gru_stack")
+        with torch.inference_mode():
+            fe_ms = cuda_ms(lambda: offline.window_inputs_batch(net, st, x), reps=3)
+            model_ms = cuda_ms(lambda: net(feats, out_frames=50), reps=3)
+            gains = net(feats, out_frames=50)
+    finally:
+        precision.set_matmul_precision("highest")
+    wall = statistics.median(walls)
+    log(f"bf16 slice {SLICE_STREAMS} x {SLICE_SECONDS:.0f} s: wall {wall * 1e3:.1f} ms (median of 3, runs "
+        f"{[round(w * 1e3, 1) for w in walls]}), real-time factor {audio_sec / wall:.1f}; float tier in this call "
+        f"{float_wall * 1e3:.1f} ms, real-time factor {audio_sec / float_wall:.1f}; on {smi}")
+    log(f"bf16 slice split: front end (incl. bf16 model) {fe_ms:.1f} ms, host and FSM rest {wall * 1e3 - fe_ms:.1f} ms; "
+        f"model forward at [{GRU_ROWS}, {GRU_STEPS}, 161]: bf16 tier {model_ms:.2f} ms, float {float_model_ms:.2f} ms; "
+        f"gains bf16 vs float: max |d| {float((gains - float_gains).abs().max()):.3e}")
+    n_seg = sum(len(r.segments) for r in results)
+    if n_seg == 0:
+        raise AssertionError("the bf16 slice found no speech segment")
+
+    def spans(res):
+        return {(seg["sample_from"], seg["sample_to"]) for seg in res.segments}
+
+    differ = sum(len(spans(b) ^ spans(f)) for b, f in zip(results, float_results))
+    log(f"bf16 slice segments: {n_seg} (float tier {sum(len(r.segments) for r in float_results)}); "
+        f"segments found by one tier only: {differ}")
+
+    outs = run_simulators(corpus, {"bf16_cuda": ("cuda", {}, ("--precision", "default")),
+                                   "bf16_cpu": ("cpu", {}, ("--precision", "default"))})
+    compare_simulators("bf16", outs["bf16_cuda"], outs["bf16_cpu"])
     return launches
 
 
@@ -519,10 +729,17 @@ def main() -> int:
     audio = slice_audio()
     launches, float_results, float_wall = phase_slice(runner, audio, smi)
     with tempfile.TemporaryDirectory() as corpus:
-        write_corpus(corpus, CORPUS_STREAMS, 20.0, seed=2, plans=("cuda", "cpu", "int8_cuda", "int8_cpu"))
+        write_corpus(corpus, CORPUS_STREAMS, 20.0, seed=2,
+                     plans=("cuda", "cpu", "int8_cuda", "int8_cpu", "bf16_cuda", "bf16_cpu"))
         phase_entry_point(corpus)
         kernels.append(phase_q8_kernel(dev))
         launches["matmul_q8"] = phase_q8_slice(runner, audio, float_results, float_wall, corpus, smi)["matmul_q8"]
+        gate_rows, path_a = phase_gates(dev)
+        kernels += gate_rows
+        path_b = phase_bf16_slice(runner, audio, float_results, float_wall, corpus, smi)
+    # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
+    # main path is the bf16 tier (it runs on the tool's path too).
+    launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

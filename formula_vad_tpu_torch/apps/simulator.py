@@ -8,6 +8,7 @@ labels, writes per-instance Audacity txts, per-segment clips and
 report.txt into a timestamped output directory, and prints the report.
 
 Usage: python -m formula_vad_tpu_torch.apps.simulator -i plan.json [--device cuda|cpu]
+[--precision highest|default]
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..io_ import native as io_native
 from ..io_.wav import write_wav
 from ..models.nsnet2 import NSNet2
 from ..models.registry import load_denoiser
+from ..ops import precision
 from ..parallel.runner import BatchRunner
 from ..pipeline import offline
 
@@ -178,8 +180,15 @@ def main(argv=None) -> int:
         "--device", choices=device_mod.DEVICES, default="cuda",
         help="Device to score on (default cuda; raises when no GPU is visible)",
     )
+    ap.add_argument(
+        "--precision", choices=("highest", "default"), default=None,
+        help="Matmul precision: 'highest' = full-f32 parity (the default); 'default' = single-pass bf16 "
+        "operands with float32 sums (the bf16 tier; rare one-window boundary shifts)",
+    )
     args = ap.parse_args(argv)
     device = device_mod.resolve(args.device)
+    if args.precision:
+        precision.set_matmul_precision(args.precision)
 
     instances, config, base, plan_text = load_plan(args.input)
     if not config.batch_streams:

@@ -1,0 +1,514 @@
+// The per-gate NSNet2 GRU-stack recurrence for Hopper (sm_90a), with
+// float32 or bfloat16 weight operands.
+//
+// Replaces the three TPU kernels of benchmarks/gru_kernel_exp.py, which
+// compute one function with the rounding points in different places:
+//   kernel 4  gru_stack_kernel   (body _kernel)    gi rounded to the weight
+//             dtype, per-gate weight slabs w9, h2 out in float32;
+//   kernel 5  gru_stack_kernel_p (body _kernel_p)  gi kept float32, packed
+//             weights wp1 [H, 3H] and wp2 [2H, 4H] (two products per step);
+//   kernel 6  gru_stack_kernel_f (body _kernel_f)  as kernel 4, with the
+//             next step's gi prefetched while this step computes, h2 out in
+//             out_dtype, and `tile` rows per grid slice.
+// Both GRU layers (H = 400, ONNX z|r|n, linear_before_reset = 1) run T
+// steps from h = 0 over per-gate layer-1 input projections gi_z, gi_r,
+// gi_n [N, T, H] (bi1 + bh1 folded into z and r, bi1 only into n). With
+// b8 = [bh1_n, bi2_z + bh2_z, bi2_r + bh2_r, bi2_n, bh2_n], per step and row:
+//   z1 = s(gi_z + h1 Wh1z)   r1 = s(gi_r + h1 Wh1r)
+//   n1 = tanh(gi_n + r1 (h1 Wh1n + bh1_n))        h1 = (1 - z1) n1 + z1 h1
+//   z2 = s(h1 Wi2z + h2 Wh2z + b2z)   r2 = s(h1 Wi2r + h2 Wh2r + b2r)
+//   n2 = tanh((h1 Wi2n + bi2_n) + r2 (h2 Wh2n + bh2_n))
+//   h2 = (1 - z2) n2 + z2 h2
+// h1, h2 and the gate math stay float32. With bf16 weights each h is
+// rounded to bf16 before it enters a product, and the products accumulate
+// in float32: the TPU bodies' astype(w.dtype) then preferred_element_type =
+// f32. The order of the float32 sums is the card's own (within a product,
+// and layer 2's z and r sum both products in one accumulator).
+//
+// What bounds it on the H100: at the scoring shape (1,680 rows x 54 steps)
+// a call is 261 GFLOP of serial-step products (3 x [rows, 400] x [400, 1200]
+// per step). Float32 weights run on the CUDA cores (67 TFLOP/s peak: 3.9 ms
+// at best); bf16 weights run on the tensor cores (989 TFLOP/s: 0.26 ms),
+// where the limit that shows first is re-reading the 2.9 MB of bf16 weights
+// from L2 every step in every block.
+//
+// Design: as csrc/gru_stack.cu, the TPU's sequential time grid becomes a
+// loop inside the block; one block owns ROWS = 16 rows for all T steps and
+// their h never leaves the SM. Blocks are independent, so a row's result
+// does not depend on which block or tile holds it: kernel 6's `tile` only
+// reshapes the grid (blockIdx.y = tile, blockIdx.x = 16-row block in it)
+// and changes no bit.
+// - float32 weights (gates_fma): thread j owns hidden unit j; h1 and h2 sit
+//   in shared memory; each weight read from L2 feeds 16 FMAs (one per row);
+//   the gate math runs in the same thread.
+// - bf16 weights (gates_mma): mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+//   The 16 rows are one MMA M tile; 10 warps each own 5 tiles of 8 hidden
+//   units and hold, for each, the z, r and n accumulators of the same
+//   (row, unit) positions, so the gate math runs on the accumulator
+//   registers and h1, h2 stay in registers across steps. Shared memory
+//   holds only bf16(h1), bf16(h2) as the A operand (pitch 408, so the
+//   fragment loads hit 32 distinct banks). The wrapper packs each weight
+//   once into fragment order ([N/8][K/16][32 lanes] of 8 bytes), so a
+//   warp's B fragment is one coalesced 256-byte load.
+// - kernel 6: gi for step t+1 goes global -> shared memory by cp.async
+//   (double-buffered, zero-filled past N) while step t's products run: the
+//   TPU's make_async_copy + semaphores. Output is stored straight from
+//   registers in out_dtype (the TPU's out staging exists for its DMA).
+// wgmma, TMA multicast of the weights across a cluster and filling all 132
+// SMs (1680 / 16 = 105 blocks) are for later.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int H = 400;
+constexpr int ROWS = 16;           // rows per block: one MMA M tile
+constexpr int UT = H / 8;          // 50 tiles of 8 hidden units (MMA N = 8)
+constexpr int KS = H / 16;         // 25 K steps of 16 (MMA K = 16)
+constexpr int FMA_THREADS = 416;   // 13 warps; threads j < H own unit j
+constexpr int MMA_WARPS = 10;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int UPW = UT / MMA_WARPS;  // 5 unit tiles per warp
+constexpr int HP = H + 8;          // bf16 pitch of the h operand rows
+constexpr int FRAG = 32;           // uint2 fragments per (unit tile, K step)
+
+using bf16 = __nv_bfloat16;
+
+// The nine weight slabs of one step, each [H, H]: wh1 z r n (seen by h1,
+// layer 1), wi2 z r n (seen by h1, layer 2), wh2 z r n (seen by h2,
+// layer 2); for kernel 5 slab 5 is wp2's n_i block and slab 8 its n_h
+// block. float32 form: w points at column 0 of the slab, stride = row
+// stride in floats. bf16 form: w points at unit tile 0, K step 0 of the
+// slab's fragments, stride = uint2s from one unit tile to the next.
+struct Slabs {
+  const void* w[9];
+  int stride[9];
+};
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// Kernel 6: step t's gi (three gates x ROWS rows x H) -> buf [3][ROWS][H],
+// 16 bytes per copy, rows past the block's zero-filled.
+template <typename GI>
+__device__ __forceinline__ void prefetch_gi(GI* buf, const GI* const (&gi)[3], int row0, int rows_here,
+                                            int n_steps, int t, int tid, int n_threads) {
+  constexpr int PER = 16 / sizeof(GI);  // elements per copy
+  constexpr int CPR = H / PER;          // copies per row
+  for (int c = tid; c < 3 * ROWS * CPR; c += n_threads) {
+    const int gate = c / (ROWS * CPR), r = (c / CPR) % ROWS, q = c % CPR;
+    const bool valid = r < rows_here;
+    const GI* src = gi[gate] + (valid ? ((size_t)(row0 + r) * n_steps + t) * H + q * PER : 0);
+    cp_async16(buf + (gate * ROWS + r) * H + q * PER, src, valid);
+  }
+}
+
+// ---------------------------------------------------------------- float32
+
+// acc_g[r] += sum_k hs[r][k] * w_g[k][j] for the three slabs g.
+__device__ __forceinline__ void matvec3(const float* __restrict__ hs, const Slabs& s, int first, int j,
+                                        float (&a0)[ROWS], float (&a1)[ROWS], float (&a2)[ROWS]) {
+  const float* w0 = static_cast<const float*>(s.w[first]) + j;
+  const float* w1 = static_cast<const float*>(s.w[first + 1]) + j;
+  const float* w2 = static_cast<const float*>(s.w[first + 2]) + j;
+  const int l0 = s.stride[first], l1 = s.stride[first + 1], l2 = s.stride[first + 2];
+  for (int k = 0; k < H; k += 4) {
+    float x0[4], x1[4], x2[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x0[q] = __ldg(w0 + (size_t)(k + q) * l0);
+      x1[q] = __ldg(w1 + (size_t)(k + q) * l1);
+      x2[q] = __ldg(w2 + (size_t)(k + q) * l2);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float4 hv = *reinterpret_cast<const float4*>(hs + r * H + k);
+      const float hq[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a0[r] = fmaf(hq[q], x0[q], a0[r]);
+        a1[r] = fmaf(hq[q], x1[q], a1[r]);
+        a2[r] = fmaf(hq[q], x2[q], a2[r]);
+      }
+    }
+  }
+}
+
+template <typename GI, typename OUT, bool PREFETCH>
+__global__ void __launch_bounds__(FMA_THREADS, 1)
+gates_fma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __restrict__ gn, Slabs s,
+          const float* __restrict__ b8, OUT* __restrict__ out, int n_rows, int n_steps, int tile) {
+  extern __shared__ float4 smem4[];
+  float* h1 = reinterpret_cast<float*>(smem4);  // [ROWS][H]
+  float* h2 = h1 + ROWS * H;                     // [ROWS][H]
+  GI* gbuf = reinterpret_cast<GI*>(h2 + ROWS * H);  // kernel 6: [2][3][ROWS][H]
+  const int j = threadIdx.x;
+  const bool owner = j < H;
+  const int tile0 = blockIdx.y * tile;
+  const int row0 = tile0 + blockIdx.x * ROWS;
+  const int rows_here = min(ROWS, min(tile0 + tile, n_rows) - row0);
+  if (rows_here <= 0) return;  // the same for the whole block
+  const GI* const gi[3] = {gz, gr, gn};
+
+  for (int i = j; i < 2 * ROWS * H; i += FMA_THREADS) h1[i] = 0.0f;
+  float bh1n = 0.f, b2z = 0.f, b2r = 0.f, bi2n = 0.f, bh2n = 0.f;
+  if (owner) {
+    bh1n = b8[j]; b2z = b8[H + j]; b2r = b8[2 * H + j]; bi2n = b8[3 * H + j]; bh2n = b8[4 * H + j];
+  }
+  if (PREFETCH) {
+    prefetch_gi(gbuf, gi, row0, rows_here, n_steps, 0, j, FMA_THREADS);
+    cp_async_commit();
+  }
+  __syncthreads();
+
+  for (int t = 0; t < n_steps; ++t) {
+    if (PREFETCH) {
+      if (t + 1 < n_steps)
+        prefetch_gi(gbuf + ((t + 1) & 1) * 3 * ROWS * H, gi, row0, rows_here, n_steps, t + 1, j, FMA_THREADS);
+      cp_async_commit();  // possibly empty: keeps one group per step
+    }
+    // ---- layer 1
+    float az[ROWS], ar[ROWS], an[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) az[r] = ar[r] = an[r] = 0.0f;
+    if (owner) matvec3(h1, s, 0, j, az, ar, an);
+    if (PREFETCH) {
+      cp_async_wait_prev();  // this thread's copies of step t have landed
+      __syncthreads();       // and every other thread's
+    }
+    float h1new[ROWS];
+    if (owner) {
+      const GI* sb = gbuf + (t & 1) * 3 * ROWS * H;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float xz = 0.f, xr = 0.f, xn = 0.f;
+        if (PREFETCH) {
+          xz = load1(sb + r * H + j);
+          xr = load1(sb + (ROWS + r) * H + j);
+          xn = load1(sb + (2 * ROWS + r) * H + j);
+        } else if (r < rows_here) {
+          const size_t o = ((size_t)(row0 + r) * n_steps + t) * H + j;
+          xz = load1(gz + o); xr = load1(gr + o); xn = load1(gn + o);
+        }
+        const float z = sigmoid(xz + az[r]);
+        const float rg = sigmoid(xr + ar[r]);
+        const float n = tanhf(xn + rg * (an[r] + bh1n));
+        h1new[r] = (1.0f - z) * n + z * h1[r * H + j];
+      }
+    }
+    __syncthreads();  // all reads of the old h1 (and of this step's gi) are done
+    if (owner) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) h1[r * H + j] = h1new[r];
+    }
+    __syncthreads();  // the new h1 is visible to every thread
+
+    // ---- layer 2: z and r sum both products in one accumulator each
+    float sz[ROWS], sr[ROWS], in[ROWS], hn[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) sz[r] = sr[r] = in[r] = hn[r] = 0.0f;
+    float h2new[ROWS];
+    if (owner) {
+      matvec3(h1, s, 3, j, sz, sr, in);
+      matvec3(h2, s, 6, j, sz, sr, hn);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float z = sigmoid(sz[r] + b2z);
+        const float rg = sigmoid(sr[r] + b2r);
+        const float n = tanhf((in[r] + bi2n) + rg * (hn[r] + bh2n));
+        h2new[r] = (1.0f - z) * n + z * h2[r * H + j];
+      }
+    }
+    __syncthreads();  // all reads of the old h2 are done
+    if (owner) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        h2[r * H + j] = h2new[r];
+        if (r < rows_here) store1(out + ((size_t)(row0 + r) * n_steps + t) * H + j, h2new[r]);
+      }
+    }
+    // The next reads of h2 follow the next step's two barriers.
+  }
+}
+
+// ---------------------------------------------------------------- bf16
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// acc_g[u] += hb (16 x H, bf16) x slab g's unit tile (ut0 + u), for the three
+// slabs first..first+2 and the warp's UPW unit tiles.
+__device__ __forceinline__ void mma_pass3(const bf16* __restrict__ hb, const Slabs& s, int first, int ut0,
+                                          int lane, float (&a0)[UPW][4], float (&a1)[UPW][4],
+                                          float (&a2)[UPW][4]) {
+  const uint2* w0 = static_cast<const uint2*>(s.w[first]) + (size_t)ut0 * s.stride[first] + lane;
+  const uint2* w1 = static_cast<const uint2*>(s.w[first + 1]) + (size_t)ut0 * s.stride[first + 1] + lane;
+  const uint2* w2 = static_cast<const uint2*>(s.w[first + 2]) + (size_t)ut0 * s.stride[first + 2] + lane;
+  const int l0 = s.stride[first], l1 = s.stride[first + 1], l2 = s.stride[first + 2];
+  // A fragment (m16n8k16, row-major): rows g and g + 8, columns 2 (lane % 4)
+  // (+1) and the same + 8 of the K step.
+  const uint32_t* p0 = reinterpret_cast<const uint32_t*>(hb + (lane >> 2) * HP + (lane & 3) * 2);
+  const uint32_t* p1 = p0 + 8 * HP / 2;
+#pragma unroll 1
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t a[4] = {p0[ks * 8], p1[ks * 8], p0[ks * 8 + 4], p1[ks * 8 + 4]};
+    const int o = ks * FRAG;
+#pragma unroll
+    for (int u = 0; u < UPW; ++u) {
+      const uint2 b0 = __ldg(w0 + u * l0 + o);
+      const uint2 b1 = __ldg(w1 + u * l1 + o);
+      const uint2 b2 = __ldg(w2 + u * l2 + o);
+      mma_bf16(a0[u], a, b0);
+      mma_bf16(a1[u], a, b1);
+      mma_bf16(a2[u], a, b2);
+    }
+  }
+}
+
+template <typename GI, typename OUT, bool PREFETCH>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+gates_mma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __restrict__ gn, Slabs s,
+          const float* __restrict__ b8, OUT* __restrict__ out, int n_rows, int n_steps, int tile) {
+  extern __shared__ float4 smem4[];
+  bf16* hb1 = reinterpret_cast<bf16*>(smem4);  // [ROWS][HP] bf16(h1)
+  bf16* hb2 = hb1 + ROWS * HP;                  // [ROWS][HP] bf16(h2)
+  GI* gbuf = reinterpret_cast<GI*>(hb2 + ROWS * HP);  // kernel 6: [2][3][ROWS][H]
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int ut0 = (tid >> 5) * UPW;
+  const int tile0 = blockIdx.y * tile;
+  const int row0 = tile0 + blockIdx.x * ROWS;
+  const int rows_here = min(ROWS, min(tile0 + tile, n_rows) - row0);
+  if (rows_here <= 0) return;  // the same for the whole block
+  const GI* const gi[3] = {gz, gr, gn};
+
+  for (int i = tid; i < 2 * ROWS * HP; i += MMA_THREADS) hb1[i] = __float2bfloat16_rn(0.0f);
+  // Accumulator q of a tile is row g (+8 for q >= 2), column c2 + (q & 1).
+  float h1[UPW][4], h2[UPW][4];
+#pragma unroll
+  for (int u = 0; u < UPW; ++u)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h1[u][q] = h2[u][q] = 0.0f;
+  if (PREFETCH) {
+    prefetch_gi(gbuf, gi, row0, rows_here, n_steps, 0, tid, MMA_THREADS);
+    cp_async_commit();
+  }
+  __syncthreads();
+
+  for (int t = 0; t < n_steps; ++t) {
+    if (PREFETCH) {
+      if (t + 1 < n_steps)
+        prefetch_gi(gbuf + ((t + 1) & 1) * 3 * ROWS * H, gi, row0, rows_here, n_steps, t + 1, tid, MMA_THREADS);
+      cp_async_commit();  // possibly empty: keeps one group per step
+    }
+    // ---- layer 1
+    {
+      float az[UPW][4], ar[UPW][4], an[UPW][4];
+#pragma unroll
+      for (int u = 0; u < UPW; ++u)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) az[u][q] = ar[u][q] = an[u][q] = 0.0f;
+      mma_pass3(hb1, s, 0, ut0, lane, az, ar, an);
+      if (PREFETCH) {
+        cp_async_wait_prev();  // this thread's copies of step t have landed
+        __syncthreads();       // and every other thread's
+      }
+      const GI* sb = gbuf + (t & 1) * 3 * ROWS * H;
+#pragma unroll
+      for (int u = 0; u < UPW; ++u) {
+        const int col = (ut0 + u) * 8 + c2;
+        const float2 bn = load2(b8 + col);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = g + half * 8;
+          float2 xz = make_float2(0.f, 0.f), xr = xz, xn = xz;
+          if (PREFETCH) {
+            xz = load2(sb + r * H + col);
+            xr = load2(sb + (ROWS + r) * H + col);
+            xn = load2(sb + (2 * ROWS + r) * H + col);
+          } else if (r < rows_here) {
+            const size_t o = ((size_t)(row0 + r) * n_steps + t) * H + col;
+            xz = load2(gz + o); xr = load2(gr + o); xn = load2(gn + o);
+          }
+          const float vz[2] = {xz.x, xz.y}, vr[2] = {xr.x, xr.y}, vn[2] = {xn.x, xn.y}, b[2] = {bn.x, bn.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = half * 2 + e;
+            const float z = sigmoid(vz[e] + az[u][q]);
+            const float rg = sigmoid(vr[e] + ar[u][q]);
+            const float n = tanhf(vn[e] + rg * (an[u][q] + b[e]));
+            h1[u][q] = (1.0f - z) * n + z * h1[u][q];
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp has read the old bf16(h1) (and this step's gi)
+#pragma unroll
+    for (int u = 0; u < UPW; ++u) {
+      const int col = (ut0 + u) * 8 + c2;
+      store2(hb1 + g * HP + col, h1[u][0], h1[u][1]);
+      store2(hb1 + (g + 8) * HP + col, h1[u][2], h1[u][3]);
+    }
+    __syncthreads();  // the new bf16(h1) is visible to every warp
+
+    // ---- layer 2: z and r sum both products in one accumulator each
+    {
+      float az[UPW][4], ar[UPW][4], ai[UPW][4], ah[UPW][4];
+#pragma unroll
+      for (int u = 0; u < UPW; ++u)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) az[u][q] = ar[u][q] = ai[u][q] = ah[u][q] = 0.0f;
+      mma_pass3(hb1, s, 3, ut0, lane, az, ar, ai);
+      mma_pass3(hb2, s, 6, ut0, lane, az, ar, ah);
+#pragma unroll
+      for (int u = 0; u < UPW; ++u) {
+        const int col = (ut0 + u) * 8 + c2;
+        const float2 bz = load2(b8 + H + col), br = load2(b8 + 2 * H + col);
+        const float2 bi = load2(b8 + 3 * H + col), bh = load2(b8 + 4 * H + col);
+        const float vbz[2] = {bz.x, bz.y}, vbr[2] = {br.x, br.y}, vbi[2] = {bi.x, bi.y}, vbh[2] = {bh.x, bh.y};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e = q & 1;
+          const float z = sigmoid(az[u][q] + vbz[e]);
+          const float rg = sigmoid(ar[u][q] + vbr[e]);
+          const float n = tanhf((ai[u][q] + vbi[e]) + rg * (ah[u][q] + vbh[e]));
+          h2[u][q] = (1.0f - z) * n + z * h2[u][q];
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = g + half * 8;
+          if (r < rows_here)
+            store2(out + ((size_t)(row0 + r) * n_steps + t) * H + col, h2[u][half * 2], h2[u][half * 2 + 1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp has read the old bf16(h2)
+#pragma unroll
+    for (int u = 0; u < UPW; ++u) {
+      const int col = (ut0 + u) * 8 + c2;
+      store2(hb2 + g * HP + col, h2[u][0], h2[u][1]);
+      store2(hb2 + (g + 8) * HP + col, h2[u][2], h2[u][3]);
+    }
+    // The next reads of bf16(h2) follow the next step's two barriers.
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+template <typename GI, typename OUT, bool PREFETCH, bool MMA>
+cudaError_t launch(const void* gz, const void* gr, const void* gn, const Slabs& s, const float* b8, void* out,
+                   int n_rows, int n_steps, int tile, cudaStream_t stream) {
+  const size_t h_bytes = MMA ? 2 * ROWS * HP * sizeof(bf16) : 2 * ROWS * H * sizeof(float);
+  const size_t smem = h_bytes + (PREFETCH ? 2 * 3 * ROWS * H * sizeof(GI) : 0);
+  void (*kernel)(const GI*, const GI*, const GI*, Slabs, const float*, OUT*, int, int, int);
+  if constexpr (MMA) {
+    kernel = gates_mma<GI, OUT, PREFETCH>;
+  } else {
+    kernel = gates_fma<GI, OUT, PREFETCH>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tile + ROWS - 1) / ROWS, (n_rows + tile - 1) / tile);
+  kernel<<<grid, MMA ? MMA_THREADS : FMA_THREADS, smem, stream>>>(
+      static_cast<const GI*>(gz), static_cast<const GI*>(gr), static_cast<const GI*>(gn), s, b8,
+      static_cast<OUT*>(out), n_rows, n_steps, tile);
+  return cudaGetLastError();
+}
+
+Slabs make_slabs(int kind, int w_bf16, const void* wa, const void* wb) {
+  Slabs s;
+  if (!w_bf16) {
+    const float* a = static_cast<const float*>(wa);
+    const float* b = static_cast<const float*>(wb);
+    if (kind != 5) {  // w9 [9][H][H]
+      for (int i = 0; i < 9; ++i) { s.w[i] = a + (size_t)i * H * H; s.stride[i] = H; }
+    } else {  // wp1 [H][3H] = z | r | n; wp2 [2H][4H]: h1 rows z | r | n_i | 0, h2 rows z | r | 0 | n_h
+      const float* bot = b + (size_t)H * 4 * H;
+      const float* w[9] = {a, a + H, a + 2 * H, b, b + H, b + 2 * H, bot, bot + H, bot + 3 * H};
+      for (int i = 0; i < 9; ++i) { s.w[i] = w[i]; s.stride[i] = i < 3 ? 3 * H : 4 * H; }
+    }
+  } else {
+    // Fragments of a [K][N] weight: [N / 8][K / 16][32] uint2.
+    const uint2* a = static_cast<const uint2*>(wa);
+    const uint2* b = static_cast<const uint2*>(wb);
+    if (kind != 5) {  // nine [H][H] slabs
+      for (int i = 0; i < 9; ++i) { s.w[i] = a + (size_t)i * UT * KS * FRAG; s.stride[i] = KS * FRAG; }
+    } else {  // wp1 [H][3H]: 150 unit tiles x 25 K steps; wp2 [2H][4H]: 200 x 50, h2 rows from K step 25
+      const int st = 2 * KS * FRAG;
+      const uint2* w[9] = {a, a + (size_t)UT * KS * FRAG, a + (size_t)2 * UT * KS * FRAG,
+                           b, b + (size_t)UT * st, b + (size_t)2 * UT * st,
+                           b + KS * FRAG, b + (size_t)UT * st + KS * FRAG, b + (size_t)3 * UT * st + KS * FRAG};
+      for (int i = 0; i < 9; ++i) { s.w[i] = w[i]; s.stride[i] = i < 3 ? KS * FRAG : st; }
+    }
+  }
+  return s;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* fvad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// kind 4, 5 or 6 (the TPU kernel replaced). gz, gr, gn [n_rows, n_steps, H]
+// (bf16 when gi_bf16, else float32); wa, wb the packed weights: float32
+// w9 [9, H, H] (kinds 4, 6) or wp1 [H, 3H] and wp2 [2H, 4H] (kind 5), or
+// their bf16 fragment packings when w_bf16; b8 [8, H] float32; out
+// [n_rows, n_steps, H] (bf16 when out_bf16, else float32); tile rows per
+// grid slice (1 <= tile <= n_rows). Kind 4 takes gi in the weight dtype
+// and writes float32; kind 5 takes float32 gi and writes float32; kind 6
+// takes gi in the weight dtype. All contiguous on the current device, gi
+// and out 16-byte aligned. Launches on `stream` and returns
+// cudaGetLastError().
+int fvad_gru_gates(int kind, int w_bf16, int gi_bf16, int out_bf16, const void* gz, const void* gr,
+                   const void* gn, const void* wa, const void* wb, const float* b8, void* out, int n_rows,
+                   int n_steps, int tile, void* stream) {
+  const bool ok = n_rows > 0 && n_steps > 0 && tile >= 1 && tile <= n_rows &&
+                  ((kind == 4 && gi_bf16 == w_bf16 && !out_bf16 && tile == n_rows) ||
+                   (kind == 5 && !gi_bf16 && !out_bf16 && tile == n_rows) || (kind == 6 && gi_bf16 == w_bf16));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const Slabs s = make_slabs(kind, w_bf16, wa, wb);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (kind == 6) {
+    if (w_bf16) {
+      return out_bf16 ? (int)launch<bf16, bf16, true, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
+                      : (int)launch<bf16, float, true, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+    }
+    return out_bf16 ? (int)launch<float, bf16, true, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
+                    : (int)launch<float, float, true, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+  }
+  if (!w_bf16) return (int)launch<float, float, false, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+  return gi_bf16 ? (int)launch<bf16, float, false, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
+                 : (int)launch<float, float, false, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+}
+
+}  // extern "C"

@@ -8,11 +8,16 @@ Port of ``formula_vad_tpu/models/nsnet2.py`` (``apply``, ``apply_head``,
         -> Dense 600->161 + sigmoid (spectral gain mask)
 
 Weights keep the JAX package's layout ([in, out] kernels, ONNX z|r|n gate
-order), so every product is ``x @ w + b`` as there. The GRU recurrence of
+order), so every product is ``x @ w + b`` as there, at the precision of its
+stage (``ops/precision.py``: fc_in, gru_i, gru_h, ff). The GRU recurrence of
 both layers runs in ``nsnet2_cuda.gru_stack`` (a CUDA kernel for CUDA
 tensors, its plain PyTorch version for CPU tensors); the input Dense, the
 layer-1 input projection and the FF head stay ``torch.matmul`` over the
 whole sequence, as the JAX package computes them outside its kernel too.
+At matmul precision 'default' (the bf16 tier; gru_i and gru_h both at
+'default') the recurrence runs instead through
+``nsnet2_gates_cuda.gru_gates_p`` in bf16, over per-gate input projections
+with the biases folded, as the JAX package's split3 scan rounds there.
 
 Like the reference's per-chunk ONNX run, ``forward`` always starts the GRUs
 from h = 0. Under the int8 tier (``ops/precision.set_quant("int8")`` or
@@ -54,24 +59,28 @@ class GRU(nn.Module):
 
 
 class Dense(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int):
+    """``x @ w + b``, the product at the precision of ``stage``
+    (``ops/precision.STAGES``)."""
+
+    def __init__(self, in_dim: int, out_dim: int, stage: str):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(in_dim, out_dim), requires_grad=False)
         self.b = nn.Parameter(torch.zeros(out_dim), requires_grad=False)
+        self.stage = stage
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w + self.b
+        return precision.matmul(x, self.w, self.stage) + self.b
 
 
 class NSNet2(nn.Module):
     def __init__(self, lbr1: int = 1, lbr2: int = 1):
         super().__init__()
-        self.fc_in = Dense(N_BINS, HIDDEN)
+        self.fc_in = Dense(N_BINS, HIDDEN, "fc_in")
         self.gru1 = GRU(HIDDEN, lbr1)
         self.gru2 = GRU(HIDDEN, lbr2)
-        self.ff1 = Dense(HIDDEN, FF1)
-        self.ff2 = Dense(FF1, FF2)
-        self.out = Dense(FF2, N_BINS)
+        self.ff1 = Dense(HIDDEN, FF1, "ff")
+        self.ff2 = Dense(FF1, FF2, "ff")
+        self.out = Dense(FF2, N_BINS, "ff")
 
     def head(self, y: torch.Tensor) -> torch.Tensor:
         """Post-GRU dense stack: [..., 400] -> gains [..., 161]."""
@@ -86,12 +95,28 @@ class NSNet2(nn.Module):
             from .nsnet2_q8 import forward_q8
 
             return forward_q8(self, features, out_frames)
-        from .nsnet2_cuda import gru_stack
-
+        level = precision.matmul_precision("gru_h")
+        if precision.matmul_precision("gru_i") != level:
+            raise NotImplementedError(
+                "different matmul precisions for the GRU's gru_i and gru_h stages are not ported yet "
+                "(ROADMAP: port queue, precision and io-dtype tiers)"
+            )
         lead, t = features.shape[:-2], features.shape[-2]
         x = self.fc_in(features.reshape((-1, t, N_BINS)))
-        gi1 = x @ self.gru1.wi + self.gru1.bi  # [N, T, 3H]
-        ys = gru_stack(self, gi1.contiguous())  # [N, T, H]
+        if level == "default":
+            if not (self.gru1.linear_before_reset and self.gru2.linear_before_reset):
+                raise NotImplementedError(
+                    "the bf16 tier of linear_before_reset=0 GRUs is not ported yet "
+                    "(ROADMAP: port queue, precision and io-dtype tiers)"
+                )
+            from .nsnet2_gates_cuda import gi_gates, gru_gates_p
+
+            ys = gru_gates_p(self, *gi_gates(self, x), dtype=torch.bfloat16)  # [N, T, H]
+        else:
+            from .nsnet2_cuda import gru_stack
+
+            gi1 = precision.matmul(x, self.gru1.wi, "gru_i") + self.gru1.bi  # [N, T, 3H]
+            ys = gru_stack(self, gi1.contiguous())  # [N, T, H]
         if out_frames is not None and out_frames < t:
             ys = ys[:, t - out_frames :]
         gains = self.head(ys)

@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from . import dft
+from . import dft, precision
 
 
 # ---------------------------------------------------------------------------
@@ -109,9 +109,11 @@ def segmat_prod(
 
     The JAX package decimates with a 0/1 select matmul at HIGH precision,
     which is exact (one 1.0 * x term per output); the strided slice reads
-    the same samples, so the decimated segments are bit-identical. The
-    prepended initial segment is the previous slab's final raw hop
-    (``raw_tail``, [..., hop * rate]), or zeros at stream start."""
+    the same samples, so the decimated segments are bit-identical. (At the
+    'default' level its select matmul rounds the samples to bf16, which the
+    basis product here does anyway.) The prepended initial segment is the
+    previous slab's final raw hop (``raw_tail``, [..., hop * rate]), or
+    zeros at stream start."""
     hop = n_fft // 2
     t = audio.shape[-1]
     x16 = audio[..., ::downsample_rate]
@@ -121,7 +123,7 @@ def segmat_prod(
     else:
         tail16 = raw_tail[..., None, ::downsample_rate].to(segs16.dtype)
     segs = torch.cat([tail16, segs16], dim=-2)
-    return segs @ _basis("segmat", window, (n_fft,), audio.device)
+    return precision.matmul(segs, _basis("segmat", window, (n_fft,), audio.device), "stft")
 
 
 def segmat_spectra(prod: torch.Tensor, n_fft: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -141,7 +143,7 @@ def istft_segmat(
     dangling OLA tail."""
     hop = n_fft // 2
     z = torch.cat([re, im], dim=-1)
-    prod = z @ _basis("inv", window, (n_fft,), re.device)
+    prod = precision.matmul(z, _basis("inv", window, (n_fft,), re.device), "istft")
     top = prod[..., :hop]
     bot = prod[..., hop:]
     lead = prod.shape[:-2]
@@ -174,9 +176,11 @@ def band_volume_16k(
         x16 = torch.nn.functional.pad(x16, (0, need - t))
     main = x16[..., :need].reshape(x16.shape[:-1] + (nsw, n_fft))
     # The carried sample before each superframe enters as a rank-1 term on
-    # the basis's row 0, as in the JAX package.
+    # the basis's row 0, as in the JAX package. That term is an elementwise
+    # float32 product there (not a matmul), so it is not rounded at any
+    # precision level.
     prevs = torch.cat([prev.to(main.dtype)[..., None], main[..., :-1, -1]], dim=-1)
-    prod = main @ basis[1:] + prevs[..., None] * basis[0]
+    prod = precision.matmul(main, basis[1:], "band") + prevs[..., None] * basis[0]
     prod = prod.reshape(prod.shape[:-1] + (rate, 2, n_band))
     mags = torch.sqrt(prod[..., 0, :] ** 2 + prod[..., 1, :] ** 2)
     band = torch.sum(mags, dim=-1) * np.float32(norm_factor)

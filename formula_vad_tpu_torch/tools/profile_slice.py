@@ -1,6 +1,6 @@
 """Where the batched scoring slice spends its time on one GPU.
 
-    python -m formula_vad_tpu_torch.tools.profile_slice [--quant off|int8] [--out FILE]
+    python -m formula_vad_tpu_torch.tools.profile_slice [--quant off|int8] [--precision highest|default] [--out FILE]
 
 On one synthetic batch (21 streams x 20 s of stereo 48 kHz audio, the
 batched scoring shape; the packaged demo weights), in one process:
@@ -17,7 +17,16 @@ batched scoring shape; the packaged demo weights), in one process:
    the whole op table.
 
 ``--quant int8`` runs all of it under the int8 denoiser tier
-(``ops/precision.set_quant``).
+(``ops/precision.set_quant``), ``--precision default`` under the bf16 tier
+(``ops/precision.set_matmul_precision``). The bf16 tier adds, after step 1:
+
+- a tier A/B: device-FSM walls of the float (F) and bf16 (B) tiers in
+  interleaved FBBF / BFFB pairs after one warm-up run of each; medians,
+  the ratio of the float median to the bf16 one, and the pairs each won;
+- the tier's plain large product, a float32 GEMM of bf16-rounded operands
+  (``ops/precision.matmul``), at gi1's shape against a bf16 GEMM with
+  float32 output (``torch.mm(..., out_dtype=torch.float32)``) where the
+  installed torch offers one. The port does not use the latter.
 """
 
 from __future__ import annotations
@@ -65,15 +74,64 @@ def _busy_ms(events) -> tuple[float, float]:
     return union(spans), union(kernels)
 
 
+def _tier_ab(run, audio_sec: float) -> None:
+    """Float (F) against bf16 (B) tier, device FSM, interleaved pairs."""
+
+    def run_at(tier):
+        precision.set_matmul_precision("highest" if tier == "F" else "default")
+        try:
+            return run("D")[0] * 1e3
+        finally:
+            precision.set_matmul_precision("default")
+
+    run_at("F")
+    run_at("B")
+    walls: dict[str, list[float]] = {"F": [], "B": []}
+    for p in range(PAIRS):
+        for tier in ("FBBF" if p % 2 == 0 else "BFFB"):
+            walls[tier].append(run_at(tier))
+    for tier, name in (("F", "float tier"), ("B", "bf16 tier")):
+        med = statistics.median(walls[tier])
+        print(f"{name}: {_quartiles(walls[tier])}, real-time factor {audio_sec / (med / 1e3):.1f}")
+    f, b = walls["F"], walls["B"]
+    print(f"bf16 tier real-time factor / float tier's: {statistics.median(f) / statistics.median(b):.3f}; "
+          f"bf16 faster in {sum(b[i] < f[i] for i in range(len(b)))} of {len(b)} interleaved pairs")
+
+
+def _gemm_probe(dev, rows: int) -> None:
+    """The tier's float32 GEMM of bf16-rounded operands at gi1's shape
+    against a bf16 GEMM with float32 output, where torch offers one."""
+    a = torch.randn((rows, 400), device=dev)
+    b = torch.randn((400, 1200), device=dev)
+    with torch.inference_mode():
+        want = precision.bf16_round(a) @ precision.bf16_round(b)
+        upcast_ms = cuda_ms(lambda: precision.bf16_round(a) @ precision.bf16_round(b))
+        shape = f"[{rows}, 400] x [400, 1200]"
+        try:
+            direct = torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16), out_dtype=torch.float32)
+        except (TypeError, RuntimeError) as e:
+            print(f"bf16 GEMM with float32 output: not offered by torch {torch.__version__} ({type(e).__name__}); "
+                  f"the tier's float32 GEMM of rounded operands at {shape}: {upcast_ms:.3f} ms")
+            return
+        direct_ms = cuda_ms(lambda: torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16), out_dtype=torch.float32))
+    print(f"bf16 GEMM with float32 output (torch.mm out_dtype): {direct_ms:.3f} ms against {upcast_ms:.3f} ms for "
+          f"the tier's float32 GEMM of rounded operands at {shape}, max |d| {float((direct - want).abs().max()):.3e}")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the profiler's op table here")
     ap.add_argument("--quant", choices=("off", "int8"), default="off", help="the denoiser model's quantization tier")
+    ap.add_argument("--precision", choices=("highest", "default"), default=None,
+                    help="the matmul precision (default: FVAD_PRECISION, else highest)")
     args = ap.parse_args(argv)
 
     dev = device_mod.resolve("cuda")
     precision.set_quant(args.quant)
-    print(f"profile_slice (quant {args.quant}) on {card()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    if args.precision:
+        precision.set_matmul_precision(args.precision)
+    print(f"profile_slice (quant {args.quant}, precision {precision.matmul_precision()}) on {card()}; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     rng = np.random.default_rng(1)
     audio = np.stack([synth_stream(rng, SECONDS)[0] for _ in range(STREAMS)])
     audio_sec = STREAMS * SECONDS
@@ -103,6 +161,9 @@ def main(argv: list[str] | None = None) -> int:
     d, h = walls["D"], walls["H"]
     d_wins = sum(d[i] < h[i] for i in range(len(d)))
     print(f"device FSM faster in {d_wins} of {len(d)} interleaved pairs")
+    if precision.matmul_precision() == "default":
+        _tier_ab(run, audio_sec)
+        _gemm_probe(dev, 1680 * 54)  # gi1: 21 streams x 2 channels x 40 chunks, 54 frames
 
     host = torch.from_numpy(audio)
     pinned = host.pin_memory()

@@ -5,7 +5,12 @@ without it:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Bars: the GRU kernel within 1e-4 of its plain version (CUDA's expf/tanhf
-and the summation order differ by ulps over 54 steps); the FSM kernel bit
+and the summation order differ by ulps over 54 steps), and so the three
+per-gate GRU kernels in float32; in bf16 max |dh2| <= 6e-3 and mean <= 3e-5
+(another float32 summation order now and then flips the bf16 rounding of an
+h value, which moves single outputs by ~1e-3 but the mean by ~4e-6; a kernel
+that skipped a bf16 rounding point would sit ~4e-4 off in the mean, the
+distance of the plain bf16 form from the plain float32 one); the FSM kernel bit
 for bit equal to the native host decoder; the int8 matmul kernel bit for bit
 equal to its plain version; the slice's segments on the GPU equal to the CPU
 run's. Under the int8 tier the GPU and CPU runs give the same segment count
@@ -20,6 +25,7 @@ import torch
 from formula_vad_tpu_torch import device as device_mod
 from formula_vad_tpu_torch.config import VADConfig, VADMachineConfig
 from formula_vad_tpu_torch.models import nsnet2_cuda, registry
+from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
 from formula_vad_tpu_torch.ops import matmul_q8 as mq
 from formula_vad_tpu_torch.ops import precision
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
@@ -27,6 +33,7 @@ from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host
 from formula_vad_tpu_torch.testing.synth import fsm_inputs, fsm_per_row_params, synth_stream
 
 GRU_TOL = 1e-4
+BF16_MAX, BF16_MEAN = 6e-3, 3e-5
 SR, FFT = 48000, 1024
 
 
@@ -188,12 +195,104 @@ def test_int8_slice_on_gpu_matches_cpu(net, cuda_device):
             assert abs(a["sample_from"] - b["sample_from"]) <= FFT and abs(a["sample_to"] - b["sample_to"]) <= FFT
 
 
+def _gi3(net, rows, steps, seed, device):
+    feats = np.random.default_rng(seed).normal(-3.0, 1.5, (rows, steps, 161)).astype(np.float32)
+    with torch.inference_mode():
+        return tuple(g.contiguous() for g in gates.gi_gates(net, net.fc_in(torch.from_numpy(feats).to(device))))
+
+
+GATE_KERNELS = {
+    "k4": (gates.gru_gates, lambda gw, gi, dt: gates.gru_gates_reference(gw, *gi)),
+    "k5": (gates.gru_gates_p, lambda gw, gi, dt: gates.gru_gates_p_reference(gw, *gi)),
+    "k6": (gates.gru_gates_f, lambda gw, gi, dt: gates.gru_gates_f_reference(gw, *gi)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(GATE_KERNELS))
+@pytest.mark.parametrize("dtype", gates.DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows, steps", [(37, 54), (1680, 54), (16, 1)])
+def test_gru_gates_kernels_match_plain(net, cuda_device, kernel, dtype, rows, steps):
+    wrapper, plain = GATE_KERNELS[kernel]
+    gi = _gi3(net, rows, steps, rows, cuda_device)
+    before = wrapper.launches
+    with torch.inference_mode():
+        got = wrapper(net, *gi, dtype=dtype)
+        want = plain(gates.gate_weights(net, dtype), gi, dtype)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == (rows, steps, 400)
+    d = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(d.max()) <= GRU_TOL
+    else:
+        assert float(d.max()) <= BF16_MAX and float(d.mean()) <= BF16_MEAN, (float(d.max()), float(d.mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", gates.DTYPES, ids=["f32", "bf16"])
+def test_gru_gates_f_tile_and_out_dtype(net, cuda_device, dtype):
+    gi = _gi3(net, 1680, 20, 4, cuda_device)
+    with torch.inference_mode():
+        for out_dtype in gates.DTYPES:
+            whole = gates.gru_gates_f(net, *gi, dtype=dtype, out_dtype=out_dtype)
+            assert whole.dtype == out_dtype
+            for tile in (840, 416, 16, 5, 4096):
+                assert torch.equal(gates.gru_gates_f(net, *gi, dtype=dtype, tile=tile, out_dtype=out_dtype), whole)
+        # bf16 out is the float32 out rounded once.
+        f32 = gates.gru_gates_f(net, *gi, dtype=dtype, out_dtype=torch.float32)
+        assert torch.equal(gates.gru_gates_f(net, *gi, dtype=dtype, out_dtype=torch.bfloat16), f32.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_gru_gates_refuse_what_they_do_not_take(net, cuda_device):
+    gi = _gi3(net, 8, 3, 0, cuda_device)
+    for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
+        with pytest.raises(ValueError):
+            wrapper(net, gi[0][..., :200], gi[1][..., :200], gi[2][..., :200])
+        with pytest.raises(ValueError):
+            wrapper(net, *gi, dtype=torch.float16)
+        misaligned = torch.empty(8 * 3 * 400 + 1, device=cuda_device)[1:].view(8, 3, 400)
+        with pytest.raises(ValueError, match="aligned"):
+            wrapper(net, misaligned, *gi[1:])
+    with pytest.raises(ValueError, match="tile"):
+        gates.gru_gates_f(net, *gi, tile=0)
+    net.gru1.linear_before_reset = 0
+    with pytest.raises(NotImplementedError):
+        gates.gru_gates_p(net, *gi)
+
+
+@pytest.mark.cuda
+def test_bf16_tier_slice_on_gpu_matches_cpu(net, cuda_device):
+    rng = np.random.default_rng(3)
+    audio = np.stack([synth_stream(rng, 20.0)[0] for _ in range(3)])
+    lengths = [audio.shape[-1], audio.shape[-1] - 50_000, audio.shape[-1] - 200_000]
+    counts = (nsnet2_cuda.gru_stack.launches, gates.gru_gates_p.launches)
+    precision.set_matmul_precision("default")
+    try:
+        gpu = BatchRunner(net, VADConfig()).run(audio, lengths)
+        assert nsnet2_cuda.gru_stack.launches == counts[0]
+        assert gates.gru_gates_p.launches == counts[1] + 1
+        cpu = BatchRunner(registry.load_denoiser("demo", device="cpu"), VADConfig()).run(audio, lengths)
+    finally:
+        precision.set_matmul_precision("highest")
+    assert sum(len(r.segments) for r in gpu) > 0
+    for g, c in zip(gpu, cpu):
+        assert len(g.segments) == len(c.segments)
+        for a, b in zip(g.segments, c.segments):
+            assert abs(a["sample_from"] - b["sample_from"]) <= FFT and abs(a["sample_to"] - b["sample_to"]) <= FFT
+
+
 def test_wrappers_refuse_other_devices():
-    """Neither wrapper silently runs a tensor that is on neither the CPU nor
-    a GPU (here: the meta device)."""
+    """No wrapper silently runs a tensor that is on neither the CPU nor a
+    GPU (here: the meta device)."""
     net = registry.load_denoiser("demo", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         nsnet2_cuda.gru_stack(net, torch.empty((2, 3, 1200), device="meta"))
+    gi = torch.empty((2, 3, 400), device="meta")
+    for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(net, gi, gi, gi)
     shape, params = fsm.statics_from_config(VADMachineConfig(), SR, FFT)
     x = torch.empty((2, 5), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

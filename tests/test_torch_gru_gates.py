@@ -1,0 +1,248 @@
+"""The per-gate GRU-stack kernels 4, 5 and 6 (``models/nsnet2_gates_cuda``)
+and the experiment tool (``tools/gru_kernel_exp``) against the TPU kernels
+of ``benchmarks/gru_kernel_exp.py``, run in Pallas interpret mode on the CPU
+(module globals ``INTERPRET = True``, ``ROW_TILE = 8``, read at call time).
+
+Weights: the JAX package's ``nsnet2.load(None)`` random init, plus random
+biases so the bias folding is exercised, carried over with
+``nsnet2.from_numpy``. 20 rows (ragged against the row tile) x 6 steps; the
+port's plain versions get the JAX tool's own gi arrays.
+
+Bars. Float32: max |dh2| <= 1e-5 (the same float32 products summed in
+another order). bf16: mean |dh2| <= 2e-5 and max |dh2| <= 4e-3. Both
+sides round the same operands to bf16, but another float32 summation order
+now and then lands an h value on the other side of a bf16 rounding step,
+which moves single values by up to one bf16 step below 1 (2^-8 = 3.9e-3,
+also the most one rounding of kernel 6's bf16 output can move) and the mean
+by ~1e-6. The mean bar sits 20x below the JAX bf16 variant's own mean
+distance from its float32 variant (4e-4 to 7e-4), which a port that
+skipped a bf16 rounding point would show; each case checks that too.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from benchmarks import gru_kernel_exp as jexp
+from formula_vad_tpu.models import nsnet2 as jnsnet2
+from formula_vad_tpu_torch.models import nsnet2, nsnet2_gates_cuda as gates
+from formula_vad_tpu_torch.ops import precision
+from formula_vad_tpu_torch.tools import gru_kernel_exp as exp
+
+F32_TOL = 1e-5
+BF16_MAX, BF16_MEAN = 4e-3, 2e-5
+ROWS, STEPS = 20, 6
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+KERNELS = {  # name -> (JAX launcher, port wrapper)
+    "k4": (jexp.gru_stack_kernel, gates.gru_gates),
+    "k5": (jexp.gru_stack_kernel_p, gates.gru_gates_p),
+    "k6": (jexp.gru_stack_kernel_f, gates.gru_gates_f),
+}
+
+
+def _flat(params) -> dict:
+    flat = {}
+    for name in ("fc_in", "ff1", "ff2", "out"):
+        flat[f"{name}_w"] = np.asarray(getattr(params, f"{name}_w"))
+        flat[f"{name}_b"] = np.asarray(getattr(params, f"{name}_b"))
+    for name in ("gru1", "gru2"):
+        g = getattr(params, name)
+        for key in ("wi", "wh", "bi", "bh"):
+            flat[f"{name}_{key}"] = np.asarray(getattr(g, key))
+    return flat
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX params, port module) with the same weights."""
+    rng = np.random.default_rng(11)
+
+    def biased(g):
+        b = [jnp.asarray(rng.normal(0.0, 0.3, 1200).astype(np.float32)) for _ in range(2)]
+        return dataclasses.replace(g, bi=b[0], bh=b[1])
+
+    jp = jnsnet2.load(None)
+    jp = dataclasses.replace(jp, gru1=biased(jp.gru1), gru2=biased(jp.gru2))
+    return jp, nsnet2.from_numpy(_flat(jp))
+
+
+@pytest.fixture(scope="module")
+def feats():
+    return (np.random.default_rng(0).standard_normal((ROWS, STEPS, 161)) - 6.0).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def gi(pair, feats):
+    """The JAX tool's gi arrays, as numpy."""
+    jp, _ = pair
+    return tuple(np.asarray(g) for g in jexp._gi_gates(jp, jnp.asarray(feats)))
+
+
+def _interpret(mp) -> None:
+    mp.setattr(jexp, "INTERPRET", True)
+    mp.setattr(jexp, "ROW_TILE", 8)
+
+
+def _jax(pair, gi, kernel, dtype, **kw):
+    with pytest.MonkeyPatch.context() as mp:
+        _interpret(mp)
+        out = KERNELS[kernel][0](pair[0], *(jnp.asarray(g) for g in gi), dtype=JDT[dtype], **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def jax_f32(pair, gi):
+    """Each JAX kernel's float32 h2."""
+    return {k: _jax(pair, gi, k, torch.float32) for k in KERNELS}
+
+
+def _check(got: np.ndarray, want: np.ndarray, dtype, jax_f32_out: np.ndarray | None = None) -> None:
+    d = np.abs(got.astype(np.float64) - want)
+    if dtype == torch.float32:
+        assert d.max() <= F32_TOL, d.max()
+        return
+    assert d.max() <= BF16_MAX and d.mean() <= BF16_MEAN, (d.max(), d.mean())
+    # The bar tells the bf16 form from the float32 one.
+    assert np.abs(want - jax_f32_out).mean() > 10 * BF16_MEAN
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_plain_versions_match_the_tpu_kernels(pair, gi, jax_f32, kernel, dtype):
+    _, net = pair
+    want = _jax(pair, gi, kernel, dtype)
+    with torch.inference_mode():
+        got = KERNELS[kernel][1](net, *(torch.from_numpy(g.copy()) for g in gi), dtype=dtype)
+    assert got.dtype == torch.float32 and got.shape == (ROWS, STEPS, 400)
+    _check(got.numpy(), want, dtype, jax_f32[kernel])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_6_plain_version_matches_the_tpu_kernel(pair, gi, jax_f32, dtype, out_dtype):
+    _, net = pair
+    want = _jax(pair, gi, "k6", dtype, out_dtype=JDT[out_dtype])
+    with torch.inference_mode():
+        got = gates.gru_gates_f(net, *(torch.from_numpy(g.copy()) for g in gi), dtype=dtype, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    if out_dtype == torch.bfloat16 and dtype == torch.float32:
+        # One bf16 rounding of float32 values that agree to ~1e-7.
+        d = np.abs(got.float().numpy() - want)
+        assert d.max() <= BF16_MAX and d.mean() <= BF16_MEAN, (d.max(), d.mean())
+    else:
+        _check(got.float().numpy(), want, dtype, jax_f32["k6"])
+    if dtype == torch.bfloat16:
+        # The tile is a schedule knob: any tile gives the same bits.
+        for tile in (8, 16, 7):
+            again = gates.gru_gates_f(net, *(torch.from_numpy(g.copy()) for g in gi), dtype=dtype, tile=tile,
+                                      out_dtype=out_dtype)
+            assert torch.equal(again, got)
+
+
+def test_gi_gates_match_the_tool(pair, feats, gi):
+    _, net = pair
+    with torch.inference_mode():
+        got = exp._gi_gates(net, torch.from_numpy(feats))
+    for a, b in zip(got, gi):
+        assert a.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), b, atol=F32_TOL * 10, rtol=0)  # |gi| up to ~20
+
+
+@pytest.mark.parametrize(
+    "name, dtype",
+    [("apply_vk", torch.float32), ("apply_vk", torch.bfloat16), ("apply_vkp", torch.float32),
+     ("apply_vkp", torch.bfloat16), ("apply_vf", torch.float32), ("apply_vf", torch.bfloat16)],
+)
+def test_tool_functions_match_the_tpu_tool(pair, feats, name, dtype):
+    jp, net = pair
+    with pytest.MonkeyPatch.context() as mp:
+        _interpret(mp)
+        want = np.asarray(getattr(jexp, name)(jp, jnp.asarray(feats), dtype=JDT[dtype]), np.float64)
+        ref = np.asarray(jexp.apply_v0(jp, jnp.asarray(feats)), np.float64)
+    with torch.inference_mode():
+        got = getattr(exp, name)(net, torch.from_numpy(feats), dtype=dtype).numpy()
+    d = np.abs(got - want)
+    if dtype == torch.float32:
+        assert d.max() <= F32_TOL, d.max()
+    else:
+        assert d.max() <= BF16_MAX and d.mean() <= BF16_MEAN, (d.max(), d.mean())
+        assert np.abs(want - ref).mean() > 10 * d.mean()  # the gains really moved with bf16
+    with torch.inference_mode():
+        v0 = exp.apply_v0(net, torch.from_numpy(feats)).numpy()
+    np.testing.assert_allclose(v0, ref, atol=F32_TOL, rtol=0)
+
+
+def test_tool_runs_every_variant_on_the_cpu(capsys):
+    assert exp.main(["--device", "cpu", "--streams", "1", "--chunks", "2", "--variants", ",".join(exp.VARIANTS)]) == 0
+    out = capsys.readouterr().out
+    assert "time not measured (cpu)" in out and out.count("max|diff| vs V0") == 1 + len(exp.VARIANTS)
+    with pytest.raises(SystemExit):
+        exp.main(["--device", "cpu", "--variants", "vq"])
+
+
+def test_fragment_packing_is_the_mma_b_layout():
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal((32, 24)).astype(np.float32)).to(torch.bfloat16)
+    frag = gates.pack_fragments(w).view(torch.int16).reshape(3, 2, 32, 4).numpy()
+    w16 = w.view(torch.int16).numpy()
+    for n in range(3):
+        for s in range(2):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                col, k = 8 * n + g, 16 * s + 2 * t
+                assert list(frag[n, s, lane]) == [w16[k, col], w16[k + 1, col], w16[k + 8, col], w16[k + 9, col]]
+    with pytest.raises(ValueError):
+        gates.pack_fragments(w.float())
+
+
+def test_packed_weights(pair):
+    _, net = pair
+    gw = gates.gate_weights(net, torch.bfloat16)
+    assert gates.gate_weights(net, torch.bfloat16) is gw  # packed once per net and dtype
+    assert gw.w9.dtype == gw.wp1.dtype == gw.wp2.dtype == torch.bfloat16 and gw.b8.dtype == torch.float32
+    assert gw.frag9.shape == (9, 50, 25, 32, 2) and gw.frag1.shape == (150, 25, 32, 2)
+    assert gw.frag2.shape == (200, 50, 32, 2)
+    h = 400
+    assert torch.equal(gw.wp2[:h, 2 * h : 3 * h], net.gru2.wi[:, 2 * h :].to(torch.bfloat16))
+    assert torch.equal(gw.wp2[h:, 3 * h :], net.gru2.wh[:, 2 * h :].to(torch.bfloat16))
+    assert not gw.wp2[:h, 3 * h :].any() and not gw.wp2[h:, 2 * h : 3 * h].any()
+    assert torch.equal(gw.b8[1], net.gru2.bi[:h] + net.gru2.bh[:h]) and not gw.b8[5:].any()
+    f32 = gates.gate_weights(net, torch.float32)
+    assert f32.frag9 is None and torch.equal(f32.w9[8], net.gru2.wh[:, 2 * h :])
+
+
+def test_packed_weights_follow_in_place_updates(pair, gi):
+    flat = _flat(pair[0])
+    net = nsnet2.from_numpy(flat)
+    other = nsnet2.from_numpy({k: (v * 0.5 if k.startswith("gru") else v) for k, v in flat.items()})
+    args = [torch.from_numpy(g.copy()) for g in gi]
+    with torch.inference_mode():
+        before = gates.gru_gates_p(net, *args, dtype=torch.bfloat16)
+    with torch.no_grad():
+        net.load_state_dict(other.state_dict())
+    with torch.inference_mode():
+        after = gates.gru_gates_p(net, *args, dtype=torch.bfloat16)
+        want = gates.gru_gates_p(other, *args, dtype=torch.bfloat16)
+    assert not torch.equal(after, before)
+    assert torch.equal(after, want)
+
+
+def test_wrappers_validate(pair):
+    _, net = pair
+    gi = tuple(torch.zeros((4, 3, 400)) for _ in range(3))
+    with pytest.raises(ValueError, match="dtype"):
+        gates.gru_gates(net, *gi, dtype=torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gates.gru_gates_p(net, gi[0].transpose(0, 1).contiguous().transpose(0, 1), *gi[1:])
+    with pytest.raises(ValueError, match="tile"):
+        gates.gru_gates_f(net, *gi, tile=0)
+    with pytest.raises(ValueError, match="out_dtype"):
+        gates.gru_gates_f(net, *gi, out_dtype=torch.float64)
+    lbr0 = nsnet2.from_numpy(dict(_flat(pair[0]), gru2_lbr=np.int32(0)))
+    with pytest.raises(NotImplementedError, match="linear_before_reset"):
+        gates.gru_gates(lbr0, *gi)
+    # The bf16 rounding helper rounds to nearest, ties to even, as the TPU.
+    x = torch.tensor([1.0 + 2.0**-8, 1.0 + 3 * 2.0**-8, 1.0 + 2.0**-9])
+    assert precision.bf16_round(x).tolist() == [1.0, 1.0 + 4 * 2.0**-8, 1.0]

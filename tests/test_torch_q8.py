@@ -222,7 +222,7 @@ def reload_precision(monkeypatch):
         ({"FVAD_QUANT": "int4"}, ValueError, "FVAD_QUANT"),
         ({"FVAD_PRECISION": "fastest"}, ValueError, "FVAD_PRECISION"),
         ({"FVAD_IO_DTYPE": "f16"}, ValueError, "FVAD_IO_DTYPE"),
-        ({"FVAD_PRECISION": "default"}, NotImplementedError, "ROADMAP"),
+        ({"FVAD_PRECISION": "default", "FVAD_IO_DTYPE": "bf16"}, NotImplementedError, "ROADMAP"),
         ({"FVAD_PRECISION": "high"}, NotImplementedError, "ROADMAP"),
         ({"FVAD_IO_DTYPE": "bf16"}, NotImplementedError, "ROADMAP"),
     ],
