@@ -11,8 +11,12 @@ runs nine phases; any failed check raises and the script exits non-zero.
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
 2. GRU kernel vs its plain PyTorch version at the scoring shape
-   (gi1 [1680, 54, 1200], packaged demo weights): max |dh2| <= 1e-4; and
-   the cuDNN two-layer GRU on the same weights as the library yardstick.
+   (gi1 [1680, 54, 1200]) and at ragged and multi-wave row counts (1, 37,
+   1,690, 4,000 rows at 1 and 54 steps), on the packaged demo weights and
+   on random weights with large GRU biases: max |dh2| <= 1e-4 each; its
+   launch plan (tiles, tile sizes, grid: one wave of at least 120 CTAs);
+   and the cuDNN two-layer GRU on the same weights as the library
+   yardstick.
 3. FSM kernel vs the native host decoder and vs its plain version on the
    card, [21, 937] windows that visit every state: bit for bit.
 4. The batched scoring slice, 21 streams x 20 s of stereo 48 kHz audio,
@@ -84,6 +88,7 @@ FSM_ROWS, FSM_WINDOWS = 21, 937  # 21 streams x 20 s of 1024-sample windows
 SLICE_STREAMS, SLICE_SECONDS = 21, 20.0
 CORPUS_STREAMS = 3  # the simulator runs' corpus: 3 streams x 20 s
 GRU_TOL = 1e-4
+GRU_EARLIER_MS = 13.48  # the GRU kernel's earlier design (one block per 16 rows) at [1680, 54], 700 W H100; log only
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9  # float32 outside the tensor cores: 67 TFLOP/s
 INT8_OPS_PER_MS = 1979e9  # int8 tensor cores, dense: 1,979 TOP/s
@@ -139,50 +144,65 @@ def phase_device() -> str:
     return smi
 
 
-def cudnn_gru(net, dev, dtype=None):
-    """The library yardstick for the GRU kernel: a two-layer torch.nn.GRU run
-    by cuDNN on the same weights, permuted from ONNX z|r|n to PyTorch's
-    r|z|n gate order (both are the linear-before-reset form), in float32 or
-    ``dtype``. It also computes layer 1's input projection. Only this script
-    calls it."""
+def biased_net(dev):
+    """The random-init network with random GRU biases (N(0, 0.3), numpy seed
+    3): the packaged and the random weights have biases of ~0.005 and 0, too
+    small for the checks to see a kernel that drops or misplaces one (for
+    instance one that indexes a bias by the column within its tile). Each
+    such fault moves the plain bf16 kernel-5 output's mean |dh2| by 8e-3 or
+    more at 64 rows, 280x the BF16_MEAN bar."""
     import torch
 
-    from formula_vad_tpu_torch.models.nsnet2 import HIDDEN
+    from formula_vad_tpu_torch.models.registry import load_denoiser
 
-    gru = torch.nn.GRU(HIDDEN, HIDDEN, num_layers=2, batch_first=True, device=dev, dtype=dtype)
-    h = torch.arange(HIDDEN, device=dev)
-    perm = torch.cat([h + HIDDEN, h, h + 2 * HIDDEN])
+    net = load_denoiser("random", device=dev)
+    rng = np.random.default_rng(3)
     with torch.no_grad():
-        for layer, g in enumerate((net.gru1, net.gru2)):
-            getattr(gru, f"weight_ih_l{layer}").copy_(g.wi.t()[perm])
-            getattr(gru, f"weight_hh_l{layer}").copy_(g.wh.t()[perm])
-            getattr(gru, f"bias_ih_l{layer}").copy_(g.bi[perm])
-            getattr(gru, f"bias_hh_l{layer}").copy_(g.bh[perm])
-    gru.flatten_parameters()
-    return gru
+        for g in (net.gru1, net.gru2):
+            for b in (g.bi, g.bh):
+                b.copy_(torch.from_numpy(rng.normal(0.0, 0.3, tuple(b.shape)).astype(np.float32)))
+    return net
 
 
 def phase_gru(net, dev) -> dict:
     import torch
 
     from formula_vad_tpu_torch.models import nsnet2_cuda
-    from formula_vad_tpu_torch.tools import cuda_ms
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
 
+    plan = nsnet2_cuda.device_plan(GRU_ROWS, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"GRU launch plan at {GRU_ROWS} rows on {sms} SMs: {plan.tiles} tiles of {plan.row_tile} rows x "
+        f"{plan.unit_tile} units ({plan.row_groups} x {plan.unit_groups} groups), grid {plan.grid}")
+    last_wave = plan.tiles - (-(-plan.tiles // plan.grid) - 1) * plan.grid
+    if last_wave < 0.9 * sms:
+        raise AssertionError(f"the GRU plan's last wave leaves SMs idle: {last_wave} CTAs on {sms} SMs, {plan}")
     rng = np.random.default_rng(0)
     feats = torch.from_numpy(rng.normal(-3.0, 1.5, (GRU_ROWS, GRU_STEPS, 161)).astype(np.float32)).to(dev)
     gru = cudnn_gru(net, dev)
+    err = 0.0
     with torch.inference_mode():
         x = net.fc_in(feats)
         gi1 = (x @ net.gru1.wi + net.gru1.bi).contiguous()
         got = nsnet2_cuda.gru_stack(net, gi1)
-        want = nsnet2_cuda.gru_stack_reference(net, gi1)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("GRU kernel produced non-finite values")
-        err = float((got - want).abs().max())
-        log(f"GRU kernel vs plain on the card: max |dh2| = {err:.3e} (tolerance {GRU_TOL})")
-        if not err <= GRU_TOL:
-            raise AssertionError(f"GRU kernel disagrees with its plain version: {err} > {GRU_TOL}")
+        # The scoring shape on both weight sets, then ragged and multi-wave
+        # row counts (a partial last row group; one tile of one row; 3
+        # waves) at 1 and 54 steps.
+        shapes = [(GRU_ROWS, GRU_STEPS)] + [(n, t) for n in (1, 37, 1690, 4000) for t in (1, 54)]
+        for label, weights in (("demo", net), ("biased", biased_net(dev))):
+            for n, t in shapes:
+                g = gi1 if (n, t) == (GRU_ROWS, GRU_STEPS) else torch.from_numpy(
+                    (rng.standard_normal((n, t, 1200)) * 0.8).astype(np.float32)).to(dev)
+                out = nsnet2_cuda.gru_stack(weights, g)
+                want = nsnet2_cuda.gru_stack_reference(weights, g)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"GRU kernel produced non-finite values at [{n}, {t}], {label} weights")
+                e = float((out - want).abs().max())
+                log(f"GRU kernel vs plain at [{n}, {t}], {label} weights: max |dh2| = {e:.3e} (tolerance {GRU_TOL})")
+                if not e <= GRU_TOL:
+                    raise AssertionError(f"GRU kernel disagrees with its plain version at [{n}, {t}], {label}: {e}")
+                err = max(err, e)
         ms = cuda_ms(lambda: nsnet2_cuda.gru_stack(net, gi1))
         plain_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_reference(net, gi1))
         lib_err = float((gru(x)[0] - got).abs().max())
@@ -190,17 +210,25 @@ def phase_gru(net, dev) -> dict:
         if not lib_err <= GRU_TOL:
             raise AssertionError(f"the cuDNN yardstick computes another function: {lib_err} > {GRU_TOL}")
         library_ms = cuda_ms(lambda: gru(x))
+        # Single calls (above) also time the host's work before the launch;
+        # calls queued back to back time the device alone.
+        queued = {name: queued_ms(fn) for name, fn in (("kernel", lambda: nsnet2_cuda.gru_stack(net, gi1)),
+                                                       ("cuDNN", lambda: gru(x)))}
     ops = 3 * 2 * GRU_ROWS * 400 * 1200 * GRU_STEPS
     weights = (net.gru1.wh, net.gru1.bh, net.gru2.wi, net.gru2.bi, net.gru2.wh, net.gru2.bh)
     nbytes = gi1.nbytes + got.nbytes + sum(w.nbytes for w in weights)
     bound_ms, bound_by = bound(nbytes, ops, F32_OPS_PER_MS)
-    log(f"GRU [{GRU_ROWS}, {GRU_STEPS}]: kernel {ms:.3f} ms ({ops / 1e9 / ms:.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
-        f"cuDNN GRU {library_ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
-        f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"GRU [{GRU_ROWS}, {GRU_STEPS}]: kernel {ms:.3f} ms ({ops / 1e9 / ms:.2f} TFLOP/s; the earlier design "
+        f"{GRU_EARLIER_MS} ms), plain {plain_ms:.3f} ms, cuDNN GRU {library_ms:.3f} ms; bound {bound_ms:.3f} ms "
+        f"by {bound_by} ({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"GRU [{GRU_ROWS}, {GRU_STEPS}] queued back to back: kernel {queued['kernel']:.3f} ms "
+        f"({ops / 1e9 / queued['kernel']:.2f} TFLOP/s), cuDNN GRU {queued['cuDNN']:.3f} ms")
     return {
         "name": "gru_stack", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_stack.cu",
         "replaces": "formula_vad_tpu/models/nsnet2_pallas.py:88", "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "grid": plan.grid, "tiles": plan.tiles, "row_tile": plan.row_tile, "unit_tile": plan.unit_tile,
+        "queued_ms": queued["kernel"], "library_queued_ms": queued["cuDNN"],
     }
 
 
@@ -531,25 +559,6 @@ GATE_KERNELS = (  # (wrapper in models/nsnet2_gates_cuda.py, kernel, the TPU ker
 )
 
 
-def biased_net(dev):
-    """The random-init network with random GRU biases (N(0, 0.3), numpy seed
-    3): the packaged and the random weights have biases of ~0.005 and 0, too
-    small for the checks to see a kernel that drops or misplaces one. Each
-    such fault moves the plain bf16 kernel-5 output's mean |dh2| by 8e-3 or
-    more at 64 rows, 280x the BF16_MEAN bar."""
-    import torch
-
-    from formula_vad_tpu_torch.models.registry import load_denoiser
-
-    net = load_denoiser("random", device=dev)
-    rng = np.random.default_rng(3)
-    with torch.no_grad():
-        for g in (net.gru1, net.gru2):
-            for b in (g.bi, g.bh):
-                b.copy_(torch.from_numpy(rng.normal(0.0, 0.3, tuple(b.shape)).astype(np.float32)))
-    return net
-
-
 def phase_gates(dev) -> tuple[list[dict], dict]:
     """Path A (the experiment tool, its own random weights) once with the
     counters at 0, then each per-gate kernel against its plain version on
@@ -558,7 +567,7 @@ def phase_gates(dev) -> tuple[list[dict], dict]:
 
     from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
     from formula_vad_tpu_torch.models.registry import load_denoiser
-    from formula_vad_tpu_torch.tools import cuda_ms
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru
     from formula_vad_tpu_torch.tools import gru_kernel_exp as exp
 
     feats = exp.features(GRU_ROWS, dev)

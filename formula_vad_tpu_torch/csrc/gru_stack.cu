@@ -8,24 +8,34 @@
 //   gh1 = h1 Wh1 + bh1;  h1 = gates(gi1[t], gh1, h1)
 //   gi2 = h1 Wi2 + bi2;  gh2 = h2 Wh2 + bh2;  h2 = gates(gi2, gh2, h2)
 //
-// What bounds it on the H100: the 54 steps are serial, and each step is
-// three [rows, 400] x [400, 1200] products (2.9 MFLOP per row) whose
-// operands are the whole 5.8 MB of recurrent weights. At the batched
-// scoring shape (1,680 rows) that is 261 GFLOP per call: float32 FMA work
-// on the CUDA cores, plus weight traffic from L2 (the weights fit in the
-// 50 MB L2 and are never written).
+// What bounds it on the H100: the T steps are serial, and each step is
+// three [N, 400] x [400, 1200] products whose operands are the whole 5.8 MB
+// of recurrent weights. At the batched scoring shape (1,680 rows, 54 steps)
+// that is 261 GFLOP of float32 FMA on the CUDA cores (3.9 ms at the card's
+// 67 TFLOP/s); the weights and h fit in the 50 MB L2.
 //
-// Design: the TPU's sequential time grid becomes a loop inside the block.
-// One block owns ROWS rows for all T steps; their h1 and h2 stay in shared
-// memory (2 x ROWS x H floats = 51 KB, dynamic shared memory). Thread j
-// owns hidden unit j: it reads the three gate columns j, H+j, 2H+j of a
-// weight row (coalesced across the warp) once per k and applies them to
-// all ROWS rows held in registers, so each weight read from L2 feeds ROWS
-// FMAs; h is read from shared memory as float4 broadcasts. The gate math
-// runs in the same thread, so no gate product ever leaves registers. Three
-// barriers per step separate reading h from overwriting it. The ragged last
-// tile computes on zero inputs and stores nothing for rows past N.
-// Tensor cores (wgmma) and weight residency across a cluster are for later.
+// Design: one persistent cooperative launch for all T steps. A tile is a
+// group of rows (row_tile <= ROW_TILE_MAX, chosen by the host's launch plan,
+// models/nsnet2_cuda.py::launch_plan) times a group of UNIT_TILE hidden
+// units with all three gates of each unit, so the gate math of a (row,
+// unit) pair stays in the thread that holds its z, r and n sums. Rows and
+// units are split so that the tiles of one wave fill the SMs (130 tiles at
+// 1,680 rows on 132 SMs). Each CTA walks its tiles with a grid stride.
+// Per step: phase 1 computes h1[t] for every tile, a grid barrier, then
+// phase 2 computes h2[t]. No barrier is needed after phase 2: phase 1 of
+// step t+1 reads only h1[t] (complete at the barrier of step t) and writes
+// the other half of the h1 ping-pong buffer, which nobody reads after that
+// barrier; phase 2 of step t+1 reads h2[t] after the barrier of step t+1.
+// So there are T grid barriers per call.
+// Each phase is a register-blocked SGEMM: K is staged through shared memory
+// in chunks of KC (h rows of the tile and the tile's 120 weight columns,
+// which the host packs contiguous per unit group), a STAGES-deep cp.async
+// pipeline; each thread holds RM (or RM - 1) rows x UM units x (3 or 4)
+// sums and does 12 FMAs per row for the 3 float4 of weights it reads per k.
+// A step reads each tile's 576 KB of weights once from L2 (75 MB at 1,680
+// rows, where one block per 16 rows read 605 MB).
+// h1 and h2 are written inside the kernel, so they are read only through
+// L2 (cp.async.cg, ld.global.cg): the SM's L1 may hold stale lines.
 
 #include <cuda_runtime.h>
 
@@ -33,129 +43,279 @@ namespace {
 
 constexpr int H = 400;
 constexpr int G = 3 * H;
-constexpr int ROWS = 16;
-constexpr int THREADS = 416;  // 13 warps; threads j < H own a hidden unit
-constexpr int SMEM_BYTES = 2 * ROWS * H * sizeof(float);
+constexpr int UNIT_TILE = 40;                // hidden units per tile: 120 gate columns
+constexpr int UNIT_GROUPS = H / UNIT_TILE;   // 10
+constexpr int UM = 4;                        // units per thread: one float4
+constexpr int TU = UNIT_TILE / UM;           // 10 threads across the units
+constexpr int RM = 6;                        // rows per thread
+constexpr int TR = 24;                       // threads across the rows
+constexpr int THREADS = TU * TR;             // 240
+constexpr int ROW_TILE_MAX = TR * RM;        // 144
+constexpr int KC = 80;                       // k per staged chunk
+constexpr int CHUNKS = H / KC;               // 5 per product
+// h row pitch in shared memory: thread ty reads rows ty + TR*i, 84 floats
+// (20 banks mod 32) after thread ty-1's, so the four ty of a warp read
+// four disjoint groups of four banks.
+constexpr int HP = KC + 4;
+constexpr int WCOLS = 3 * UNIT_TILE;         // 120
+constexpr int STAGES = 2;                    // chunk c+1 loads while chunk c is multiplied
+constexpr int STAGE_FLOATS = ROW_TILE_MAX * HP + KC * WCOLS;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * sizeof(float);  // 173,568
+static_assert(THREADS % (KC / 4) == 0 && (KC * WCOLS / 4) % THREADS == 0 && KC % 8 == 0, "staging layout");
+
+struct Params {
+  const float* gi1;  // [n_rows, n_steps, G]
+  const float* wh1;  // [UNIT_GROUPS, H, 3 * UNIT_TILE] each: packed by unit group
+  const float* wi2;
+  const float* wh2;
+  const float* bh1;  // [G] each
+  const float* bi2;
+  const float* bh2;
+  float* out;        // [n_rows, n_steps, H]: h2 of every step
+  float* h1;         // [2, n_rows, H]: h1 of steps t-1 and t
+  unsigned int* barrier;  // zero at launch
+  int n_rows, n_steps, row_tile, unit_groups, tiles;
+};
+
+// A product's operands for one tile: rows of h (row stride in floats) and
+// the packed weight matrix, whose 120 columns of the tile's unit group are
+// read.
+struct Operand {
+  const float* h;
+  size_t stride;
+  const float* w;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Every CTA's writes before the call are visible to every CTA after it.
+// `target` grows by gridDim.x per barrier; the counter starts at 0.
+__device__ __forceinline__ void grid_barrier(unsigned int* counter, unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+__device__ __forceinline__ float get(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ void set(float4& v, int q, float x) {
+  if (q == 0) v.x = x; else if (q == 1) v.y = x; else if (q == 2) v.z = x; else v.w = x;
+}
 
-// acc_g[r] += sum_k hs[r][k] * w[k][g*H + j] for the three gates g of unit j.
-__device__ __forceinline__ void matvec3(const float* __restrict__ hs,
-                                        const float* __restrict__ w, int j,
-                                        float (&az)[ROWS], float (&ar)[ROWS],
-                                        float (&an)[ROWS]) {
-  for (int k = 0; k < H; k += 4) {
-    float wz[4], wr[4], wn[4];
+// Copy chunk `c` of `op` (k in [c*KC, c*KC + KC)) into one pipeline stage:
+// rows_here rows of h, and the KC x 120 weight block of unit group ug, which
+// the packed layout keeps contiguous.
+__device__ __forceinline__ void stage_chunk(float* st, const Operand& op, int c, int row0, int rows_here, int ug) {
+  const int k0 = c * KC;
+  float* hs = st;
+  float* ws = st + ROW_TILE_MAX * HP;
+  const int q = threadIdx.x % (KC / 4);
+  for (int r = threadIdx.x / (KC / 4); r < rows_here; r += THREADS / (KC / 4))
+    cp_async16(hs + r * HP + q * 4, op.h + (size_t)(row0 + r) * op.stride + k0 + q * 4);
+  const float* w = op.w + ((size_t)ug * H + k0) * WCOLS;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float* wk = w + (size_t)(k + q) * G + j;
-      wz[q] = __ldg(wk);
-      wr[q] = __ldg(wk + H);
-      wn[q] = __ldg(wk + 2 * H);
-    }
+  for (int p = threadIdx.x; p < KC * WCOLS / 4; p += THREADS) cp_async16(ws + p * 4, w + p * 4);
+}
+
+// acc_g[i][u] += sum_k hs[ty + TR*i][k] * ws[k][g][tx*UM + u] over one
+// chunk, for the first NR of the thread's RM rows. The h and weight
+// fragments of step k+1 load from shared memory while step k's FMAs run
+// (two register sets each).
+template <int NR>
+__device__ __forceinline__ void mac_chunk(const float* st, int ty, int tx, float (&az)[RM][UM],
+                                          float (&ar)[RM][UM], float (&an)[RM][UM]) {
+  const float* hs = st + ty * HP;
+  const float* ws = st + ROW_TILE_MAX * HP + tx * UM;
+  float4 hv[2][NR], w[2][3];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 hv = *reinterpret_cast<const float4*>(hs + r * H + k);
-      az[r] = fmaf(hv.x, wz[0], az[r]);
-      ar[r] = fmaf(hv.x, wr[0], ar[r]);
-      an[r] = fmaf(hv.x, wn[0], an[r]);
-      az[r] = fmaf(hv.y, wz[1], az[r]);
-      ar[r] = fmaf(hv.y, wr[1], ar[r]);
-      an[r] = fmaf(hv.y, wn[1], an[r]);
-      az[r] = fmaf(hv.z, wz[2], az[r]);
-      ar[r] = fmaf(hv.z, wr[2], ar[r]);
-      an[r] = fmaf(hv.z, wn[2], an[r]);
-      az[r] = fmaf(hv.w, wz[3], az[r]);
-      ar[r] = fmaf(hv.w, wr[3], ar[r]);
-      an[r] = fmaf(hv.w, wn[3], an[r]);
+  for (int i = 0; i < NR; ++i) hv[0][i] = *reinterpret_cast<const float4*>(hs + i * TR * HP);
+#pragma unroll
+  for (int g = 0; g < 3; ++g) w[0][g] = *reinterpret_cast<const float4*>(ws + g * UNIT_TILE);
+#pragma unroll 1
+  for (int k0 = 0; k0 < KC; k0 += 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // h fragment j >> 2 (float4 along k), weight fragment j & 1
+      const int k = k0 + j;
+      if (k + 1 < KC) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          w[(j + 1) & 1][g] = *reinterpret_cast<const float4*>(ws + (k + 1) * WCOLS + g * UNIT_TILE);
+      }
+      if ((j & 3) == 0 && k + 4 < KC) {
+#pragma unroll
+        for (int i = 0; i < NR; ++i)
+          hv[((j >> 2) + 1) & 1][i] = *reinterpret_cast<const float4*>(hs + i * TR * HP + k + 4);
+      }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float h = get(hv[(j >> 2) & 1][i], j & 3);
+#pragma unroll
+        for (int u = 0; u < UM; ++u) {
+          az[i][u] = fmaf(h, get(w[j & 1][0], u), az[i][u]);
+          ar[i][u] = fmaf(h, get(w[j & 1][1], u), ar[i][u]);
+          an[i][u] = fmaf(h, get(w[j & 1][2], u), an[i][u]);
+        }
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-gru_stack_kernel(const float* __restrict__ gi1, const float* __restrict__ wh1,
-                 const float* __restrict__ bh1, const float* __restrict__ wi2,
-                 const float* __restrict__ bi2, const float* __restrict__ wh2,
-                 const float* __restrict__ bh2, float* __restrict__ out,
-                 int n_rows, int n_steps) {
+// One phase of one tile: LAYER2 = false computes h1[t], true computes h2[t].
+template <bool LAYER2>
+__device__ void tile_phase(const Params& p, float* smem, int t, int tile) {
+  const int tx = threadIdx.x % TU, ty = threadIdx.x / TU;
+  const int rg = tile / p.unit_groups, ug = tile % p.unit_groups;
+  const int row0 = rg * p.row_tile;
+  const int rows_here = min(p.row_tile, p.n_rows - row0);
+  // Thread ty holds rows ty + TR*i. A warp whose first ty has all RM rows
+  // inside the tile computes RM rows, any other RM - 1: at 130 rows, warps
+  // 0-3 do 6 and warps 4-7 do 5, so each SM sub-partition (warps w and
+  // w + 4) carries 11 rows' work.
+  const bool active = ty < rows_here;
+  const bool full = (threadIdx.x & ~31) / TU + TR * (RM - 1) < rows_here;
+  const size_t rows_h = (size_t)p.n_rows * H;
+  const float* h1_prev = p.h1 + (size_t)((t + 1) & 1) * rows_h;
+  float* h1_cur = p.h1 + (size_t)(t & 1) * rows_h;
+  const size_t out_stride = (size_t)p.n_steps * H;
+
+  // Layer 1: h1[t-1] Wh1 (nothing at t = 0: h = 0). Layer 2: h1[t] Wi2,
+  // then h2[t-1] Wh2 (from t = 1); the n sums of the two stay apart.
+  const Operand a = LAYER2 ? Operand{h1_cur, (size_t)H, p.wi2} : Operand{h1_prev, (size_t)H, p.wh1};
+  const Operand b = {p.out + (size_t)(t - 1) * H, out_stride, p.wh2};  // layer 2 only
+  const int total = LAYER2 ? (t > 0 ? 2 * CHUNKS : CHUNKS) : (t > 0 ? CHUNKS : 0);
+  const int swap_at = LAYER2 ? CHUNKS : -1;
+  // Chunk c of the phase: its operands picked field by field, so that the
+  // choice stays in registers.
+  auto operand = [&](int c) {
+    const bool first = c < CHUNKS;
+    return Operand{first ? a.h : b.h, first ? a.stride : b.stride, first ? a.w : b.w};
+  };
+
+  float az[RM][UM], ar[RM][UM], an[RM][UM], in[RM][UM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int u = 0; u < UM; ++u) az[i][u] = ar[i][u] = an[i][u] = in[i][u] = 0.0f;
+  // Layer 2 sums the n gate of h1 Wi2 in `an`, moves it to `in` and then
+  // sums that of h2 Wh2 in `an`: one accumulator set serves both products.
+  auto swap_n = [&]() {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int u = 0; u < UM; ++u) {
+        in[i][u] = an[i][u];
+        an[i][u] = 0.0f;
+      }
+  };
+
+  __syncthreads();  // the previous phase's reads of the stages are done
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) stage_chunk(smem + s * STAGE_FLOATS, operand(s), s % CHUNKS, row0, rows_here, ug);
+    cp_async_commit();
+  }
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = c + STAGES - 1;
+    if (next < total) stage_chunk(smem + (next % STAGES) * STAGE_FLOATS, operand(next), next % CHUNKS, row0, rows_here, ug);
+    cp_async_commit();
+    if (c == swap_at) swap_n();
+    if (active) {
+      const float* st = smem + (c % STAGES) * STAGE_FLOATS;
+      if (full)
+        mac_chunk<RM>(st, ty, tx, az, ar, an);
+      else
+        mac_chunk<RM - 1>(st, ty, tx, az, ar, an);
+    }
+  }
+  if (total == swap_at) swap_n();
+  cp_async_wait<0>();
+  if (!active) return;
+
+  // Gate math: all global loads of the thread's rows first, so that their
+  // latencies overlap, then the gates and the stores.
+  const int u0 = ug * UNIT_TILE + tx * UM;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 hold[RM], gz[RM], gr[RM], gn[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const size_t row = row0 + ty + TR * i;
+    const bool valid = ty + TR * i < rows_here;
+    const float* prev = LAYER2 ? p.out + row * out_stride + (size_t)(t - 1) * H : h1_prev + row * H;
+    hold[i] = valid && t > 0 ? __ldcg(reinterpret_cast<const float4*>(prev + u0)) : zero;
+    if (!LAYER2) {
+      const float* g = p.gi1 + (row * p.n_steps + t) * G + u0;
+      gz[i] = valid ? __ldcs(reinterpret_cast<const float4*>(g)) : zero;
+      gr[i] = valid ? __ldcs(reinterpret_cast<const float4*>(g + H)) : zero;
+      gn[i] = valid ? __ldcs(reinterpret_cast<const float4*>(g + 2 * H)) : zero;
+    }
+  }
+  // Biases by the global gate column g*H + unit. Layer 1: bh1 (gi1 holds
+  // bi1). Layer 2: bi2 (c*) and bh2 (b*), which stay apart in the n gate.
+  const float* b1 = LAYER2 ? p.bh2 : p.bh1;
+  const float4 bz = __ldg(reinterpret_cast<const float4*>(b1 + u0));
+  const float4 br = __ldg(reinterpret_cast<const float4*>(b1 + H + u0));
+  const float4 bn = __ldg(reinterpret_cast<const float4*>(b1 + 2 * H + u0));
+  const float4 cz = LAYER2 ? __ldg(reinterpret_cast<const float4*>(p.bi2 + u0)) : zero;
+  const float4 cr = LAYER2 ? __ldg(reinterpret_cast<const float4*>(p.bi2 + H + u0)) : zero;
+  const float4 cn = LAYER2 ? __ldg(reinterpret_cast<const float4*>(p.bi2 + 2 * H + u0)) : zero;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    if (ty + TR * i >= rows_here) break;
+    const size_t row = row0 + ty + TR * i;
+    float4 hnew;
+#pragma unroll
+    for (int u = 0; u < UM; ++u) {
+      float z, rr, n;
+      if (!LAYER2) {
+        z = sigmoid(get(gz[i], u) + (az[i][u] + get(bz, u)));
+        rr = sigmoid(get(gr[i], u) + (ar[i][u] + get(br, u)));
+        n = tanhf(get(gn[i], u) + rr * (an[i][u] + get(bn, u)));
+      } else {
+        z = sigmoid(az[i][u] + (get(cz, u) + get(bz, u)));
+        rr = sigmoid(ar[i][u] + (get(cr, u) + get(br, u)));
+        n = tanhf((in[i][u] + get(cn, u)) + rr * (an[i][u] + get(bn, u)));
+      }
+      set(hnew, u, (1.0f - z) * n + z * get(hold[i], u));
+    }
+    float* dst = LAYER2 ? p.out + row * out_stride + (size_t)t * H : h1_cur + row * H;
+    *reinterpret_cast<float4*>(dst + u0) = hnew;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) gru_stack_kernel(Params p) {
   extern __shared__ float4 smem4[];
-  float* h1 = reinterpret_cast<float*>(smem4);  // [ROWS][H]
-  float* h2 = h1 + ROWS * H;                     // [ROWS][H]
-  const int j = threadIdx.x;
-  const int row0 = blockIdx.x * ROWS;
-  const int rows_here = min(ROWS, n_rows - row0);
-  const bool owner = j < H;
-
-  for (int i = j; i < 2 * ROWS * H; i += THREADS) h1[i] = 0.0f;
-  float b1z = 0.f, b1r = 0.f, b1n = 0.f;
-  float c2z = 0.f, c2r = 0.f, c2n = 0.f, b2z = 0.f, b2r = 0.f, b2n = 0.f;
-  if (owner) {
-    b1z = bh1[j]; b1r = bh1[H + j]; b1n = bh1[2 * H + j];
-    c2z = bi2[j]; c2r = bi2[H + j]; c2n = bi2[2 * H + j];
-    b2z = bh2[j]; b2r = bh2[H + j]; b2n = bh2[2 * H + j];
+  float* smem = reinterpret_cast<float*>(smem4);
+  unsigned int target = 0;
+  for (int t = 0; t < p.n_steps; ++t) {
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) tile_phase<false>(p, smem, t, tile);
+    target += gridDim.x;
+    grid_barrier(p.barrier, target);
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) tile_phase<true>(p, smem, t, tile);
   }
-  __syncthreads();
+}
 
-  for (int t = 0; t < n_steps; ++t) {
-    // ---- layer 1: h1' = gates(gi1[t], h1 Wh1 + bh1, h1)
-    float h1new[ROWS];
-    if (owner) {
-      float az[ROWS], ar[ROWS], an[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) az[r] = ar[r] = an[r] = 0.0f;
-      matvec3(h1, wh1, j, az, ar, an);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        float gz = 0.f, gr = 0.f, gn = 0.f;
-        if (r < rows_here) {
-          const float* g = gi1 + ((size_t)(row0 + r) * n_steps + t) * G;
-          gz = g[j];
-          gr = g[H + j];
-          gn = g[2 * H + j];
-        }
-        const float z = sigmoid(gz + (az[r] + b1z));
-        const float rg = sigmoid(gr + (ar[r] + b1r));
-        const float n = tanhf(gn + rg * (an[r] + b1n));
-        h1new[r] = (1.0f - z) * n + z * h1[r * H + j];
-      }
-    }
-    __syncthreads();  // all reads of the old h1 are done
-    if (owner) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) h1[r * H + j] = h1new[r];
-    }
-    __syncthreads();  // the new h1 is visible to every thread
-
-    // ---- layer 2: h2' = gates(h1' Wi2 + bi2, h2 Wh2 + bh2, h2)
-    float h2new[ROWS];
-    if (owner) {
-      // The z and r gates only need gi2 + gh2, so both products accumulate
-      // into one register each: 4 x ROWS accumulators instead of 6 x ROWS,
-      // which keeps layer 2 inside the 128 registers a 416-thread block
-      // allows (no spills). Only the n gate needs the two apart.
-      float sz[ROWS], sr[ROWS], in[ROWS], hn[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) sz[r] = sr[r] = in[r] = hn[r] = 0.0f;
-      matvec3(h1, wi2, j, sz, sr, in);
-      matvec3(h2, wh2, j, sz, sr, hn);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float z = sigmoid(sz[r] + (c2z + b2z));
-        const float rg = sigmoid(sr[r] + (c2r + b2r));
-        const float n = tanhf((in[r] + c2n) + rg * (hn[r] + b2n));
-        h2new[r] = (1.0f - z) * n + z * h2[r * H + j];
-      }
-    }
-    __syncthreads();  // all reads of the old h2 are done
-    if (owner) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        h2[r * H + j] = h2new[r];
-        if (r < rows_here) out[((size_t)(row0 + r) * n_steps + t) * H + j] = h2new[r];
-      }
-    }
-    // The next reads of h2 follow the next step's two barriers.
-  }
+cudaError_t blocks_per_sm(int* blocks) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(gru_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gru_stack_kernel, THREADS, SMEM_BYTES);
 }
 
 }  // namespace
@@ -164,19 +324,40 @@ extern "C" {
 
 const char* fvad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// gi1 [n_rows, n_steps, 3H]; wh1, wi2, wh2 [H, 3H]; bh1, bi2, bh2 [3H];
-// out [n_rows, n_steps, H]. All float32, contiguous, on the current device.
-// Launches on `stream` and returns cudaGetLastError().
-int fvad_gru_stack(const float* gi1, const float* wh1, const float* bh1,
-                   const float* wi2, const float* bi2, const float* wh2,
-                   const float* bh2, float* out, int n_rows, int n_steps,
-                   void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+// How many CTAs of the kernel one SM of the current device holds at once,
+// with the shared memory the launch uses; the host's launch plan needs it.
+int fvad_gru_stack_blocks_per_sm(int* blocks) { return (int)blocks_per_sm(blocks); }
+
+// gi1 [n_rows, n_steps, 3H]; wh1, wi2, wh2 packed by unit group
+// [UNIT_GROUPS, H, 3 * UNIT_TILE] (models/nsnet2_cuda.py::pack); bh1, bi2, bh2 [3H];
+// out [n_rows, n_steps, H]; h1 scratch [2, n_rows, H]; barrier: one zeroed
+// unsigned int. All float32, contiguous, on the current device. The plan
+// (row_tile, row_groups, unit_groups, grid) comes from the host. A plan that
+// does not cover the rows exactly, or a grid the device cannot hold at once
+// (the grid barrier would deadlock), is refused before any launch. Launches
+// cooperatively on `stream`; returns the launch's cudaError_t.
+int fvad_gru_stack(const float* gi1, const float* wh1, const float* bh1, const float* wi2,
+                   const float* bi2, const float* wh2, const float* bh2, float* out, float* h1,
+                   unsigned int* barrier, int n_rows, int n_steps, int row_tile, int row_groups,
+                   int unit_groups, int grid, void* stream) {
+  if (n_rows < 1 || n_steps < 1 || row_tile < 1 || row_tile > ROW_TILE_MAX || unit_groups != UNIT_GROUPS ||
+      row_groups < 1 || (long long)row_groups * row_tile < n_rows || (long long)(row_groups - 1) * row_tile >= n_rows)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)row_groups * unit_groups;
+  if (grid < 1 || grid > tiles) return (int)cudaErrorInvalidValue;
+  int dev = 0, coop = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = blocks_per_sm(&blocks);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_rows + ROWS - 1) / ROWS;
-  gru_stack_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      gi1, wh1, bh1, wi2, bi2, wh2, bh2, out, n_rows, n_steps);
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (grid > blocks * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Params p{gi1, wh1, wi2, wh2, bh1, bi2, bh2, out, h1, barrier, n_rows, n_steps, row_tile, unit_groups, (int)tiles};
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)gru_stack_kernel, dim3(grid), dim3(THREADS), args, SMEM_BYTES,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

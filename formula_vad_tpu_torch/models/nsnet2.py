@@ -123,6 +123,15 @@ class NSNet2(nn.Module):
         return gains.reshape(lead + gains.shape[-2:])
 
 
+def weights_key(net: NSNet2) -> tuple:
+    """A key that changes when any parameter of ``net`` moves (``net.to``),
+    is replaced, or is written in place (``load_state_dict``, ``copy_``:
+    its version counter moves): caches of weights derived from ``net`` are
+    keyed on it. Tensors made under ``torch.inference_mode`` keep no version
+    counter, so an in-place write to one of those goes unseen."""
+    return tuple((p.device, p.data_ptr(), None if p.is_inference() else p._version) for p in net.parameters())
+
+
 def from_numpy(flat: dict) -> NSNet2:
     """Build the module (on the CPU) from a flat dict of numpy arrays keyed
     as ``formula_vad_tpu.models.nsnet2.save_npz`` writes them; float16

@@ -9,19 +9,23 @@ hidden sequence ``[N, T, 400]``. Per step and row:
     gh1 = h1 @ Wh1 + bh1;  h1 = gru(gi1[t], gh1, h1)
     gi2 = h1 @ Wi2 + bi2;  gh2 = h2 @ Wh2 + bh2;  h2 = gru(gi2, gh2, h2)
 
-CUDA tensors go to the kernel in ``csrc/gru_stack.cu``; CPU tensors go to
-``gru_stack_reference``, a per-step loop of ``torch.matmul`` and gate math
-that defines what the kernel computes.
+CUDA tensors go to the kernel in ``csrc/gru_stack.cu``, one cooperative
+launch per call over tiles of rows x hidden units whose sizes and grid the
+host computes (``launch_plan``, a pure function the CPU tests check); CPU
+tensors go to ``gru_stack_reference``, a per-step loop of ``torch.matmul``
+and gate math that defines what the kernel computes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from .. import _build
-from .nsnet2 import HIDDEN, NSNet2
+from .nsnet2 import HIDDEN, NSNet2, weights_key
 
 G3 = 3 * HIDDEN
 
@@ -58,11 +62,109 @@ def gru_stack_reference(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
     return torch.stack(ys, dim=1)
 
 
+# The kernel's tile geometry (csrc/gru_stack.cu: UNIT_TILE, TR * RM).
+UNIT_TILE = 40
+ROW_TILE_MAX = 144
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How ``csrc/gru_stack.cu`` splits [n_rows, 400] into tiles of
+    ``row_tile`` rows x ``unit_tile`` hidden units (with their three gates),
+    and how many CTAs (``grid``) walk them with a grid stride."""
+
+    n_rows: int
+    row_tile: int
+    unit_tile: int
+    row_groups: int
+    unit_groups: int
+    tiles: int
+    grid: int
+
+    def tile_span(self, tile: int) -> tuple[range, range]:
+        """The rows and the hidden units of one tile, decoded as the kernel
+        decodes them."""
+        rg, ug = divmod(tile, self.unit_groups)
+        rows = range(rg * self.row_tile, min((rg + 1) * self.row_tile, self.n_rows))
+        return rows, range(ug * self.unit_tile, (ug + 1) * self.unit_tile)
+
+    def block_tiles(self, block: int) -> range:
+        """The tiles CTA ``block`` computes, in its order."""
+        return range(block, self.tiles, self.grid)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(n_rows: int, sm_count: int, blocks_per_sm: int) -> LaunchPlan:
+    """The tiling of ``n_rows`` rows on a card of ``sm_count`` SMs that hold
+    ``blocks_per_sm`` CTAs each. One wave holds ``slots // unit_groups`` row
+    groups of every unit group; the rows are spread evenly over as few whole
+    waves as tiles of at most ROW_TILE_MAX rows allow, so that every wave,
+    the last included, fills the card (1,680 rows on 132 SMs: 13 groups of
+    130 rows x 10 unit groups = 130 tiles, one wave)."""
+    if n_rows < 1 or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"launch_plan: need positive sizes, got {n_rows}, {sm_count}, {blocks_per_sm}")
+    slots = sm_count * blocks_per_sm
+    unit_groups = HIDDEN // UNIT_TILE
+    per_wave = max(1, slots // unit_groups)
+    waves = _cdiv(_cdiv(n_rows, ROW_TILE_MAX), per_wave)
+    row_tile = _cdiv(n_rows, waves * per_wave)
+    row_groups = _cdiv(n_rows, row_tile)
+    tiles = row_groups * unit_groups
+    return LaunchPlan(n_rows, row_tile, UNIT_TILE, row_groups, unit_groups, tiles, min(tiles, slots))
+
+
+def pack(w: torch.Tensor) -> torch.Tensor:
+    """A recurrent weight [400, 1200] (z|r|n columns) re-laid by unit group
+    for the kernel: [unit group, k, gate * UNIT_TILE + unit], so that the
+    120 columns of a unit group are one contiguous [400, 120] block."""
+    groups = HIDDEN // UNIT_TILE
+    w = w.reshape(HIDDEN, 3, groups, UNIT_TILE).permute(2, 0, 1, 3)
+    return w.reshape(groups, HIDDEN, 3 * UNIT_TILE).contiguous()
+
+
+def packed_weights(net: NSNet2) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``pack`` of wh1, wi2 and wh2, cached on the module and redone when
+    its weights move, are replaced or are written in place
+    (``nsnet2.weights_key``)."""
+    key = weights_key(net)
+    hit = net.__dict__.get("_gru_stack_cache")
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, tuple(pack(w) for w in (net.gru1.wh, net.gru2.wi, net.gru2.wh)))
+        net._gru_stack_cache = hit
+    return hit[1]
+
+
+@functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_stack")
-    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.fvad_gru_stack.restype = ctypes.c_int
+    lib.fvad_gru_stack_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.fvad_gru_stack_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _card(index: int) -> tuple[int, int]:
+    """(SM count, CTAs of the kernel one SM holds) of CUDA device ``index``."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.fvad_gru_stack_blocks_per_sm(ctypes.byref(blocks))
+    _build.check(lib, err, "gru_stack occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError("gru_stack: the kernel does not fit on one SM of this device")
+    return torch.cuda.get_device_properties(index).multi_processor_count, blocks.value
+
+
+def device_plan(n_rows: int, dev: torch.device) -> LaunchPlan:
+    """``launch_plan`` for the card ``dev``: its SM count and the kernel's
+    occupancy, queried once per device."""
+    return launch_plan(n_rows, *_card(dev.index if dev.index is not None else torch.cuda.current_device()))
 
 
 def _check_operand(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -72,6 +174,8 @@ def _check_operand(name: str, x: torch.Tensor, shape: tuple, device: torch.devic
             f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}"
             f"{'' if x.is_contiguous() else ' (not contiguous)'}"
         )
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError(f"gru_stack: {name} must be 16-byte aligned (the kernel reads float4s)")
 
 
 def gru_stack(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
@@ -99,10 +203,16 @@ def gru_stack(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
     if n == 0 or t == 0:
         return out
     lib = _lib()
+    plan = device_plan(n, dev)
+    wh1, wi2, wh2 = packed_weights(net)
+    h1 = torch.empty((2, n, HIDDEN), dtype=torch.float32, device=dev)  # h1 of steps t-1 and t
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fvad_gru_stack(
-            gi1.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(), n, t, stream
+            gi1.data_ptr(), wh1.data_ptr(), net.gru1.bh.data_ptr(), wi2.data_ptr(), net.gru2.bi.data_ptr(),
+            wh2.data_ptr(), net.gru2.bh.data_ptr(), out.data_ptr(), h1.data_ptr(), barrier.data_ptr(),
+            n, t, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid, stream,
         )
     _build.check(lib, err, "gru_stack launch")
     gru_stack.launches += 1

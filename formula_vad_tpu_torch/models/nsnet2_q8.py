@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.matmul_q8 import Q8Weight, matmul_q8
-from .nsnet2 import HIDDEN, N_BINS, NSNet2
+from .nsnet2 import HIDDEN, N_BINS, NSNet2, weights_key
 from .nsnet2_cuda import _gates
 
 
@@ -77,8 +77,8 @@ def quantize(net: NSNet2) -> dict[str, Q8Weight]:
 
 def _weights(net: NSNet2) -> dict[str, Q8Weight]:
     """``quantize(net)``, cached on the module and redone when its weights
-    move (``net.to``) or are replaced."""
-    key = tuple((p.device, p.data_ptr()) for p in net.parameters())
+    move, are replaced or are written in place (``nsnet2.weights_key``)."""
+    key = weights_key(net)
     cached = getattr(net, "_q8_cache", None)
     if cached is None or cached[0] != key:
         with torch.no_grad():

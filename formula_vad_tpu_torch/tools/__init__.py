@@ -17,6 +17,29 @@ def card() -> str:
     ).stdout.strip()
 
 
+def cudnn_gru(net, dev, dtype=None):
+    """The library yardstick for the GRU kernels: a two-layer torch.nn.GRU
+    run by cuDNN on the same weights, permuted from ONNX z|r|n to PyTorch's
+    r|z|n gate order (both are the linear-before-reset form), in float32 or
+    ``dtype``. It also computes layer 1's input projection, so it takes the
+    fc_in output. Only the measurement scripts call it."""
+    import torch
+
+    from ..models.nsnet2 import HIDDEN
+
+    gru = torch.nn.GRU(HIDDEN, HIDDEN, num_layers=2, batch_first=True, device=dev, dtype=dtype)
+    h = torch.arange(HIDDEN, device=dev)
+    perm = torch.cat([h + HIDDEN, h, h + 2 * HIDDEN])
+    with torch.no_grad():
+        for layer, g in enumerate((net.gru1, net.gru2)):
+            getattr(gru, f"weight_ih_l{layer}").copy_(g.wi.t()[perm])
+            getattr(gru, f"weight_hh_l{layer}").copy_(g.wh.t()[perm])
+            getattr(gru, f"bias_ih_l{layer}").copy_(g.bi[perm])
+            getattr(gru, f"bias_hh_l{layer}").copy_(g.bh[perm])
+    gru.flatten_parameters()
+    return gru
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
     """Median over ``reps`` CUDA-event-timed calls of ``fn``, after one
     warm-up call."""
@@ -34,6 +57,24 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls queued back to
+    back between two CUDA events, divided by ``calls``. Where the host's
+    work per call is shorter than the kernel, the queue stays full and the
+    host's cost stays out (but for the first call's)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def graph_ms(fn, launches: int, reps: int = 5) -> float:
     """Device time of one call of ``fn``: ``launches`` calls captured in one
     CUDA graph, whose replay is timed as ``cuda_ms`` times a call, divided by
@@ -47,3 +88,4 @@ def graph_ms(fn, launches: int, reps: int = 5) -> float:
         for _ in range(launches):
             fn()
     return cuda_ms(graph.replay, reps) / launches
+

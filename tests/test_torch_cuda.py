@@ -61,9 +61,26 @@ def test_resolve_turns_tf32_off(cuda_device):
     assert not torch.backends.cudnn.allow_tf32
 
 
+def _biased(net):
+    """``net`` with N(0, 0.3) GRU biases (numpy seed 3): the demo weights'
+    biases (~0.005) are too small for a check to see a misplaced one."""
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for g in (net.gru1, net.gru2):
+            for b in (g.bi, g.bh):
+                b.copy_(torch.from_numpy(rng.normal(0.0, 0.3, tuple(b.shape)).astype(np.float32)))
+    return net
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows, steps", [(37, 54), (1680, 54), (16, 1)])
-def test_gru_kernel_matches_plain(net, cuda_device, rows, steps):
+@pytest.mark.parametrize("weights", ["demo", "biased"])
+@pytest.mark.parametrize(
+    "rows, steps",
+    [(37, 54), (1680, 54), (16, 1), (1, 1), (1, 54), (37, 1), (1690, 54), (1690, 1), (4000, 54), (4000, 1)],
+)
+def test_gru_kernel_matches_plain(net, cuda_device, rows, steps, weights):
+    if weights == "biased":
+        net = _biased(net)
     gi1 = _gi1(rows, steps, rows, cuda_device)
     before = nsnet2_cuda.gru_stack.launches
     got = nsnet2_cuda.gru_stack(net, gi1)
@@ -74,9 +91,51 @@ def test_gru_kernel_matches_plain(net, cuda_device, rows, steps):
 
 
 @pytest.mark.cuda
+def test_gru_kernel_back_to_back_calls(net, cuda_device):
+    """Two calls at different row counts in a row, on one stream: each gets
+    its own scratch and barrier, and neither disturbs the other."""
+    net = _biased(net)
+    gi_a, gi_b = _gi1(4000, 20, 1, cuda_device), _gi1(37, 54, 2, cuda_device)
+    got_a = nsnet2_cuda.gru_stack(net, gi_a)
+    got_b = nsnet2_cuda.gru_stack(net, gi_b)
+    again_a = nsnet2_cuda.gru_stack(net, gi_a)
+    torch.cuda.synchronize()
+    assert float((got_a - nsnet2_cuda.gru_stack_reference(net, gi_a)).abs().max()) <= GRU_TOL
+    assert float((got_b - nsnet2_cuda.gru_stack_reference(net, gi_b)).abs().max()) <= GRU_TOL
+    assert torch.equal(got_a, again_a)
+
+
+@pytest.mark.cuda
+def test_gru_kernel_refuses_a_grid_that_cannot_be_resident(net, cuda_device):
+    """A plan whose grid exceeds what the card holds at once would hang at
+    the first grid barrier: the C entry point refuses it before launching,
+    as it refuses a plan that does not cover the rows."""
+    import ctypes
+
+    plan = nsnet2_cuda.device_plan(4000, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    lib = nsnet2_cuda._lib()
+    gi1 = _gi1(4000, 2, 0, cuda_device)
+    out = torch.empty((4000, 2, 400), device=cuda_device)
+    h1 = torch.empty((2, 4000, 400), device=cuda_device)
+    barrier = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    w = (net.gru1.wh, net.gru1.bh, net.gru2.wi, net.gru2.bi, net.gru2.wh, net.gru2.bh)
+    stream = torch.cuda.current_stream().cuda_stream
+    for row_tile, row_groups, grid in ((plan.row_tile, plan.row_groups, plan.tiles), (100, 39, 100), (200, 20, 100)):
+        err = lib.fvad_gru_stack(
+            gi1.data_ptr(), *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), barrier.data_ptr(),
+            4000, 2, row_tile, row_groups, plan.unit_groups, grid, stream,
+        )
+        assert err != 0, (row_tile, row_groups, grid)
+    assert plan.tiles > plan.grid == sms * nsnet2_cuda._card(cuda_device.index or 0)[1]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_gru_kernel_refuses_what_it_does_not_take(net, cuda_device):
     gi1 = torch.zeros((4, 3, 1200), device=cuda_device)
-    for bad in (gi1.double(), gi1.transpose(0, 1), gi1[..., :600], gi1.cpu().to("meta")):
+    misaligned = torch.zeros(4 * 3 * 1200 + 1, device=cuda_device)[1:].view(4, 3, 1200)
+    for bad in (gi1.double(), gi1.transpose(0, 1), gi1[..., :600], gi1.cpu().to("meta"), misaligned):
         with pytest.raises(ValueError):
             nsnet2_cuda.gru_stack(net, bad)
     net.gru2.linear_before_reset = 0

@@ -137,3 +137,64 @@ def test_registry_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         registry.load_denoiser("demo")
     assert registry.load_denoiser("demo", device=torch.device("cpu")).fc_in.w.device.type == "cpu"
+
+
+@pytest.mark.parametrize("sm_count", [132, 114])
+@pytest.mark.parametrize("n_rows", [1, 16, 37, 1680, 1690, 4000])
+def test_gru_launch_plan_covers_every_pair_once(n_rows, sm_count):
+    """The CUDA kernel's tiling, computed on the host: every (row, unit)
+    pair in exactly one tile, every tile in exactly one CTA, the grid no
+    larger than the card holds at once (one CTA per SM), tiles no larger
+    than the kernel's register tile."""
+    plan = nsnet2_cuda.launch_plan(n_rows, sm_count, 1)
+    assert plan.grid <= sm_count and plan.tiles == plan.row_groups * plan.unit_groups
+    assert 1 <= plan.row_tile <= nsnet2_cuda.ROW_TILE_MAX and plan.unit_groups * plan.unit_tile == nsnet2.HIDDEN
+    cover = np.zeros((n_rows, nsnet2.HIDDEN), np.int32)
+    seen = []
+    for block in range(plan.grid):
+        for tile in plan.block_tiles(block):
+            rows, units = plan.tile_span(tile)
+            assert len(rows) > 0
+            cover[rows.start : rows.stop, units.start : units.stop] += 1
+            seen.append(tile)
+    assert sorted(seen) == list(range(plan.tiles))
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("sm_count, n_rows, waves", [(132, 1680, 1), (132, 4000, 3), (114, 1680, 2)])
+def test_gru_launch_plan_fills_the_last_wave(sm_count, n_rows, waves):
+    """The batched scoring shape (1,680 rows) on 132 SMs is one wave of at
+    least 120 tiles; on more rows or fewer SMs every wave, the last too,
+    fills at least 90% of the SMs."""
+    plan = nsnet2_cuda.launch_plan(n_rows, sm_count, 1)
+    assert -(-plan.tiles // plan.grid) == waves
+    last = plan.tiles - (waves - 1) * plan.grid
+    assert last >= 0.9 * sm_count
+    if (sm_count, n_rows) == (132, 1680):
+        assert plan.tiles == plan.grid == 130 and plan.row_tile == 130
+
+
+def test_gru_launch_plan_scales_with_blocks_per_sm():
+    plan = nsnet2_cuda.launch_plan(1680, 132, 2)
+    assert plan.grid <= 264 and plan.tiles - plan.grid * (-(-plan.tiles // plan.grid) - 1) >= 240
+    with pytest.raises(ValueError):
+        nsnet2_cuda.launch_plan(0, 132, 1)
+
+
+def test_gru_packed_weights_layout_and_cache():
+    """The kernel's weight layout: [unit group, k, gate * 40 + unit] holds
+    column gate * 400 + group * 40 + unit; the cache repacks after an
+    in-place load (same data_ptr, new version)."""
+    net = registry.load_denoiser("random", seed=3, device="cpu")
+    w = net.gru2.wi
+    packed = nsnet2_cuda.pack(w)
+    assert packed.shape == (10, 400, 120) and packed.is_contiguous()
+    ug, k, g, u = np.meshgrid(np.arange(10), np.arange(400), np.arange(3), np.arange(40), indexing="ij")
+    assert torch.equal(packed.reshape(10, 400, 3, 40), w[k, g * 400 + ug * 40 + u])
+    first = nsnet2_cuda.packed_weights(net)
+    assert nsnet2_cuda.packed_weights(net) is first
+    demo = registry.load_denoiser("demo", device="cpu")
+    net.load_state_dict(demo.state_dict())
+    again = nsnet2_cuda.packed_weights(net)
+    assert again is not first and torch.equal(again[1], nsnet2_cuda.pack(demo.gru2.wi))
+

@@ -192,6 +192,24 @@ def test_weight_cache_follows_the_weights():
     assert torch.equal(nsnet2_q8._weights(net)["ff2"].scale, first["ff2"].scale * 2.0)
 
 
+def test_weight_cache_follows_in_place_loads(feats):
+    """``load_state_dict`` writes the parameters in place (same data_ptr):
+    the next int8 forward quantizes the new weights, as a fresh module's
+    does, and not the cached ones."""
+    net = registry.load_denoiser("random", seed=3, device="cpu")
+    demo = registry.load_denoiser("demo", device="cpu")
+    x = torch.from_numpy(feats)
+    precision.set_quant("int8")
+    with torch.inference_mode():
+        first = net(x, out_frames=50)
+    net.load_state_dict(demo.state_dict())
+    with torch.inference_mode():
+        got = net(x, out_frames=50)
+        want = registry.load_denoiser("demo", device="cpu")(x, out_frames=50)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, first)
+
+
 def test_set_quant_validates():
     with pytest.raises(ValueError):
         precision.set_quant("int4")
