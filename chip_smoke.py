@@ -16,9 +16,12 @@ runs nine phases; any failed check raises and the script exits non-zero.
    on random weights with large GRU biases: max |dh2| <= 1e-4 each; its
    launch plan (tiles, tile sizes, grid: one wave of at least 120 CTAs);
    and the cuDNN two-layer GRU on the same weights as the library
-   yardstick.
+   yardstick. Then linear_before_reset = 0 weights, which have no kernel,
+   scored on the card (the plain loop) against the CPU: 1e-4, no launch.
 3. FSM kernel vs the native host decoder and vs its plain version on the
-   card, [21, 937] windows that visit every state: bit for bit.
+   card, [21, 937] windows that visit every state: bit for bit; its time
+   per single call, queued back to back, and continuing a carry, and the
+   host time of a wrapper call.
 4. The batched scoring slice, 21 streams x 20 s of stereo 48 kHz audio,
    through BatchRunner on the card: real-time factor, a per-stage time
    split, and proof that both kernels ran (launch counters).
@@ -40,7 +43,10 @@ runs nine phases; any failed check raises and the script exits non-zero.
    all its variants (launch counters from that run). Then each kernel
    against its plain version at [1680, 54], on random weights with random
    GRU biases so that every bias term counts, in float32 (max |dh2| <= 1e-4,
-   kernel 1's bar) and bf16 (mean |dh2| <= 3e-5: another float32 summation
+   kernel 1's bar; the float32 forms run on kernel 1's kernel, so also at
+   phase 2's ragged and multi-wave shapes, with its launch plan, single and
+   queued times, and kernel 6's bf16 out equal to its float32 out rounded)
+   and bf16 (mean |dh2| <= 3e-5: another float32 summation
    order now and then moves an h value across a bf16 rounding step, ~4e-6
    on the mean; the bar must sit 10x below the plain bf16 form's mean
    distance from the plain float32 form, measured here, so that the check
@@ -88,6 +94,7 @@ FSM_ROWS, FSM_WINDOWS = 21, 937  # 21 streams x 20 s of 1024-sample windows
 SLICE_STREAMS, SLICE_SECONDS = 21, 20.0
 CORPUS_STREAMS = 3  # the simulator runs' corpus: 3 streams x 20 s
 GRU_TOL = 1e-4
+RAGGED = [(n, t) for n in (1, 37, 1690, 4000) for t in (1, 54)]  # ragged and multi-wave GRU shapes
 GRU_EARLIER_MS = 13.48  # the GRU kernel's earlier design (one block per 16 rows) at [1680, 54], 700 W H100; log only
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9  # float32 outside the tensor cores: 67 TFLOP/s
@@ -188,9 +195,8 @@ def phase_gru(net, dev) -> dict:
         # The scoring shape on both weight sets, then ragged and multi-wave
         # row counts (a partial last row group; one tile of one row; 3
         # waves) at 1 and 54 steps.
-        shapes = [(GRU_ROWS, GRU_STEPS)] + [(n, t) for n in (1, 37, 1690, 4000) for t in (1, 54)]
         for label, weights in (("demo", net), ("biased", biased_net(dev))):
-            for n, t in shapes:
+            for n, t in [(GRU_ROWS, GRU_STEPS)] + RAGGED:
                 g = gi1 if (n, t) == (GRU_ROWS, GRU_STEPS) else torch.from_numpy(
                     (rng.standard_normal((n, t, 1200)) * 0.8).astype(np.float32)).to(dev)
                 out = nsnet2_cuda.gru_stack(weights, g)
@@ -232,12 +238,38 @@ def phase_gru(net, dev) -> dict:
     }
 
 
+def check_lbr0(dev) -> None:
+    """Weights with linear_before_reset = 0 score on the card through the
+    plain per-step loop (the GRU kernel takes lbr = 1 only, as the JAX
+    package's Pallas kernel does): gains within GRU_TOL of the CPU's, and
+    no GRU-kernel launch."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+
+    cpu = torch.device("cpu")
+    nets = {d: biased_net(d) for d in (dev, cpu)}
+    for net in nets.values():
+        net.gru1.linear_before_reset = net.gru2.linear_before_reset = 0
+    feats = torch.from_numpy(np.random.default_rng(7).normal(-3.0, 1.5, (42, GRU_STEPS, 161)).astype(np.float32))
+    before = nsnet2_cuda.gru_stack.launches
+    with torch.inference_mode():
+        got = nets[dev](feats.to(dev), out_frames=50).cpu()
+        want = nets[cpu](feats, out_frames=50)
+    launched = nsnet2_cuda.gru_stack.launches - before
+    e = float((got - want).abs().max()) if bool(torch.isfinite(got).all()) else float("inf")
+    log(f"lbr = 0 weights on the card (plain per-step loop): gains {list(got.shape)} vs the CPU's max |d| = {e:.3e} "
+        f"(tolerance {GRU_TOL}), gru_stack launches {launched}")
+    if not (e <= GRU_TOL and launched == 0):
+        raise AssertionError(f"lbr = 0 weights on the card: max |d| {e}, {launched} gru_stack launches")
+
+
 def phase_fsm(st, dev) -> dict:
     import torch
 
     from formula_vad_tpu_torch.pipeline import fsm_cuda, fsm_host
     from formula_vad_tpu_torch.testing.synth import fsm_inputs
-    from formula_vad_tpu_torch.tools import cuda_ms
+    from formula_vad_tpu_torch.tools import cuda_ms, queued_ms
 
     mv, vr, valid = fsm_inputs(FSM_ROWS, FSM_WINDOWS, seed=0)
     args = [torch.from_numpy(x).to(dev) for x in (mv, vr, valid)]
@@ -267,7 +299,21 @@ def phase_fsm(st, dev) -> dict:
             if a.tobytes() != np.ascontiguousarray(b).tobytes():
                 raise AssertionError(f"FSM kernel != {other_name} on carry {key}")
         log(f"FSM kernel == {other_name}: all 7 outputs and the carry, bit for bit")
-    ms = cuda_ms(lambda: fsm_cuda.scan_windows(shape, params, *args))
+    def fresh():
+        return fsm_cuda.scan_windows(shape, params, *args)
+
+    ms = cuda_ms(fresh)
+    # The split of a single call: calls queued back to back; calls that
+    # continue a carry (no fresh carry to copy up, no Kahan seed fold in the
+    # kernel); and the host's time per wrapper call, launches not waited for.
+    queued = queued_ms(fresh)
+    chained_ms = cuda_ms(lambda: fsm_cuda.scan_windows(shape, params, *args, carry=got_carry))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fresh()
+    host_call_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: fsm_cuda.scan_windows_reference(shape, params, *args), reps=3)
     # Inputs read once, outputs written once; the carry the kernel seeds is
     # read and written. Its real limit is the serial chain of windows.
@@ -276,10 +322,13 @@ def phase_fsm(st, dev) -> dict:
     log(f"FSM [{FSM_ROWS}, {FSM_WINDOWS}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, host decoder {host_ms:.3f} ms; "
         f"bytes bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB); serial chain: {FSM_WINDOWS} dependent "
         f"windows per row, {ms / FSM_WINDOWS * 1e3:.2f} us per window in the kernel")
+    log(f"FSM [{FSM_ROWS}, {FSM_WINDOWS}] split: single call {ms:.3f} ms, queued back to back {queued:.3f} ms, "
+        f"continuing a carry {chained_ms:.3f} ms; host time of a wrapper call {host_call_ms:.3f} ms")
     return {
         "name": "scan_windows", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/fsm_scan.cu",
         "replaces": "formula_vad_tpu/pipeline/fsm_pallas.py:339", "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "queued_ms": queued, "chained_ms": chained_ms, "host_call_ms": host_call_ms,
     }
 
 
@@ -559,15 +608,41 @@ GATE_KERNELS = (  # (wrapper in models/nsnet2_gates_cuda.py, kernel, the TPU ker
 )
 
 
-def phase_gates(dev) -> tuple[list[dict], dict]:
-    """Path A (the experiment tool, its own random weights) once with the
-    counters at 0, then each per-gate kernel against its plain version on
-    ``biased_net``; -> (kernel rows, path-A launches)."""
+def check_f32_form(name: str, wrapper, plain, net, dev) -> float:
+    """A float32 per-gate form against its plain version at the RAGGED
+    shapes (random gi, numpy seed 4); -> the largest max |dh2|."""
     import torch
 
     from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+
+    rng = np.random.default_rng(4)
+    gw = gates.gate_weights(net, torch.float32)
+    worst = 0.0
+    for n, t in RAGGED:
+        gi = [torch.from_numpy((rng.standard_normal((n, t, 400)) * 0.8).astype(np.float32)).to(dev) for _ in range(3)]
+        got = wrapper(net, *gi)
+        want = plain(gw, *gi)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max()) if bool(torch.isfinite(got).all()) else float("inf")
+        log(f"{name} float32 vs plain at [{n}, {t}]: max |dh2| = {e:.3e} (tolerance {GRU_TOL})")
+        if not e <= GRU_TOL:
+            raise AssertionError(f"{name} float32 disagrees with its plain version at [{n}, {t}]: {e}")
+        worst = max(worst, e)
+    return worst
+
+
+def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
+    """Path A (the experiment tool, its own random weights) once with the
+    counters at 0, then each per-gate kernel against its plain version on
+    ``biased_net``; -> (kernel rows, path-A launches). ``kernel1_ms``:
+    phase 2's single-call time of kernel 1, which the float32 forms run
+    on."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
     from formula_vad_tpu_torch.models.registry import load_denoiser
-    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
     from formula_vad_tpu_torch.tools import gru_kernel_exp as exp
 
     feats = exp.features(GRU_ROWS, dev)
@@ -600,6 +675,9 @@ def phase_gates(dev) -> tuple[list[dict], dict]:
             f"{gru_ms[torch.float16]:.3f} ms (weights compacted once), bf16 {gru_ms[torch.bfloat16]:.3f} ms "
             f"(weights compacted on every call)")
         library_ms = {torch.float32: gru_ms[torch.float32], torch.bfloat16: gru_ms[torch.float16]}
+        plan = nsnet2_cuda.device_plan(GRU_ROWS, dev)
+        log(f"float32 forms: kernel 1's kernel (csrc/gru_stack.cu), launch plan at {GRU_ROWS} rows: {plan.tiles} tiles "
+            f"of {plan.row_tile} rows x {plan.unit_tile} units, grid {plan.grid}")
         for name, kind, replaces in GATE_KERNELS:
             wrapper = wrappers[name]
             plain = getattr(gates, f"{name}_reference")
@@ -630,6 +708,19 @@ def phase_gates(dev) -> tuple[list[dict], dict]:
                     f"mean {mean:.3e} ({bar})")
                 if not ok:
                     raise AssertionError(f"{name} {dtype} disagrees with its plain version: max {err}, mean {mean}")
+                extra = {}
+                if dtype == torch.float32:
+                    before = nsnet2_cuda.gru_stack.launches
+                    err = max(err, check_f32_form(name, wrapper, plain, net, dev))
+                    if nsnet2_cuda.gru_stack.launches != before:
+                        raise AssertionError(f"{name} float32 counted its launches as gru_stack's")
+                    if kind == 6:
+                        rounded = wrapper(net, *args, dtype=dtype, out_dtype=torch.bfloat16)
+                        if not torch.equal(rounded, got.to(torch.bfloat16)):
+                            raise AssertionError(f"{name} float32 with bf16 out != its float32 out rounded")
+                        log(f"{name} float32: bf16 out == float32 out rounded to bf16, bit for bit")
+                    extra = {"source": "formula_vad_tpu_torch/csrc/gru_stack.cu", "queued_ms": queued_ms(
+                        lambda: wrapper(net, *args, dtype=dtype))}
                 if kind == 6:
                     for tile in (840, 416):
                         if not torch.equal(wrapper(net, *args, dtype=dtype, tile=tile), got):
@@ -643,9 +734,13 @@ def phase_gates(dev) -> tuple[list[dict], dict]:
                 log(f"{name} {str(dtype)[6:]} [{GRU_ROWS}, {GRU_STEPS}]: kernel {ms:.3f} ms ({ops / 1e9 / ms:.2f} TFLOP/s), "
                     f"plain {plain_ms:.3f} ms, {lib} {library_ms[dtype]:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
                     f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                if extra:
+                    log(f"{name} float32 [{GRU_ROWS}, {GRU_STEPS}]: single call {ms:.3f} ms, queued back to back "
+                        f"{extra['queued_ms']:.3f} ms; {ms / library_ms[dtype]:.3f}x cuDNN's float32 GRU, "
+                        f"{ms / kernel1_ms:.3f}x kernel 1's phase-2 single call ({kernel1_ms:.3f} ms)")
                 forms.append({"dtype": str(dtype)[6:], "max_abs_err": err, "mean_abs_err": mean, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                              "library_ms": library_ms[dtype]})
+                              "library_ms": library_ms[dtype], **extra})
             # The line's numbers are the bf16 form's: kernel 5's form on the
             # bf16 tier; both forms are under "forms".
             top = {k: v for k, v in forms[1].items() if k not in ("dtype", "mean_abs_err")}
@@ -734,7 +829,9 @@ def main() -> int:
     smi = phase_device()
     net = load_denoiser("demo", device=dev)
     runner = BatchRunner(net)  # the default VAD config, device FSM
-    kernels = [phase_gru(net, dev), phase_fsm(runner.st, dev)]
+    kernels = [phase_gru(net, dev)]
+    check_lbr0(dev)
+    kernels.append(phase_fsm(runner.st, dev))
     audio = slice_audio()
     launches, float_results, float_wall = phase_slice(runner, audio, smi)
     with tempfile.TemporaryDirectory() as corpus:
@@ -743,7 +840,7 @@ def main() -> int:
         phase_entry_point(corpus)
         kernels.append(phase_q8_kernel(dev))
         launches["matmul_q8"] = phase_q8_slice(runner, audio, float_results, float_wall, corpus, smi)["matmul_q8"]
-        gate_rows, path_a = phase_gates(dev)
+        gate_rows, path_a = phase_gates(dev, kernels[0]["ms"])
         kernels += gate_rows
         path_b = phase_bf16_slice(runner, audio, float_results, float_wall, corpus, smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's

@@ -1,8 +1,9 @@
 // The per-gate NSNet2 GRU-stack recurrence for Hopper (sm_90a), with
-// float32 or bfloat16 weight operands.
+// bfloat16 weight operands.
 //
-// Replaces the three TPU kernels of benchmarks/gru_kernel_exp.py, which
-// compute one function with the rounding points in different places:
+// Replaces the bf16 forms of the three TPU kernels of
+// benchmarks/gru_kernel_exp.py, which compute one function with the
+// rounding points in different places:
 //   kernel 4  gru_stack_kernel   (body _kernel)    gi rounded to the weight
 //             dtype, per-gate weight slabs w9, h2 out in float32;
 //   kernel 5  gru_stack_kernel_p (body _kernel_p)  gi kept float32, packed
@@ -19,41 +20,37 @@
 //   z2 = s(h1 Wi2z + h2 Wh2z + b2z)   r2 = s(h1 Wi2r + h2 Wh2r + b2r)
 //   n2 = tanh((h1 Wi2n + bi2_n) + r2 (h2 Wh2n + bh2_n))
 //   h2 = (1 - z2) n2 + z2 h2
-// h1, h2 and the gate math stay float32. With bf16 weights each h is
-// rounded to bf16 before it enters a product, and the products accumulate
-// in float32: the TPU bodies' astype(w.dtype) then preferred_element_type =
-// f32. The order of the float32 sums is the card's own (within a product,
-// and layer 2's z and r sum both products in one accumulator).
+// h1, h2 and the gate math stay float32. Each h is rounded to bf16 before
+// it enters a product, and the products accumulate in float32: the TPU
+// bodies' astype(w.dtype) then preferred_element_type = f32. The order of
+// the float32 sums is the card's own (within a product, and layer 2's z and
+// r sum both products in one accumulator). The float32 forms of the three
+// kernels compute kernel 1's function and run on its body, csrc/gru_stack.cu.
 //
 // What bounds it on the H100: at the scoring shape (1,680 rows x 54 steps)
 // a call is 261 GFLOP of serial-step products (3 x [rows, 400] x [400, 1200]
-// per step). Float32 weights run on the CUDA cores (67 TFLOP/s peak: 3.9 ms
-// at best); bf16 weights run on the tensor cores (989 TFLOP/s: 0.26 ms),
-// where the limit that shows first is re-reading the 2.9 MB of bf16 weights
-// from L2 every step in every block.
+// per step) on the tensor cores (989 TFLOP/s: 0.26 ms), where the limit
+// that shows first is re-reading the 2.9 MB of bf16 weights from L2 every
+// step in every block.
 //
-// Design: as csrc/gru_stack.cu, the TPU's sequential time grid becomes a
-// loop inside the block; one block owns ROWS = 16 rows for all T steps and
-// their h never leaves the SM. Blocks are independent, so a row's result
-// does not depend on which block or tile holds it: kernel 6's `tile` only
-// reshapes the grid (blockIdx.y = tile, blockIdx.x = 16-row block in it)
-// and changes no bit.
-// - float32 weights (gates_fma): thread j owns hidden unit j; h1 and h2 sit
-//   in shared memory; each weight read from L2 feeds 16 FMAs (one per row);
-//   the gate math runs in the same thread.
-// - bf16 weights (gates_mma): mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-//   The 16 rows are one MMA M tile; 10 warps each own 5 tiles of 8 hidden
-//   units and hold, for each, the z, r and n accumulators of the same
-//   (row, unit) positions, so the gate math runs on the accumulator
-//   registers and h1, h2 stay in registers across steps. Shared memory
-//   holds only bf16(h1), bf16(h2) as the A operand (pitch 408, so the
-//   fragment loads hit 32 distinct banks). The wrapper packs each weight
-//   once into fragment order ([N/8][K/16][32 lanes] of 8 bytes), so a
-//   warp's B fragment is one coalesced 256-byte load.
-// - kernel 6: gi for step t+1 goes global -> shared memory by cp.async
-//   (double-buffered, zero-filled past N) while step t's products run: the
-//   TPU's make_async_copy + semaphores. Output is stored straight from
-//   registers in out_dtype (the TPU's out staging exists for its DMA).
+// Design (gates_mma): the TPU's sequential time grid becomes a loop inside
+// the block; one block owns ROWS = 16 rows for all T steps and their h
+// never leaves the SM. Blocks are independent, so a row's result does not
+// depend on which block or tile holds it: kernel 6's `tile` only reshapes
+// the grid (blockIdx.y = tile, blockIdx.x = 16-row block in it) and changes
+// no bit. mma.sync.m16n8k16 (bf16 in, f32 accumulate): the 16 rows are one
+// MMA M tile; 10 warps each own 5 tiles of 8 hidden units and hold, for
+// each, the z, r and n accumulators of the same (row, unit) positions, so
+// the gate math runs on the accumulator registers and h1, h2 stay in
+// registers across steps. Shared memory holds only bf16(h1), bf16(h2) as
+// the A operand (pitch 408, so the fragment loads hit 32 distinct banks).
+// The wrapper packs each weight once into fragment order ([N/8][K/16][32
+// lanes] of 8 bytes), so a warp's B fragment is one coalesced 256-byte
+// load.
+// Kernel 6: gi for step t+1 goes global -> shared memory by cp.async
+// (double-buffered, zero-filled past N) while step t's products run: the
+// TPU's make_async_copy + semaphores. Output is stored straight from
+// registers in out_dtype (the TPU's out staging exists for its DMA).
 // wgmma, TMA multicast of the weights across a cluster and filling all 132
 // SMs (1680 / 16 = 105 blocks) are for later.
 
@@ -67,7 +64,6 @@ constexpr int H = 400;
 constexpr int ROWS = 16;           // rows per block: one MMA M tile
 constexpr int UT = H / 8;          // 50 tiles of 8 hidden units (MMA N = 8)
 constexpr int KS = H / 16;         // 25 K steps of 16 (MMA K = 16)
-constexpr int FMA_THREADS = 416;   // 13 warps; threads j < H own unit j
 constexpr int MMA_WARPS = 10;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int UPW = UT / MMA_WARPS;  // 5 unit tiles per warp
@@ -79,9 +75,8 @@ using bf16 = __nv_bfloat16;
 // The nine weight slabs of one step, each [H, H]: wh1 z r n (seen by h1,
 // layer 1), wi2 z r n (seen by h1, layer 2), wh2 z r n (seen by h2,
 // layer 2); for kernel 5 slab 5 is wp2's n_i block and slab 8 its n_h
-// block. float32 form: w points at column 0 of the slab, stride = row
-// stride in floats. bf16 form: w points at unit tile 0, K step 0 of the
-// slab's fragments, stride = uint2s from one unit tile to the next.
+// block. w points at unit tile 0, K step 0 of the slab's fragments,
+// stride = uint2s from one unit tile to the next.
 struct Slabs {
   const void* w[9];
   int stride[9];
@@ -89,14 +84,10 @@ struct Slabs {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -126,136 +117,6 @@ __device__ __forceinline__ void prefetch_gi(GI* buf, const GI* const (&gi)[3], i
     cp_async16(buf + (gate * ROWS + r) * H + q * PER, src, valid);
   }
 }
-
-// ---------------------------------------------------------------- float32
-
-// acc_g[r] += sum_k hs[r][k] * w_g[k][j] for the three slabs g.
-__device__ __forceinline__ void matvec3(const float* __restrict__ hs, const Slabs& s, int first, int j,
-                                        float (&a0)[ROWS], float (&a1)[ROWS], float (&a2)[ROWS]) {
-  const float* w0 = static_cast<const float*>(s.w[first]) + j;
-  const float* w1 = static_cast<const float*>(s.w[first + 1]) + j;
-  const float* w2 = static_cast<const float*>(s.w[first + 2]) + j;
-  const int l0 = s.stride[first], l1 = s.stride[first + 1], l2 = s.stride[first + 2];
-  for (int k = 0; k < H; k += 4) {
-    float x0[4], x1[4], x2[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      x0[q] = __ldg(w0 + (size_t)(k + q) * l0);
-      x1[q] = __ldg(w1 + (size_t)(k + q) * l1);
-      x2[q] = __ldg(w2 + (size_t)(k + q) * l2);
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 hv = *reinterpret_cast<const float4*>(hs + r * H + k);
-      const float hq[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        a0[r] = fmaf(hq[q], x0[q], a0[r]);
-        a1[r] = fmaf(hq[q], x1[q], a1[r]);
-        a2[r] = fmaf(hq[q], x2[q], a2[r]);
-      }
-    }
-  }
-}
-
-template <typename GI, typename OUT, bool PREFETCH>
-__global__ void __launch_bounds__(FMA_THREADS, 1)
-gates_fma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __restrict__ gn, Slabs s,
-          const float* __restrict__ b8, OUT* __restrict__ out, int n_rows, int n_steps, int tile) {
-  extern __shared__ float4 smem4[];
-  float* h1 = reinterpret_cast<float*>(smem4);  // [ROWS][H]
-  float* h2 = h1 + ROWS * H;                     // [ROWS][H]
-  GI* gbuf = reinterpret_cast<GI*>(h2 + ROWS * H);  // kernel 6: [2][3][ROWS][H]
-  const int j = threadIdx.x;
-  const bool owner = j < H;
-  const int tile0 = blockIdx.y * tile;
-  const int row0 = tile0 + blockIdx.x * ROWS;
-  const int rows_here = min(ROWS, min(tile0 + tile, n_rows) - row0);
-  if (rows_here <= 0) return;  // the same for the whole block
-  const GI* const gi[3] = {gz, gr, gn};
-
-  for (int i = j; i < 2 * ROWS * H; i += FMA_THREADS) h1[i] = 0.0f;
-  float bh1n = 0.f, b2z = 0.f, b2r = 0.f, bi2n = 0.f, bh2n = 0.f;
-  if (owner) {
-    bh1n = b8[j]; b2z = b8[H + j]; b2r = b8[2 * H + j]; bi2n = b8[3 * H + j]; bh2n = b8[4 * H + j];
-  }
-  if (PREFETCH) {
-    prefetch_gi(gbuf, gi, row0, rows_here, n_steps, 0, j, FMA_THREADS);
-    cp_async_commit();
-  }
-  __syncthreads();
-
-  for (int t = 0; t < n_steps; ++t) {
-    if (PREFETCH) {
-      if (t + 1 < n_steps)
-        prefetch_gi(gbuf + ((t + 1) & 1) * 3 * ROWS * H, gi, row0, rows_here, n_steps, t + 1, j, FMA_THREADS);
-      cp_async_commit();  // possibly empty: keeps one group per step
-    }
-    // ---- layer 1
-    float az[ROWS], ar[ROWS], an[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) az[r] = ar[r] = an[r] = 0.0f;
-    if (owner) matvec3(h1, s, 0, j, az, ar, an);
-    if (PREFETCH) {
-      cp_async_wait_prev();  // this thread's copies of step t have landed
-      __syncthreads();       // and every other thread's
-    }
-    float h1new[ROWS];
-    if (owner) {
-      const GI* sb = gbuf + (t & 1) * 3 * ROWS * H;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        float xz = 0.f, xr = 0.f, xn = 0.f;
-        if (PREFETCH) {
-          xz = load1(sb + r * H + j);
-          xr = load1(sb + (ROWS + r) * H + j);
-          xn = load1(sb + (2 * ROWS + r) * H + j);
-        } else if (r < rows_here) {
-          const size_t o = ((size_t)(row0 + r) * n_steps + t) * H + j;
-          xz = load1(gz + o); xr = load1(gr + o); xn = load1(gn + o);
-        }
-        const float z = sigmoid(xz + az[r]);
-        const float rg = sigmoid(xr + ar[r]);
-        const float n = tanhf(xn + rg * (an[r] + bh1n));
-        h1new[r] = (1.0f - z) * n + z * h1[r * H + j];
-      }
-    }
-    __syncthreads();  // all reads of the old h1 (and of this step's gi) are done
-    if (owner) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) h1[r * H + j] = h1new[r];
-    }
-    __syncthreads();  // the new h1 is visible to every thread
-
-    // ---- layer 2: z and r sum both products in one accumulator each
-    float sz[ROWS], sr[ROWS], in[ROWS], hn[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) sz[r] = sr[r] = in[r] = hn[r] = 0.0f;
-    float h2new[ROWS];
-    if (owner) {
-      matvec3(h1, s, 3, j, sz, sr, in);
-      matvec3(h2, s, 6, j, sz, sr, hn);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float z = sigmoid(sz[r] + b2z);
-        const float rg = sigmoid(sr[r] + b2r);
-        const float n = tanhf((in[r] + bi2n) + rg * (hn[r] + bh2n));
-        h2new[r] = (1.0f - z) * n + z * h2[r * H + j];
-      }
-    }
-    __syncthreads();  // all reads of the old h2 are done
-    if (owner) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        h2[r * H + j] = h2new[r];
-        if (r < rows_here) store1(out + ((size_t)(row0 + r) * n_steps + t) * H + j, h2new[r]);
-      }
-    }
-    // The next reads of h2 follow the next step's two barriers.
-  }
-}
-
-// ---------------------------------------------------------------- bf16
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint2 b) {
   asm volatile(
@@ -424,51 +285,34 @@ gates_mma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __rest
 
 // ---------------------------------------------------------------- launch
 
-template <typename GI, typename OUT, bool PREFETCH, bool MMA>
+template <typename GI, typename OUT, bool PREFETCH>
 cudaError_t launch(const void* gz, const void* gr, const void* gn, const Slabs& s, const float* b8, void* out,
                    int n_rows, int n_steps, int tile, cudaStream_t stream) {
-  const size_t h_bytes = MMA ? 2 * ROWS * HP * sizeof(bf16) : 2 * ROWS * H * sizeof(float);
-  const size_t smem = h_bytes + (PREFETCH ? 2 * 3 * ROWS * H * sizeof(GI) : 0);
-  void (*kernel)(const GI*, const GI*, const GI*, Slabs, const float*, OUT*, int, int, int);
-  if constexpr (MMA) {
-    kernel = gates_mma<GI, OUT, PREFETCH>;
-  } else {
-    kernel = gates_fma<GI, OUT, PREFETCH>;
-  }
+  const size_t smem = 2 * ROWS * HP * sizeof(bf16) + (PREFETCH ? 2 * 3 * ROWS * H * sizeof(GI) : 0);
+  void (*kernel)(const GI*, const GI*, const GI*, Slabs, const float*, OUT*, int, int, int) =
+      gates_mma<GI, OUT, PREFETCH>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((tile + ROWS - 1) / ROWS, (n_rows + tile - 1) / tile);
-  kernel<<<grid, MMA ? MMA_THREADS : FMA_THREADS, smem, stream>>>(
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const GI*>(gz), static_cast<const GI*>(gr), static_cast<const GI*>(gn), s, b8,
       static_cast<OUT*>(out), n_rows, n_steps, tile);
   return cudaGetLastError();
 }
 
-Slabs make_slabs(int kind, int w_bf16, const void* wa, const void* wb) {
+// Fragments of a [K][N] weight: [N / 8][K / 16][32] uint2.
+Slabs make_slabs(int kind, const void* wa, const void* wb) {
   Slabs s;
-  if (!w_bf16) {
-    const float* a = static_cast<const float*>(wa);
-    const float* b = static_cast<const float*>(wb);
-    if (kind != 5) {  // w9 [9][H][H]
-      for (int i = 0; i < 9; ++i) { s.w[i] = a + (size_t)i * H * H; s.stride[i] = H; }
-    } else {  // wp1 [H][3H] = z | r | n; wp2 [2H][4H]: h1 rows z | r | n_i | 0, h2 rows z | r | 0 | n_h
-      const float* bot = b + (size_t)H * 4 * H;
-      const float* w[9] = {a, a + H, a + 2 * H, b, b + H, b + 2 * H, bot, bot + H, bot + 3 * H};
-      for (int i = 0; i < 9; ++i) { s.w[i] = w[i]; s.stride[i] = i < 3 ? 3 * H : 4 * H; }
-    }
-  } else {
-    // Fragments of a [K][N] weight: [N / 8][K / 16][32] uint2.
-    const uint2* a = static_cast<const uint2*>(wa);
-    const uint2* b = static_cast<const uint2*>(wb);
-    if (kind != 5) {  // nine [H][H] slabs
-      for (int i = 0; i < 9; ++i) { s.w[i] = a + (size_t)i * UT * KS * FRAG; s.stride[i] = KS * FRAG; }
-    } else {  // wp1 [H][3H]: 150 unit tiles x 25 K steps; wp2 [2H][4H]: 200 x 50, h2 rows from K step 25
-      const int st = 2 * KS * FRAG;
-      const uint2* w[9] = {a, a + (size_t)UT * KS * FRAG, a + (size_t)2 * UT * KS * FRAG,
-                           b, b + (size_t)UT * st, b + (size_t)2 * UT * st,
-                           b + KS * FRAG, b + (size_t)UT * st + KS * FRAG, b + (size_t)3 * UT * st + KS * FRAG};
-      for (int i = 0; i < 9; ++i) { s.w[i] = w[i]; s.stride[i] = i < 3 ? KS * FRAG : st; }
-    }
+  const uint2* a = static_cast<const uint2*>(wa);
+  const uint2* b = static_cast<const uint2*>(wb);
+  if (kind != 5) {  // nine [H][H] slabs
+    for (int i = 0; i < 9; ++i) { s.w[i] = a + (size_t)i * UT * KS * FRAG; s.stride[i] = KS * FRAG; }
+  } else {  // wp1 [H][3H]: 150 unit tiles x 25 K steps; wp2 [2H][4H]: 200 x 50, h2 rows from K step 25
+    const int st = 2 * KS * FRAG;
+    const uint2* w[9] = {a, a + (size_t)UT * KS * FRAG, a + (size_t)2 * UT * KS * FRAG,
+                         b, b + (size_t)UT * st, b + (size_t)2 * UT * st,
+                         b + KS * FRAG, b + (size_t)UT * st + KS * FRAG, b + (size_t)3 * UT * st + KS * FRAG};
+    for (int i = 0; i < 9; ++i) { s.w[i] = w[i]; s.stride[i] = i < 3 ? KS * FRAG : st; }
   }
   return s;
 }
@@ -480,35 +324,30 @@ extern "C" {
 const char* fvad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // kind 4, 5 or 6 (the TPU kernel replaced). gz, gr, gn [n_rows, n_steps, H]
-// (bf16 when gi_bf16, else float32); wa, wb the packed weights: float32
-// w9 [9, H, H] (kinds 4, 6) or wp1 [H, 3H] and wp2 [2H, 4H] (kind 5), or
-// their bf16 fragment packings when w_bf16; b8 [8, H] float32; out
-// [n_rows, n_steps, H] (bf16 when out_bf16, else float32); tile rows per
-// grid slice (1 <= tile <= n_rows). Kind 4 takes gi in the weight dtype
-// and writes float32; kind 5 takes float32 gi and writes float32; kind 6
-// takes gi in the weight dtype. All contiguous on the current device, gi
-// and out 16-byte aligned. Launches on `stream` and returns
+// (bf16 when gi_bf16, else float32); wa, wb the bf16 fragment packings of
+// w9 [9, H, H] (kinds 4, 6) or of wp1 [H, 3H] and wp2 [2H, 4H] (kind 5);
+// b8 [8, H] float32; out [n_rows, n_steps, H] (bf16 when out_bf16, else
+// float32); tile rows per grid slice (1 <= tile <= n_rows). Kind 4 takes
+// bf16 gi and writes float32; kind 5 takes float32 gi and writes float32;
+// kind 6 takes bf16 gi. All contiguous on the current device, gi and out
+// 16-byte aligned. Float32 weights (w_bf16 = 0) are refused: those forms
+// run on csrc/gru_stack.cu. Launches on `stream` and returns
 // cudaGetLastError().
 int fvad_gru_gates(int kind, int w_bf16, int gi_bf16, int out_bf16, const void* gz, const void* gr,
                    const void* gn, const void* wa, const void* wb, const float* b8, void* out, int n_rows,
                    int n_steps, int tile, void* stream) {
-  const bool ok = n_rows > 0 && n_steps > 0 && tile >= 1 && tile <= n_rows &&
-                  ((kind == 4 && gi_bf16 == w_bf16 && !out_bf16 && tile == n_rows) ||
-                   (kind == 5 && !gi_bf16 && !out_bf16 && tile == n_rows) || (kind == 6 && gi_bf16 == w_bf16));
+  const bool ok = w_bf16 && n_rows > 0 && n_steps > 0 && tile >= 1 && tile <= n_rows &&
+                  ((kind == 4 && gi_bf16 && !out_bf16 && tile == n_rows) ||
+                   (kind == 5 && !gi_bf16 && !out_bf16 && tile == n_rows) || (kind == 6 && gi_bf16));
   if (!ok) return (int)cudaErrorInvalidValue;
-  const Slabs s = make_slabs(kind, w_bf16, wa, wb);
+  const Slabs s = make_slabs(kind, wa, wb);
   const cudaStream_t st = (cudaStream_t)stream;
   if (kind == 6) {
-    if (w_bf16) {
-      return out_bf16 ? (int)launch<bf16, bf16, true, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
-                      : (int)launch<bf16, float, true, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
-    }
-    return out_bf16 ? (int)launch<float, bf16, true, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
-                    : (int)launch<float, float, true, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+    return out_bf16 ? (int)launch<bf16, bf16, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
+                    : (int)launch<bf16, float, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
   }
-  if (!w_bf16) return (int)launch<float, float, false, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
-  return gi_bf16 ? (int)launch<bf16, float, false, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
-                 : (int)launch<float, float, false, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+  return gi_bf16 ? (int)launch<bf16, float, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
+                 : (int)launch<float, float, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
 }
 
 }  // extern "C"

@@ -1,12 +1,23 @@
 // NSNet2 GRU-stack recurrence for Hopper (sm_90a), float32.
 //
-// Replaces the TPU kernel formula_vad_tpu/models/nsnet2_pallas.py::
-// gru_stack_pallas (body _kernel): both GRU layers (H = 400, ONNX z|r|n
-// gate order, linear_before_reset = 1) stepped T times from h = 0 over the
-// precomputed layer-1 input projection gi1 [N, T, 3H]; out = the layer-2
-// hidden sequence [N, T, H]. Per step and row:
+// Replaces four TPU kernels that compute one function in float32: both GRU
+// layers (H = 400, ONNX z|r|n gate order, linear_before_reset = 1) stepped
+// T times from h = 0 over the precomputed layer-1 input projection; out =
+// the layer-2 hidden sequence [N, T, H]. Per step and row:
 //   gh1 = h1 Wh1 + bh1;  h1 = gates(gi1[t], gh1, h1)
 //   gi2 = h1 Wi2 + bi2;  gh2 = h2 Wh2 + bh2;  h2 = gates(gi2, gh2, h2)
+// - formula_vad_tpu/models/nsnet2_pallas.py::gru_stack_pallas (body
+//   _kernel), kernel 1: gi1 [N, T, 3H], the biases as the ONNX GRU has them;
+// - the float32 forms of benchmarks/gru_kernel_exp.py::gru_stack_kernel,
+//   gru_stack_kernel_p and gru_stack_kernel_f (kernels 4-6): gi as three
+//   per-gate arrays [N, T, H] (bi1 + bh1 folded into z and r, bi1 into n),
+//   the biases as the triple bh1 = [0, 0, bh1_n], bi2 = [bi2_z + bh2_z,
+//   bi2_r + bh2_r, bi2_n], bh2 = [0, 0, bh2_n] (adding 0.0 is exact, so the
+//   gate sums below are theirs term for term), h2 out in float32 or, for
+//   kernel 6, bf16. Their bf16 forms are csrc/gru_gates.cu.
+// The gi of gate g at (row, step) is gi_g + (row * T + step) * gi_stride:
+// kernel 1 passes gi1, gi1 + H, gi1 + 2H with stride 3H, the per-gate forms
+// their three arrays with stride H.
 //
 // What bounds it on the H100: the T steps are serial, and each step is
 // three [N, 400] x [400, 1200] products whose operands are the whole 5.8 MB
@@ -36,13 +47,19 @@
 // rows, where one block per 16 rows read 605 MB).
 // h1 and h2 are written inside the kernel, so they are read only through
 // L2 (cp.async.cg, ld.global.cg): the SM's L1 may hold stale lines.
+// With float32 out, h2[t-1] is read back from out. With bf16 out, h2 stays
+// float32 in a ping-pong scratch like h1's (phase 2 of step t reads h2[t-1]
+// and writes the other half; the barrier of step t+1 separates those reads
+// from the next write) and is rounded once on its way to out.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int H = 400;
-constexpr int G = 3 * H;
 constexpr int UNIT_TILE = 40;                // hidden units per tile: 120 gate columns
 constexpr int UNIT_GROUPS = H / UNIT_TILE;   // 10
 constexpr int UM = 4;                        // units per thread: one float4
@@ -63,18 +80,24 @@ constexpr int STAGE_FLOATS = ROW_TILE_MAX * HP + KC * WCOLS;
 constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * sizeof(float);  // 173,568
 static_assert(THREADS % (KC / 4) == 0 && (KC * WCOLS / 4) % THREADS == 0 && KC % 8 == 0, "staging layout");
 
+using bf16 = __nv_bfloat16;
+
+template <typename OUT>
 struct Params {
-  const float* gi1;  // [n_rows, n_steps, G]
+  const float* gi_z;  // [n_rows, n_steps, gi_stride] each; the gate's H columns first
+  const float* gi_r;
+  const float* gi_n;
   const float* wh1;  // [UNIT_GROUPS, H, 3 * UNIT_TILE] each: packed by unit group
   const float* wi2;
   const float* wh2;
-  const float* bh1;  // [G] each
+  const float* bh1;  // [3H] each
   const float* bi2;
   const float* bh2;
-  float* out;        // [n_rows, n_steps, H]: h2 of every step
+  OUT* out;          // [n_rows, n_steps, H]: h2 of every step
   float* h1;         // [2, n_rows, H]: h1 of steps t-1 and t
+  float* h2;         // bf16 out only: [2, n_rows, H], h2 of steps t-1 and t
   unsigned int* barrier;  // zero at launch
-  int n_rows, n_steps, row_tile, unit_groups, tiles;
+  int gi_stride, n_rows, n_steps, row_tile, unit_groups, tiles;
 };
 
 // A product's operands for one tile: rows of h (row stride in floats) and
@@ -176,8 +199,9 @@ __device__ __forceinline__ void mac_chunk(const float* st, int ty, int tx, float
 }
 
 // One phase of one tile: LAYER2 = false computes h1[t], true computes h2[t].
-template <bool LAYER2>
-__device__ void tile_phase(const Params& p, float* smem, int t, int tile) {
+template <bool LAYER2, typename OUT>
+__device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
+  constexpr bool H2_IN_OUT = std::is_same<OUT, float>::value;  // else in the h2 scratch
   const int tx = threadIdx.x % TU, ty = threadIdx.x / TU;
   const int rg = tile / p.unit_groups, ug = tile % p.unit_groups;
   const int row0 = rg * p.row_tile;
@@ -192,11 +216,20 @@ __device__ void tile_phase(const Params& p, float* smem, int t, int tile) {
   const float* h1_prev = p.h1 + (size_t)((t + 1) & 1) * rows_h;
   float* h1_cur = p.h1 + (size_t)(t & 1) * rows_h;
   const size_t out_stride = (size_t)p.n_steps * H;
+  const float* h2_prev;  // row 0 of h2[t-1] (layer 2, t > 0)
+  size_t h2_stride;
+  if constexpr (H2_IN_OUT) {
+    h2_prev = p.out + (size_t)(t - 1) * H;
+    h2_stride = out_stride;
+  } else {
+    h2_prev = p.h2 + (size_t)((t + 1) & 1) * rows_h;
+    h2_stride = H;
+  }
 
   // Layer 1: h1[t-1] Wh1 (nothing at t = 0: h = 0). Layer 2: h1[t] Wi2,
   // then h2[t-1] Wh2 (from t = 1); the n sums of the two stay apart.
   const Operand a = LAYER2 ? Operand{h1_cur, (size_t)H, p.wi2} : Operand{h1_prev, (size_t)H, p.wh1};
-  const Operand b = {p.out + (size_t)(t - 1) * H, out_stride, p.wh2};  // layer 2 only
+  const Operand b = {h2_prev, h2_stride, p.wh2};  // layer 2 only
   const int total = LAYER2 ? (t > 0 ? 2 * CHUNKS : CHUNKS) : (t > 0 ? CHUNKS : 0);
   const int swap_at = LAYER2 ? CHUNKS : -1;
   // Chunk c of the phase: its operands picked field by field, so that the
@@ -257,17 +290,18 @@ __device__ void tile_phase(const Params& p, float* smem, int t, int tile) {
   for (int i = 0; i < RM; ++i) {
     const size_t row = row0 + ty + TR * i;
     const bool valid = ty + TR * i < rows_here;
-    const float* prev = LAYER2 ? p.out + row * out_stride + (size_t)(t - 1) * H : h1_prev + row * H;
+    const float* prev = LAYER2 ? h2_prev + row * h2_stride : h1_prev + row * H;
     hold[i] = valid && t > 0 ? __ldcg(reinterpret_cast<const float4*>(prev + u0)) : zero;
     if (!LAYER2) {
-      const float* g = p.gi1 + (row * p.n_steps + t) * G + u0;
-      gz[i] = valid ? __ldcs(reinterpret_cast<const float4*>(g)) : zero;
-      gr[i] = valid ? __ldcs(reinterpret_cast<const float4*>(g + H)) : zero;
-      gn[i] = valid ? __ldcs(reinterpret_cast<const float4*>(g + 2 * H)) : zero;
+      const size_t g = (row * p.n_steps + t) * p.gi_stride + u0;
+      gz[i] = valid ? __ldcs(reinterpret_cast<const float4*>(p.gi_z + g)) : zero;
+      gr[i] = valid ? __ldcs(reinterpret_cast<const float4*>(p.gi_r + g)) : zero;
+      gn[i] = valid ? __ldcs(reinterpret_cast<const float4*>(p.gi_n + g)) : zero;
     }
   }
-  // Biases by the global gate column g*H + unit. Layer 1: bh1 (gi1 holds
-  // bi1). Layer 2: bi2 (c*) and bh2 (b*), which stay apart in the n gate.
+  // Biases by the global gate column g*H + unit. Layer 1: bh1 (gi holds
+  // bi1, or the per-gate forms' folding). Layer 2: bi2 (c*) and bh2 (b*),
+  // which stay apart in the n gate.
   const float* b1 = LAYER2 ? p.bh2 : p.bh1;
   const float4 bz = __ldg(reinterpret_cast<const float4*>(b1 + u0));
   const float4 br = __ldg(reinterpret_cast<const float4*>(b1 + H + u0));
@@ -294,12 +328,21 @@ __device__ void tile_phase(const Params& p, float* smem, int t, int tile) {
       }
       set(hnew, u, (1.0f - z) * n + z * get(hold[i], u));
     }
-    float* dst = LAYER2 ? p.out + row * out_stride + (size_t)t * H : h1_cur + row * H;
-    *reinterpret_cast<float4*>(dst + u0) = hnew;
+    if constexpr (!LAYER2) {
+      *reinterpret_cast<float4*>(h1_cur + row * H + u0) = hnew;
+    } else if constexpr (H2_IN_OUT) {
+      *reinterpret_cast<float4*>(p.out + row * out_stride + (size_t)t * H + u0) = hnew;
+    } else {
+      *reinterpret_cast<float4*>(p.h2 + (size_t)(t & 1) * rows_h + row * H + u0) = hnew;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(hnew.x, hnew.y), hi = __floats2bfloat162_rn(hnew.z, hnew.w);
+      *reinterpret_cast<uint2*>(p.out + row * out_stride + (size_t)t * H + u0) =
+          make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) gru_stack_kernel(Params p) {
+template <typename OUT>
+__global__ void __launch_bounds__(THREADS, 1) gru_stack_kernel(Params<OUT> p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   unsigned int target = 0;
@@ -311,11 +354,39 @@ __global__ void __launch_bounds__(THREADS, 1) gru_stack_kernel(Params p) {
   }
 }
 
+template <typename OUT>
 cudaError_t blocks_per_sm(int* blocks) {
   const cudaError_t err =
-      cudaFuncSetAttribute(gru_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      cudaFuncSetAttribute(gru_stack_kernel<OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gru_stack_kernel, THREADS, SMEM_BYTES);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gru_stack_kernel<OUT>, THREADS, SMEM_BYTES);
+}
+
+// Refuses a plan that does not cover the rows exactly, or a grid the
+// device cannot hold at once (the grid barrier would deadlock), before any
+// launch; then launches cooperatively.
+template <typename OUT>
+cudaError_t launch(Params<OUT> p, int row_groups, int grid, cudaStream_t stream) {
+  if (p.n_rows < 1 || p.n_steps < 1 || p.row_tile < 1 || p.row_tile > ROW_TILE_MAX || p.unit_groups != UNIT_GROUPS ||
+      row_groups < 1 || (long long)row_groups * p.row_tile < p.n_rows ||
+      (long long)(row_groups - 1) * p.row_tile >= p.n_rows)
+    return cudaErrorInvalidValue;
+  const long long tiles = (long long)row_groups * p.unit_groups;
+  if (grid < 1 || grid > tiles) return cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  int dev = 0, coop = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = blocks_per_sm<OUT>(&blocks);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  if (grid > blocks * sms) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)gru_stack_kernel<OUT>, dim3(grid), dim3(THREADS), args, SMEM_BYTES,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -326,39 +397,36 @@ const char* fvad_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 // How many CTAs of the kernel one SM of the current device holds at once,
 // with the shared memory the launch uses; the host's launch plan needs it.
-int fvad_gru_stack_blocks_per_sm(int* blocks) { return (int)blocks_per_sm(blocks); }
+int fvad_gru_stack_blocks_per_sm(int* blocks) { return (int)blocks_per_sm<float>(blocks); }
 
-// gi1 [n_rows, n_steps, 3H]; wh1, wi2, wh2 packed by unit group
-// [UNIT_GROUPS, H, 3 * UNIT_TILE] (models/nsnet2_cuda.py::pack); bh1, bi2, bh2 [3H];
-// out [n_rows, n_steps, H]; h1 scratch [2, n_rows, H]; barrier: one zeroed
-// unsigned int. All float32, contiguous, on the current device. The plan
-// (row_tile, row_groups, unit_groups, grid) comes from the host. A plan that
-// does not cover the rows exactly, or a grid the device cannot hold at once
-// (the grid barrier would deadlock), is refused before any launch. Launches
-// cooperatively on `stream`; returns the launch's cudaError_t.
-int fvad_gru_stack(const float* gi1, const float* wh1, const float* bh1, const float* wi2,
-                   const float* bi2, const float* wh2, const float* bh2, float* out, float* h1,
-                   unsigned int* barrier, int n_rows, int n_steps, int row_tile, int row_groups,
-                   int unit_groups, int grid, void* stream) {
-  if (n_rows < 1 || n_steps < 1 || row_tile < 1 || row_tile > ROW_TILE_MAX || unit_groups != UNIT_GROUPS ||
-      row_groups < 1 || (long long)row_groups * row_tile < n_rows || (long long)(row_groups - 1) * row_tile >= n_rows)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)row_groups * unit_groups;
-  if (grid < 1 || grid > tiles) return (int)cudaErrorInvalidValue;
-  int dev = 0, coop = 0, sms = 0, blocks = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = blocks_per_sm(&blocks);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if (grid > blocks * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
-  Params p{gi1, wh1, wi2, wh2, bh1, bi2, bh2, out, h1, barrier, n_rows, n_steps, row_tile, unit_groups, (int)tiles};
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)gru_stack_kernel, dim3(grid), dim3(THREADS), args, SMEM_BYTES,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+// gi_z, gi_r, gi_n: the three gates' columns of row 0, step 0, each step
+// gi_stride floats after the last (kernel 1: gi1, gi1 + H, gi1 + 2H, stride
+// 3H; the per-gate forms: three [n_rows, n_steps, H] arrays, stride H); wh1,
+// wi2, wh2 packed by unit group [UNIT_GROUPS, H, 3 * UNIT_TILE]
+// (models/nsnet2_cuda.py::pack); bh1, bi2, bh2 [3H]; out [n_rows, n_steps,
+// H], bf16 when out_bf16, else float32; h1 scratch [2, n_rows, H]; h2
+// scratch [2, n_rows, H] when out_bf16, else unused; barrier: one zeroed
+// unsigned int. All float32 but a bf16 out, contiguous and 16-byte aligned,
+// on the current device. The plan (row_tile, row_groups, unit_groups, grid)
+// comes from the host. A plan that does not cover the rows exactly, or a
+// grid the device cannot hold at once (the grid barrier would deadlock), is
+// refused before any launch. Launches cooperatively on `stream`; returns
+// the launch's cudaError_t.
+int fvad_gru_stack(const float* gi_z, const float* gi_r, const float* gi_n, const float* wh1, const float* bh1,
+                   const float* wi2, const float* bi2, const float* wh2, const float* bh2, void* out, float* h1,
+                   float* h2, unsigned int* barrier, int gi_stride, int out_bf16, int n_rows, int n_steps,
+                   int row_tile, int row_groups, int unit_groups, int grid, void* stream) {
+  if (gi_stride < H || gi_stride % 4) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (out_bf16) {
+    if (!h2) return (int)cudaErrorInvalidValue;
+    return (int)launch(Params<bf16>{gi_z, gi_r, gi_n, wh1, wi2, wh2, bh1, bi2, bh2, static_cast<bf16*>(out), h1, h2,
+                                    barrier, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
+                       row_groups, grid, st);
+  }
+  return (int)launch(Params<float>{gi_z, gi_r, gi_n, wh1, wi2, wh2, bh1, bi2, bh2, static_cast<float*>(out), h1,
+                                   nullptr, barrier, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
+                     row_groups, grid, st);
 }
 
 }  // extern "C"

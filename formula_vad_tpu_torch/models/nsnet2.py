@@ -24,7 +24,9 @@ from h = 0. Under the int8 tier (``ops/precision.set_quant("int8")`` or
 ``FVAD_QUANT=int8``) a network whose GRUs both have linear_before_reset = 1
 runs ``nsnet2_q8.forward_q8`` instead, as the reference's
 ``apply_streaming`` routes to ``apply_streaming_q8``; lbr = 0 weights keep
-the float path.
+the float path. There, on any device, their recurrence runs the plain
+per-step loop ``nsnet2_cuda.gru_stack_reference``: the kernel takes lbr = 1
+only, and the JAX package too scans lbr = 0 weights outside its kernel.
 """
 
 from __future__ import annotations
@@ -113,10 +115,11 @@ class NSNet2(nn.Module):
 
             ys = gru_gates_p(self, *gi_gates(self, x), dtype=torch.bfloat16)  # [N, T, H]
         else:
-            from .nsnet2_cuda import gru_stack
+            from .nsnet2_cuda import gru_stack, gru_stack_reference
 
             gi1 = precision.matmul(x, self.gru1.wi, "gru_i") + self.gru1.bi  # [N, T, 3H]
-            ys = gru_stack(self, gi1.contiguous())  # [N, T, H]
+            lbr = self.gru1.linear_before_reset and self.gru2.linear_before_reset
+            ys = (gru_stack if lbr else gru_stack_reference)(self, gi1.contiguous())  # [N, T, H]
         if out_frames is not None and out_frames < t:
             ys = ys[:, t - out_frames :]
         gains = self.head(ys)

@@ -14,6 +14,11 @@ launch per call over tiles of rows x hidden units whose sizes and grid the
 host computes (``launch_plan``, a pure function the CPU tests check); CPU
 tensors go to ``gru_stack_reference``, a per-step loop of ``torch.matmul``
 and gate math that defines what the kernel computes.
+
+The same kernel runs the float32 forms of the per-gate kernels of
+``nsnet2_gates_cuda`` (``gru_stack_gates``): their function is this one,
+with gi given as three per-gate arrays, the biases folded otherwise and,
+for kernel 6, h2 stored in bf16.
 """
 
 from __future__ import annotations
@@ -141,7 +146,7 @@ def packed_weights(net: NSNet2) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
 @functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_stack")
-    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.fvad_gru_stack.restype = ctypes.c_int
     lib.fvad_gru_stack_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fvad_gru_stack_blocks_per_sm.restype = ctypes.c_int
@@ -167,15 +172,55 @@ def device_plan(n_rows: int, dev: torch.device) -> LaunchPlan:
     return launch_plan(n_rows, *_card(dev.index if dev.index is not None else torch.cuda.current_device()))
 
 
-def _check_operand(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
+def _check_operand(what: str, name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
     if x.device != device or x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
         raise ValueError(
-            f"gru_stack: {name} must be a contiguous float32 tensor of shape {shape} on "
+            f"{what}: {name} must be a contiguous float32 tensor of shape {shape} on "
             f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}"
             f"{'' if x.is_contiguous() else ' (not contiguous)'}"
         )
     if x.device.type == "cuda" and x.data_ptr() % 16:
-        raise ValueError(f"gru_stack: {name} must be 16-byte aligned (the kernel reads float4s)")
+        raise ValueError(f"{what}: {name} must be 16-byte aligned (the kernel reads float4s)")
+
+
+def _check_net(what: str, net: NSNet2, biases: tuple, device: torch.device) -> None:
+    """The recurrent weights and the bias triple the kernel reads."""
+    if not (net.gru1.linear_before_reset and net.gru2.linear_before_reset):
+        raise NotImplementedError(f"{what}: the CUDA GRU-stack kernel supports linear_before_reset=1 GRUs only")
+    for name, w in zip(("wh1", "wi2", "wh2"), (net.gru1.wh, net.gru2.wi, net.gru2.wh)):
+        _check_operand(what, name, w, (HIDDEN, G3), device)
+    for name, b in zip(("bh1", "bi2", "bh2"), biases):
+        _check_operand(what, name, b, (G3,), device)
+
+
+def _launch(gi: tuple[int, int, int], gi_stride: int, shape: tuple[int, int], dev: torch.device,
+            net: NSNet2, biases: tuple, out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of the kernel on checked operands: ``gi`` the addresses
+    of the z, r and n columns of row 0, step 0, each (row, step)
+    ``gi_stride`` floats after the last -> h2 [N, T, 400] in ``out_dtype``
+    (float32, or bf16 with h2 kept float32 inside). Counts nothing: each
+    caller counts its own launches."""
+    n, t = shape
+    out = torch.empty((n, t, HIDDEN), dtype=out_dtype, device=dev)
+    if n == 0 or t == 0:
+        return out
+    lib = _lib()
+    plan = device_plan(n, dev)
+    wh1, wi2, wh2 = packed_weights(net)
+    bh1, bi2, bh2 = biases
+    bf16_out = out_dtype == torch.bfloat16
+    # h1 of steps t-1 and t, then (bf16 out only) h2 of steps t-1 and t.
+    scratch = torch.empty((4 if bf16_out else 2, n, HIDDEN), dtype=torch.float32, device=dev)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fvad_gru_stack(
+            *gi, wh1.data_ptr(), bh1.data_ptr(), wi2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(), bh2.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), scratch[2].data_ptr() if bf16_out else None, barrier.data_ptr(),
+            gi_stride, int(bf16_out), n, t, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid, stream,
+        )
+    _build.check(lib, err, "gru_stack launch")
+    return out
 
 
 def gru_stack(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
@@ -187,36 +232,39 @@ def gru_stack(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
         return gru_stack_reference(net, gi1)
     if gi1.device.type != "cuda":
         raise ValueError(f"gru_stack: unsupported device {gi1.device}")
-    if not (net.gru1.linear_before_reset and net.gru2.linear_before_reset):
-        raise NotImplementedError("the CUDA GRU-stack kernel supports linear_before_reset=1 GRUs only")
+    biases = (net.gru1.bh, net.gru2.bi, net.gru2.bh)
+    _check_net("gru_stack", net, biases, gi1.device)
     if gi1.dim() != 3:
         raise ValueError(f"gru_stack: gi1 must be [N, T, {G3}], got {tuple(gi1.shape)}")
     n, t, _ = gi1.shape
-    dev = gi1.device
-    _check_operand("gi1", gi1, (n, t, G3), dev)
-    weights = (
-        net.gru1.wh, net.gru1.bh, net.gru2.wi, net.gru2.bi, net.gru2.wh, net.gru2.bh,
-    )
-    for name, w in zip(("wh1", "bh1", "wi2", "bi2", "wh2", "bh2"), weights):
-        _check_operand(name, w, (HIDDEN, G3) if w.dim() == 2 else (G3,), dev)
-    out = torch.empty((n, t, HIDDEN), dtype=torch.float32, device=dev)
-    if n == 0 or t == 0:
-        return out
-    lib = _lib()
-    plan = device_plan(n, dev)
-    wh1, wi2, wh2 = packed_weights(net)
-    h1 = torch.empty((2, n, HIDDEN), dtype=torch.float32, device=dev)  # h1 of steps t-1 and t
-    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fvad_gru_stack(
-            gi1.data_ptr(), wh1.data_ptr(), net.gru1.bh.data_ptr(), wi2.data_ptr(), net.gru2.bi.data_ptr(),
-            wh2.data_ptr(), net.gru2.bh.data_ptr(), out.data_ptr(), h1.data_ptr(), barrier.data_ptr(),
-            n, t, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid, stream,
-        )
-    _build.check(lib, err, "gru_stack launch")
-    gru_stack.launches += 1
+    _check_operand("gru_stack", "gi1", gi1, (n, t, G3), gi1.device)
+    g = gi1.data_ptr()
+    out = _launch((g, g + 4 * HIDDEN, g + 8 * HIDDEN), G3, (n, t), gi1.device, net, biases, torch.float32)
+    if n and t:
+        gru_stack.launches += 1
     return out
 
 
 gru_stack.launches = 0
+
+
+def gru_stack_gates(net: NSNet2, gi: tuple, biases: tuple, out_dtype: torch.dtype) -> torch.Tensor:
+    """The float32 forms of the per-gate kernels 4-6 (``nsnet2_gates_cuda``)
+    on this kernel: CUDA tensors ``gi = (gi_z, gi_r, gi_n)``, each [N, T,
+    400] float32, and the bias triple ``biases = (bh1, bi2, bh2)``
+    (``nsnet2_gates_cuda.stacked_biases``) -> h2 [N, T, 400] in
+    ``out_dtype`` (float32 or bf16). Raises on anything else. The launch is
+    not counted here: the per-gate wrappers count their own."""
+    what = "gru_stack_gates"
+    dev = gi[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: needs CUDA tensors, got {dev}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _check_net(what, net, biases, dev)
+    if len(gi) != 3 or gi[0].dim() != 3:
+        raise ValueError(f"{what}: gi must be three [N, T, {HIDDEN}] tensors")
+    n, t, _ = gi[0].shape
+    for name, x in zip(("gi_z", "gi_r", "gi_n"), gi):
+        _check_operand(what, name, x, (n, t, HIDDEN), dev)
+    return _launch(tuple(x.data_ptr() for x in gi), HIDDEN, (n, t), dev, net, biases, out_dtype)

@@ -27,8 +27,12 @@ the TPU kernel's, without the lane padding: ``wp1 = wh1`` [400, 1200] and
 rows are ``wh2`` z | r | 0 | n_h, so layer 2 is one product of
 ``[h1 | h2]``.
 
-CUDA tensors go to the kernels in ``csrc/gru_gates.cu``; CPU tensors go to
-the ``*_reference`` plain versions, per-step loops of ``torch.matmul`` on
+In float32 the three compute kernel 1's function (``nsnet2_cuda``), so
+on the card they run on its kernel, ``csrc/gru_stack.cu``, through
+``nsnet2_cuda.gru_stack_gates``: its packed weights, and its bias vectors
+built once from the per-gate folding (``stacked_biases``). In bf16 CUDA
+tensors go to the kernels in ``csrc/gru_gates.cu``. CPU tensors go to the
+``*_reference`` plain versions, per-step loops of ``torch.matmul`` on
 bf16-rounded operands held in float32 (TF32 off), which reproduce every
 rounding point of their kernel. Weights are packed once per network and
 dtype (``gate_weights``, cached on the module); a bf16 kernel reads them in
@@ -45,7 +49,8 @@ import torch
 
 from .. import _build
 from ..ops import precision
-from .nsnet2 import HIDDEN, NSNet2
+from . import nsnet2_cuda
+from .nsnet2 import HIDDEN, NSNet2, weights_key
 
 H = HIDDEN
 DTYPES = (torch.float32, torch.bfloat16)
@@ -83,6 +88,16 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32).reshape(n // 8, k // 16, 32, 2)
 
 
+def fold_biases(net: NSNet2) -> torch.Tensor:
+    """The per-gate kernels' biases b8 [8, H] float32: bh1_n,
+    bi2_z + bh2_z, bi2_r + bh2_r, bi2_n, bh2_n, 0, 0, 0."""
+    g1, g2 = net.gru1, net.gru2
+    return torch.stack(
+        [g1.bh[2 * H :], g2.bi[:H] + g2.bh[:H], g2.bi[H : 2 * H] + g2.bh[H : 2 * H], g2.bi[2 * H :], g2.bh[2 * H :]]
+        + [g2.bh.new_zeros(H)] * 3
+    ).contiguous()
+
+
 def pack(net: NSNet2, dtype: torch.dtype) -> GateWeights:
     """Pack ``net``'s recurrent weights for the kernels, in ``dtype``."""
     if dtype not in DTYPES:
@@ -96,11 +111,7 @@ def pack(net: NSNet2, dtype: torch.dtype) -> GateWeights:
     zero = g2.wi.new_zeros((H, H))
     (iz, ir, in_), (hz, hr, hn) = slabs(g2.wi), slabs(g2.wh)
     wp2 = torch.cat([torch.cat([iz, ir, in_, zero], dim=1), torch.cat([hz, hr, zero, hn], dim=1)])
-    b8 = torch.stack(
-        [g1.bh[2 * H :], g2.bi[:H] + g2.bh[:H], g2.bi[H : 2 * H] + g2.bh[H : 2 * H], g2.bi[2 * H :], g2.bh[2 * H :]]
-        + [g2.bh.new_zeros(H)] * 3
-    ).contiguous()
-    gw = GateWeights(dtype, w9, g1.wh.to(dtype).contiguous(), wp2.to(dtype).contiguous(), b8)
+    gw = GateWeights(dtype, w9, g1.wh.to(dtype).contiguous(), wp2.to(dtype).contiguous(), fold_biases(net))
     if dtype == torch.bfloat16:
         gw = dataclasses.replace(
             gw,
@@ -111,19 +122,40 @@ def pack(net: NSNet2, dtype: torch.dtype) -> GateWeights:
     return gw
 
 
-def gate_weights(net: NSNet2, dtype: torch.dtype) -> GateWeights:
-    """``pack(net, dtype)``, cached on the module and redone when its weights
-    move (``net.to``), are replaced, or are written in place
-    (``load_state_dict``, ``copy_``: their version counters move). Tensors
-    made under ``torch.inference_mode`` keep no version counter, so an
-    in-place write to one of those goes unseen."""
-    key = tuple((p.device, p.data_ptr(), None if p.is_inference() else p._version) for p in net.parameters())
+def _cached(net: NSNet2, slot, build):
+    """``build()``, cached on the module under ``slot`` and redone when its
+    weights move (``net.to``), are replaced, or are written in place
+    (``nsnet2.weights_key``)."""
+    key = weights_key(net)
     cache = net.__dict__.setdefault("_gates_cache", {})
-    hit = cache.get(dtype)
+    hit = cache.get(slot)
     if hit is None or hit[0] != key:
         with torch.no_grad():
-            hit = cache[dtype] = (key, pack(net, dtype))
+            hit = cache[slot] = (key, build())
     return hit[1]
+
+
+def gate_weights(net: NSNet2, dtype: torch.dtype) -> GateWeights:
+    """``pack(net, dtype)``, cached on the module (``_cached``)."""
+    return _cached(net, dtype, lambda: pack(net, dtype))
+
+
+def stacked_biases(net: NSNet2) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 forms' biases on the card: kernel 1's bias vectors (bh1,
+    bi2, bh2), each [3H], built from the per-gate folding b8
+    (``fold_biases``): bh1 = [0, 0, bh1_n], bi2 = [bi2_z + bh2_z,
+    bi2_r + bh2_r, bi2_n], bh2 = [0, 0, bh2_n]. Kernel 1 sums
+    gi_z + (h1 Wh1z + bh1_z) and h1 Wi2z + h2 Wh2z + (bi2_z + bh2_z); with
+    these vectors, and gi from ``gi_gates``, its gate sums are the per-gate
+    forms' term for term, as adding 0.0 is exact. Cached on the module
+    (``_cached``)."""
+
+    def build():
+        b8 = fold_biases(net)
+        zero = b8.new_zeros(H)
+        return torch.cat([zero, zero, b8[0]]), torch.cat([b8[1], b8[2], b8[3]]), torch.cat([zero, zero, b8[4]])
+
+    return _cached(net, "stacked_biases", build)
 
 
 def gi_gates(net: NSNet2, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -225,8 +257,8 @@ def _check(what: str, name: str, x: torch.Tensor, dtype: torch.dtype, shape: tup
         raise ValueError(f"{what}: {name} must be 16-byte aligned on the card")
 
 
-def _operands(what: str, net: NSNet2, gi: tuple, dtype: torch.dtype, gi_dtype) -> tuple[GateWeights, tuple]:
-    """Validate; -> (packed weights, gi cast to the kernel's gi dtype)."""
+def _operands(what: str, net: NSNet2, gi: tuple, dtype: torch.dtype, gi_dtype) -> tuple:
+    """Validate; -> gi cast to the kernel's gi dtype."""
     if not (net.gru1.linear_before_reset and net.gru2.linear_before_reset):
         raise NotImplementedError(f"{what}: the per-gate GRU kernels support linear_before_reset=1 GRUs only")
     if dtype not in DTYPES:
@@ -239,33 +271,43 @@ def _operands(what: str, net: NSNet2, gi: tuple, dtype: torch.dtype, gi_dtype) -
     gi = tuple(x.to(gi_dtype) for x in gi)
     for name, x in zip(("gi_z", "gi_r", "gi_n"), gi):
         _check(what, name, x, gi_dtype, tuple(gi[0].shape), dev)
-    return gate_weights(net, dtype), gi
+    return gi
 
 
-def _launch(wrapper, kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype, tile: int) -> torch.Tensor:
-    """Launch kernel ``kind`` and count it in ``wrapper.launches``."""
+def _launch_bf16(kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype, tile: int) -> torch.Tensor:
+    """One launch of the bf16 form of kernel ``kind`` (``csrc/gru_gates.cu``)."""
     n, t, _ = gi[0].shape
     dev = gi[0].device
-    bf = gw.dtype == torch.bfloat16
-    wa, wb = (gw.frag9, gw.frag9) if bf else (gw.w9, gw.w9)
-    if kind == 5:
-        wa, wb = (gw.frag1, gw.frag2) if bf else (gw.wp1, gw.wp2)
+    wa, wb = (gw.frag1, gw.frag2) if kind == 5 else (gw.frag9, gw.frag9)
     what = f"gru_gates kernel {kind}"
     for name, w in (("wa", wa), ("wb", wb), ("b8", gw.b8)):
         if w.device != dev:
             raise ValueError(f"{what}: weight {name} is on {w.device}, gi on {dev}")
     out = torch.empty((n, t, H), dtype=out_dtype, device=dev)
-    if n == 0 or t == 0:
-        return out
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fvad_gru_gates(
-            kind, int(bf), int(gi[0].dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            kind, 1, int(gi[0].dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
             *(x.data_ptr() for x in gi), wa.data_ptr(), wb.data_ptr(), gw.b8.data_ptr(), out.data_ptr(),
             n, t, tile, stream,
         )
     _build.check(lib, err, f"{what} launch")
+    return out
+
+
+def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype,
+            tile: int) -> torch.Tensor:
+    """Run kernel ``kind`` in ``dtype`` on the card and count the launch in
+    ``wrapper.launches``: float32 on kernel 1's kernel
+    (``nsnet2_cuda.gru_stack_gates``), bf16 on ``csrc/gru_gates.cu``."""
+    n, t, _ = gi[0].shape
+    if n == 0 or t == 0:
+        return torch.empty((n, t, H), dtype=out_dtype, device=gi[0].device)
+    if dtype == torch.float32:
+        out = nsnet2_cuda.gru_stack_gates(net, gi, stacked_biases(net), out_dtype)
+    else:
+        out = _launch_bf16(kind, gate_weights(net, dtype), gi, out_dtype, tile)
     wrapper.launches += 1
     return out
 
@@ -275,10 +317,10 @@ def gru_gates(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32)
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (counted in ``gru_gates.launches``) or raises."""
-    gw, gi = _operands("gru_gates", net, (gi_z, gi_r, gi_n), dtype, dtype)
+    gi = _operands("gru_gates", net, (gi_z, gi_r, gi_n), dtype, dtype)
     if gi[0].device.type == "cpu":
-        return gru_gates_reference(gw, *gi)
-    return _launch(gru_gates, 4, gw, gi, torch.float32, gi[0].shape[0])
+        return gru_gates_reference(gate_weights(net, dtype), *gi)
+    return _launch(gru_gates, 4, net, gi, dtype, torch.float32, gi[0].shape[0])
 
 
 def gru_gates_p(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -286,10 +328,10 @@ def gru_gates_p(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float3
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (counted in ``gru_gates_p.launches``) or raises."""
-    gw, gi = _operands("gru_gates_p", net, (gi_z, gi_r, gi_n), dtype, torch.float32)
+    gi = _operands("gru_gates_p", net, (gi_z, gi_r, gi_n), dtype, torch.float32)
     if gi[0].device.type == "cpu":
-        return gru_gates_p_reference(gw, *gi)
-    return _launch(gru_gates_p, 5, gw, gi, torch.float32, gi[0].shape[0])
+        return gru_gates_p_reference(gate_weights(net, dtype), *gi)
+    return _launch(gru_gates_p, 5, net, gi, dtype, torch.float32, gi[0].shape[0])
 
 
 def gru_gates_f(
@@ -298,21 +340,24 @@ def gru_gates_f(
 ) -> torch.Tensor:
     """Kernel 6: gi [N, T, H] (cast to ``dtype``) -> h2 [N, T, H] in
     ``out_dtype`` (default ``dtype``). ``tile`` rows per grid slice (default
-    all) is a schedule knob: it changes no bit of the result.
+    all) is the TPU kernel's schedule knob: it changes no bit of the result.
+    It is validated in every form, but only the bf16 kernel slices its grid
+    by it; in float32 the card's launch plan (``nsnet2_cuda.launch_plan``)
+    sets the grid whatever the tile.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (counted in ``gru_gates_f.launches``) or raises."""
     out_dtype = out_dtype or dtype
     if out_dtype not in DTYPES:
         raise ValueError(f"gru_gates_f: out_dtype must be one of {DTYPES}, got {out_dtype}")
-    gw, gi = _operands("gru_gates_f", net, (gi_z, gi_r, gi_n), dtype, dtype)
+    gi = _operands("gru_gates_f", net, (gi_z, gi_r, gi_n), dtype, dtype)
     n = gi[0].shape[0]
     if tile is not None and tile < 1:
         raise ValueError(f"gru_gates_f: tile must be a positive number of rows, got {tile}")
     tile = n if tile is None else min(int(tile), n)  # a tile past N covers the same rows as one of N
     if gi[0].device.type == "cpu":
-        return gru_gates_f_reference(gw, *gi, out_dtype=out_dtype)
-    return _launch(gru_gates_f, 6, gw, gi, out_dtype, tile)
+        return gru_gates_f_reference(gate_weights(net, dtype), *gi, out_dtype=out_dtype)
+    return _launch(gru_gates_f, 6, net, gi, dtype, out_dtype, tile)
 
 
 gru_gates.launches = 0

@@ -16,6 +16,7 @@ CUDA tensors go to the kernel in ``csrc/fsm_scan.cu``; CPU tensors go to
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -47,6 +48,15 @@ def _kahan_seed(ring: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s, c
 
 
+@functools.lru_cache(maxsize=16)
+def _param_tensors(raw: tuple[bytes, ...], device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The first five per-row parameters on ``device``, from their bytes
+    (``fsm.param_rows``): made once per content, rows and device, so calls
+    with the same parameters make no host-to-device copy. The kernel and
+    the plain version only read them."""
+    return tuple(torch.from_numpy(np.frombuffer(x, dt).copy()).to(device) for x, dt in zip(raw, fsm.PARAM_DTYPES))
+
+
 def _prepare(shape, params, min_volumes, carry, win_base):
     b = min_volumes.shape[0]
     dev = min_volumes.device
@@ -57,8 +67,7 @@ def _prepare(shape, params, min_volumes, carry, win_base):
         carry = {k: v.clone() for k, v in carry.items()}
     if win_base is None:
         win_base = torch.zeros((b,), dtype=torch.int32, device=dev)
-    rows = fsm.param_rows(params, b)
-    prm = [torch.from_numpy(x).to(dev) for x in rows[:5]]
+    prm = _param_tensors(tuple(x.tobytes() for x in fsm.param_rows(params, b)[:5]), dev)
     return carry, seed, win_base, prm
 
 
@@ -212,6 +221,7 @@ def scan_windows_reference(
     return WindowOutput(**outs), carry
 
 
+@functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fsm_scan", extra_flags=("-fmad=false",))
     p, i32 = ctypes.c_void_p, ctypes.c_int

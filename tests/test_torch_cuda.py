@@ -121,10 +121,11 @@ def test_gru_kernel_refuses_a_grid_that_cannot_be_resident(net, cuda_device):
     barrier = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     w = (net.gru1.wh, net.gru1.bh, net.gru2.wi, net.gru2.bi, net.gru2.wh, net.gru2.bh)
     stream = torch.cuda.current_stream().cuda_stream
+    g = gi1.data_ptr()
     for row_tile, row_groups, grid in ((plan.row_tile, plan.row_groups, plan.tiles), (100, 39, 100), (200, 20, 100)):
         err = lib.fvad_gru_stack(
-            gi1.data_ptr(), *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), barrier.data_ptr(),
-            4000, 2, row_tile, row_groups, plan.unit_groups, grid, stream,
+            g, g + 1600, g + 3200, *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), None,
+            barrier.data_ptr(), 1200, 0, 4000, 2, row_tile, row_groups, plan.unit_groups, grid, stream,
         )
         assert err != 0, (row_tile, row_groups, grid)
     assert plan.tiles > plan.grid == sms * nsnet2_cuda._card(cuda_device.index or 0)[1]
@@ -304,6 +305,25 @@ def test_gru_gates_f_tile_and_out_dtype(net, cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(GATE_KERNELS))
+@pytest.mark.parametrize("rows, steps", [(1, 1), (1, 54), (37, 1), (1690, 54), (1690, 1), (4000, 54), (4000, 1)])
+def test_gru_gates_f32_forms_at_ragged_shapes(net, cuda_device, kernel, rows, steps):
+    """The float32 forms run on kernel 1's kernel: its ragged row groups and
+    multi-wave grids, counted as the wrapper's launch and not gru_stack's."""
+    net = _biased(net)
+    wrapper, plain = GATE_KERNELS[kernel]
+    rng = np.random.default_rng(rows * steps)
+    gi = [torch.from_numpy((rng.standard_normal((rows, steps, 400)) * 0.8).astype(np.float32)).to(cuda_device)
+          for _ in range(3)]
+    counts = (wrapper.launches, nsnet2_cuda.gru_stack.launches)
+    got = wrapper(net, *gi)
+    want = plain(gates.gate_weights(net, torch.float32), gi, torch.float32)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, nsnet2_cuda.gru_stack.launches) == (counts[0] + 1, counts[1])
+    assert got.dtype == torch.float32 and float((got - want).abs().max()) <= GRU_TOL
+
+
+@pytest.mark.cuda
 def test_gru_gates_refuse_what_they_do_not_take(net, cuda_device):
     gi = _gi3(net, 8, 3, 0, cuda_device)
     for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
@@ -316,9 +336,46 @@ def test_gru_gates_refuse_what_they_do_not_take(net, cuda_device):
             wrapper(net, misaligned, *gi[1:])
     with pytest.raises(ValueError, match="tile"):
         gates.gru_gates_f(net, *gi, tile=0)
+    # The float32 launcher itself takes CUDA float32 operands and out float32 or bf16 only.
+    biases = gates.stacked_biases(net)
+    with pytest.raises(ValueError, match="CUDA"):
+        nsnet2_cuda.gru_stack_gates(net, tuple(g.cpu() for g in gi), biases, torch.float32)
+    with pytest.raises(ValueError, match="out_dtype"):
+        nsnet2_cuda.gru_stack_gates(net, gi, biases, torch.float16)
+    with pytest.raises(ValueError, match="bh1"):
+        nsnet2_cuda.gru_stack_gates(net, gi, (biases[0][:400],) + biases[1:], torch.float32)
+    # gru_gates.cu holds the bf16 forms only: float32 weights are refused.
+    lib = gates._lib()
+    out = torch.empty((8, 3, 400), device=cuda_device)
+    w = gates.gate_weights(net, torch.bfloat16)
+    err = lib.fvad_gru_gates(4, 0, 0, 0, *(x.data_ptr() for x in gi), w.frag9.data_ptr(), w.frag9.data_ptr(),
+                             w.b8.data_ptr(), out.data_ptr(), 8, 3, 8, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
     net.gru1.linear_before_reset = 0
+    for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
+        for dtype in gates.DTYPES:
+            with pytest.raises(NotImplementedError):
+                wrapper(net, *gi, dtype=dtype)
     with pytest.raises(NotImplementedError):
-        gates.gru_gates_p(net, *gi)
+        nsnet2_cuda.gru_stack_gates(net, gi, biases, torch.float32)
+
+
+@pytest.mark.cuda
+def test_lbr0_net_scores_on_the_card(cuda_device):
+    """linear_before_reset = 0 weights, which the GRU kernel does not take,
+    score on the card through the plain per-step loop, as on the CPU."""
+    nets = {}
+    for dev in ("cpu", cuda_device):
+        nets[dev] = _biased(registry.load_denoiser("demo", device=dev))
+        nets[dev].gru1.linear_before_reset = nets[dev].gru2.linear_before_reset = 0
+    feats = np.random.default_rng(7).normal(-3.0, 1.5, (6, 54, 161)).astype(np.float32)
+    before = nsnet2_cuda.gru_stack.launches
+    with torch.inference_mode():
+        got = nets[cuda_device](torch.from_numpy(feats).to(cuda_device), out_frames=50)
+        want = nets["cpu"](torch.from_numpy(feats), out_frames=50)
+    torch.cuda.synchronize()
+    assert nsnet2_cuda.gru_stack.launches == before
+    assert got.shape == (6, 50, 161) and float((got.cpu() - want).abs().max()) <= GRU_TOL
 
 
 @pytest.mark.cuda

@@ -116,6 +116,31 @@ def test_cpu_tensors_take_the_plain_version():
     assert fsm_cuda.scan_windows.launches == before
 
 
+def test_per_row_params_reach_the_device_once_per_content():
+    """The per-row parameter tensors are made once per (params, rows,
+    device): a repeated call makes no new ones, a change of any of them
+    misses the cache."""
+    shape, params = fsm.statics_from_config(CONFIGS["default"], SR, FFT)
+    mv = torch.zeros((3, 4))
+    first = fsm_cuda._prepare(shape, params, mv, None, None)[3]
+    assert fsm_cuda._prepare(shape, params, mv, None, None)[3] is first
+    changed = fsm_cuda._prepare(shape, params._replace(threshold_factor=np.float32(11.0)), mv, None, None)[3]
+    assert changed[0].tolist() == [11.0] * 3 and all(torch.equal(a, b) for a, b in zip(changed[1:], first[1:]))
+    rows = fsm_cuda._prepare(shape, params, torch.zeros((5, 4)), None, None)[3]
+    assert [x.shape for x in rows] == [(5,)] * 5
+    assert [x.dtype for x in first] == [torch.float32, torch.float32, torch.int32, torch.int32, torch.float32]
+
+
+def test_kernel_libraries_are_looked_up_once():
+    """Each wrapper's library lookup (a build-cache check and the argtypes)
+    is cached, off the per-call path."""
+    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
+    from formula_vad_tpu_torch.ops import matmul_q8
+
+    for mod in (fsm_cuda, nsnet2_cuda, nsnet2_gates_cuda, matmul_q8):
+        assert hasattr(mod._lib, "cache_info"), mod.__name__
+
+
 def test_host_binding_refuses_bad_carry_and_params():
     shape, params = fsm.statics_from_config(CONFIGS["default"], SR, FFT)
     mv, vr, valid = fsm_inputs(2, 40, seed=4)

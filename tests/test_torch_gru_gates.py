@@ -28,7 +28,7 @@ import torch
 
 from benchmarks import gru_kernel_exp as jexp
 from formula_vad_tpu.models import nsnet2 as jnsnet2
-from formula_vad_tpu_torch.models import nsnet2, nsnet2_gates_cuda as gates
+from formula_vad_tpu_torch.models import nsnet2, nsnet2_cuda, nsnet2_gates_cuda as gates
 from formula_vad_tpu_torch.ops import precision
 from formula_vad_tpu_torch.tools import gru_kernel_exp as exp
 
@@ -140,6 +140,70 @@ def test_kernel_6_plain_version_matches_the_tpu_kernel(pair, gi, jax_f32, dtype,
             again = gates.gru_gates_f(net, *(torch.from_numpy(g.copy()) for g in gi), dtype=dtype, tile=tile,
                                       out_dtype=out_dtype)
             assert torch.equal(again, got)
+
+
+def _kernel_form(net, gi_z, gi_r, gi_n) -> torch.Tensor:
+    """The float32 forms as kernel 1's kernel computes them on the card, in
+    plain torch: weights from its unit-group packing
+    (``nsnet2_cuda.packed_weights``, 120 columns gate * 40 + unit per group
+    of 40 units), biases from the triple (``gates.stacked_biases``) by
+    global gate column, and per gate the kernel's sums gz + (az + bz),
+    az + (cz + bz), (in + cn) + r (an + bn)."""
+    w1, w2i, w2h = nsnet2_cuda.packed_weights(net)
+    bh1, bi2, bh2 = (b.reshape(3, 400) for b in gates.stacked_biases(net))
+    n = gi_z.shape[0]
+
+    def sums(h, w):  # -> z, r, n sums [n, 400]
+        y = torch.einsum("nk,gkc->ngc", h, w).reshape(n, 10, 3, 40)
+        return [y[:, :, g].reshape(n, 400) for g in range(3)]
+
+    h1 = h2 = gi_z.new_zeros((n, 400))
+    ys = []
+    for t in range(gi_z.shape[1]):
+        az, ar, an = sums(h1, w1)
+        z = torch.sigmoid(gi_z[:, t] + (az + bh1[0]))
+        r = torch.sigmoid(gi_r[:, t] + (ar + bh1[1]))
+        h1 = (1.0 - z) * torch.tanh(gi_n[:, t] + r * (an + bh1[2])) + z * h1
+        (iz, ir, in_), (hz, hr, hn) = sums(h1, w2i), sums(h2, w2h)
+        z = torch.sigmoid((iz + hz) + (bi2[0] + bh2[0]))  # z and r: one accumulator for both products
+        r = torch.sigmoid((ir + hr) + (bi2[1] + bh2[1]))
+        h2 = (1.0 - z) * torch.tanh((in_ + bi2[2]) + r * (hn + bh2[2])) + z * h2
+        ys.append(h2)
+    return torch.stack(ys, dim=1)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_float32_forms_on_kernel_1s_operands(pair, gi, jax_f32, kernel):
+    """Kernel 1's packed weights and the bias triple built from b8, run in
+    the kernel's form, give each float32 form's plain version and the TPU
+    kernel's result: a misplaced bias or weight column fails here."""
+    _, net = pair
+    args = [torch.from_numpy(g.copy()) for g in gi]
+    plain = {"k4": gates.gru_gates_reference, "k5": gates.gru_gates_p_reference, "k6": gates.gru_gates_f_reference}
+    with torch.inference_mode():
+        got = _kernel_form(net, *args).numpy()
+        want = plain[kernel](gates.gate_weights(net, torch.float32), *args).numpy()
+    _check(got, want, torch.float32)
+    _check(got, jax_f32[kernel], torch.float32)
+
+
+def test_stacked_biases(pair):
+    _, net = pair
+    b8 = gates.fold_biases(net)
+    bh1, bi2, bh2 = gates.stacked_biases(net)
+    assert gates.stacked_biases(net)[0] is bh1  # built once per net
+    h = 400
+    assert not bh1[: 2 * h].any() and not bh2[: 2 * h].any()
+    assert torch.equal(bh1[2 * h :], net.gru1.bh[2 * h :]) and torch.equal(bh2[2 * h :], net.gru2.bh[2 * h :])
+    assert torch.equal(bi2, torch.cat([b8[1], b8[2], net.gru2.bi[2 * h :]]))
+    assert torch.equal(bi2[:h], net.gru2.bi[:h] + net.gru2.bh[:h])
+
+
+def test_float32_launcher_refuses_cpu_tensors(pair):
+    _, net = pair
+    gi = tuple(torch.zeros((4, 3, 400)) for _ in range(3))
+    with pytest.raises(ValueError, match="CUDA"):
+        nsnet2_cuda.gru_stack_gates(net, gi, gates.stacked_biases(net), torch.float32)
 
 
 def test_gi_gates_match_the_tool(pair, feats, gi):

@@ -117,6 +117,29 @@ def test_lbr0_plain_version_matches_jax():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+def test_lbr0_forward_runs_the_plain_loop_on_any_device(monkeypatch):
+    """NSNet2.forward sends lbr = 0 weights to the plain per-step loop, not
+    to the kernel wrapper (which refuses them on the card), in the float
+    tier and in the int8 tier's fallback."""
+    from formula_vad_tpu_torch.ops import precision
+
+    def no_kernel(*args):
+        raise AssertionError("gru_stack called for lbr = 0 weights")
+
+    monkeypatch.setattr(nsnet2_cuda, "gru_stack", no_kernel)
+    jp = jnsnet2.init_params(jax.random.PRNGKey(9))
+    net = nsnet2.from_numpy(dict(_flat(jp), gru2_lbr=np.int32(0)))
+    x = torch.from_numpy(_feats(3, t=8, seed=4))
+    with torch.inference_mode():
+        want = net(x)
+        precision.set_quant("int8")
+        try:
+            again = net(x)
+        finally:
+            precision.set_quant("off")
+    assert torch.equal(again, want)
+
+
 def test_registry_specs():
     load = functools.partial(registry.load_denoiser, device="cpu")
     demo = load(None)
