@@ -30,9 +30,12 @@ runs nine phases; any failed check raises and the script exits non-zero.
    Audacity segment files.
 6. The int8 matmul kernel vs its plain version at the six product shapes
    of the int8 tier on that slice: bit for bit, for both epilogue orders
-   and float32 and bfloat16 output; one small case against int64 numpy;
-   device times (CUDA-graph replays) beside the bound and torch._int_mm
-   (cuBLASLt) plus the epilogue, and the host time of a wrapper call.
+   and float32 and bfloat16 output, on the path the wrapper picks (the
+   wgmma body at every slice shape); one small case against int64 numpy;
+   each shape's path and tile plan; device times (CUDA-graph replays)
+   beside the bound and torch._int_mm (cuBLASLt) plus the epilogue, and
+   the host time of a wrapper call (tools.host_us: the median of 7 rounds
+   of 20 calls).
 7. The int8 tier end to end: BatchRunner on the same slice under
    set_quant("int8") (real-time factor; exactly 167 int8 matmul launches
    and no GRU-kernel launch per run; segments against the float tier's),
@@ -445,6 +448,7 @@ def phase_q8_kernel(dev) -> dict:
     import torch
 
     from formula_vad_tpu_torch.ops import matmul_q8 as mq
+    from formula_vad_tpu_torch import tools
     from formula_vad_tpu_torch.tools import graph_ms
 
     # One small ragged case against exact int64 arithmetic on the host.
@@ -492,6 +496,9 @@ def phase_q8_kernel(dev) -> dict:
 
             if not torch.equal(library(), kernel()):
                 raise AssertionError(f"the library yardstick computes another function at {name}")
+            path = mq.matmul_q8.last_path  # the path the wrapper picked for the main path's call
+            if path.name != "wgmma":
+                raise AssertionError(f"int8 matmul at {name}: the wrapper took {path.name}, not the wgmma body")
             # Device times from CUDA-graph replays (several launches per
             # replay where the output is small), so the host's launch cost
             # stays out; that cost is timed apart, on the host clock.
@@ -499,21 +506,22 @@ def phase_q8_kernel(dev) -> dict:
             ms = graph_ms(kernel, per_replay)
             plain_ms = graph_ms(lambda: mq.matmul_q8_reference(a8, w, rs, order=order), per_replay)
             library_ms = graph_ms(library, per_replay)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(per_replay):
-                kernel()
-            host_us = (time.perf_counter() - t0) / per_replay * 1e6
-            torch.cuda.synchronize()
+            (host_us,) = tools.host_us([kernel])
         nbytes = r * k + k * n + 4 * r * n + 8 * n + (4 * r if with_row else 0)
         bound_ms, bound_by = bound(nbytes, 2 * r * k * n, INT8_OPS_PER_MS)
         bound_kinds.add(bound_by)
+        plan = path.plan
+        plan_info = {"bn": plan.bn, "tiles": plan.tiles, "grid": plan.grid, "waves": plan.waves,
+                     "a_vec": path.a_vec, "out_vec": path.out_vec}
         log(f"int8 matmul {name} [{r}, {k}] x [{k}, {n}] ({order}{', row scale' if with_row else ''}, x{per_forward} "
-            f"per forward): kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, torch._int_mm + epilogue "
+            f"per forward): path {path.name}, tiles 128 x {plan.bn}, {plan.tiles} tiles on {plan.grid} CTAs "
+            f"({plan.waves} a CTA), A loads {path.a_vec} B, {'16-byte' if path.out_vec else 'element'} stores; "
+            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, torch._int_mm + epilogue "
             f"{library_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB); "
             f"host time of a wrapper call {host_us:.1f} us")
-        shapes.append({"name": name, "rkn": [r, k, n], "per_forward": per_forward, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "host_us": host_us})
+        shapes.append({"name": name, "rkn": [r, k, n], "per_forward": per_forward, "path": path.name,
+                       "plan": plan_info, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "host_us": host_us})
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", bound_ms)):
             total[key] += per_forward * value
     log("int8 matmul kernel == plain bit for bit at all six shapes, both orders, f32 and bf16 output")

@@ -89,3 +89,27 @@ def graph_ms(fn, launches: int, reps: int = 5) -> float:
             fn()
     return cuda_ms(graph.replay, reps) / launches
 
+
+
+def host_us(fns, calls: int = 20, rounds: int = 7) -> list[float]:
+    """Host time of one call of each of ``fns`` in µs: after one warm-up
+    call each, ``rounds`` rounds of ``calls`` calls on the host clock, with
+    no synchronisation inside a round (the device works through the queue
+    meanwhile), the functions in turns (the order reversed every other
+    round); the median round over ``calls``."""
+    import time
+
+    import torch
+
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for rep in range(rounds):
+        for i in range(len(fns)) if rep % 2 == 0 else reversed(range(len(fns))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[i]()
+            times[i].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return [statistics.median(t) for t in times]

@@ -18,6 +18,8 @@ with every boundary within one FSM window: a one-ulp difference before
 quantization can move a value into the next int8 step.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -198,16 +200,36 @@ def test_slice_on_gpu_equals_cpu(net, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "r, k, n", [(37, 161, 400), (100, 161, 161), (300, 600, 161), (129, 600, 600), (5, 7, 3), (1680, 400, 1200)]
+    "r, k, n, offset",
+    [
+        (37, 161, 400, 0), (100, 161, 161, 0), (300, 600, 161, 0), (129, 600, 600, 0), (5, 7, 3, 0),
+        (1680, 400, 1200, 0),
+        # the int8 tier's six products, rows cut to 12,345 (a ragged last tile)
+        (12345, 161, 400, 0), (12345, 400, 1200, 0), (12345, 400, 600, 0), (12345, 600, 600, 0), (12345, 600, 161, 0),
+        # rows just past a tile edge; A at a byte offset of 1, 4 and 8
+        (129, 400, 1200, 0), (257, 161, 400, 0), (257, 400, 1200, 1), (257, 400, 1200, 4), (257, 400, 1200, 8),
+        (300, 600, 161, 1), (300, 600, 161, 8),
+        # a K the wgmma body does not hold
+        (130, 700, 200, 0),
+    ],
 )
-def test_matmul_q8_kernel_matches_plain(cuda_device, r, k, n):
-    rng = np.random.default_rng(r * k + n)
-    a = torch.from_numpy(rng.integers(-127, 128, (r, k)).astype(np.int8)).to(cuda_device)
+def test_matmul_q8_kernel_matches_plain(cuda_device, r, k, n, offset):
+    """Each call takes the path ``select_path`` names from the shape and A's
+    alignment (the mma_sync body at K = 700, the wgmma body elsewhere), and
+    equals the plain version bit for bit. The weights hold non-zero bytes
+    past K, which no path may add in: A is zero there on every path, even
+    where a 16-byte piece of A runs into the next row."""
+    rng = np.random.default_rng(r * k + n + offset)
+    flat = torch.from_numpy(rng.integers(-127, 128, r * k + offset).astype(np.int8)).to(cuda_device)
+    a = flat[offset:].view(r, k)
     b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda_device)
     s = torch.from_numpy((rng.random(n) * 1e-3).astype(np.float32)).to(cuda_device)
     row = torch.from_numpy(rng.random((r, 1)).astype(np.float32) * 2.0).to(cuda_device)
     bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for w in (mq.Q8Weight.pack(b, s), mq.Q8Weight.pack(b, s, bias)):
+        pad = w.qt.shape[1] - k
+        w.qt[:, k:] = torch.from_numpy(rng.integers(1, 128, (n, pad)).astype(np.int8)).to(cuda_device)
         for order in mq.ORDERS:
             for rs in (None, row):
                 for dtype in mq.OUT_DTYPES:
@@ -216,10 +238,22 @@ def test_matmul_q8_kernel_matches_plain(cuda_device, r, k, n):
                     want = mq.matmul_q8_reference(a, w, rs, order=order, out_dtype=dtype)
                     torch.cuda.synchronize()
                     assert mq.matmul_q8.launches == before + 1
+                    assert mq.matmul_q8.last_path == mq.select_path(r, k, n, dtype, a.data_ptr() % 16, sms)
                     assert torch.equal(got, want), (order, rs is not None, dtype, w.bias is not None)
+    assert mq.select_path(r, k, n, torch.float32, offset, sms).name == ("wgmma" if k <= mq.K_PAD_MAX else "mma_sync")
     exact = (a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(np.int64)).astype(np.float32)
     got = mq.matmul_q8(a, mq.Q8Weight.pack(b, torch.ones(n, device=cuda_device)))
     assert got.cpu().numpy().tobytes() == exact.tobytes()
+
+
+@pytest.mark.cuda
+def test_matmul_q8_plans_the_kernels_shared_memory(cuda_device):
+    """The host's tile plan sizes shared memory with the kernel's own sum."""
+    lib = mq._lib()
+    for bn in mq.TILE_NS:
+        for k_pad in range(32, mq.K_PAD_MAX + 1, 32):
+            for a_tma in (False, True):
+                assert lib.fvad_matmul_q8_smem_bytes(bn, k_pad, int(a_tma)) == mq.smem_bytes(bn, k_pad, a_tma)
 
 
 @pytest.mark.cuda
@@ -232,6 +266,14 @@ def test_matmul_q8_kernel_refuses_what_it_does_not_take(cuda_device):
             mq.matmul_q8(bad, w)
     with pytest.raises(ValueError, match="weight"):
         mq.matmul_q8(a[:, :32].contiguous(), mq.Q8Weight.pack(b.cpu(), torch.ones(16)))
+    # The C entry point refuses the wgmma body at a K it cannot hold, before any launch.
+    wide = mq.Q8Weight.pack(torch.ones((700, 16), dtype=torch.int8, device=cuda_device), torch.ones(16, device=cuda_device))
+    a_wide, out = torch.ones((4, 700), dtype=torch.int8, device=cuda_device), torch.empty((4, 16), device=cuda_device)
+    lib = mq._lib()
+    err = lib.fvad_matmul_q8(a_wide.data_ptr(), wide.qt.data_ptr(), wide.scale.data_ptr(), None, None, out.data_ptr(),
+                             4, 16, 700, 704, 0, 0, mq.PATHS.index("wgmma"), 128, 1, 4, 0,
+                             ctypes.create_string_buffer(128), torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.cuda
