@@ -55,7 +55,12 @@ runs nine phases; any failed check raises and the script exits non-zero.
    distance from the plain float32 form, measured here, so that the check
    shows the bf16 rounding points are reproduced; and max |dh2| <= 6e-3,
    one bf16 step below 1 plus float32 drift, against a single wild value);
-   kernel 6 with tile = all rows, 840 and 416 bit for bit equal. Kernel,
+   kernel 6 with tile = all rows, 840 and 416 bit for bit equal. Kernel 5
+   in bf16 runs on csrc/gru_gates_p.cu (kernels 4 and 6 in bf16 on
+   csrc/gru_gates.cu): its launch plan (unit groups, row groups, grid,
+   shared bytes), the bf16 bars at 1, 17, 337 and 4,000 rows (two
+   launches, each counted), a repeated call and 17 rows of 1,680 against a 17-row call
+   bit for bit, and its single and queued times. Kernel,
    plain and bound times; the library yardstick is cuDNN's two-layer
    torch.nn.GRU, in float32 for the float32 forms and in float16 for the
    bf16 forms (the nearest call whose weights cuDNN compacts once; it
@@ -145,7 +150,8 @@ def phase_device() -> str:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, all at once
-        for build in [pool.submit(mod._lib) for mod in (nsnet2_cuda, fsm_cuda, matmul_q8, nsnet2_gates_cuda)]:
+        libs = (nsnet2_cuda._lib, fsm_cuda._lib, matmul_q8._lib, nsnet2_gates_cuda._lib, nsnet2_gates_cuda._lib_p)
+        for build in [pool.submit(lib) for lib in libs]:
             build.result()
     log(f"kernel build + load (parallel): {time.perf_counter() - t0:.2f} s")
     for name, (secs, report) in _build.build_info.items():
@@ -639,6 +645,58 @@ def check_f32_form(name: str, wrapper, plain, net, dev) -> float:
     return worst
 
 
+def check_p_form(net, dev) -> dict:
+    """Kernel 5 in bf16 (csrc/gru_gates_p.cu): its launch plan at the
+    scoring shape, logged; then against its plain version at ragged row
+    counts and two launches a call, counted as the plan's launches (gi
+    from ``gi_gates`` of random features,
+    numpy seed 5, as on the bf16 tier; the bf16 bars), a repeated call bit
+    for bit, and the first 17 rows of a 1,680-row call equal to a 17-row
+    call. -> the scoring shape's plan."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+
+    (launch,) = plan = gates.device_p_plan(GRU_ROWS, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"gru_gates_p bf16 launch plan at {GRU_ROWS} rows on {sms} SMs: {gates.P_UNIT_GROUPS} unit groups of "
+        f"{gates.P_UNITS} units x {launch.row_groups} row groups of {launch.tiles_per_group} 16-row tiles, grid "
+        f"{launch.grid}, {launch.smem_bytes} bytes of shared memory a CTA ({len(plan)} launch)")
+    rng = np.random.default_rng(5)
+    gw = gates.gate_weights(net, torch.bfloat16)
+
+    def gi_of(n, t):
+        feats = torch.from_numpy(rng.normal(-3.0, 1.5, (n, t, 161)).astype(np.float32)).to(dev)
+        return gates.gi_gates(net, net.fc_in(feats))
+
+    for n, t in ((1, 54), (17, 2), (337, 54), (4000, 54)):
+        gi = gi_of(n, t)
+        before = gates.gru_gates_p.launches
+        got = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
+        launched = gates.gru_gates_p.launches - before
+        want = gates.gru_gates_p_reference(gw, *gi)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        err, mean = float(d.max()), float(d.mean())
+        log(f"gru_gates_p bf16 vs plain at [{n}, {t}] ({launched} launch(es) counted): "
+            f"max |dh2| = {err:.3e}, mean {mean:.3e}")
+        if launched != len(gates.device_p_plan(n, dev)):
+            raise AssertionError(f"gru_gates_p bf16 at {n} rows counted {launched} launches, its plan has "
+                                 f"{len(gates.device_p_plan(n, dev))}")
+        if not (err <= BF16_MAX and mean <= BF16_MEAN):
+            raise AssertionError(f"gru_gates_p bf16 disagrees with its plain version at [{n}, {t}]: {err}, {mean}")
+    gi = gi_of(GRU_ROWS, GRU_STEPS)
+    whole = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
+    if not torch.equal(whole, gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)):
+        raise AssertionError("gru_gates_p bf16: a repeated call changed bits")
+    part = gates.gru_gates_p(net, *(g[:17].contiguous() for g in gi), dtype=torch.bfloat16)
+    if not torch.equal(part, whole[:17]):
+        raise AssertionError("gru_gates_p bf16: rows 0-16 of a 1,680-row call differ from a 17-row call")
+    log("gru_gates_p bf16: a repeated call and rows 0-16 of 1,680 against a 17-row call give identical bits")
+    return {"unit_groups": gates.P_UNIT_GROUPS, "row_groups": launch.row_groups,
+            "tiles_per_group": launch.tiles_per_group, "grid": launch.grid, "smem_bytes": launch.smem_bytes}
+
+
 def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
     """Path A (the experiment tool, its own random weights) once with the
     counters at 0, then each per-gate kernel against its plain version on
@@ -729,6 +787,9 @@ def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
                         log(f"{name} float32: bf16 out == float32 out rounded to bf16, bit for bit")
                     extra = {"source": "formula_vad_tpu_torch/csrc/gru_stack.cu", "queued_ms": queued_ms(
                         lambda: wrapper(net, *args, dtype=dtype))}
+                elif kind == 5:
+                    extra = {"queued_ms": queued_ms(lambda: wrapper(net, *args, dtype=dtype)),
+                             "plan": check_p_form(net, dev)}
                 if kind == 6:
                     for tile in (840, 416):
                         if not torch.equal(wrapper(net, *args, dtype=dtype, tile=tile), got):
@@ -742,17 +803,22 @@ def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
                 log(f"{name} {str(dtype)[6:]} [{GRU_ROWS}, {GRU_STEPS}]: kernel {ms:.3f} ms ({ops / 1e9 / ms:.2f} TFLOP/s), "
                     f"plain {plain_ms:.3f} ms, {lib} {library_ms[dtype]:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
                     f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-                if extra:
+                if extra and dtype == torch.float32:
                     log(f"{name} float32 [{GRU_ROWS}, {GRU_STEPS}]: single call {ms:.3f} ms, queued back to back "
                         f"{extra['queued_ms']:.3f} ms; {ms / library_ms[dtype]:.3f}x cuDNN's float32 GRU, "
                         f"{ms / kernel1_ms:.3f}x kernel 1's phase-2 single call ({kernel1_ms:.3f} ms)")
+                elif extra:
+                    log(f"{name} bf16 [{GRU_ROWS}, {GRU_STEPS}] (csrc/gru_gates_p.cu): single call {ms:.3f} ms, queued "
+                        f"back to back {extra['queued_ms']:.3f} ms; bound {bound_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                        f"cuDNN GRU fp16 {gru_ms[torch.float16]:.3f} ms, bf16 {gru_ms[torch.bfloat16]:.3f} ms")
                 forms.append({"dtype": str(dtype)[6:], "max_abs_err": err, "mean_abs_err": mean, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": library_ms[dtype], **extra})
             # The line's numbers are the bf16 form's: kernel 5's form on the
             # bf16 tier; both forms are under "forms".
             top = {k: v for k, v in forms[1].items() if k not in ("dtype", "mean_abs_err")}
-            rows.append({"name": name, "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_gates.cu",
+            source = "formula_vad_tpu_torch/csrc/" + ("gru_gates_p.cu" if kind == 5 else "gru_gates.cu")
+            rows.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, **top, "forms": forms, "cudnn_bf16_ms": gru_ms[torch.bfloat16]})
     return rows, path_a
 

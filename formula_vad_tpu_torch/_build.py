@@ -66,7 +66,10 @@ def _load(name: str, src: Path, cmd: list[str]) -> ctypes.CDLL:
             return _libs[name]
         # The compiler's own path stays out of the hash, so a build is reused
         # wherever the toolkit lives.
-        digest = hashlib.sha256(src.read_bytes() + " ".join(cmd[1:]).encode()).hexdigest()[:16]
+        # The headers of csrc/ count too, so that a source is rebuilt when one it
+        # includes changes.
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers + " ".join(cmd[1:]).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,16 +1,16 @@
 // The per-gate NSNet2 GRU-stack recurrence for Hopper (sm_90a), with
 // bfloat16 weight operands.
 //
-// Replaces the bf16 forms of the three TPU kernels of
+// Replaces the bf16 forms of two TPU kernels of
 // benchmarks/gru_kernel_exp.py, which compute one function with the
 // rounding points in different places:
 //   kernel 4  gru_stack_kernel   (body _kernel)    gi rounded to the weight
 //             dtype, per-gate weight slabs w9, h2 out in float32;
-//   kernel 5  gru_stack_kernel_p (body _kernel_p)  gi kept float32, packed
-//             weights wp1 [H, 3H] and wp2 [2H, 4H] (two products per step);
 //   kernel 6  gru_stack_kernel_f (body _kernel_f)  as kernel 4, with the
 //             next step's gi prefetched while this step computes, h2 out in
 //             out_dtype, and `tile` rows per grid slice.
+// The bf16 form of kernel 5 (gru_stack_kernel_p: float32 gi, packed
+// weights wp1 and wp2) is csrc/gru_gates_p.cu.
 // Both GRU layers (H = 400, ONNX z|r|n, linear_before_reset = 1) run T
 // steps from h = 0 over per-gate layer-1 input projections gi_z, gi_r,
 // gi_n [N, T, H] (bi1 + bh1 folded into z and r, bi1 only into n). With
@@ -24,7 +24,7 @@
 // it enters a product, and the products accumulate in float32: the TPU
 // bodies' astype(w.dtype) then preferred_element_type = f32. The order of
 // the float32 sums is the card's own (within a product, and layer 2's z and
-// r sum both products in one accumulator). The float32 forms of the three
+// r sum both products in one accumulator). The float32 forms of the
 // kernels compute kernel 1's function and run on its body, csrc/gru_stack.cu.
 //
 // What bounds it on the H100: at the scoring shape (1,680 rows x 54 steps)
@@ -72,15 +72,11 @@ constexpr int FRAG = 32;           // uint2 fragments per (unit tile, K step)
 
 using bf16 = __nv_bfloat16;
 
-// The nine weight slabs of one step, each [H, H]: wh1 z r n (seen by h1,
-// layer 1), wi2 z r n (seen by h1, layer 2), wh2 z r n (seen by h2,
-// layer 2); for kernel 5 slab 5 is wp2's n_i block and slab 8 its n_h
-// block. w points at unit tile 0, K step 0 of the slab's fragments,
-// stride = uint2s from one unit tile to the next.
-struct Slabs {
-  const void* w[9];
-  int stride[9];
-};
+// The nine weight slabs of one step, each [H, H] in fragment order
+// [UT][KS][FRAG] uint2: wh1 z r n (seen by h1, layer 1), wi2 z r n (seen
+// by h1, layer 2), wh2 z r n (seen by h2, layer 2).
+constexpr int SLAB = UT * KS * FRAG;  // uint2s of one slab
+constexpr int UT_STRIDE = KS * FRAG;  // uint2s from one unit tile to the next
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -128,13 +124,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 // acc_g[u] += hb (16 x H, bf16) x slab g's unit tile (ut0 + u), for the three
 // slabs first..first+2 and the warp's UPW unit tiles.
-__device__ __forceinline__ void mma_pass3(const bf16* __restrict__ hb, const Slabs& s, int first, int ut0,
-                                          int lane, float (&a0)[UPW][4], float (&a1)[UPW][4],
+__device__ __forceinline__ void mma_pass3(const bf16* __restrict__ hb, const uint2* __restrict__ w9, int first,
+                                          int ut0, int lane, float (&a0)[UPW][4], float (&a1)[UPW][4],
                                           float (&a2)[UPW][4]) {
-  const uint2* w0 = static_cast<const uint2*>(s.w[first]) + (size_t)ut0 * s.stride[first] + lane;
-  const uint2* w1 = static_cast<const uint2*>(s.w[first + 1]) + (size_t)ut0 * s.stride[first + 1] + lane;
-  const uint2* w2 = static_cast<const uint2*>(s.w[first + 2]) + (size_t)ut0 * s.stride[first + 2] + lane;
-  const int l0 = s.stride[first], l1 = s.stride[first + 1], l2 = s.stride[first + 2];
+  const uint2* w0 = w9 + (size_t)first * SLAB + (size_t)ut0 * UT_STRIDE + lane;
+  const uint2* w1 = w0 + SLAB;
+  const uint2* w2 = w1 + SLAB;
   // A fragment (m16n8k16, row-major): rows g and g + 8, columns 2 (lane % 4)
   // (+1) and the same + 8 of the K step.
   const uint32_t* p0 = reinterpret_cast<const uint32_t*>(hb + (lane >> 2) * HP + (lane & 3) * 2);
@@ -145,9 +140,9 @@ __device__ __forceinline__ void mma_pass3(const bf16* __restrict__ hb, const Sla
     const int o = ks * FRAG;
 #pragma unroll
     for (int u = 0; u < UPW; ++u) {
-      const uint2 b0 = __ldg(w0 + u * l0 + o);
-      const uint2 b1 = __ldg(w1 + u * l1 + o);
-      const uint2 b2 = __ldg(w2 + u * l2 + o);
+      const uint2 b0 = __ldg(w0 + u * UT_STRIDE + o);
+      const uint2 b1 = __ldg(w1 + u * UT_STRIDE + o);
+      const uint2 b2 = __ldg(w2 + u * UT_STRIDE + o);
       mma_bf16(a0[u], a, b0);
       mma_bf16(a1[u], a, b1);
       mma_bf16(a2[u], a, b2);
@@ -157,8 +152,9 @@ __device__ __forceinline__ void mma_pass3(const bf16* __restrict__ hb, const Sla
 
 template <typename GI, typename OUT, bool PREFETCH>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
-gates_mma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __restrict__ gn, Slabs s,
-          const float* __restrict__ b8, OUT* __restrict__ out, int n_rows, int n_steps, int tile) {
+gates_mma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __restrict__ gn,
+          const uint2* __restrict__ w9, const float* __restrict__ b8, OUT* __restrict__ out, int n_rows, int n_steps,
+          int tile) {
   extern __shared__ float4 smem4[];
   bf16* hb1 = reinterpret_cast<bf16*>(smem4);  // [ROWS][HP] bf16(h1)
   bf16* hb2 = hb1 + ROWS * HP;                  // [ROWS][HP] bf16(h2)
@@ -198,7 +194,7 @@ gates_mma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __rest
       for (int u = 0; u < UPW; ++u)
 #pragma unroll
         for (int q = 0; q < 4; ++q) az[u][q] = ar[u][q] = an[u][q] = 0.0f;
-      mma_pass3(hb1, s, 0, ut0, lane, az, ar, an);
+      mma_pass3(hb1, w9, 0, ut0, lane, az, ar, an);
       if (PREFETCH) {
         cp_async_wait_prev();  // this thread's copies of step t have landed
         __syncthreads();       // and every other thread's
@@ -248,8 +244,8 @@ gates_mma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __rest
       for (int u = 0; u < UPW; ++u)
 #pragma unroll
         for (int q = 0; q < 4; ++q) az[u][q] = ar[u][q] = ai[u][q] = ah[u][q] = 0.0f;
-      mma_pass3(hb1, s, 3, ut0, lane, az, ar, ai);
-      mma_pass3(hb2, s, 6, ut0, lane, az, ar, ah);
+      mma_pass3(hb1, w9, 3, ut0, lane, az, ar, ai);
+      mma_pass3(hb2, w9, 6, ut0, lane, az, ar, ah);
 #pragma unroll
       for (int u = 0; u < UPW; ++u) {
         const int col = (ut0 + u) * 8 + c2;
@@ -286,35 +282,19 @@ gates_mma(const GI* __restrict__ gz, const GI* __restrict__ gr, const GI* __rest
 // ---------------------------------------------------------------- launch
 
 template <typename GI, typename OUT, bool PREFETCH>
-cudaError_t launch(const void* gz, const void* gr, const void* gn, const Slabs& s, const float* b8, void* out,
+cudaError_t launch(const void* gz, const void* gr, const void* gn, const void* w9, const float* b8, void* out,
                    int n_rows, int n_steps, int tile, cudaStream_t stream) {
   const size_t smem = 2 * ROWS * HP * sizeof(bf16) + (PREFETCH ? 2 * 3 * ROWS * H * sizeof(GI) : 0);
-  void (*kernel)(const GI*, const GI*, const GI*, Slabs, const float*, OUT*, int, int, int) =
+  void (*kernel)(const GI*, const GI*, const GI*, const uint2*, const float*, OUT*, int, int, int) =
       gates_mma<GI, OUT, PREFETCH>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((tile + ROWS - 1) / ROWS, (n_rows + tile - 1) / tile);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const GI*>(gz), static_cast<const GI*>(gr), static_cast<const GI*>(gn), s, b8,
+      static_cast<const GI*>(gz), static_cast<const GI*>(gr), static_cast<const GI*>(gn),
+      static_cast<const uint2*>(w9), b8,
       static_cast<OUT*>(out), n_rows, n_steps, tile);
   return cudaGetLastError();
-}
-
-// Fragments of a [K][N] weight: [N / 8][K / 16][32] uint2.
-Slabs make_slabs(int kind, const void* wa, const void* wb) {
-  Slabs s;
-  const uint2* a = static_cast<const uint2*>(wa);
-  const uint2* b = static_cast<const uint2*>(wb);
-  if (kind != 5) {  // nine [H][H] slabs
-    for (int i = 0; i < 9; ++i) { s.w[i] = a + (size_t)i * UT * KS * FRAG; s.stride[i] = KS * FRAG; }
-  } else {  // wp1 [H][3H]: 150 unit tiles x 25 K steps; wp2 [2H][4H]: 200 x 50, h2 rows from K step 25
-    const int st = 2 * KS * FRAG;
-    const uint2* w[9] = {a, a + (size_t)UT * KS * FRAG, a + (size_t)2 * UT * KS * FRAG,
-                         b, b + (size_t)UT * st, b + (size_t)2 * UT * st,
-                         b + KS * FRAG, b + (size_t)UT * st + KS * FRAG, b + (size_t)3 * UT * st + KS * FRAG};
-    for (int i = 0; i < 9; ++i) { s.w[i] = w[i]; s.stride[i] = i < 3 ? KS * FRAG : st; }
-  }
-  return s;
 }
 
 }  // namespace
@@ -323,31 +303,26 @@ extern "C" {
 
 const char* fvad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// kind 4, 5 or 6 (the TPU kernel replaced). gz, gr, gn [n_rows, n_steps, H]
-// (bf16 when gi_bf16, else float32); wa, wb the bf16 fragment packings of
-// w9 [9, H, H] (kinds 4, 6) or of wp1 [H, 3H] and wp2 [2H, 4H] (kind 5);
-// b8 [8, H] float32; out [n_rows, n_steps, H] (bf16 when out_bf16, else
-// float32); tile rows per grid slice (1 <= tile <= n_rows). Kind 4 takes
-// bf16 gi and writes float32; kind 5 takes float32 gi and writes float32;
-// kind 6 takes bf16 gi. All contiguous on the current device, gi and out
-// 16-byte aligned. Float32 weights (w_bf16 = 0) are refused: those forms
-// run on csrc/gru_stack.cu. Launches on `stream` and returns
-// cudaGetLastError().
+// kind 4 or 6 (the TPU kernel replaced). gz, gr, gn [n_rows, n_steps, H]
+// bf16; w9 the bf16 fragment packing of the nine slabs [9, H, H]; b8
+// [8, H] float32; out [n_rows, n_steps, H] (bf16 when out_bf16, else
+// float32); tile rows per grid slice (1 <= tile <= n_rows). Kind 4 writes
+// float32 with tile = n_rows. All contiguous on the current device, gi and
+// out 16-byte aligned. Float32 weights or gi (w_bf16 = 0, gi_bf16 = 0) are
+// refused: those forms run on csrc/gru_stack.cu. Launches on `stream` and
+// returns cudaGetLastError().
 int fvad_gru_gates(int kind, int w_bf16, int gi_bf16, int out_bf16, const void* gz, const void* gr,
-                   const void* gn, const void* wa, const void* wb, const float* b8, void* out, int n_rows,
-                   int n_steps, int tile, void* stream) {
-  const bool ok = w_bf16 && n_rows > 0 && n_steps > 0 && tile >= 1 && tile <= n_rows &&
-                  ((kind == 4 && gi_bf16 && !out_bf16 && tile == n_rows) ||
-                   (kind == 5 && !gi_bf16 && !out_bf16 && tile == n_rows) || (kind == 6 && gi_bf16));
+                   const void* gn, const void* w9, const float* b8, void* out, int n_rows, int n_steps, int tile,
+                   void* stream) {
+  const bool ok = w_bf16 && gi_bf16 && n_rows > 0 && n_steps > 0 && tile >= 1 && tile <= n_rows &&
+                  ((kind == 4 && !out_bf16 && tile == n_rows) || kind == 6);
   if (!ok) return (int)cudaErrorInvalidValue;
-  const Slabs s = make_slabs(kind, wa, wb);
   const cudaStream_t st = (cudaStream_t)stream;
   if (kind == 6) {
-    return out_bf16 ? (int)launch<bf16, bf16, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
-                    : (int)launch<bf16, float, true>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+    return out_bf16 ? (int)launch<bf16, bf16, true>(gz, gr, gn, w9, b8, out, n_rows, n_steps, tile, st)
+                    : (int)launch<bf16, float, true>(gz, gr, gn, w9, b8, out, n_rows, n_steps, tile, st);
   }
-  return gi_bf16 ? (int)launch<bf16, float, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st)
-                 : (int)launch<float, float, false>(gz, gr, gn, s, b8, out, n_rows, n_steps, tile, st);
+  return (int)launch<bf16, float, false>(gz, gr, gn, w9, b8, out, n_rows, n_steps, tile, st);
 }
 
 }  // extern "C"

@@ -1,0 +1,370 @@
+// Kernel 5 in bf16, the bf16 tier's NSNet2 GRU-stack recurrence, for
+// Hopper (sm_90a).
+//
+// Replaces the bf16 form of benchmarks/gru_kernel_exp.py::
+// gru_stack_kernel_p (body _kernel_p): both GRU layers (H = 400, ONNX
+// z|r|n, linear_before_reset = 1) stepped T times from h = 0 over float32
+// per-gate layer-1 input projections gi_z, gi_r, gi_n [N, T, H] (bi1 + bh1
+// folded into z and r, bi1 only into n), with the packed weights
+// wp1 = wh1 [H, 3H] and wp2 [2H, 4H] (h1 rows wi2 z | r | n_i | 0, h2 rows
+// wh2 z | r | 0 | n_h). With b8 = [bh1_n, bi2_z + bh2_z, bi2_r + bh2_r,
+// bi2_n, bh2_n], per step and row:
+//   g1 = h1 wp1;  z1 = s(gi_z + g1z)  r1 = s(gi_r + g1r)
+//   n1 = tanh(gi_n + r1 (g1n + bh1_n));       h1 = (1 - z1) n1 + z1 h1
+//   g2 = [h1 | h2] wp2;  z2 = s(g2z + b2z)  r2 = s(g2r + b2r)
+//   n2 = tanh((g2ni + bi2_n) + r2 (g2nh + bh2_n));  h2 = (1 - z2) n2 + z2 h2
+// h1, h2 and the gate math are float32; h is rounded to bf16 only where it
+// enters a product, and the products sum in float32 (z2 and r2 sum both
+// halves of K = 800 in one accumulator). The plain version is
+// models/nsnet2_gates_cuda.py::gru_gates_p_reference; kernels 4 and 6 in
+// bf16 stay in csrc/gru_gates.cu.
+//
+// What bounds it on the H100: 261.3 GFLOP of serial-step bf16 products at
+// the scoring shape (1,680 rows x 54 steps), 0.264 ms at 989 TFLOP/s. The
+// design it replaces (gru_gates.cu's gates_mma, 16 rows a block for all
+// steps) re-read all 2.88 MB of bf16 weights from L2 in every block on
+// every step: 105 x 2.88 MB x 54 = 16.3 GB of L2 reads a call.
+//
+// Design: one persistent cooperative launch. A CTA owns one group of
+// U = 16 hidden units (25 groups) for the whole call and a contiguous
+// range of 16-row MMA tiles (row groups: as many as fit beside the 25 unit
+// groups in one wave, 5 on 132 SMs: 125 CTAs; a CTA holds at most
+// MAX_TILES tiles beside its weights, so the host splits a call of more
+// rows, 2,240 on 132 SMs, into launches of one wave each). Its weights, 3,600 bf16 per
+// unit without wp2's zero blocks, 115,200 bytes, are loaded into shared
+// memory once per call in mma.sync B-fragment order (each lane's 48 bytes
+// of a K step contiguous: three conflict-free 16-byte loads). What crosses
+// between CTAs is bf16(h1) and bf16(h2) only, ~5.4 GB of L2 reads a call
+// at 1,680 rows (25 unit groups x 1,680 rows x 1,200 x 2 bytes a step).
+//
+// The exchange buffers x1 and x2 ([2 ping-pong][tiles][25 K steps][32
+// lanes] uint4) hold bf16 h in mma.sync.m16n8k16 A-fragment order: the
+// accumulators of the two n8 tiles of a unit group are, lane for lane, the
+// A fragment of the K step that the group's 16 units form, so each thread
+// stores its 8 new h values as one uint4 and each reader loads one uint4 a
+// K step, 512 contiguous bytes a warp. They are written inside the kernel,
+// so they are read only through L2 (ld.global.cg), as gru_stack.cu's h.
+//
+// A warp walks the CTA's tiles with stride 8. A K step is one A load and
+// six MMAs (z, r and n, two n8 tiles each). A phase reads its A fragments
+// 25 K steps at a time into a register ring: the block after the current
+// one (the next tile, layer 2's h2 half, or step t+1's first layer-1 tile)
+// loads into each slot as it is consumed. Per step: phase 1 computes h1[t]
+// (K = 400), then one barrier, then phase 2 computes h2[t] (K = 800: h1[t]
+// then h2[t-1]). A CTA reads only the h of its own rows, which the 25 CTAs
+// of its row group write, so the barrier is grid_barrier.cuh's on a
+// counter of the row group's own (128 bytes apart), 25 arrivals a step;
+// a second counter beside it lets the last CTA out zero both.
+// One barrier a step is enough: phase 1 of step t+1 reads only h1[t]
+// (complete at the barrier of step t) and writes the other x1 half, which
+// nobody reads after that barrier; phase 2 of step t+1 reads h2[t] after
+// the barrier of step t+1.
+// The CTA's float32 h1 stays in shared memory (thread-private slots); f32
+// h2[t-1] is read back from out, which the same thread wrote. gi of step
+// t+1 goes to shared memory by cp.async during phase 2 of step t, each
+// thread copying the 12 float2 it will read. A row's sums depend on its
+// own inputs only, in a fixed order, so its bits do not depend on N or on
+// the plan.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "grid_barrier.cuh"
+
+namespace {
+
+constexpr int H = 400;
+constexpr int U = 16;                   // hidden units per CTA: one K step of h
+constexpr int UNIT_GROUPS = H / U;      // 25
+constexpr int KS = H / 16;              // 25 K steps over one h
+constexpr int KB = 3 * KS;              // weight K blocks: wp1, wp2's h1 rows, wp2's h2 rows
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MMA_ROWS = 16;
+constexpr int W_U4 = KB * 32 * 3;       // uint4s of one unit group's weights
+constexpr int W_BYTES = W_U4 * 16;      // 115,200
+constexpr int GI_SLOTS = 12;            // float2 per lane and tile: 3 gates x 2 n8 tiles x 2 row halves
+constexpr int H1_SLOTS = 8;             // float per lane and tile
+constexpr int TILE_BYTES = (GI_SLOTS * 8 + H1_SLOTS * 4) * 32;  // 4,096
+constexpr int MAX_TILES = 28;           // 16-row tiles a CTA holds beside its weights
+constexpr int SMEM_LIMIT = 232448;      // an H100 block's shared memory
+constexpr int BARRIER_STRIDE = 32;      // unsigned ints from one row group's counter to the next
+static_assert(W_BYTES + MAX_TILES * TILE_BYTES <= SMEM_LIMIT, "shared memory plan");
+
+struct Params {
+  const float* gz;  // [n_rows, n_steps, H] each
+  const float* gr;
+  const float* gn;
+  const uint4* w;   // [UNIT_GROUPS][KB][32 lanes][3]: 6 n8 tiles x 2 words a lane
+  const float* b8;  // [8, H]
+  float* out;       // [n_rows, n_steps, H]
+  uint4* x1;        // [2][tiles][KS][32]: bf16(h1) in A-fragment order
+  uint4* x2;        // the same for bf16(h2)
+  unsigned int* barrier;  // [row groups][BARRIER_STRIDE]: zero at launch, left zero at exit
+  int n_rows, n_steps, tiles, tiles_per_group;
+};
+
+int smem_bytes(int tiles_per_group) { return W_BYTES + tiles_per_group * TILE_BYTES; }
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+__device__ __forceinline__ float get(const float2& v, int e) { return e ? v.y : v.x; }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// One block of 25 K steps: acc[0..3] (z, r) and acc[N0], acc[N0 + 1] (the
+// n gate's two n8 tiles) += ring x the weights at w (this lane's slot of
+// the block's first K step). Slot j of the ring is refilled from `next`
+// (this lane's uint4 of the following block, or null) once it is used.
+template <int N0>
+__device__ __forceinline__ void mma_block(uint4 (&ring)[KS], const uint4* next, const uint4* w, float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    const uint4 a = ring[j];
+    const uint4* wj = w + j * 32 * 3;
+    const uint4 b0 = wj[0], b1 = wj[1], b2 = wj[2];
+    mma_bf16(acc[0], a, b0.x, b0.y);
+    mma_bf16(acc[1], a, b0.z, b0.w);
+    mma_bf16(acc[2], a, b1.x, b1.y);
+    mma_bf16(acc[3], a, b1.z, b1.w);
+    mma_bf16(acc[N0], a, b2.x, b2.y);
+    mma_bf16(acc[N0 + 1], a, b2.z, b2.w);
+    if (next) ring[j] = __ldcg(next + j * 32);
+  }
+}
+
+__device__ __forceinline__ void load_block(uint4 (&ring)[KS], const uint4* src) {
+#pragma unroll
+  for (int j = 0; j < KS; ++j) ring[j] = __ldcg(src + j * 32);
+}
+
+// Step t's gi of one tile -> the tile's slots, slot (gate * 4 + s * 2 +
+// half) holding the lane's two units 8 s + 2 (lane % 4) (+1) of row g + 8
+// half; rows past n_rows are zero-filled.
+__device__ __forceinline__ void prefetch_gi(const Params& p, float2* slots, int tile, int t, int col, int g) {
+  const float* gi[3] = {p.gz, p.gr, p.gn};
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = tile * MMA_ROWS + g + 8 * half;
+        const bool valid = row < p.n_rows;
+        const float* src = gi[gate] + (valid ? ((size_t)row * p.n_steps + t) * H + col + 8 * s : 0);
+        cp_async8(slots + (gate * 4 + s * 2 + half) * 32, src, valid);
+      }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
+  extern __shared__ uint4 smem[];
+  uint4* ws = smem;                                                   // [KB][32][3]
+  float2* gis = reinterpret_cast<float2*>(smem + W_U4);               // [tiles_per_group][GI_SLOTS][32]
+  float* h1s = reinterpret_cast<float*>(gis + p.tiles_per_group * GI_SLOTS * 32);  // [..][H1_SLOTS][32]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int ug = blockIdx.x % UNIT_GROUPS, rg = blockIdx.x / UNIT_GROUPS;
+  const int tile0 = rg * p.tiles_per_group;
+  const int n_tiles = min(p.tiles_per_group, p.tiles - tile0);  // >= 1: the launcher checks the plan
+  const int col = ug * U + (lane & 3) * 2;  // the lane's first unit; +8 in the second n8 tile
+
+  const uint4* wsrc = p.w + (size_t)ug * W_U4;
+  for (int i = threadIdx.x; i < W_U4; i += THREADS) cp_async16(ws + i, wsrc + i);
+  for (int i = threadIdx.x; i < n_tiles * H1_SLOTS * 32; i += THREADS) h1s[i] = 0.0f;
+  for (int i = warp; i < n_tiles; i += WARPS) prefetch_gi(p, gis + i * GI_SLOTS * 32 + lane, tile0 + i, 0, col, g);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const uint4* w1 = ws + lane * 3;                   // wp1
+  const uint4* w2a = ws + (KS * 32 + lane) * 3;      // wp2, h1 rows
+  const uint4* w2b = ws + (2 * KS * 32 + lane) * 3;  // wp2, h2 rows
+  const size_t half_u4 = (size_t)p.tiles * KS * 32;  // one ping-pong half
+  const size_t frag_u4 = (size_t)KS * 32;            // one tile's K steps
+  const size_t own = (size_t)ug * 32 + lane;         // this thread's uint4 of a tile's fragments
+  // Bias of row b8[k] at this lane's units of n8 tile s.
+  auto bias = [&](int k, int s) { return __ldg(reinterpret_cast<const float2*>(p.b8 + k * H + col + 8 * s)); };
+
+  uint4 ring[KS];
+  unsigned int target = 0;
+  for (int t = 0; t < p.n_steps; ++t) {
+    const uint4* x1_prev = p.x1 + ((t + 1) & 1) * half_u4 + lane;
+    uint4* x1_cur = p.x1 + (t & 1) * half_u4;
+    const uint4* x2_prev = p.x2 + ((t + 1) & 1) * half_u4 + lane;
+    uint4* x2_cur = p.x2 + (t & 1) * half_u4;
+
+    // ---- phase 1: h1[t]. The ring holds tile `warp`'s h1[t-1] (t > 0).
+    for (int i = warp; i < n_tiles; i += WARPS) {
+      const int tile = tile0 + i;
+      float acc[8][4] = {};
+      if (t > 0) mma_block<4>(ring, i + WARPS < n_tiles ? x1_prev + (tile + WARPS) * frag_u4 : nullptr, w1, acc);
+      if (i == warp) cp_async_wait_all();  // this thread's gi copies of step t
+      const float2* gs = gis + i * GI_SLOTS * 32 + lane;
+      float* hs = h1s + i * H1_SLOTS * 32 + lane;
+      float hn[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float2 bn = bias(0, s);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 xz = gs[(s * 2 + half) * 32], xr = gs[(4 + s * 2 + half) * 32];
+          const float2 xn = gs[(8 + s * 2 + half) * 32];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = half * 2 + e;
+            const float z = sigmoid(get(xz, e) + acc[s][q]);
+            const float r = sigmoid(get(xr, e) + acc[2 + s][q]);
+            const float n = tanhf(get(xn, e) + r * (acc[4 + s][q] + get(bn, e)));
+            const float h = (1.0f - z) * n + z * hs[(s * 4 + q) * 32];
+            hs[(s * 4 + q) * 32] = h;
+            hn[s][q] = h;
+          }
+        }
+      }
+      x1_cur[tile * frag_u4 + own] = make_uint4(pack_bf16(hn[0][0], hn[0][1]), pack_bf16(hn[0][2], hn[0][3]),
+                                                pack_bf16(hn[1][0], hn[1][1]), pack_bf16(hn[1][2], hn[1][3]));
+    }
+    target += UNIT_GROUPS;
+    grid_barrier(p.barrier + rg * BARRIER_STRIDE, target);
+
+    // ---- phase 2: h2[t]. Each tile's gi of step t+1 lands meanwhile.
+    const uint4* x1_now = x1_cur + lane;
+    if (warp < n_tiles) load_block(ring, x1_now + (tile0 + warp) * frag_u4);
+    for (int i = warp; i < n_tiles; i += WARPS) {
+      const int tile = tile0 + i;
+      if (t + 1 < p.n_steps) prefetch_gi(p, gis + i * GI_SLOTS * 32 + lane, tile, t + 1, col, g);
+      cp_async_commit();
+      // The block after this tile's: the next tile's h1[t], or step t+1's
+      // first layer-1 tile, which reads h1[t] too.
+      const uint4* after = i + WARPS < n_tiles ? x1_now + (tile + WARPS) * frag_u4
+                           : t + 1 < p.n_steps ? x1_now + (tile0 + warp) * frag_u4
+                                               : nullptr;
+      float2 hold[2][2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = tile * MMA_ROWS + g + 8 * half;
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          hold[s][half] = t > 0 && row < p.n_rows
+                              ? __ldcg(reinterpret_cast<const float2*>(p.out + ((size_t)row * p.n_steps + t - 1) * H + col + 8 * s))
+                              : make_float2(0.0f, 0.0f);
+      }
+      float acc[8][4] = {};
+      mma_block<4>(ring, t > 0 ? x2_prev + tile * frag_u4 : after, w2a, acc);
+      if (t > 0) mma_block<6>(ring, after, w2b, acc);
+      float hn[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float2 bz = bias(1, s), br = bias(2, s), bi = bias(3, s), bh = bias(4, s);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e = q & 1;
+          const float z = sigmoid(acc[s][q] + get(bz, e));
+          const float r = sigmoid(acc[2 + s][q] + get(br, e));
+          const float n = tanhf((acc[4 + s][q] + get(bi, e)) + r * (acc[6 + s][q] + get(bh, e)));
+          hn[s][q] = (1.0f - z) * n + z * get(hold[s][q >> 1], e);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = tile * MMA_ROWS + g + 8 * half;
+        if (row < p.n_rows)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            *reinterpret_cast<float2*>(p.out + ((size_t)row * p.n_steps + t) * H + col + 8 * s) =
+                make_float2(hn[s][half * 2], hn[s][half * 2 + 1]);
+      }
+      x2_cur[tile * frag_u4 + own] = make_uint4(pack_bf16(hn[0][0], hn[0][1]), pack_bf16(hn[0][2], hn[0][3]),
+                                                pack_bf16(hn[1][0], hn[1][1]), pack_bf16(hn[1][2], hn[1][3]));
+    }
+  }
+  // Leave the row group's counters at 0 for the next launch on the stream:
+  // each CTA's thread 0 is past its last wait when it checks out, so the
+  // last of the 25 to check out resets both.
+  if (threadIdx.x == 0) {
+    unsigned int* counters = p.barrier + rg * BARRIER_STRIDE;
+    if (atomicAdd(counters + 1, 1u) == UNIT_GROUPS - 1) {
+      atomicExch(counters, 0u);
+      atomicExch(counters + 1, 0u);
+    }
+  }
+}
+
+cudaError_t blocks_per_sm(int smem, int* blocks) {
+  const cudaError_t err = cudaFuncSetAttribute(gru_gates_p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gru_gates_p_kernel, THREADS, smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* fvad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Dynamic shared memory of a launch whose CTAs hold tiles_per_group 16-row
+// tiles (the host's launch plan sizes it with the same sum).
+int fvad_gru_gates_p_smem_bytes(int tiles_per_group) { return smem_bytes(tiles_per_group); }
+
+// gz, gr, gn [n_rows, n_steps, H] float32; w the per-unit-group packing
+// [25][75][32][12] of wp1 and wp2's non-zero blocks
+// (models/nsnet2_gates_cuda.py::pack_unit_groups); b8 [8, H] float32; out
+// [n_rows, n_steps, H] float32; x1, x2 each [2][tiles][25][32] uint4 of
+// scratch; barrier: row_groups x 32 unsigned ints, zero at launch (two
+// counters a row group, 128 bytes apart; the kernel leaves them zero, so
+// launches in order on one stream can share them). All contiguous on the current
+// device, 16-byte aligned. The plan (tiles = ceil(n_rows / 16), row_groups
+// x tiles_per_group covering them, grid 25 x row_groups) comes from the
+// host. A plan that does not cover the tiles exactly, a CTA of more than
+// MAX_TILES tiles, a refused shared-memory size, or a grid the device
+// cannot hold at once (a barrier would deadlock) is refused before
+// any launch. Launches cooperatively on `stream`; returns the cudaError_t.
+int fvad_gru_gates_p(const float* gz, const float* gr, const float* gn, const void* w, const float* b8, float* out,
+                     void* x1, void* x2, unsigned int* barrier, int n_rows, int n_steps, int tiles, int row_groups,
+                     int tiles_per_group, void* stream) {
+  if (n_rows < 1 || n_steps < 1 || tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 ||
+      tiles_per_group > MAX_TILES || row_groups < 1 || (long long)row_groups * tiles_per_group < tiles ||
+      (long long)(row_groups - 1) * tiles_per_group >= tiles)
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(tiles_per_group);
+  const int grid = UNIT_GROUPS * row_groups;
+  int dev = 0, coop = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = blocks_per_sm(smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (blocks < 1 || grid > blocks * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Params p{gz, gr, gn, static_cast<const uint4*>(w), b8, out, static_cast<uint4*>(x1), static_cast<uint4*>(x2),
+           barrier, n_rows, n_steps, tiles, tiles_per_group};
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)gru_gates_p_kernel, dim3(grid), dim3(THREADS), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

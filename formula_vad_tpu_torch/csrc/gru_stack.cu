@@ -14,7 +14,8 @@
 //   the biases as the triple bh1 = [0, 0, bh1_n], bi2 = [bi2_z + bh2_z,
 //   bi2_r + bh2_r, bi2_n], bh2 = [0, 0, bh2_n] (adding 0.0 is exact, so the
 //   gate sums below are theirs term for term), h2 out in float32 or, for
-//   kernel 6, bf16. Their bf16 forms are csrc/gru_gates.cu.
+//   kernel 6, bf16. Their bf16 forms are csrc/gru_gates.cu (kernels 4
+//   and 6) and csrc/gru_gates_p.cu (kernel 5).
 // The gi of gate g at (row, step) is gi_g + (row * T + step) * gi_stride:
 // kernel 1 passes gi1, gi1 + H, gi1 + 2H with stride 3H, the per-gate forms
 // their three arrays with stride H.
@@ -56,6 +57,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "grid_barrier.cuh"
 
 namespace {
 
@@ -116,21 +119,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-// Every CTA's writes before the call are visible to every CTA after it.
-// `target` grows by gridDim.x per barrier; the counter starts at 0.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 __device__ __forceinline__ float get(const float4& v, int q) {

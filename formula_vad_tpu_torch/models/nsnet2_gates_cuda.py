@@ -31,12 +31,16 @@ In float32 the three compute kernel 1's function (``nsnet2_cuda``), so
 on the card they run on its kernel, ``csrc/gru_stack.cu``, through
 ``nsnet2_cuda.gru_stack_gates``: its packed weights, and its bias vectors
 built once from the per-gate folding (``stacked_biases``). In bf16 CUDA
-tensors go to the kernels in ``csrc/gru_gates.cu``. CPU tensors go to the
+tensors go to hand-written kernels: kernel 5 to ``csrc/gru_gates_p.cu``
+(one persistent cooperative launch; each CTA keeps one group of 16 hidden
+units' weights in shared memory for the whole call, ``p_launch_plan``),
+kernels 4 and 6 to ``csrc/gru_gates.cu``. CPU tensors go to the
 ``*_reference`` plain versions, per-step loops of ``torch.matmul`` on
 bf16-rounded operands held in float32 (TF32 off), which reproduce every
 rounding point of their kernel. Weights are packed once per network and
-dtype (``gate_weights``, cached on the module); a bf16 kernel reads them in
-``mma.sync`` fragment order (``pack_fragments``).
+dtype (``gate_weights``, cached on the module); the bf16 kernels read them
+in ``mma.sync`` fragment order (``pack_fragments``; kernel 5 per unit
+group, ``pack_unit_groups``).
 """
 
 from __future__ import annotations
@@ -56,13 +60,27 @@ H = HIDDEN
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+# Kernel 5's tiling (csrc/gru_gates_p.cu): a CTA owns P_UNITS hidden units
+# (one K step of h) and whole 16-row MMA tiles, at most P_MAX_TILES of them
+# beside its P_W_BYTES of weights (P_TILE_BYTES of shared memory a tile:
+# its gi and float32 h1).
+P_UNITS = 16
+P_UNIT_GROUPS = H // P_UNITS
+P_ROWS = 16
+P_MAX_TILES = 28
+P_W_BYTES = 3 * H * 3 * P_UNITS * 2  # 3,600 bf16 a unit: 115,200 bytes a group
+P_TILE_BYTES = 4096
+
+
 @dataclasses.dataclass(frozen=True)
 class GateWeights:
     """One network's recurrent weights packed for the three kernels in one
     dtype. ``w9`` [9, H, H]: wh1 z r n, wi2 z r n, wh2 z r n; ``wp1`` [H, 3H];
     ``wp2`` [2H, 4H]; ``b8`` [8, H] float32: bh1_n, bi2_z + bh2_z,
-    bi2_r + bh2_r, bi2_n, bh2_n, 0, 0, 0. In bf16, ``frag9``, ``frag1`` and
-    ``frag2`` hold ``w9``, ``wp1`` and ``wp2`` in fragment order."""
+    bi2_r + bh2_r, bi2_n, bh2_n, 0, 0, 0. In bf16, ``frag9`` holds ``w9`` in
+    fragment order (kernels 4 and 6) and ``units`` holds ``wp1`` and the
+    non-zero blocks of ``wp2`` by unit group (kernel 5,
+    ``pack_unit_groups``)."""
 
     dtype: torch.dtype
     w9: torch.Tensor
@@ -70,8 +88,7 @@ class GateWeights:
     wp2: torch.Tensor
     b8: torch.Tensor
     frag9: torch.Tensor | None = None
-    frag1: torch.Tensor | None = None
-    frag2: torch.Tensor | None = None
+    units: torch.Tensor | None = None
 
 
 def pack_fragments(w: torch.Tensor) -> torch.Tensor:
@@ -86,6 +103,32 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
     x = w.contiguous().view(torch.int16).reshape(k // 16, 2, 4, 2, n // 8, 8)  # (s, half, t, pair, n, g)
     x = x.permute(4, 0, 5, 2, 1, 3).contiguous()  # (n, s, g, t, half, pair)
     return x.view(torch.int32).reshape(n // 8, k // 16, 32, 2)
+
+
+def pack_unit_groups(wp1: torch.Tensor, wp2: torch.Tensor) -> torch.Tensor:
+    """Kernel 5's bf16 weights for ``csrc/gru_gates_p.cu``: int32 [25, 75,
+    32, 12], one 115,200-byte block per group of 16 hidden units, which a
+    CTA loads into shared memory once per call. K block kb (16 rows of K)
+    runs over wp1's rows (kb < 25), wp2's h1 rows (25-49) and its h2 rows
+    (50-74); its six n8 tiles are the group's z, r and n columns, 8 units
+    each (the n columns of the h1 rows are n_i, of the h2 rows n_h: wp2's
+    zero blocks are left out). Each lane's 12 words hold its
+    ``pack_fragments`` words of the six tiles in order, so a lane reads a
+    K step as three 16-byte loads."""
+    if wp1.dtype != torch.bfloat16 or tuple(wp1.shape) != (H, 3 * H) or tuple(wp2.shape) != (2 * H, 4 * H):
+        raise ValueError(f"pack_unit_groups: need bf16 wp1 [{H}, {3 * H}] and wp2 [{2 * H}, {4 * H}]")
+    units = torch.arange(P_UNIT_GROUPS, device=wp1.device)[:, None] * P_UNITS + torch.arange(P_UNITS, device=wp1.device)
+
+    def cols(bases):  # -> [25, 48]: the group's units of each gate's columns
+        return torch.cat([b + units for b in bases], dim=1)
+
+    w = torch.cat([
+        wp1[:, cols((0, H, 2 * H))],
+        wp2[:H, cols((0, H, 2 * H))],
+        wp2[H:, cols((0, H, 3 * H))],
+    ]).permute(1, 0, 2)  # [25, 3H, 48]
+    frags = torch.stack([pack_fragments(group) for group in w])  # [25, 6, 75, 32, 2]
+    return frags.permute(0, 2, 3, 1, 4).reshape(P_UNIT_GROUPS, 3 * H // 16, 32, 12).contiguous()
 
 
 def fold_biases(net: NSNet2) -> torch.Tensor:
@@ -114,10 +157,7 @@ def pack(net: NSNet2, dtype: torch.dtype) -> GateWeights:
     gw = GateWeights(dtype, w9, g1.wh.to(dtype).contiguous(), wp2.to(dtype).contiguous(), fold_biases(net))
     if dtype == torch.bfloat16:
         gw = dataclasses.replace(
-            gw,
-            frag9=torch.stack([pack_fragments(w) for w in gw.w9]),
-            frag1=pack_fragments(gw.wp1),
-            frag2=pack_fragments(gw.wp2),
+            gw, frag9=torch.stack([pack_fragments(w) for w in gw.w9]), units=pack_unit_groups(gw.wp1, gw.wp2)
         )
     return gw
 
@@ -238,12 +278,85 @@ def gru_gates_f_reference(gw: GateWeights, gi_z, gi_r, gi_n, out_dtype: torch.dt
 # --------------------------------------------------------------- wrappers
 
 
+@dataclasses.dataclass(frozen=True)
+class PLaunch:
+    """One cooperative launch of kernel 5 (``csrc/gru_gates_p.cu``) over rows
+    ``row0`` .. ``row0 + n_rows``: ``tiles`` 16-row tiles in ``row_groups``
+    groups of ``tiles_per_group`` (the last may hold fewer), times the 25
+    unit groups. CTA b owns unit group b % 25 and row group b // 25."""
+
+    row0: int
+    n_rows: int
+    tiles: int
+    row_groups: int
+    tiles_per_group: int
+
+    @property
+    def grid(self) -> int:
+        return P_UNIT_GROUPS * self.row_groups
+
+    @property
+    def smem_bytes(self) -> int:
+        return P_W_BYTES + self.tiles_per_group * P_TILE_BYTES
+
+    def cta_span(self, block: int) -> tuple[range, range]:
+        """The rows (of the whole call) and the hidden units of CTA ``block``."""
+        rg, ug = divmod(block, P_UNIT_GROUPS)
+        first = rg * self.tiles_per_group * P_ROWS
+        rows = range(self.row0 + first, self.row0 + min(first + self.tiles_per_group * P_ROWS, self.n_rows))
+        return rows, range(ug * P_UNITS, (ug + 1) * P_UNITS)
+
+
+def p_launch_plan(n_rows: int, sm_count: int) -> tuple[PLaunch, ...]:
+    """Kernel 5's launches for ``n_rows`` rows on a card of ``sm_count`` SMs
+    (one CTA a SM: its weights take half the SM's shared memory). A launch
+    is one wave: ``sm_count // 25`` row groups beside the 25 unit groups,
+    each of at most P_MAX_TILES 16-row tiles. The tiles are spread evenly
+    over as few launches as that allows, and over the row groups of each
+    (1,680 rows on 132 SMs: one launch, 5 row groups of 21 tiles, 125
+    CTAs). Rows are independent, so a row's bits do not depend on the plan."""
+    if n_rows < 1 or sm_count < P_UNIT_GROUPS:
+        raise ValueError(f"p_launch_plan: need n_rows >= 1 and sm_count >= {P_UNIT_GROUPS}, got {n_rows}, {sm_count}")
+    slots = sm_count // P_UNIT_GROUPS
+    tiles = -(-n_rows // P_ROWS)
+    n_launches = -(-tiles // (slots * P_MAX_TILES))
+    base, extra = divmod(tiles, n_launches)
+    launches, tile0 = [], 0
+    for i in range(n_launches):
+        here = base + (i < extra)
+        per = -(-here // min(slots, here))
+        row0 = tile0 * P_ROWS
+        launches.append(PLaunch(row0, min(here * P_ROWS, n_rows - row0), here, -(-here // per), per))
+        tile0 += here
+    return tuple(launches)
+
+
 @functools.cache  # called once per forward on the bf16 tier: keep the lookup off that path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_gates")
-    lib.fvad_gru_gates.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fvad_gru_gates.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.fvad_gru_gates.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib_p() -> ctypes.CDLL:
+    lib = _build.load("gru_gates_p")
+    lib.fvad_gru_gates_p.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fvad_gru_gates_p.restype = ctypes.c_int
+    lib.fvad_gru_gates_p_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fvad_gru_gates_p_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_p_plan(n_rows: int, dev: torch.device) -> tuple[PLaunch, ...]:
+    """``p_launch_plan`` for the card ``dev``."""
+    return p_launch_plan(n_rows, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))
 
 
 def _check(what: str, name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -274,23 +387,75 @@ def _operands(what: str, net: NSNet2, gi: tuple, dtype: torch.dtype, gi_dtype) -
     return gi
 
 
-def _launch_bf16(kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype, tile: int) -> torch.Tensor:
-    """One launch of the bf16 form of kernel ``kind`` (``csrc/gru_gates.cu``)."""
-    n, t, _ = gi[0].shape
-    dev = gi[0].device
-    wa, wb = (gw.frag1, gw.frag2) if kind == 5 else (gw.frag9, gw.frag9)
-    what = f"gru_gates kernel {kind}"
-    for name, w in (("wa", wa), ("wb", wb), ("b8", gw.b8)):
+def _check_weights(what: str, dev: torch.device, **weights: torch.Tensor) -> None:
+    for name, w in weights.items():
         if w.device != dev:
             raise ValueError(f"{what}: weight {name} is on {w.device}, gi on {dev}")
+
+
+_P_BARRIERS: dict = {}
+
+
+def _p_barrier(dev: torch.device, stream: int) -> torch.Tensor:
+    """Kernel 5's barrier counters for launches on ``stream`` of card
+    ``dev``: one 128-byte line a row group, zeroed once. The kernel leaves
+    them zero at exit, so launches in order on one stream share them and no
+    call fills them; each stream has its own, as launches on two streams may
+    run at once. Under CUDA-graph capture the fill is captured with the
+    launch instead."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((_sm_count(dev.index) // P_UNIT_GROUPS, 32), dtype=torch.int32, device=dev)
+    key = (dev.index, stream)
+    if key not in _P_BARRIERS:
+        _P_BARRIERS[key] = torch.zeros((_sm_count(dev.index) // P_UNIT_GROUPS, 32), dtype=torch.int32, device=dev)
+    return _P_BARRIERS[key]
+
+
+def _launch_p(gw: GateWeights, gi: tuple) -> torch.Tensor:
+    """Kernel 5 in bf16 (``csrc/gru_gates_p.cu``): one cooperative launch
+    per ``PLaunch`` of the card's plan, each on its rows' slice of gi and
+    out with its own exchange buffers (``torch.empty``: no fill), all on the
+    stream's barrier counters (``_p_barrier``). Each launch is counted in
+    ``gru_gates_p.launches``."""
+    n, t, _ = gi[0].shape
+    dev = gi[0].device
+    _check_weights("gru_gates_p kernel 5", dev, units=gw.units, b8=gw.b8)
+    out = torch.empty((n, t, H), dtype=torch.float32, device=dev)
+    lib = _lib_p()
+    step = t * H * 4  # bytes of one row of gi and out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        barrier = _p_barrier(dev, stream)
+        for launch in device_p_plan(n, dev):
+            # x1 and x2, each [2 ping-pong][tiles][25 K steps][32 lanes] x 16 bytes.
+            x = torch.empty((2, 2, launch.tiles, H // 16, 32, 4), dtype=torch.int32, device=dev)
+            off = launch.row0 * step
+            err = lib.fvad_gru_gates_p(
+                *(g.data_ptr() + off for g in gi), gw.units.data_ptr(), gw.b8.data_ptr(), out.data_ptr() + off,
+                x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(),
+                launch.n_rows, t, launch.tiles, launch.row_groups, launch.tiles_per_group, stream,
+            )
+            _build.check(lib, err, "gru_gates_p kernel 5 launch")
+            gru_gates_p.launches += 1
+    return out
+
+
+def _launch_bf16(kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype, tile: int) -> torch.Tensor:
+    """One launch of the bf16 form of kernel ``kind``: kernel 5 on
+    ``csrc/gru_gates_p.cu``, kernels 4 and 6 on ``csrc/gru_gates.cu``."""
+    if kind == 5:
+        return _launch_p(gw, gi)
+    n, t, _ = gi[0].shape
+    dev = gi[0].device
+    what = f"gru_gates kernel {kind}"
+    _check_weights(what, dev, frag9=gw.frag9, b8=gw.b8)
     out = torch.empty((n, t, H), dtype=out_dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fvad_gru_gates(
             kind, 1, int(gi[0].dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            *(x.data_ptr() for x in gi), wa.data_ptr(), wb.data_ptr(), gw.b8.data_ptr(), out.data_ptr(),
-            n, t, tile, stream,
+            *(x.data_ptr() for x in gi), gw.frag9.data_ptr(), gw.b8.data_ptr(), out.data_ptr(), n, t, tile, stream,
         )
     _build.check(lib, err, f"{what} launch")
     return out
@@ -298,9 +463,10 @@ def _launch_bf16(kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype, 
 
 def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype,
             tile: int) -> torch.Tensor:
-    """Run kernel ``kind`` in ``dtype`` on the card and count the launch in
-    ``wrapper.launches``: float32 on kernel 1's kernel
-    (``nsnet2_cuda.gru_stack_gates``), bf16 on ``csrc/gru_gates.cu``."""
+    """Run kernel ``kind`` in ``dtype`` on the card and count its launches
+    in ``wrapper.launches``: float32 on kernel 1's kernel
+    (``nsnet2_cuda.gru_stack_gates``, one launch), bf16 on
+    ``_launch_bf16``'s (kernel 5 counts each of its launches itself)."""
     n, t, _ = gi[0].shape
     if n == 0 or t == 0:
         return torch.empty((n, t, H), dtype=out_dtype, device=gi[0].device)
@@ -308,6 +474,8 @@ def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_
         out = nsnet2_cuda.gru_stack_gates(net, gi, stacked_biases(net), out_dtype)
     else:
         out = _launch_bf16(kind, gate_weights(net, dtype), gi, out_dtype, tile)
+        if kind == 5:
+            return out
     wrapper.launches += 1
     return out
 
@@ -327,7 +495,9 @@ def gru_gates_p(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float3
     """Kernel 5: float32 gi [N, T, H] -> h2 [N, T, H] float32.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (counted in ``gru_gates_p.launches``) or raises."""
+    or raises. ``gru_gates_p.launches`` counts launches: one a call in
+    float32; in bf16 one a ``PLaunch`` of ``device_p_plan`` (more than one
+    above 2,240 rows on 132 SMs)."""
     gi = _operands("gru_gates_p", net, (gi_z, gi_r, gi_n), dtype, torch.float32)
     if gi[0].device.type == "cpu":
         return gru_gates_p_reference(gate_weights(net, dtype), *gi)

@@ -70,11 +70,18 @@ def write_corpus(root: str, n: int, seconds: float, seed: int, plans: tuple[str,
             json.dump({"instances": instances, "config": {"output_dir": f"out_{name}"}}, f)
 
 
-def fsm_inputs(rows: int, windows: int, seed: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def fsm_inputs(rows: int, windows: int, seed: int, ratio_lead: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """FSM window inputs (min_volumes, volume_ratios, valids), each
     [rows, windows]: noise-floor windows with loud, correlated bursts of
     several lengths (segments, aborted short ones, blips, gaps either side
-    of the 2 s limit) and invalid trailing windows on odd rows."""
+    of the 2 s limit) and invalid trailing windows on odd rows.
+
+    ``ratio_lead`` windows of each burst's channel correlation come before
+    its volume rises (the same rng draws for any lead). A machine without
+    an initial long-term average needs a lead of about the ratio window: a
+    loud window whose ratio average has not yet crossed the threshold
+    enters the long-term ring and raises the speech threshold, and a short
+    ring (3 s) then misses the later bursts."""
     rng = np.random.default_rng(seed)
     mv = (0.004 + 0.002 * rng.random((rows, windows))).astype(np.float32)
     vr = (0.2 + 0.1 * rng.random((rows, windows))).astype(np.float32)
@@ -86,7 +93,7 @@ def fsm_inputs(rows: int, windows: int, seed: int) -> tuple[np.ndarray, np.ndarr
             if pos + length >= windows - 20:
                 break
             mv[r, pos : pos + length] = rng.uniform(0.1, 0.4)
-            vr[r, pos : pos + length] = rng.uniform(0.6, 0.95)
+            vr[r, max(0, pos - ratio_lead) : pos + length] = rng.uniform(0.6, 0.95)
             pos += length + gap
         if r % 2 == 1:
             valid[r, windows - int(rng.integers(1, 120)) :] = False

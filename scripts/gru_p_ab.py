@@ -1,0 +1,137 @@
+"""Two checkouts' kernel 5 in bf16 (``nsnet2_gates_cuda.gru_gates_p``) side
+by side, in one process on one card, at the bf16 tier's shape [1680, 54].
+
+    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8]
+
+Each ``--root`` names a checkout whose ``formula_vad_tpu_torch`` is loaded
+under a name of its own, so both versions of the wrapper and of the kernel
+run on the same inputs: the experiment tool's features (numpy seed 0)
+through the network's fc_in and ``gi_gates``, as on the bf16 tier, on the
+random-init network with N(0, 0.3) GRU biases (numpy seed 3), each
+checkout building its own copy of the same weights. Both outputs are held
+to the last checkout's plain version (``gru_gates_p_reference``) within
+``chip_smoke.py``'s bf16 bars (mean |dh2| <= 3e-5, max <= 6e-3); the
+distance between the two checkouts' outputs, and each one's distance from
+the plain version on random gi, with whether the two agree bit for bit
+there, are printed for the record: at each of ``RANDOM_SHAPES``, gi
+N(0, 0.8) of numpy seed rows x steps on the demo network with the same
+biases, the inputs of ``tests/test_torch_cuda.py``'s float32 ragged-shape
+test. Then ``--rounds`` rounds, each timing A B B A: a single call
+(``tools.cuda_ms``) and calls queued back to back (``tools.queued_ms``).
+Prints one line per round and one JSON line of the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import os
+import statistics
+import sys
+
+import numpy as np
+
+ROWS, STEPS = 1680, 54
+RANDOM_SHAPES = tuple((n, 54) for n in (1, 15, 17, 337, 1680, 4000))
+BF16_MEAN, BF16_MAX = 3e-5, 6e-3
+
+
+def _package(root: str, alias: str):
+    """The ``formula_vad_tpu_torch`` of the checkout at ``root``, loaded as ``alias``."""
+    pkg = os.path.join(os.path.abspath(root), "formula_vad_tpu_torch")
+    spec = importlib.util.spec_from_file_location(alias, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def _net(pkg, dev, spec="random"):
+    """The ``spec`` network of checkout ``pkg`` with N(0, 0.3) GRU biases (numpy seed 3)."""
+    import torch
+
+    registry = importlib.import_module(f"{pkg.__name__}.models.registry")
+    net = registry.load_denoiser(spec, device=dev)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for g in (net.gru1, net.gru2):
+            for b in (g.bi, g.bh):
+                b.copy_(torch.from_numpy(rng.normal(0.0, 0.3, tuple(b.shape)).astype(np.float32)))
+    return net
+
+
+def _dist(a, b) -> tuple[float, float]:
+    d = (a - b).abs()
+    return float(d.max()), float(d.mean())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", action="append", required=True, help="a checkout (give two)")
+    ap.add_argument("--rounds", type=int, default=8)
+    args = ap.parse_args(argv)
+    import torch
+
+    if len(args.root) != 2:
+        ap.error("give exactly two --root checkouts")
+    if not torch.cuda.is_available():
+        print("gru_p_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    pkgs = [_package(root, f"_gru_p_ab_checkout_{i}") for i, root in enumerate(args.root)]
+    gates = [importlib.import_module(f"{p.__name__}.models.nsnet2_gates_cuda") for p in pkgs]
+    tools = importlib.import_module(f"{pkgs[-1].__name__}.tools")
+    exp = importlib.import_module(f"{pkgs[-1].__name__}.tools.gru_kernel_exp")
+    dev = torch.device("cuda")
+    nets = [_net(p, dev) for p in pkgs]
+    with torch.inference_mode():
+        gi = exp._gi_gates(nets[-1], exp.features(ROWS, dev)[0])
+        plain_gw = gates[-1].gate_weights(nets[-1], torch.bfloat16)
+        want = gates[-1].gru_gates_p_reference(plain_gw, *gi)
+        calls = [lambda g=g, net=net: g.gru_gates_p(net, *gi, dtype=torch.bfloat16) for g, net in zip(gates, nets)]
+        outs = [fn() for fn in calls]
+        random_gi = {}
+        demos = [_net(p, dev, "demo") for p in pkgs]
+        demo_gw = gates[-1].gate_weights(demos[-1], torch.bfloat16)
+        for n, t in RANDOM_SHAPES:
+            rng = np.random.default_rng(n * t)
+            rgi = [torch.from_numpy((rng.standard_normal((n, t, 400)) * 0.8).astype(np.float32)).to(dev)
+                   for _ in range(3)]
+            want_random = gates[-1].gru_gates_p_reference(demo_gw, *rgi)
+            random_outs = [g.gru_gates_p(net, *rgi, dtype=torch.bfloat16) for g, net in zip(gates, demos)]
+            random_gi[f"{n}x{t}"] = {"vs_plain": [_dist(o, want_random) for o in random_outs],
+                                     "identical": bool(torch.equal(*random_outs))}
+        torch.cuda.synchronize()
+        result = {"device": torch.cuda.get_device_name(0), "card": tools.card(),
+                  "roots": [os.path.abspath(r) for r in args.root], "shape": [ROWS, STEPS],
+                  "vs_plain": [_dist(o, want) for o in outs], "random_gi": random_gi,
+                  "between": _dist(outs[0], outs[1]), "identical": bool(torch.equal(outs[0], outs[1]))}
+        print(f"{result['card']}: vs plain (max, mean) {result['vs_plain']}; between the checkouts "
+              f"{result['between']}, identical {result['identical']}", flush=True)
+        for shape, r in random_gi.items():
+            print(f"random gi [{shape}]: vs plain (max, mean) {r['vs_plain']}, identical {r['identical']}", flush=True)
+        for root, (worst, mean) in zip(args.root, result["vs_plain"]):
+            if not (worst <= BF16_MAX and mean <= BF16_MEAN):
+                raise AssertionError(f"gru_p_ab: {root} misses the bf16 bars: max {worst}, mean {mean}")
+        single, queued = [[], []], [[], []]
+        for r in range(args.rounds):
+            for j in (0, 1, 1, 0):
+                single[j].append(tools.cuda_ms(calls[j]))
+                queued[j].append(tools.queued_ms(calls[j]))
+            row = [statistics.mean(single[j][-2:]) for j in (0, 1)], [statistics.mean(queued[j][-2:]) for j in (0, 1)]
+            print(f"round {r}: single {row[0][0]:.3f} / {row[0][1]:.3f} ms, queued {row[1][0]:.3f} / "
+                  f"{row[1][1]:.3f} ms ({' / '.join(args.root)})", flush=True)
+    result["single_ms"], result["queued_ms"] = single, queued
+    result["faster_rounds"] = sum(
+        statistics.mean(single[1][2 * r:2 * r + 2]) < statistics.mean(single[0][2 * r:2 * r + 2])
+        for r in range(args.rounds))
+    result["median_single_ms"] = [statistics.median(s) for s in single]
+    result["median_queued_ms"] = [statistics.median(q) for q in queued]
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

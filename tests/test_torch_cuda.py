@@ -390,8 +390,8 @@ def test_gru_gates_refuse_what_they_do_not_take(net, cuda_device):
     lib = gates._lib()
     out = torch.empty((8, 3, 400), device=cuda_device)
     w = gates.gate_weights(net, torch.bfloat16)
-    err = lib.fvad_gru_gates(4, 0, 0, 0, *(x.data_ptr() for x in gi), w.frag9.data_ptr(), w.frag9.data_ptr(),
-                             w.b8.data_ptr(), out.data_ptr(), 8, 3, 8, torch.cuda.current_stream().cuda_stream)
+    err = lib.fvad_gru_gates(4, 0, 0, 0, *(x.data_ptr() for x in gi), w.frag9.data_ptr(), w.b8.data_ptr(),
+                             out.data_ptr(), 8, 3, 8, torch.cuda.current_stream().cuda_stream)
     assert err != 0
     net.gru1.linear_before_reset = 0
     for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
@@ -400,6 +400,78 @@ def test_gru_gates_refuse_what_they_do_not_take(net, cuda_device):
                 wrapper(net, *gi, dtype=dtype)
     with pytest.raises(NotImplementedError):
         nsnet2_cuda.gru_stack_gates(net, gi, biases, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 54])
+@pytest.mark.parametrize("rows", [1, 15, 17, 337, 1680, 4000])
+def test_gru_gates_p_bf16_at_ragged_shapes(net, cuda_device, rows, steps):
+    """Kernel 5 in bf16 (csrc/gru_gates_p.cu) against its plain version,
+    on gi as the bf16 tier makes it (``gi_gates`` of the fc_in output): a
+    partial 16-row tile, one tile a CTA, several tiles a CTA, and 4,000
+    rows, which take two launches of 25 tiles a CTA; one count a launch."""
+    net = _biased(net)
+    gi = _gi3(net, rows, steps, rows * steps, cuda_device)
+    before = gates.gru_gates_p.launches
+    with torch.inference_mode():
+        got = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
+        want = gates.gru_gates_p_reference(gates.gate_weights(net, torch.bfloat16), *gi)
+    torch.cuda.synchronize()
+    assert gates.gru_gates_p.launches == before + len(gates.device_p_plan(rows, cuda_device))
+    assert got.dtype == torch.float32 and got.shape == (rows, steps, 400)
+    d = (got - want).abs()
+    assert float(d.max()) <= BF16_MAX and float(d.mean()) <= BF16_MEAN, (float(d.max()), float(d.mean()))
+
+
+@pytest.mark.cuda
+def test_gru_gates_p_bf16_rows_are_independent(net, cuda_device):
+    """A row's bits depend on its own inputs only: a repeated call, and the
+    first 17 rows of the 1,680-row call against a 17-row call. The calls
+    share the stream's barrier counters, which each launch leaves at 0."""
+    net = _biased(net)
+    gi = _gi3(net, 1680, 54, 8, cuda_device)
+    with torch.inference_mode():
+        whole = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
+        again = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
+        part = gates.gru_gates_p(net, *(g[:17].contiguous() for g in gi), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, again)
+    assert torch.equal(part, whole[:17])
+    barrier = gates._p_barrier(whole.device, torch.cuda.current_stream(whole.device).cuda_stream)
+    assert not bool(barrier.any())
+
+
+@pytest.mark.cuda
+def test_gru_gates_p_bf16_refuses_what_it_does_not_take(net, cuda_device):
+    gi = _gi3(net, 40, 3, 0, cuda_device)
+    misaligned = torch.empty(40 * 3 * 400 + 1, device=cuda_device)[1:].view(40, 3, 400)
+    with pytest.raises(ValueError, match="aligned"):
+        gates.gru_gates_p(net, misaligned, *gi[1:], dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        gates.gru_gates_p(net, *gi, dtype=torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gates.gru_gates_p(net, gi[0].transpose(0, 1).contiguous().transpose(0, 1), *gi[1:], dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gates.gru_gates_p(net, *(g[..., :200] for g in gi), dtype=torch.bfloat16)
+    # The C entry point refuses, before any launch, a plan that does not
+    # cover the tiles, a CTA of more tiles than its shared memory holds, and
+    # a grid the card cannot hold at once.
+    lib = gates._lib_p()
+    w = gates.gate_weights(net, torch.bfloat16)
+    out = torch.empty((40, 3, 400), device=cuda_device)
+    x = torch.empty((2, 2, 3, 25, 32, 4), dtype=torch.int32, device=cuda_device)
+    barrier = torch.zeros((8, 32), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, tiles, groups, per in ((40, 2, 1, 2), (40, 3, 1, 2), (40, 3, 3, 2), (16 * 29, 29, 1, 29),
+                                  (16 * (sms // 25 + 1), sms // 25 + 1, sms // 25 + 1, 1)):
+        err = lib.fvad_gru_gates_p(*(g.data_ptr() for g in gi), w.units.data_ptr(), w.b8.data_ptr(), out.data_ptr(),
+                                   x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(), n, 3, tiles, groups, per,
+                                   stream)
+        assert err != 0, (n, tiles, groups, per)
+    torch.cuda.synchronize()
+    for per in (1, 21, gates.P_MAX_TILES):
+        assert lib.fvad_gru_gates_p_smem_bytes(per) == gates.PLaunch(0, 16, 1, 1, per).smem_bytes
 
 
 @pytest.mark.cuda

@@ -266,15 +266,95 @@ def test_packed_weights(pair):
     gw = gates.gate_weights(net, torch.bfloat16)
     assert gates.gate_weights(net, torch.bfloat16) is gw  # packed once per net and dtype
     assert gw.w9.dtype == gw.wp1.dtype == gw.wp2.dtype == torch.bfloat16 and gw.b8.dtype == torch.float32
-    assert gw.frag9.shape == (9, 50, 25, 32, 2) and gw.frag1.shape == (150, 25, 32, 2)
-    assert gw.frag2.shape == (200, 50, 32, 2)
+    assert gw.frag9.shape == (9, 50, 25, 32, 2) and gw.units.shape == (25, 75, 32, 12)
+    assert gw.units.dtype == torch.int32 and gw.units.is_contiguous()
+    assert gw.units.numel() * 4 == 25 * gates.P_W_BYTES  # 115,200 bytes a group of 16 units
     h = 400
     assert torch.equal(gw.wp2[:h, 2 * h : 3 * h], net.gru2.wi[:, 2 * h :].to(torch.bfloat16))
     assert torch.equal(gw.wp2[h:, 3 * h :], net.gru2.wh[:, 2 * h :].to(torch.bfloat16))
     assert not gw.wp2[:h, 3 * h :].any() and not gw.wp2[h:, 2 * h : 3 * h].any()
     assert torch.equal(gw.b8[1], net.gru2.bi[:h] + net.gru2.bh[:h]) and not gw.b8[5:].any()
     f32 = gates.gate_weights(net, torch.float32)
-    assert f32.frag9 is None and torch.equal(f32.w9[8], net.gru2.wh[:, 2 * h :])
+    assert f32.frag9 is None and f32.units is None and torch.equal(f32.w9[8], net.gru2.wh[:, 2 * h :])
+
+
+def _unpack_unit_groups(units: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """Kernel 5's per-unit-group packing read back by the kernel's own
+    indexing (csrc/gru_gates_p.cu): unit group ug, K block kb, lane 4 g + q,
+    n8 tile n (gate n // 2, units 8 (n % 2) + g), word w, half e holds K row
+    16 (kb % 25) + 2 q + 8 w + e of wp1 (kb < 25), of wp2's h1 rows
+    (kb < 50) or of its h2 rows. -> (wp1, wp2) as int16 bit patterns, wp2's
+    n_h columns of the h1 rows and n_i columns of the h2 rows left at 0."""
+    x = units.contiguous().view(torch.int16).reshape(25, 75, 32, 6, 2, 2).numpy()
+    wp1 = np.zeros((400, 1200), np.int16)
+    wp2 = np.zeros((800, 1600), np.int16)
+    ug, kb, lane, n, w, e = np.meshgrid(*(np.arange(d) for d in x.shape), indexing="ij")
+    g, q = lane // 4, lane % 4
+    k = 16 * (kb % 25) + 2 * q + 8 * w + e
+    unit = 16 * ug + 8 * (n % 2) + g
+    gate = n // 2
+    part = kb // 25
+    col = np.where((part == 2) & (gate == 2), 1200, 400 * gate) + unit
+    first = part == 0
+    wp1[k[first], col[first]] = x[first]
+    wp2[(k + 400 * (part == 2))[~first], col[~first]] = x[~first]
+    return wp1, wp2
+
+
+def test_unit_group_packing_unpacks_to_the_weights(pair):
+    """Each group's block holds exactly wp1 and the non-zero blocks of wp2,
+    each weight once, at the place the kernel reads it."""
+    _, net = pair
+    gw = gates.gate_weights(net, torch.bfloat16)
+    wp1, wp2 = _unpack_unit_groups(gw.units)
+    assert np.array_equal(wp1, gw.wp1.view(torch.int16).numpy())
+    want = gw.wp2.view(torch.int16).numpy().copy()
+    assert not want[:400, 1200:].any() and not want[400:, 800:1200].any()  # the blocks left out
+    assert np.array_equal(wp2, want)
+    with pytest.raises(ValueError):
+        gates.pack_unit_groups(gw.wp1.float(), gw.wp2)
+
+
+def test_unit_group_packing_follows_in_place_updates(pair):
+    flat = _flat(pair[0])
+    net = nsnet2.from_numpy(flat)
+    other = nsnet2.from_numpy({k: (v * 0.5 if k.startswith("gru") else v) for k, v in flat.items()})
+    before = gates.gate_weights(net, torch.bfloat16).units
+    with torch.no_grad():
+        net.load_state_dict(other.state_dict())
+    after = gates.gate_weights(net, torch.bfloat16).units
+    assert after is not before and not torch.equal(after, before)
+    assert torch.equal(after, gates.gate_weights(other, torch.bfloat16).units)
+    assert gates.gate_weights(net, torch.bfloat16).units is after  # packed once per weight version
+
+
+@pytest.mark.parametrize("n_rows", [1, 16, 17, 1680, 4000, 20000])
+def test_kernel_5_launch_plan(n_rows):
+    """On 132 SMs: every row in exactly one CTA of one launch, each CTA one
+    unit group of 16 units and whole 16-row tiles, at most P_MAX_TILES of
+    them (its shared memory), and each launch one resident wave."""
+    plan = gates.p_launch_plan(n_rows, 132)
+    seen = np.zeros((n_rows, 400), np.int32)
+    for launch in plan:
+        assert launch.grid <= 132 and launch.row_groups <= 132 // gates.P_UNIT_GROUPS
+        assert launch.tiles == -(-launch.n_rows // 16) and launch.tiles_per_group <= gates.P_MAX_TILES
+        assert launch.smem_bytes <= 232448 and launch.row0 % 16 == 0
+        for block in range(launch.grid):
+            rows, units = launch.cta_span(block)
+            assert len(units) == gates.P_UNITS and units.start % gates.P_UNITS == 0
+            assert len(rows) > 0 and (rows.start - launch.row0) % 16 == 0
+            seen[rows.start : rows.stop, units.start : units.stop] += 1
+    assert (seen == 1).all()
+    if n_rows == 1680:
+        assert len(plan) == 1 and (plan[0].row_groups, plan[0].tiles_per_group, plan[0].grid) == (5, 21, 125)
+    if n_rows == 4000:  # several tiles a CTA, in two launches
+        assert len(plan) == 2 and all(launch.tiles_per_group == 25 for launch in plan)
+
+
+def test_kernel_5_launch_plan_refuses_what_it_cannot_run():
+    for n_rows, sms in ((0, 132), (-3, 132), (16, 24)):
+        with pytest.raises(ValueError):
+            gates.p_launch_plan(n_rows, sms)
 
 
 def test_packed_weights_follow_in_place_updates(pair, gi):
