@@ -18,10 +18,18 @@ runs nine phases; any failed check raises and the script exits non-zero.
    and the cuDNN two-layer GRU on the same weights as the library
    yardstick. Then linear_before_reset = 0 weights, which have no kernel,
    scored on the card (the plain loop) against the CPU: 1e-4, no launch.
-3. FSM kernel vs the native host decoder and vs its plain version on the
-   card, [21, 937] windows that visit every state: bit for bit; its time
-   per single call, queued back to back, and continuing a carry, and the
-   host time of a wrapper call.
+3. FSM kernel (its shared-memory body) vs the native host decoder at
+   [21, 937], [21, 56,250] (20-minute streams: the long ring wraps, many
+   tiles) and [660, 937] (five rows an SM, two waves), and vs its plain
+   version at [21, 937], on windows that visit every state: all seven outputs and the
+   carry bit for bit. For each shape its launch plan (body, CTAs, tile,
+   shared memory a CTA), its time per single call, queued back to back and
+   continuing a carry, ns a window, the host time of a fresh wrapper call,
+   the bytes bound and, in the log only, the chain bound (the decision
+   chain's loop-carried cycles a window, a fixed count from the SASS,
+   times the windows, over the card's top SM clock). Then a long ring
+   above the shared-memory budget, which takes the global body, counted
+   apart, against the host decoder.
 4. The batched scoring slice, 21 streams x 20 s of stereo 48 kHz audio,
    through BatchRunner on the card: real-time factor, a per-stage time
    split, and proof that both kernels ran (launch counters).
@@ -99,6 +107,18 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 GRU_ROWS, GRU_STEPS = 1680, 54  # 21 streams x 2 channels x 40 chunks, 54 frames
 FSM_ROWS, FSM_WINDOWS = 21, 937  # 21 streams x 20 s of 1024-sample windows
+# Phase 3's shapes: the slice's; 20-minute streams (the long ring wraps,
+# many tiles); five rows an SM (two waves of at most four).
+FSM_SHAPES = ((FSM_ROWS, FSM_WINDOWS), (FSM_ROWS, 56_250), (660, FSM_WINDOWS))
+FSM_BIG_LONG_WINDOW = 60_000  # a long ring above the shared-memory budget: the global body
+# Loop-carried cycles a window of the smem body's long-ring chain, counted
+# once by hand in the SASS of csrc/fsm_scan.cu (cuobjdump -sass, the met
+# lane's loop): 13 dependent ALU instructions over two windows (q(w-1) ->
+# FSEL long_last, FSEL base, FMUL, FSETP, FSETP, ISETP push(w) -> FSEL old,
+# FADD v, y, t, FFMA x 3 -> q(w)), at an assumed 4 cycles each. A fixed
+# count, not read from the build: phase 3 logs the chain bound from it and
+# prints it in no JSON line. Recount it after any edit of that loop.
+FSM_CHAIN_CYCLES = 26
 SLICE_STREAMS, SLICE_SECONDS = 21, 20.0
 CORPUS_STREAMS = 3  # the simulator runs' corpus: 3 streams x 20 s
 GRU_TOL = 1e-4
@@ -273,72 +293,118 @@ def check_lbr0(dev) -> None:
         raise AssertionError(f"lbr = 0 weights on the card: max |d| {e}, {launched} gru_stack launches")
 
 
+def _fsm_equal(got, got_carry, out, carry) -> float:
+    """Raise unless the kernel's seven outputs and carry equal ``out`` and
+    ``carry`` (numpy or tensors) bit for bit; the largest float difference."""
+    import torch
+
+    err = 0.0
+    for field, a, b in zip(got._fields, got, out):
+        a, b = a.cpu().numpy(), np.asarray(b.cpu().numpy() if torch.is_tensor(b) else b)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"output {field}")
+        if a.dtype.kind == "f":
+            err = max(err, float(np.max(np.abs(a - b))))
+    for key in got_carry:
+        a = got_carry[key].cpu().numpy()
+        b = carry[key].cpu().numpy() if torch.is_tensor(carry[key]) else carry[key]
+        if a.tobytes() != np.ascontiguousarray(b).tobytes():
+            raise AssertionError(f"carry {key}")
+    return err
+
+
+def sm_clock_mhz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm), for the chain bound."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.split()[0])
+
+
 def phase_fsm(st, dev) -> dict:
     import torch
 
     from formula_vad_tpu_torch.pipeline import fsm_cuda, fsm_host
     from formula_vad_tpu_torch.testing.synth import fsm_inputs
-    from formula_vad_tpu_torch.tools import cuda_ms, queued_ms
+    from formula_vad_tpu_torch.tools import cuda_ms, host_us, queued_ms
 
-    mv, vr, valid = fsm_inputs(FSM_ROWS, FSM_WINDOWS, seed=0)
-    args = [torch.from_numpy(x).to(dev) for x in (mv, vr, valid)]
     shape, params = st.fsm_shape, st.fsm_params
-    got, got_carry = fsm_cuda.scan_windows(shape, params, *args)
-    plain, plain_carry = fsm_cuda.scan_windows_reference(shape, params, *args)
-    fsm_host.scan_windows_host(shape, params, mv, vr, valid)  # builds and loads the library
-    t0 = time.perf_counter()
-    host, host_carry = fsm_host.scan_windows_host(shape, params, mv, vr, valid)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    events = np.bincount(host.event.reshape(-1), minlength=4)
-    log(f"FSM events none/started/completed/aborted: {events.tolist()}")
-    if not (events[1:] > 0).all():
-        raise AssertionError("FSM inputs did not visit every transition")
-    err = 0.0
-    for other_name, out, carry in (("host decoder", host, host_carry), ("plain version", plain, plain_carry)):
-        for field, a, b in zip(got._fields, got, out):
-            a, b = a.cpu().numpy(), np.asarray(b.cpu().numpy() if torch.is_tensor(b) else b)
-            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
-                raise AssertionError(f"FSM kernel != {other_name} on output {field}")
-            if a.dtype.kind == "f":
-                err = max(err, float(np.max(np.abs(a - b))))
-        for key in got_carry:
-            a = got_carry[key].cpu().numpy()
-            b = carry[key].cpu().numpy() if torch.is_tensor(carry[key]) else carry[key]
-            if a.tobytes() != np.ascontiguousarray(b).tobytes():
-                raise AssertionError(f"FSM kernel != {other_name} on carry {key}")
-        log(f"FSM kernel == {other_name}: all 7 outputs and the carry, bit for bit")
-    def fresh():
-        return fsm_cuda.scan_windows(shape, params, *args)
+    mhz = sm_clock_mhz()
+    rows_out, entry = [], None
+    for rows, windows in FSM_SHAPES:
+        mv, vr, valid = fsm_inputs(rows, windows, seed=0)
+        args = [torch.from_numpy(x).to(dev) for x in (mv, vr, valid)]
+        got, got_carry = fsm_cuda.scan_windows(shape, params, *args)
+        plan = fsm_cuda.scan_windows.last_plan
+        fsm_host.scan_windows_host(shape, params, mv[:1, :8], vr[:1, :8], valid[:1, :8])  # builds the library
+        t0 = time.perf_counter()
+        host, host_carry = fsm_host.scan_windows_host(shape, params, mv, vr, valid)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        events = np.bincount(host.event.reshape(-1), minlength=4)
+        log(f"FSM [{rows}, {windows}] events none/started/completed/aborted: {events.tolist()}")
+        if not (events[1:] > 0).all():
+            raise AssertionError("FSM inputs did not visit every transition")
+        others = [("host decoder", host, host_carry)]
+        if (rows, windows) == (FSM_ROWS, FSM_WINDOWS):  # the plain version's loop is too slow beyond
+            others.append(("plain version", *fsm_cuda.scan_windows_reference(shape, params, *args)))
+        err = 0.0
+        for other_name, out, carry in others:
+            try:
+                err = max(err, _fsm_equal(got, got_carry, out, carry))
+            except AssertionError as e:
+                raise AssertionError(f"FSM kernel != {other_name} at [{rows}, {windows}] on {e}") from None
+            log(f"FSM kernel == {other_name} at [{rows}, {windows}]: all 7 outputs and the carry, bit for bit")
 
-    ms = cuda_ms(fresh)
-    # The split of a single call: calls queued back to back; calls that
-    # continue a carry (no fresh carry to copy up, no Kahan seed fold in the
-    # kernel); and the host's time per wrapper call, launches not waited for.
-    queued = queued_ms(fresh)
-    chained_ms = cuda_ms(lambda: fsm_cuda.scan_windows(shape, params, *args, carry=got_carry))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        fresh()
-    host_call_ms = (time.perf_counter() - t0) / 10 * 1e3
-    torch.cuda.synchronize()
-    plain_ms = cuda_ms(lambda: fsm_cuda.scan_windows_reference(shape, params, *args), reps=3)
-    # Inputs read once, outputs written once; the carry the kernel seeds is
-    # read and written. Its real limit is the serial chain of windows.
-    nbytes = sum(x.nbytes for x in args) + sum(x.nbytes for x in got) + 2 * sum(x.nbytes for x in got_carry.values())
-    bound_ms, bound_by = bound(nbytes, 0, F32_OPS_PER_MS)
-    log(f"FSM [{FSM_ROWS}, {FSM_WINDOWS}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, host decoder {host_ms:.3f} ms; "
-        f"bytes bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB); serial chain: {FSM_WINDOWS} dependent "
-        f"windows per row, {ms / FSM_WINDOWS * 1e3:.2f} us per window in the kernel")
-    log(f"FSM [{FSM_ROWS}, {FSM_WINDOWS}] split: single call {ms:.3f} ms, queued back to back {queued:.3f} ms, "
-        f"continuing a carry {chained_ms:.3f} ms; host time of a wrapper call {host_call_ms:.3f} ms")
-    return {
-        "name": "scan_windows", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/fsm_scan.cu",
-        "replaces": "formula_vad_tpu/pipeline/fsm_pallas.py:339", "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "queued_ms": queued, "chained_ms": chained_ms, "host_call_ms": host_call_ms,
-    }
+        def fresh():
+            return fsm_cuda.scan_windows(shape, params, *args)
+
+        ms = cuda_ms(fresh)
+        # The split of a single call: calls queued back to back; calls that
+        # continue a carry (rings loaded instead of filled); and the host's
+        # time per wrapper call, launches not waited for.
+        queued = queued_ms(fresh)
+        chained_ms = cuda_ms(lambda: fsm_cuda.scan_windows(shape, params, *args, carry=got_carry))
+        host_call_us = host_us([fresh])[0]
+        # Inputs read once, outputs written once, the carry read and written.
+        nbytes = sum(x.nbytes for x in args) + sum(x.nbytes for x in got) + 2 * sum(x.nbytes for x in got_carry.values())
+        bound_ms, bound_by = bound(nbytes, 0, F32_OPS_PER_MS)
+        chain_ms = FSM_CHAIN_CYCLES * windows / (mhz * 1e3)
+        row = {"rows": rows, "windows": windows, "body": plan.body, "ctas": plan.ctas, "tile": plan.tile,
+               "tiles": plan.tiles, "smem_bytes": plan.smem_bytes,
+               "ms": ms, "queued_ms": queued, "chained_ms": chained_ms, "host_call_ms": host_call_us / 1e3,
+               "ns_per_window": queued / windows * 1e6, "host_decoder_ms": host_ms, "bound_ms": bound_ms}
+        rows_out.append(row)
+        log(f"FSM [{rows}, {windows}] plan: {plan.body} body, {plan.ctas} CTAs of {plan.threads} threads, "
+            f"tile {plan.tile} windows ({plan.tiles} a row), {plan.smem_bytes} B shared a CTA")
+        log(f"FSM [{rows}, {windows}]: single call {ms:.4f} ms, queued back to back {queued:.4f} ms "
+            f"({row['ns_per_window']:.1f} ns a window), continuing a carry {chained_ms:.4f} ms; host time of a "
+            f"wrapper call {host_call_us:.1f} us; host decoder {host_ms:.3f} ms; bytes bound {bound_ms * 1e3:.2f} us "
+            f"({nbytes / 1e6:.2f} MB); chain bound {chain_ms * 1e3:.2f} us ({FSM_CHAIN_CYCLES} cycles a window, a "
+            f"fixed count from the SASS, at {mhz:.0f} MHz)")
+        if entry is None:
+            plain_ms = cuda_ms(lambda: fsm_cuda.scan_windows_reference(shape, params, *args), reps=3)
+            log(f"FSM [{rows}, {windows}]: plain version {plain_ms:.3f} ms")
+            entry = {
+                "name": "scan_windows", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/fsm_scan.cu",
+                "replaces": "formula_vad_tpu/pipeline/fsm_pallas.py:339", "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "queued_ms": queued, "chained_ms": chained_ms, "host_call_ms": host_call_us / 1e3,
+                "body": plan.body,
+                "plan": {"ctas": plan.ctas, "threads": plan.threads, "tile": plan.tile, "tiles": plan.tiles,
+                         "smem_bytes": plan.smem_bytes},
+            }
+    # Rings above the shared-memory budget take the global body (counted apart).
+    big_shape, big_params = st.fsm_shape._replace(long_window=FSM_BIG_LONG_WINDOW), params
+    mv, vr, valid = fsm_inputs(4, 600, seed=1)
+    before = fsm_cuda.scan_windows.launches_by_body["global"]
+    got, got_carry = fsm_cuda.scan_windows(big_shape, big_params, *(torch.from_numpy(x).to(dev) for x in (mv, vr, valid)))
+    host, host_carry = fsm_host.scan_windows_host(big_shape, big_params, mv, vr, valid)
+    if fsm_cuda.scan_windows.launches_by_body["global"] != before + 1:
+        raise AssertionError("a long ring above the shared-memory budget did not take the global body")
+    _fsm_equal(got, got_carry, host, host_carry)
+    log(f"FSM global body (long ring of {FSM_BIG_LONG_WINDOW} slots) at [4, 600] == host decoder, bit for bit")
+    entry["shapes"] = rows_out
+    return entry
 
 
 def slice_audio() -> np.ndarray:
@@ -361,6 +427,8 @@ def timed_runs(runner, audio, counters) -> tuple[list, list[float], dict]:
     run()  # warm-up
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_body"):
+            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -383,9 +451,12 @@ def phase_slice(runner, audio, smi: str) -> tuple[dict, list, float]:
     host_runner = BatchRunner(net, use_host_fsm=True)
     counters = {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows}
     results, walls, launches = timed_runs(runner, audio, counters)
-    log(f"slice launches over 3 runs: {launches}")
+    log(f"slice launches over 3 runs: {launches}; scan_windows by body {fsm_cuda.scan_windows.launches_by_body}")
+    if fsm_cuda.scan_windows.launches_by_body["smem"] != launches["scan_windows"]:
+        raise AssertionError("the slice's FSM did not run the shared-memory body")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    launches["scan_windows_by_body"] = dict(fsm_cuda.scan_windows.launches_by_body)
     wall = statistics.median(walls)
     log(f"slice {SLICE_STREAMS} x {SLICE_SECONDS:.0f} s: wall {wall * 1e3:.1f} ms (median of 3, "
         f"runs {[round(w * 1e3, 1) for w in walls]}), real-time factor {audio_sec / wall:.1f} on {smi}")
@@ -922,6 +993,8 @@ def main() -> int:
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "scan_windows":
+            k["launches_by_body"] = launches["scan_windows_by_body"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -9,14 +9,18 @@ and carried across calls, int32 wraparound window arithmetic, and inert
 outputs from the frozen carry for invalid windows. The kernel and the plain
 version are held to the host decoder bit for bit.
 
-CUDA tensors go to the kernel in ``csrc/fsm_scan.cu``; CPU tensors go to
-``scan_windows_reference``, a per-window loop vectorised over rows.
+CUDA tensors go to the kernel in ``csrc/fsm_scan.cu``, whose body
+``launch_plan`` picks on ring size alone (rings in shared memory, one CTA a
+row; or, above the shared-memory budget, rings in global memory); CPU
+tensors go to ``scan_windows_reference``, a per-window loop vectorised over
+rows.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -221,20 +225,105 @@ def scan_windows_reference(
     return WindowOutput(**outs), carry
 
 
+# The most dynamic shared memory an H100 block may opt in to, bytes.
+H100_SMEM_PER_BLOCK = 232_448
+# Windows a tile: the pipeline's unit (the three stages behind the loads
+# each wait one tile to start), TILE_MIN where a CTA with TILE_MAX would not
+# fit a block. Multiples of 32.
+TILE_MAX, TILE_MIN = 128, 32
+# Shared bytes a tile window (csrc/fsm_scan.cu): the state machine's
+# records 32 B x 2 slots, inputs 9 B x 4, averages 8 B x 2 and their counts
+# 8 B, met 1 B x 2.
+TILE_BYTES = 32 * 2 + 9 * 4 + 8 * 2 + 8 + 2
+SMEM_THREADS, GLOBAL_THREADS = 160, 64
+
+
+class ScanPlan(NamedTuple):
+    """How ``scan_windows`` launches: the body (``"smem"``, rings in shared
+    memory, one CTA a row; ``"global"``, the first port's rings in global
+    memory, one thread a row), its CTAs and threads, the windows a tile and
+    the tiles a row, and the dynamic shared memory a CTA (the smem body
+    only)."""
+
+    body: str
+    ctas: int
+    threads: int
+    tile: int
+    tiles: int
+    smem_bytes: int
+
+
+def smem_bytes(shape: FSMShape, tile: int) -> int:
+    """Dynamic shared memory of one smem-body CTA: its tiles and its row's three rings."""
+    return TILE_BYTES * tile + 4 * (shape.long_window + shape.short_window + shape.ratio_window)
+
+
+def launch_plan(b: int, w: int, shape: FSMShape, smem_per_block: int = H100_SMEM_PER_BLOCK) -> ScanPlan:
+    """The launch of B machines over W windows, on ring size alone: the
+    smem body with tiles of ``TILE_MAX`` windows, or ``TILE_MIN`` where one
+    CTA would not fit a block's shared memory (``smem_per_block`` bytes)
+    with the larger tile; the global body where it fits with neither. The
+    results do not depend on the plan."""
+    tile = next((t for t in (TILE_MAX, TILE_MIN) if smem_bytes(shape, t) <= smem_per_block), None)
+    if tile is None:
+        return ScanPlan("global", -(-b // GLOBAL_THREADS), GLOBAL_THREADS, 0, 0, 0)
+    return ScanPlan("smem", b, SMEM_THREADS, tile, -(-w // tile), smem_bytes(shape, tile))
+
+
+def _fold(values: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The exact left Kahan fold of ``n`` copies of each of ``values``
+    (float32), in fvad_fsm_kahan_seed's order of operations."""
+    s = np.zeros_like(values)
+    c = np.zeros_like(values)
+    for _ in range(n):
+        y = values - c
+        t = s + y
+        c = (t - s) - y
+        s = t
+    return s, c
+
+
+@functools.lru_cache(maxsize=16)
+def fresh_kahan(long_window: int, has_initial_avg: bool, initial_avg: bytes, device: torch.device) -> torch.Tensor:
+    """The Kahan slots [B, NK] of B fresh machines on ``device``: the
+    exact left fold of each fresh ring, which holds ``long_window`` copies
+    of the row's ``initial_avg`` (float32 bytes, one a row) in the long ring
+    and zeros elsewhere. A function of the configuration alone, so it is
+    folded on the host once per content and cached with the parameters: a
+    fresh ``scan_windows`` call then makes no host-to-device copy, and the
+    kernel no serial fold."""
+    init = np.frombuffer(initial_avg, np.float32)
+    kahan = np.zeros((init.shape[0], fsm.NK), np.float32)
+    if has_initial_avg:  # zero rings fold to (0, 0)
+        bits, inverse = np.unique(init.view(np.uint32), return_inverse=True)
+        sums, comps = _fold(bits.view(np.float32), long_window)
+        kahan[:, 0], kahan[:, 1] = sums[inverse.reshape(-1)], comps[inverse.reshape(-1)]
+    return torch.from_numpy(kahan).to(device)
+
+
 @functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fsm_scan", extra_flags=("-fmad=false",))
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fvad_fsm_scan.argtypes = (
-        [i32] * 8 + [ctypes.c_float]  # sizes, static shape, window_sec
-        + [p] * 5  # per-row params
-        + [p] * 4  # inputs
-        + [p] * 6 + [i32]  # carry, seed flag
+        [i32] * 10 + [ctypes.c_float]  # body, sizes, tile, static shape, window_sec
+        + [p] * 6  # per-row params
+        + [p] * 4  # inputs, win_base
+        + [i32] + [p] * 7  # fresh flag, carry in, fresh Kahan seeds
+        + [p] * 6  # carry out
         + [p] * 7  # outputs
         + [p]  # stream
     )
     lib.fvad_fsm_scan.restype = ctypes.c_int
+    lib.fvad_fsm_smem_bytes.argtypes = [i32] * 4
+    lib.fvad_fsm_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+@functools.cache
+def smem_per_block(index: int) -> int:
+    """The most dynamic shared memory a block of CUDA device ``index`` may opt in to."""
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -244,6 +333,9 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device)
             f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}"
             f"{'' if x.is_contiguous() else ' (not contiguous)'}"
         )
+
+
+CARRY_KEYS = ("long_buf", "short_buf", "ratio_buf", "ireg", "freg", "kahan")
 
 
 def scan_windows(
@@ -260,8 +352,11 @@ def scan_windows(
     ``carry=None`` starts fresh machines (index 0 at ``win_base``, default
     0); a carry returned by an earlier call continues them exactly. The
     given carry is not modified. A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (counted in ``scan_windows.launches``) or
-    raises."""
+    tensor launches the kernel or raises. A fresh call on the card makes no
+    host-to-device copy and does not synchronise once its parameters and
+    seeds are cached. Launches are counted in ``scan_windows.launches`` and,
+    by body, in ``scan_windows.launches_by_body``; the last call's plan is
+    ``scan_windows.last_plan``."""
     if min_volumes.device.type == "cpu":
         return scan_windows_reference(shape, params, min_volumes, volume_ratios, valids, carry, win_base)
     if min_volumes.device.type != "cuda":
@@ -273,12 +368,20 @@ def scan_windows(
     _check("min_volumes", min_volumes, torch.float32, (b, w), dev)
     _check("volume_ratios", volume_ratios, torch.float32, (b, w), dev)
     _check("valids", valids, torch.bool, (b, w), dev)
-    carry, seed, win_base, prm = _prepare(shape, params, min_volumes, carry, win_base)
-    _check("win_base", win_base, torch.int32, (b,), dev)
-    if not seed:  # a fresh carry is right by construction
+    if win_base is not None:
+        _check("win_base", win_base, torch.int32, (b,), dev)
+    fresh = carry is None
+    if not fresh:
         fsm.check_carry(shape, carry, b)
-    for name, x in carry.items():
-        _check(f"carry[{name}]", x, torch.int32 if name == "ireg" else torch.float32, tuple(x.shape), dev)
+        for name in CARRY_KEYS:
+            x = carry[name]
+            _check(f"carry[{name}]", x, torch.int32 if name == "ireg" else torch.float32, tuple(x.shape), dev)
+    L, S, R = shape.long_window, shape.short_window, shape.ratio_window
+    sizes = {"long_buf": L, "short_buf": S, "ratio_buf": R, "ireg": fsm.NI, "freg": fsm.NF, "kahan": fsm.NK}
+    new_carry = {
+        k: torch.empty((b, n), dtype=torch.int32 if k == "ireg" else torch.float32, device=dev)
+        for k, n in sizes.items()
+    }
 
     def empty(dtype):
         return torch.empty((b, w), dtype=dtype, device=dev)
@@ -289,23 +392,34 @@ def scan_windows(
         seg_ratio=empty(torch.float32), seg_met_sec=empty(torch.float32),
     )
     if b == 0:
-        return outs, carry
+        return outs, new_carry
+    raw = tuple(x.tobytes() for x in fsm.param_rows(params, b))
+    prm = _param_tensors(raw, dev)
+    seeds = fresh_kahan(L, bool(shape.has_initial_avg), raw[5], dev) if fresh else None
     lib = _lib()
+    plan = launch_plan(b, w, shape, smem_per_block(dev.index if dev.index is not None else torch.cuda.current_device()))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fvad_fsm_scan(
-            b, w, shape.long_window, shape.short_window, shape.ratio_window, int(shape.has_initial_avg), shape.fft_size, shape.sample_rate,
-            float(np.float32(shape.window_sec)),
+            0 if plan.body == "smem" else 1, b, w, plan.tile, L, S, R, int(shape.has_initial_avg),
+            shape.fft_size, shape.sample_rate, float(np.float32(shape.window_sec)),
             *(x.data_ptr() for x in prm),
-            min_volumes.data_ptr(), volume_ratios.data_ptr(), valids.data_ptr(), win_base.data_ptr(),
-            *(carry[k].data_ptr() for k in ("long_buf", "short_buf", "ratio_buf", "ireg", "freg", "kahan")),
-            int(seed),
+            min_volumes.data_ptr(), volume_ratios.data_ptr(), valids.data_ptr(),
+            None if win_base is None else win_base.data_ptr(),
+            int(fresh),
+            *((None,) * 6 if fresh else (carry[k].data_ptr() for k in CARRY_KEYS)),
+            seeds.data_ptr() if fresh else None,
+            *(new_carry[k].data_ptr() for k in CARRY_KEYS),
             *(x.data_ptr() for x in outs),
             stream,
         )
     _build.check(lib, err, "scan_windows launch")
     scan_windows.launches += 1
-    return outs, carry
+    scan_windows.launches_by_body[plan.body] += 1
+    scan_windows.last_plan = plan
+    return outs, new_carry
 
 
 scan_windows.launches = 0
+scan_windows.launches_by_body = {"smem": 0, "global": 0}
+scan_windows.last_plan = None

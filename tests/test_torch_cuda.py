@@ -10,8 +10,9 @@ per-gate GRU kernels in float32; in bf16 max |dh2| <= 6e-3 and mean <= 3e-5
 (another float32 summation order now and then flips the bf16 rounding of an
 h value, which moves single outputs by ~1e-3 but the mean by ~4e-6; a kernel
 that skipped a bf16 rounding point would sit ~4e-4 off in the mean, the
-distance of the plain bf16 form from the plain float32 one); the FSM kernel bit
-for bit equal to the native host decoder; the int8 matmul kernel bit for bit
+distance of the plain bf16 form from the plain float32 one); the FSM kernel's
+two bodies bit for bit equal to the native host decoder on the seven outputs
+and the whole carry; the int8 matmul kernel bit for bit
 equal to its plain version; the slice's segments on the GPU equal to the CPU
 run's. Under the int8 tier the GPU and CPU runs give the same segment count
 with every boundary within one FSM window: a one-ulp difference before
@@ -183,6 +184,151 @@ def test_fsm_kernel_chains_through_its_carry(cuda_device):
     bad["ireg"][0, fsm.I_LONG_IDX] = -1
     with pytest.raises(ValueError, match="ring index"):
         fsm_cuda.scan_windows(shape, params, *args, carry=bad)
+
+
+FSM_CONFIGS = {
+    "default": VADMachineConfig(),
+    # No initial average and a 140-slot long ring, which wraps.
+    "no_initial_short_long": VADMachineConfig(initial_long_term_avg=None, long_term_speech_avg_sec=3.0),
+}
+# A long-term window of 1,300 s: 60,937 slots, above the shared-memory
+# ring budget, so the rings stay in global memory.
+FSM_ABOVE_BUDGET = VADMachineConfig(long_term_speech_avg_sec=1300.0)
+
+
+def _fsm_case(config, rows, windows, seed):
+    """Inputs and per-row parameters (initial long-term averages too)."""
+    shape, params = fsm.statics_from_config(config, SR, FFT)
+    params = fsm_per_row_params(params, rows, seed=seed)
+    init = np.random.default_rng(seed).uniform(0.002, 0.01, rows).astype(np.float32)
+    params = params._replace(initial_long_term_avg=init)
+    lead = 0 if config.initial_long_term_avg is not None else 12
+    return shape, params, fsm_inputs(rows, windows, seed=seed, ratio_lead=lead)
+
+
+def _assert_fsm_equal(got, got_carry, want, want_carry, what):
+    for field, a, b in zip(fsm.WindowOutput._fields, got, want):
+        a = a.cpu().numpy()
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f"{what}: {field}"
+    for key in want_carry:
+        assert got_carry[key].cpu().numpy().tobytes() == want_carry[key].tobytes(), f"{what}: carry {key}"
+
+
+def _fsm_vs_host(cuda_device, config, rows, windows, seed, body="smem"):
+    shape, params, (mv, vr, valid) = _fsm_case(config, rows, windows, seed)
+    want, want_carry = fsm_host.scan_windows_host(shape, params, mv, vr, valid)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (mv, vr, valid)]
+    before = dict(fsm_cuda.scan_windows.launches_by_body)
+    got, got_carry = fsm_cuda.scan_windows(shape, params, *args)
+    torch.cuda.synchronize()
+    assert fsm_cuda.scan_windows.last_plan.body == body
+    assert fsm_cuda.scan_windows.launches_by_body[body] == before[body] + 1
+    _assert_fsm_equal(got, got_carry, want, want_carry, f"[{rows}, {windows}]")
+
+
+def _tile(config, rows):
+    shape, _ = fsm.statics_from_config(config, SR, FFT)
+    return fsm_cuda.launch_plan(rows, 1, shape, fsm_cuda.smem_per_block(torch.cuda.current_device())).tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", ["1", "tile-1", "tile", "tile+1", "20000"])
+@pytest.mark.parametrize("config", sorted(FSM_CONFIGS))
+def test_fsm_smem_body_at_tile_edges(cuda_device, config, windows):
+    """The smem body bit for bit against the host decoder on the seven
+    outputs and the whole carry, at 21 rows and W around one tile, and at
+    20,000 windows (more than the long ring, and many tiles)."""
+    tile = _tile(FSM_CONFIGS[config], 21)
+    w = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "20000": 20000}[windows]
+    _fsm_vs_host(cuda_device, FSM_CONFIGS[config], 21, w, seed=w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 660])
+@pytest.mark.parametrize("config", sorted(FSM_CONFIGS) + ["long_ring"])
+def test_fsm_smem_body_rows(cuda_device, config, rows):
+    """One row, and 660 rows (five an SM on 132 SMs, more than one wave);
+    a 20-minute long ring (56,250 slots) does not fit a block with the
+    larger tile and takes the smaller."""
+    cfg = VADMachineConfig(long_term_speech_avg_sec=1200.0) if config == "long_ring" else FSM_CONFIGS[config]
+    if config == "long_ring":
+        assert _tile(cfg, rows) == fsm_cuda.TILE_MIN
+    _fsm_vs_host(cuda_device, cfg, rows, 937, seed=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(FSM_CONFIGS))
+def test_fsm_chain_split_off_a_tile_edge(cuda_device, config):
+    """A carry handed over at a window inside a tile continues the machines
+    exactly: both halves equal the one-shot call and the host decoder."""
+    rows, windows = 21, 937
+    cut = _tile(FSM_CONFIGS[config], rows) + 45
+    shape, params, (mv, vr, valid) = _fsm_case(FSM_CONFIGS[config], rows, windows, seed=9)
+    want, want_carry = fsm_host.scan_windows_host(shape, params, mv, vr, valid)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (mv, vr, valid)]
+    first, carry = fsm_cuda.scan_windows(shape, params, *(x[:, :cut].contiguous() for x in args))
+    snapshot = {k: v.clone() for k, v in carry.items()}
+    second, final = fsm_cuda.scan_windows(
+        shape, params, *(x[:, cut:].contiguous() for x in args), carry=carry,
+        win_base=torch.full((rows,), cut, dtype=torch.int32, device=cuda_device),
+    )
+    torch.cuda.synchronize()
+    joined = [torch.cat([a, b], dim=1) for a, b in zip(first, second)]
+    _assert_fsm_equal(joined, final, want, want_carry, f"split at {cut}")
+    for key in carry:
+        assert torch.equal(carry[key], snapshot[key]), f"given carry modified: {key}"
+
+
+@pytest.mark.cuda
+def test_fsm_rings_above_the_budget_take_the_global_body(cuda_device):
+    """A long-term window above the shared-memory budget runs the global body
+    (rings in global memory), counted apart, fresh and continuing a carry."""
+    shape, params, (mv, vr, valid) = _fsm_case(FSM_ABOVE_BUDGET, 5, 600, seed=4)
+    assert fsm_cuda.smem_bytes(shape, fsm_cuda.TILE_MIN) > fsm_cuda.smem_per_block(torch.cuda.current_device())
+    _fsm_vs_host(cuda_device, FSM_ABOVE_BUDGET, 5, 600, seed=4, body="global")
+    want, want_carry = fsm_host.scan_windows_host(shape, params, mv, vr, valid)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (mv, vr, valid)]
+    first, carry = fsm_cuda.scan_windows(shape, params, *(x[:, :250].contiguous() for x in args))
+    second, final = fsm_cuda.scan_windows(
+        shape, params, *(x[:, 250:].contiguous() for x in args), carry=carry,
+        win_base=torch.full((5,), 250, dtype=torch.int32, device=cuda_device),
+    )
+    assert fsm_cuda.scan_windows.last_plan.body == "global"
+    _assert_fsm_equal([torch.cat([a, b], dim=1) for a, b in zip(first, second)], final, want, want_carry, "global split")
+
+
+@pytest.mark.cuda
+def test_fsm_fresh_call_makes_no_copy_and_no_sync(cuda_device):
+    """Once its parameters and seeds are cached (one warm-up call), a fresh
+    call builds its carry on the card: no host-to-device copy, no
+    synchronisation."""
+    shape, params, (mv, vr, valid) = _fsm_case(FSM_CONFIGS["default"], 21, 937, seed=2)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (mv, vr, valid)]
+    fsm_cuda.scan_windows(shape, params, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_carry = fsm_cuda.scan_windows(shape, params, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, want_carry = fsm_host.scan_windows_host(shape, params, mv, vr, valid)
+    _assert_fsm_equal(got, got_carry, want, want_carry, "fresh call")
+
+
+@pytest.mark.cuda
+def test_fsm_plan_matches_the_kernel(cuda_device):
+    """The host plan's shared-memory count is the kernel's, and fits the card."""
+    lib = fsm_cuda._lib()
+    block = fsm_cuda.smem_per_block(torch.cuda.current_device())
+    assert block == fsm_cuda.H100_SMEM_PER_BLOCK or "H100" not in torch.cuda.get_device_name()
+    for config in (*FSM_CONFIGS.values(), FSM_ABOVE_BUDGET):
+        shape, _ = fsm.statics_from_config(config, SR, FFT)
+        for tile in (32, 96, 256):
+            want = lib.fvad_fsm_smem_bytes(tile, shape.long_window, shape.short_window, shape.ratio_window)
+            assert fsm_cuda.smem_bytes(shape, tile) == want
+        for rows in (1, 21, 660, 5000):
+            plan = fsm_cuda.launch_plan(rows, 937, shape, block)
+            assert plan.body == "global" or plan.smem_bytes <= block
 
 
 @pytest.mark.cuda

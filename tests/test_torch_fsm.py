@@ -155,3 +155,88 @@ def test_host_binding_refuses_bad_carry_and_params():
         fsm_host.scan_windows_host(shape, params, mv, vr[:, :10], valid)
     with pytest.raises(ValueError, match="threshold_factor"):
         fsm_host.scan_windows_host(shape, params._replace(threshold_factor=np.ones(3, np.float32)), mv, vr, valid)
+
+
+# A long-term window of 1,300 s: 60,937 slots, above the shared-memory ring
+# budget of an H100 block.
+ABOVE_BUDGET = VADMachineConfig(long_term_speech_avg_sec=1300.0)
+
+
+@pytest.mark.parametrize("rows", [1, 21, 132, 133, 660, 5000])
+def test_launch_plan_smem_body(rows):
+    """The smem body at the default config: one CTA a row, tiles of
+    TILE_MAX windows whatever the rows, a tile count that covers W, and the
+    shared memory of the tiles and the rings."""
+    shape, _ = fsm.statics_from_config(CONFIGS["default"], SR, FFT)
+    plan = fsm_cuda.launch_plan(rows, 937, shape)
+    assert (plan.body, plan.ctas, plan.threads, plan.tile) == ("smem", rows, fsm_cuda.SMEM_THREADS, fsm_cuda.TILE_MAX)
+    assert plan.tiles == -(-937 // plan.tile) and (plan.tiles - 1) * plan.tile < 937
+    ring = 4 * (shape.long_window + shape.short_window + shape.ratio_window)
+    assert plan.smem_bytes == fsm_cuda.TILE_BYTES * plan.tile + ring == fsm_cuda.smem_bytes(shape, plan.tile)
+    assert plan.smem_bytes <= fsm_cuda.H100_SMEM_PER_BLOCK
+    assert fsm_cuda.launch_plan(rows, 1, shape).tiles == 1
+    assert fsm_cuda.launch_plan(rows, 0, shape).tiles == 0
+
+
+def test_launch_plan_chooses_the_body_on_ring_size():
+    """Rings whose CTA does not fit a block's shared memory with TILE_MAX
+    windows a tile take TILE_MIN; those that fit with neither take the
+    global body (one thread a row, 64 a CTA)."""
+    block = fsm_cuda.H100_SMEM_PER_BLOCK
+    shape, _ = fsm.statics_from_config(CONFIGS["default"], SR, FFT)
+    other = shape.short_window + shape.ratio_window
+    edge = {t: (block - fsm_cuda.TILE_BYTES * t) // 4 - other for t in (fsm_cuda.TILE_MAX, fsm_cuda.TILE_MIN)}
+    assert fsm_cuda.launch_plan(21, 937, shape._replace(long_window=edge[fsm_cuda.TILE_MAX])).tile == fsm_cuda.TILE_MAX
+    below = fsm_cuda.launch_plan(21, 937, shape._replace(long_window=edge[fsm_cuda.TILE_MAX] + 1))
+    assert (below.body, below.tile) == ("smem", fsm_cuda.TILE_MIN)
+    at = fsm_cuda.launch_plan(21, 937, shape._replace(long_window=edge[fsm_cuda.TILE_MIN]))
+    assert (at.body, at.tile, at.tiles) == ("smem", fsm_cuda.TILE_MIN, -(-937 // fsm_cuda.TILE_MIN))
+    above = fsm_cuda.launch_plan(21, 937, shape._replace(long_window=edge[fsm_cuda.TILE_MIN] + 1))
+    assert above == fsm_cuda.ScanPlan("global", 1, 64, 0, 0, 0)
+    big, _ = fsm.statics_from_config(ABOVE_BUDGET, SR, FFT)
+    assert fsm_cuda.launch_plan(130, 937, big).body == "global"
+    assert fsm_cuda.launch_plan(130, 937, big).ctas == 3
+    # A card with less shared memory a block gets the smaller tile, never another result.
+    assert fsm_cuda.launch_plan(21, 937, shape, 40_000).tile == fsm_cuda.TILE_MIN
+
+
+def _host_seeds(shape, params, rows):
+    return fsm_host.fresh_host_carry(shape, params, rows)["kahan"]
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS) + ["ring_of_1"])
+def test_fresh_kahan_equals_the_exact_left_folds(config):
+    """The cached seeds of a fresh carry, folded once per content on the
+    host, are bit for bit the plain version's fold of the fresh rings and
+    the native decoder's fvad_fsm_kahan_seed, with per-row initial
+    averages (some repeated, one negative zero)."""
+    cfg = VADMachineConfig(long_term_speech_avg_sec=0.01) if config == "ring_of_1" else CONFIGS[config]
+    shape, params = fsm.statics_from_config(cfg, SR, FFT)
+    rows = 7
+    params = fsm_per_row_params(params, rows, seed=4)
+    init = np.random.default_rng(5).uniform(0.001, 0.05, rows).astype(np.float32)
+    init[3] = init[1]
+    init[5] = np.float32(-0.0)
+    params = params._replace(initial_long_term_avg=init)
+    if config == "ring_of_1":
+        assert shape.long_window == 1
+    got = fsm_cuda.fresh_kahan(
+        shape.long_window, bool(shape.has_initial_avg), fsm.param_rows(params, rows)[5].tobytes(), torch.device("cpu")
+    )
+    assert got.dtype == torch.float32 and tuple(got.shape) == (rows, fsm.NK)
+    assert got.numpy().tobytes() == _host_seeds(shape, params, rows).tobytes()
+    ring = fsm.fresh_carry(shape, params, rows, "cpu")
+    plain = [x for key in ("long_buf", "short_buf", "ratio_buf") for x in fsm_cuda._kahan_seed(ring[key])]
+    assert torch.stack(plain, dim=1).numpy().tobytes() == got.numpy().tobytes()
+
+
+def test_fresh_kahan_is_made_once_per_content():
+    shape, params = fsm.statics_from_config(CONFIGS["default"], SR, FFT)
+    raw = fsm.param_rows(params, 3)[5].tobytes()
+    cpu = torch.device("cpu")
+    first = fsm_cuda.fresh_kahan(shape.long_window, True, raw, cpu)
+    assert fsm_cuda.fresh_kahan(shape.long_window, True, raw, cpu) is first
+    other = fsm.param_rows(params._replace(initial_long_term_avg=np.float32(0.01)), 3)[5].tobytes()
+    assert fsm_cuda.fresh_kahan(shape.long_window, True, other, cpu) is not first
+    assert fsm_cuda.fresh_kahan(shape.long_window + 1, True, raw, cpu) is not first
+    assert not fsm_cuda.fresh_kahan(shape.long_window, False, raw, cpu).any()
