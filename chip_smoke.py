@@ -55,25 +55,24 @@ runs nine phases; any failed check raises and the script exits non-zero.
    against its plain version at [1680, 54], on random weights with random
    GRU biases so that every bias term counts, in float32 (max |dh2| <= 1e-4,
    kernel 1's bar; the float32 forms run on kernel 1's kernel, so also at
-   phase 2's ragged and multi-wave shapes, with its launch plan, single and
-   queued times, and kernel 6's bf16 out equal to its float32 out rounded)
-   and bf16 (mean |dh2| <= 3e-5: another float32 summation
-   order now and then moves an h value across a bf16 rounding step, ~4e-6
-   on the mean; the bar must sit 10x below the plain bf16 form's mean
-   distance from the plain float32 form, measured here, so that the check
-   shows the bf16 rounding points are reproduced; and max |dh2| <= 6e-3,
-   one bf16 step below 1 plus float32 drift, against a single wild value);
-   kernel 6 with tile = all rows, 840 and 416 bit for bit equal. Kernel 5
-   in bf16 runs on csrc/gru_gates_p.cu (kernels 4 and 6 in bf16 on
-   csrc/gru_gates.cu): its launch plan (unit groups, row groups, grid,
-   shared bytes), the bf16 bars at 1, 17, 337 and 4,000 rows (two
-   launches, each counted), a repeated call and 17 rows of 1,680 against a 17-row call
-   bit for bit, and its single and queued times. Kernel,
-   plain and bound times; the library yardstick is cuDNN's two-layer
-   torch.nn.GRU, in float32 for the float32 forms and in float16 for the
-   bf16 forms (the nearest call whose weights cuDNN compacts once; it
-   stores h in 16 bits, another function). cuDNN's bf16 GRU, which
-   compacts its weights on every call, is timed beside it.
+   phase 2's ragged and multi-wave shapes, with its launch plan) and bf16
+   (mean |dh2| <= 3e-5: another float32 summation order now and then moves
+   an h value across a bf16 rounding step, ~4e-6 on the mean; the bar must
+   sit 10x below the plain bf16 form's mean distance from the plain float32
+   form, measured here, so that the check shows the bf16 rounding points
+   are reproduced; and max |dh2| <= 6e-3, one bf16 step below 1 plus
+   float32 drift, against a single wild value); in both forms kernel 6 with
+   tile = all rows, 840 and 416 bit for bit equal, and its bf16 out equal to
+   its float32 out rounded. The bf16 forms of all three run on one body,
+   csrc/gru_gates_p.cu: for each, its launch plan (unit groups, row groups,
+   grid, shared bytes), the bf16 bars at 1, 17, 337 and 4,000 rows (two
+   launches, each counted), a repeated call and 17 rows of 1,680 against a
+   17-row call bit for bit. Each form's single and queued times, plain and
+   bound times; the library yardstick is cuDNN's two-layer torch.nn.GRU, in
+   float32 for the float32 forms and in float16 for the bf16 forms (the
+   nearest call whose weights cuDNN compacts once; it stores h in 16 bits,
+   another function). cuDNN's bf16 GRU, which compacts its weights on every
+   call, is timed beside it.
 9. The bf16 tier end to end: BatchRunner on the slice under
    set_matmul_precision("default") (real-time factor; exactly 1 kernel-5
    launch and no gru_stack launch per run; segments against the float
@@ -170,7 +169,7 @@ def phase_device() -> str:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, all at once
-        libs = (nsnet2_cuda._lib, fsm_cuda._lib, matmul_q8._lib, nsnet2_gates_cuda._lib, nsnet2_gates_cuda._lib_p)
+        libs = (nsnet2_cuda._lib, fsm_cuda._lib, matmul_q8._lib, nsnet2_gates_cuda._lib)
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
     log(f"kernel build + load (parallel): {time.perf_counter() - t0:.2f} s")
@@ -716,23 +715,23 @@ def check_f32_form(name: str, wrapper, plain, net, dev) -> float:
     return worst
 
 
-def check_p_form(net, dev) -> dict:
-    """Kernel 5 in bf16 (csrc/gru_gates_p.cu): its launch plan at the
-    scoring shape, logged; then against its plain version at ragged row
-    counts and two launches a call, counted as the plan's launches (gi
-    from ``gi_gates`` of random features,
-    numpy seed 5, as on the bf16 tier; the bf16 bars), a repeated call bit
-    for bit, and the first 17 rows of a 1,680-row call equal to a 17-row
-    call. -> the scoring shape's plan."""
+def check_p_form(name: str, kind: int, wrapper, plain, net, dev) -> dict:
+    """The bf16 form of kernel ``kind`` on csrc/gru_gates_p.cu: its launch
+    plan at the scoring shape, logged; then against its plain version at
+    ragged row counts and two launches a call, counted as the plan's
+    launches (gi from ``gi_gates`` of random features, numpy seed 5, as on
+    the bf16 tier; the bf16 bars), a repeated call bit for bit, and the
+    first 17 rows of a 1,680-row call equal to a 17-row call. -> the scoring
+    shape's plan."""
     import torch
 
     from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
 
     (launch,) = plan = gates.device_p_plan(GRU_ROWS, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    log(f"gru_gates_p bf16 launch plan at {GRU_ROWS} rows on {sms} SMs: {gates.P_UNIT_GROUPS} unit groups of "
+    log(f"{name} bf16 launch plan at {GRU_ROWS} rows on {sms} SMs: {gates.P_UNIT_GROUPS} unit groups of "
         f"{gates.P_UNITS} units x {launch.row_groups} row groups of {launch.tiles_per_group} 16-row tiles, grid "
-        f"{launch.grid}, {launch.smem_bytes} bytes of shared memory a CTA ({len(plan)} launch)")
+        f"{launch.grid}, {launch.smem_bytes(kind)} bytes of shared memory a CTA ({len(plan)} launch)")
     rng = np.random.default_rng(5)
     gw = gates.gate_weights(net, torch.bfloat16)
 
@@ -742,30 +741,30 @@ def check_p_form(net, dev) -> dict:
 
     for n, t in ((1, 54), (17, 2), (337, 54), (4000, 54)):
         gi = gi_of(n, t)
-        before = gates.gru_gates_p.launches
-        got = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
-        launched = gates.gru_gates_p.launches - before
-        want = gates.gru_gates_p_reference(gw, *gi)
+        before = wrapper.launches
+        got = wrapper(net, *gi, dtype=torch.bfloat16)
+        launched = wrapper.launches - before
+        want = plain(gw, *gi)
         torch.cuda.synchronize()
-        d = (got - want).abs()
+        d = (got.float() - want.float()).abs()
         err, mean = float(d.max()), float(d.mean())
-        log(f"gru_gates_p bf16 vs plain at [{n}, {t}] ({launched} launch(es) counted): "
+        log(f"{name} bf16 vs plain at [{n}, {t}] ({launched} launch(es) counted): "
             f"max |dh2| = {err:.3e}, mean {mean:.3e}")
         if launched != len(gates.device_p_plan(n, dev)):
-            raise AssertionError(f"gru_gates_p bf16 at {n} rows counted {launched} launches, its plan has "
+            raise AssertionError(f"{name} bf16 at {n} rows counted {launched} launches, its plan has "
                                  f"{len(gates.device_p_plan(n, dev))}")
         if not (err <= BF16_MAX and mean <= BF16_MEAN):
-            raise AssertionError(f"gru_gates_p bf16 disagrees with its plain version at [{n}, {t}]: {err}, {mean}")
+            raise AssertionError(f"{name} bf16 disagrees with its plain version at [{n}, {t}]: {err}, {mean}")
     gi = gi_of(GRU_ROWS, GRU_STEPS)
-    whole = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
-    if not torch.equal(whole, gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)):
-        raise AssertionError("gru_gates_p bf16: a repeated call changed bits")
-    part = gates.gru_gates_p(net, *(g[:17].contiguous() for g in gi), dtype=torch.bfloat16)
+    whole = wrapper(net, *gi, dtype=torch.bfloat16)
+    if not torch.equal(whole, wrapper(net, *gi, dtype=torch.bfloat16)):
+        raise AssertionError(f"{name} bf16: a repeated call changed bits")
+    part = wrapper(net, *(g[:17].contiguous() for g in gi), dtype=torch.bfloat16)
     if not torch.equal(part, whole[:17]):
-        raise AssertionError("gru_gates_p bf16: rows 0-16 of a 1,680-row call differ from a 17-row call")
-    log("gru_gates_p bf16: a repeated call and rows 0-16 of 1,680 against a 17-row call give identical bits")
+        raise AssertionError(f"{name} bf16: rows 0-16 of a 1,680-row call differ from a 17-row call")
+    log(f"{name} bf16: a repeated call and rows 0-16 of 1,680 against a 17-row call give identical bits")
     return {"unit_groups": gates.P_UNIT_GROUPS, "row_groups": launch.row_groups,
-            "tiles_per_group": launch.tiles_per_group, "grid": launch.grid, "smem_bytes": launch.smem_bytes}
+            "tiles_per_group": launch.tiles_per_group, "grid": launch.grid, "smem_bytes": launch.smem_bytes(kind)}
 
 
 def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
@@ -845,23 +844,21 @@ def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
                     f"mean {mean:.3e} ({bar})")
                 if not ok:
                     raise AssertionError(f"{name} {dtype} disagrees with its plain version: max {err}, mean {mean}")
-                extra = {}
                 if dtype == torch.float32:
                     before = nsnet2_cuda.gru_stack.launches
                     err = max(err, check_f32_form(name, wrapper, plain, net, dev))
                     if nsnet2_cuda.gru_stack.launches != before:
                         raise AssertionError(f"{name} float32 counted its launches as gru_stack's")
-                    if kind == 6:
-                        rounded = wrapper(net, *args, dtype=dtype, out_dtype=torch.bfloat16)
-                        if not torch.equal(rounded, got.to(torch.bfloat16)):
-                            raise AssertionError(f"{name} float32 with bf16 out != its float32 out rounded")
-                        log(f"{name} float32: bf16 out == float32 out rounded to bf16, bit for bit")
-                    extra = {"source": "formula_vad_tpu_torch/csrc/gru_stack.cu", "queued_ms": queued_ms(
-                        lambda: wrapper(net, *args, dtype=dtype))}
-                elif kind == 5:
-                    extra = {"queued_ms": queued_ms(lambda: wrapper(net, *args, dtype=dtype)),
-                             "plan": check_p_form(net, dev)}
+                    extra = {"source": "formula_vad_tpu_torch/csrc/gru_stack.cu"}
+                else:
+                    extra = {"source": "formula_vad_tpu_torch/csrc/gru_gates_p.cu",
+                             "plan": check_p_form(name, kind, wrapper, plain, net, dev)}
+                extra["queued_ms"] = queued_ms(lambda: wrapper(net, *args, dtype=dtype))
                 if kind == 6:
+                    f32_out, bf16_out = (wrapper(net, *args, dtype=dtype, out_dtype=o) for o in gates.DTYPES)
+                    if not torch.equal(bf16_out, f32_out.to(torch.bfloat16)):
+                        raise AssertionError(f"{name} {dtype} with bf16 out != its float32 out rounded")
+                    log(f"{name} {str(dtype)[6:]}: bf16 out == float32 out rounded to bf16, bit for bit")
                     for tile in (840, 416):
                         if not torch.equal(wrapper(net, *args, dtype=dtype, tile=tile), got):
                             raise AssertionError(f"{name} {dtype}: tile {tile} changed the result")
@@ -874,11 +871,11 @@ def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
                 log(f"{name} {str(dtype)[6:]} [{GRU_ROWS}, {GRU_STEPS}]: kernel {ms:.3f} ms ({ops / 1e9 / ms:.2f} TFLOP/s), "
                     f"plain {plain_ms:.3f} ms, {lib} {library_ms[dtype]:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
                     f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-                if extra and dtype == torch.float32:
+                if dtype == torch.float32:
                     log(f"{name} float32 [{GRU_ROWS}, {GRU_STEPS}]: single call {ms:.3f} ms, queued back to back "
                         f"{extra['queued_ms']:.3f} ms; {ms / library_ms[dtype]:.3f}x cuDNN's float32 GRU, "
                         f"{ms / kernel1_ms:.3f}x kernel 1's phase-2 single call ({kernel1_ms:.3f} ms)")
-                elif extra:
+                else:
                     log(f"{name} bf16 [{GRU_ROWS}, {GRU_STEPS}] (csrc/gru_gates_p.cu): single call {ms:.3f} ms, queued "
                         f"back to back {extra['queued_ms']:.3f} ms; bound {bound_ms:.3f} ms, plain {plain_ms:.3f} ms, "
                         f"cuDNN GRU fp16 {gru_ms[torch.float16]:.3f} ms, bf16 {gru_ms[torch.bfloat16]:.3f} ms")
@@ -888,9 +885,8 @@ def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
             # The line's numbers are the bf16 form's: kernel 5's form on the
             # bf16 tier; both forms are under "forms".
             top = {k: v for k, v in forms[1].items() if k not in ("dtype", "mean_abs_err")}
-            source = "formula_vad_tpu_torch/csrc/" + ("gru_gates_p.cu" if kind == 5 else "gru_gates.cu")
-            rows.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, **top, "forms": forms, "cudnn_bf16_ms": gru_ms[torch.bfloat16]})
+            rows.append({"name": name, "route": "cuda", "replaces": replaces, **top, "forms": forms,
+                         "cudnn_bf16_ms": gru_ms[torch.bfloat16]})
     return rows, path_a
 
 

@@ -1,29 +1,47 @@
-// Kernel 5 in bf16, the bf16 tier's NSNet2 GRU-stack recurrence, for
-// Hopper (sm_90a).
+// The bf16 forms of the per-gate NSNet2 GRU-stack kernels 4, 5 and 6 for
+// Hopper (sm_90a): one body, three instantiations.
 //
-// Replaces the bf16 form of benchmarks/gru_kernel_exp.py::
-// gru_stack_kernel_p (body _kernel_p): both GRU layers (H = 400, ONNX
-// z|r|n, linear_before_reset = 1) stepped T times from h = 0 over float32
-// per-gate layer-1 input projections gi_z, gi_r, gi_n [N, T, H] (bi1 + bh1
-// folded into z and r, bi1 only into n), with the packed weights
-// wp1 = wh1 [H, 3H] and wp2 [2H, 4H] (h1 rows wi2 z | r | n_i | 0, h2 rows
-// wh2 z | r | 0 | n_h). With b8 = [bh1_n, bi2_z + bh2_z, bi2_r + bh2_r,
-// bi2_n, bh2_n], per step and row:
+// Replaces the bf16 forms of three TPU kernels of
+// benchmarks/gru_kernel_exp.py, which compute one function with the
+// rounding points in different places:
+//   kernel 4  gru_stack_kernel   (body _kernel)    gi cast to bf16, h2 out
+//             in float32;
+//   kernel 5  gru_stack_kernel_p (body _kernel_p)  gi float32, h2 out in
+//             float32 (the bf16 tier's recurrence);
+//   kernel 6  gru_stack_kernel_f (body _kernel_f)  gi cast to bf16, h2 out
+//             in float32 or bf16 (out_dtype); its `tile` changes no bit and
+//             the host's plan ignores it.
+// Both GRU layers (H = 400, ONNX z|r|n, linear_before_reset = 1) step T
+// times from h = 0 over per-gate layer-1 input projections gi_z, gi_r, gi_n
+// [N, T, H] (bi1 + bh1 folded into z and r, bi1 only into n), with the
+// packed weights wp1 = wh1 [H, 3H] and wp2 [2H, 4H] (h1 rows
+// wi2 z | r | n_i | 0, h2 rows wh2 z | r | 0 | n_h: kernels 4 and 6's nine
+// slabs w9, rounded to bf16 from the same float32 values). With
+// b8 = [bh1_n, bi2_z + bh2_z, bi2_r + bh2_r, bi2_n, bh2_n], per step and
+// row:
 //   g1 = h1 wp1;  z1 = s(gi_z + g1z)  r1 = s(gi_r + g1r)
 //   n1 = tanh(gi_n + r1 (g1n + bh1_n));       h1 = (1 - z1) n1 + z1 h1
 //   g2 = [h1 | h2] wp2;  z2 = s(g2z + b2z)  r2 = s(g2r + b2r)
 //   n2 = tanh((g2ni + bi2_n) + r2 (g2nh + bh2_n));  h2 = (1 - z2) n2 + z2 h2
 // h1, h2 and the gate math are float32; h is rounded to bf16 only where it
 // enters a product, and the products sum in float32 (z2 and r2 sum both
-// halves of K = 800 in one accumulator). The plain version is
-// models/nsnet2_gates_cuda.py::gru_gates_p_reference; kernels 4 and 6 in
-// bf16 stay in csrc/gru_gates.cu.
+// halves of K = 800 in one accumulator, the h1 half first). A bf16 gi is
+// converted to float32 exactly and added where kernel 5 adds its float32
+// gi. The plain versions are models/nsnet2_gates_cuda.py::
+// gru_gates_reference, gru_gates_p_reference and gru_gates_f_reference.
+// The three instantiations differ in
+//   the gi element type   float (kernel 5), __nv_bfloat16 (kernels 4, 6);
+//   the out element type  float (kernels 4, 5), float or bf16 (kernel 6);
+//   where f32 h2[t-1] lives: read back from out, which the same thread
+//   wrote (kernels 4, 5: out is float32), or thread-private shared-memory
+//   slots beside h1's (kernel 6: a bf16 out read back would round h2 every
+//   step, which is another function).
 //
 // What bounds it on the H100: 261.3 GFLOP of serial-step bf16 products at
 // the scoring shape (1,680 rows x 54 steps), 0.264 ms at 989 TFLOP/s. The
-// design it replaces (gru_gates.cu's gates_mma, 16 rows a block for all
-// steps) re-read all 2.88 MB of bf16 weights from L2 in every block on
-// every step: 105 x 2.88 MB x 54 = 16.3 GB of L2 reads a call.
+// design it replaces (gates_mma, 16 rows a block for all steps) re-read
+// all 2.88 MB of bf16 weights from L2 in every block on every step:
+// 105 x 2.88 MB x 54 = 16.3 GB of L2 reads a call.
 //
 // Design: one persistent cooperative launch. A CTA owns one group of
 // U = 16 hidden units (25 groups) for the whole call and a contiguous
@@ -59,16 +77,20 @@
 // (complete at the barrier of step t) and writes the other x1 half, which
 // nobody reads after that barrier; phase 2 of step t+1 reads h2[t] after
 // the barrier of step t+1.
-// The CTA's float32 h1 stays in shared memory (thread-private slots); f32
-// h2[t-1] is read back from out, which the same thread wrote. gi of step
-// t+1 goes to shared memory by cp.async during phase 2 of step t, each
-// thread copying the 12 float2 it will read. A row's sums depend on its
+// The CTA's float32 h1 stays in shared memory (thread-private slots), and
+// so does kernel 6's float32 h2. gi of step t+1 goes to shared memory by
+// cp.async during phase 2 of step t, each thread copying the 12 pairs of
+// units it will read (float2 or bf16x2, zero-filled past n_rows). A
+// tile's shared bytes (TILE_BYTES): its gi, 3,072 in float32 or 1,536 in
+// bf16, its h1, 1,024, and kernel 6's h2, 1,024. A row's sums depend on its
 // own inputs only, in a fixed order, so its bits do not depend on N or on
 // the plan.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "grid_barrier.cuh"
 
@@ -84,31 +106,51 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int MMA_ROWS = 16;
 constexpr int W_U4 = KB * 32 * 3;       // uint4s of one unit group's weights
 constexpr int W_BYTES = W_U4 * 16;      // 115,200
-constexpr int GI_SLOTS = 12;            // float2 per lane and tile: 3 gates x 2 n8 tiles x 2 row halves
-constexpr int H1_SLOTS = 8;             // float per lane and tile
-constexpr int TILE_BYTES = (GI_SLOTS * 8 + H1_SLOTS * 4) * 32;  // 4,096
+constexpr int GI_SLOTS = 12;            // gi pairs per lane and tile: 3 gates x 2 n8 tiles x 2 row halves
+constexpr int H_SLOTS = 8;              // float of h1 (and of kernel 6's h2) per lane and tile
 constexpr int MAX_TILES = 28;           // 16-row tiles a CTA holds beside its weights
 constexpr int SMEM_LIMIT = 232448;      // an H100 block's shared memory
 constexpr int BARRIER_STRIDE = 32;      // unsigned ints from one row group's counter to the next
-static_assert(W_BYTES + MAX_TILES * TILE_BYTES <= SMEM_LIMIT, "shared memory plan");
 
+using bf16 = __nv_bfloat16;
+
+// The two units of a gi slot: float2 for float32 gi, bf16x2 for bf16.
+template <typename GI>
+using Pair = std::conditional_t<std::is_same_v<GI, float>, float2, __nv_bfloat162>;
+
+template <typename GI, bool H2_SHARED>
+constexpr int tile_bytes() {
+  return (GI_SLOTS * (int)sizeof(Pair<GI>) + H_SLOTS * 4 * (H2_SHARED ? 2 : 1)) * 32;
+}
+static_assert(tile_bytes<float, false>() == 4096 && tile_bytes<bf16, false>() == 2560 &&
+              tile_bytes<bf16, true>() == 3584, "tile bytes");
+static_assert(W_BYTES + MAX_TILES * tile_bytes<float, false>() <= SMEM_LIMIT, "shared memory plan");
+
+template <typename GI, typename OUT>
 struct Params {
-  const float* gz;  // [n_rows, n_steps, H] each
-  const float* gr;
-  const float* gn;
+  const GI* gz;     // [n_rows, n_steps, H] each
+  const GI* gr;
+  const GI* gn;
   const uint4* w;   // [UNIT_GROUPS][KB][32 lanes][3]: 6 n8 tiles x 2 words a lane
   const float* b8;  // [8, H]
-  float* out;       // [n_rows, n_steps, H]
+  OUT* out;         // [n_rows, n_steps, H]
   uint4* x1;        // [2][tiles][KS][32]: bf16(h1) in A-fragment order
   uint4* x2;        // the same for bf16(h2)
   unsigned int* barrier;  // [row groups][BARRIER_STRIDE]: zero at launch, left zero at exit
   int n_rows, n_steps, tiles, tiles_per_group;
 };
 
-int smem_bytes(int tiles_per_group) { return W_BYTES + tiles_per_group * TILE_BYTES; }
-
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 __device__ __forceinline__ float get(const float2& v, int e) { return e ? v.y : v.x; }
+__device__ __forceinline__ float2 to_float2(const float2& v) { return v; }
+__device__ __forceinline__ float2 to_float2(const __nv_bfloat162& v) { return __bfloat1622float2(v); }  // exact
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -119,10 +161,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+// BYTES (8 or 4) from src, or zeros where !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src, bool valid) {
+  static_assert(BYTES == 8 || BYTES == 4, "cp.async.ca size");
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
+  if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 8 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
@@ -164,8 +213,10 @@ __device__ __forceinline__ void load_block(uint4 (&ring)[KS], const uint4* src) 
 // Step t's gi of one tile -> the tile's slots, slot (gate * 4 + s * 2 +
 // half) holding the lane's two units 8 s + 2 (lane % 4) (+1) of row g + 8
 // half; rows past n_rows are zero-filled.
-__device__ __forceinline__ void prefetch_gi(const Params& p, float2* slots, int tile, int t, int col, int g) {
-  const float* gi[3] = {p.gz, p.gr, p.gn};
+template <typename GI, typename OUT>
+__device__ __forceinline__ void prefetch_gi(const Params<GI, OUT>& p, Pair<GI>* slots, int tile, int t, int col,
+                                            int g) {
+  const GI* gi[3] = {p.gz, p.gr, p.gn};
 #pragma unroll
   for (int gate = 0; gate < 3; ++gate)
 #pragma unroll
@@ -174,16 +225,19 @@ __device__ __forceinline__ void prefetch_gi(const Params& p, float2* slots, int 
       for (int half = 0; half < 2; ++half) {
         const int row = tile * MMA_ROWS + g + 8 * half;
         const bool valid = row < p.n_rows;
-        const float* src = gi[gate] + (valid ? ((size_t)row * p.n_steps + t) * H + col + 8 * s : 0);
-        cp_async8(slots + (gate * 4 + s * 2 + half) * 32, src, valid);
+        const GI* src = gi[gate] + (valid ? ((size_t)row * p.n_steps + t) * H + col + 8 * s : 0);
+        cp_async_ca<sizeof(Pair<GI>)>(slots + (gate * 4 + s * 2 + half) * 32, src, valid);
       }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
+template <typename GI, typename OUT, bool H2_SHARED>
+__global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT> p) {
+  static_assert(H2_SHARED || std::is_same_v<OUT, float>, "h2 is read back from out only where out is float32");
   extern __shared__ uint4 smem[];
   uint4* ws = smem;                                                   // [KB][32][3]
-  float2* gis = reinterpret_cast<float2*>(smem + W_U4);               // [tiles_per_group][GI_SLOTS][32]
-  float* h1s = reinterpret_cast<float*>(gis + p.tiles_per_group * GI_SLOTS * 32);  // [..][H1_SLOTS][32]
+  Pair<GI>* gis = reinterpret_cast<Pair<GI>*>(smem + W_U4);           // [tiles_per_group][GI_SLOTS][32]
+  float* h1s = reinterpret_cast<float*>(gis + p.tiles_per_group * GI_SLOTS * 32);  // [..][H_SLOTS][32]
+  float* h2s = h1s + p.tiles_per_group * H_SLOTS * 32;                // kernel 6: [..][H_SLOTS][32]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
   const int ug = blockIdx.x % UNIT_GROUPS, rg = blockIdx.x / UNIT_GROUPS;
   const int tile0 = rg * p.tiles_per_group;
@@ -192,7 +246,10 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
 
   const uint4* wsrc = p.w + (size_t)ug * W_U4;
   for (int i = threadIdx.x; i < W_U4; i += THREADS) cp_async16(ws + i, wsrc + i);
-  for (int i = threadIdx.x; i < n_tiles * H1_SLOTS * 32; i += THREADS) h1s[i] = 0.0f;
+  for (int i = threadIdx.x; i < n_tiles * H_SLOTS * 32; i += THREADS) {
+    h1s[i] = 0.0f;
+    if (H2_SHARED) h2s[i] = 0.0f;
+  }
   for (int i = warp; i < n_tiles; i += WARPS) prefetch_gi(p, gis + i * GI_SLOTS * 32 + lane, tile0 + i, 0, col, g);
   cp_async_commit();
   cp_async_wait_all();
@@ -221,16 +278,16 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
       float acc[8][4] = {};
       if (t > 0) mma_block<4>(ring, i + WARPS < n_tiles ? x1_prev + (tile + WARPS) * frag_u4 : nullptr, w1, acc);
       if (i == warp) cp_async_wait_all();  // this thread's gi copies of step t
-      const float2* gs = gis + i * GI_SLOTS * 32 + lane;
-      float* hs = h1s + i * H1_SLOTS * 32 + lane;
+      const Pair<GI>* gs = gis + i * GI_SLOTS * 32 + lane;
+      float* hs = h1s + i * H_SLOTS * 32 + lane;
       float hn[2][4];
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
         const float2 bn = bias(0, s);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const float2 xz = gs[(s * 2 + half) * 32], xr = gs[(4 + s * 2 + half) * 32];
-          const float2 xn = gs[(8 + s * 2 + half) * 32];
+          const float2 xz = to_float2(gs[(s * 2 + half) * 32]), xr = to_float2(gs[(4 + s * 2 + half) * 32]);
+          const float2 xn = to_float2(gs[(8 + s * 2 + half) * 32]);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int q = half * 2 + e;
@@ -261,15 +318,22 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
       const uint4* after = i + WARPS < n_tiles ? x1_now + (tile + WARPS) * frag_u4
                            : t + 1 < p.n_steps ? x1_now + (tile0 + warp) * frag_u4
                                                : nullptr;
+      // f32 h2[t-1]: kernel 6's shared slots (zero at t = 0), else out.
+      float* h2 = h2s + i * H_SLOTS * 32 + lane;
       float2 hold[2][2];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = tile * MMA_ROWS + g + 8 * half;
 #pragma unroll
-        for (int s = 0; s < 2; ++s)
-          hold[s][half] = t > 0 && row < p.n_rows
-                              ? __ldcg(reinterpret_cast<const float2*>(p.out + ((size_t)row * p.n_steps + t - 1) * H + col + 8 * s))
-                              : make_float2(0.0f, 0.0f);
+        for (int s = 0; s < 2; ++s) {
+          if constexpr (H2_SHARED)
+            hold[s][half] = make_float2(h2[(s * 4 + half * 2) * 32], h2[(s * 4 + half * 2 + 1) * 32]);
+          else
+            hold[s][half] = t > 0 && row < p.n_rows
+                                ? __ldcg(reinterpret_cast<const float2*>(p.out + ((size_t)row * p.n_steps + t - 1) * H +
+                                                                         col + 8 * s))
+                                : make_float2(0.0f, 0.0f);
+        }
       }
       float acc[8][4] = {};
       mma_block<4>(ring, t > 0 ? x2_prev + tile * frag_u4 : after, w2a, acc);
@@ -285,6 +349,7 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
           const float r = sigmoid(acc[2 + s][q] + get(br, e));
           const float n = tanhf((acc[4 + s][q] + get(bi, e)) + r * (acc[6 + s][q] + get(bh, e)));
           hn[s][q] = (1.0f - z) * n + z * get(hold[s][q >> 1], e);
+          if (H2_SHARED) h2[(s * 4 + q) * 32] = hn[s][q];
         }
       }
 #pragma unroll
@@ -293,8 +358,7 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
         if (row < p.n_rows)
 #pragma unroll
           for (int s = 0; s < 2; ++s)
-            *reinterpret_cast<float2*>(p.out + ((size_t)row * p.n_steps + t) * H + col + 8 * s) =
-                make_float2(hn[s][half * 2], hn[s][half * 2 + 1]);
+            store_pair(p.out + ((size_t)row * p.n_steps + t) * H + col + 8 * s, hn[s][half * 2], hn[s][half * 2 + 1]);
       }
       x2_cur[tile * frag_u4 + own] = make_uint4(pack_bf16(hn[0][0], hn[0][1]), pack_bf16(hn[0][2], hn[0][3]),
                                                 pack_bf16(hn[1][0], hn[1][1]), pack_bf16(hn[1][2], hn[1][3]));
@@ -312,10 +376,48 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params p) {
   }
 }
 
-cudaError_t blocks_per_sm(int smem, int* blocks) {
-  const cudaError_t err = cudaFuncSetAttribute(gru_gates_p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Dynamic shared memory of a CTA of kernel `kind` holding tiles_per_group
+// tiles; -1 for an unknown kind.
+int smem_bytes(int kind, int tiles_per_group) {
+  const int tile = kind == 4 ? tile_bytes<bf16, false>()
+                   : kind == 5 ? tile_bytes<float, false>()
+                   : kind == 6 ? tile_bytes<bf16, true>()
+                               : -1;
+  return tile < 0 ? -1 : W_BYTES + tiles_per_group * tile;
+}
+
+struct Launch {
+  const void *gz, *gr, *gn, *w;
+  const float* b8;
+  void *out, *x1, *x2;
+  unsigned int* barrier;
+  int n_rows, n_steps, tiles, row_groups, tiles_per_group;
+  cudaStream_t stream;
+};
+
+// Refuses, before the launch, a refused shared-memory size or a grid the
+// device cannot hold at once (a barrier would deadlock).
+template <typename GI, typename OUT, bool H2_SHARED>
+cudaError_t launch(const Launch& a) {
+  void (*kernel)(Params<GI, OUT>) = gru_gates_p_kernel<GI, OUT, H2_SHARED>;
+  const int smem = W_BYTES + a.tiles_per_group * tile_bytes<GI, H2_SHARED>();
+  const int grid = UNIT_GROUPS * a.row_groups;
+  int dev = 0, coop = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gru_gates_p_kernel, THREADS, smem);
+  if (!coop) return cudaErrorNotSupported;
+  if (blocks < 1 || grid > blocks * sms) return cudaErrorCooperativeLaunchTooLarge;
+  Params<GI, OUT> p{static_cast<const GI*>(a.gz), static_cast<const GI*>(a.gr), static_cast<const GI*>(a.gn),
+                    static_cast<const uint4*>(a.w), a.b8, static_cast<OUT*>(a.out), static_cast<uint4*>(a.x1),
+                    static_cast<uint4*>(a.x2), a.barrier, a.n_rows, a.n_steps, a.tiles, a.tiles_per_group};
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args, smem, a.stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -324,47 +426,47 @@ extern "C" {
 
 const char* fvad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Dynamic shared memory of a launch whose CTAs hold tiles_per_group 16-row
-// tiles (the host's launch plan sizes it with the same sum).
-int fvad_gru_gates_p_smem_bytes(int tiles_per_group) { return smem_bytes(tiles_per_group); }
+// Dynamic shared memory of a launch of kernel `kind` (4, 5 or 6) whose CTAs
+// hold tiles_per_group 16-row tiles (the host's launch plan sizes it with
+// the same sum); -1 for another kind.
+int fvad_gru_gates_p_smem_bytes(int kind, int tiles_per_group) { return smem_bytes(kind, tiles_per_group); }
 
-// gz, gr, gn [n_rows, n_steps, H] float32; w the per-unit-group packing
-// [25][75][32][12] of wp1 and wp2's non-zero blocks
-// (models/nsnet2_gates_cuda.py::pack_unit_groups); b8 [8, H] float32; out
-// [n_rows, n_steps, H] float32; x1, x2 each [2][tiles][25][32] uint4 of
-// scratch; barrier: row_groups x 32 unsigned ints, zero at launch (two
-// counters a row group, 128 bytes apart; the kernel leaves them zero, so
-// launches in order on one stream can share them). All contiguous on the current
-// device, 16-byte aligned. The plan (tiles = ceil(n_rows / 16), row_groups
-// x tiles_per_group covering them, grid 25 x row_groups) comes from the
-// host. A plan that does not cover the tiles exactly, a CTA of more than
+// The bf16 form of kernel `kind` (4, 5 or 6: the TPU kernel replaced). The
+// flags say the operands' types: w_bf16 must be 1 (float32 weights run on
+// csrc/gru_stack.cu), gi_bf16 1 for kernels 4 and 6 and 0 for kernel 5,
+// out_bf16 0 except for kernel 6. gz, gr, gn [n_rows, n_steps, H] (bf16 or
+// float32); w the per-unit-group packing [25][75][32][12] of wp1 and wp2's
+// non-zero blocks (models/nsnet2_gates_cuda.py::pack_unit_groups); b8
+// [8, H] float32; out [n_rows, n_steps, H] (bf16 or float32); x1, x2 each
+// [2][tiles][25][32] uint4 of scratch; barrier: row_groups x 32 unsigned
+// ints, zero at launch (two counters a row group, 128 bytes apart; the
+// kernel leaves them zero, so launches in order on one stream can share
+// them). All contiguous on the current device, 16-byte aligned. The plan
+// (tiles = ceil(n_rows / 16), row_groups x tiles_per_group covering them,
+// grid 25 x row_groups) comes from the host. Operand types a kind does not
+// take, a plan that does not cover the tiles exactly, a CTA of more than
 // MAX_TILES tiles, a refused shared-memory size, or a grid the device
-// cannot hold at once (a barrier would deadlock) is refused before
-// any launch. Launches cooperatively on `stream`; returns the cudaError_t.
-int fvad_gru_gates_p(const float* gz, const float* gr, const float* gn, const void* w, const float* b8, float* out,
-                     void* x1, void* x2, unsigned int* barrier, int n_rows, int n_steps, int tiles, int row_groups,
-                     int tiles_per_group, void* stream) {
-  if (n_rows < 1 || n_steps < 1 || tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 ||
+// cannot hold at once (a barrier would deadlock) are refused before any
+// launch. Launches cooperatively on `stream`; returns the cudaError_t.
+int fvad_gru_gates_p(int kind, int w_bf16, int gi_bf16, int out_bf16, const void* gz, const void* gr, const void* gn,
+                     const void* w, const float* b8, void* out, void* x1, void* x2, unsigned int* barrier, int n_rows,
+                     int n_steps, int tiles, int row_groups, int tiles_per_group, void* stream) {
+  const bool types = w_bf16 && ((kind == 5 && !gi_bf16 && !out_bf16) || (kind == 4 && gi_bf16 && !out_bf16) ||
+                                (kind == 6 && gi_bf16));
+  if (!types || n_rows < 1 || n_steps < 1 || tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 ||
       tiles_per_group > MAX_TILES || row_groups < 1 || (long long)row_groups * tiles_per_group < tiles ||
       (long long)(row_groups - 1) * tiles_per_group >= tiles)
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(tiles_per_group);
-  const int grid = UNIT_GROUPS * row_groups;
-  int dev = 0, coop = 0, sms = 0, blocks = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = blocks_per_sm(smem, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if (blocks < 1 || grid > blocks * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
-  Params p{gz, gr, gn, static_cast<const uint4*>(w), b8, out, static_cast<uint4*>(x1), static_cast<uint4*>(x2),
-           barrier, n_rows, n_steps, tiles, tiles_per_group};
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)gru_gates_p_kernel, dim3(grid), dim3(THREADS), args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const Launch a{gz, gr, gn, w, b8, out, x1, x2, barrier, n_rows, n_steps, tiles, row_groups, tiles_per_group,
+                 (cudaStream_t)stream};
+  cudaError_t err;
+  if (kind == 5)
+    err = launch<float, float, false>(a);
+  else if (kind == 4)
+    err = launch<bf16, float, false>(a);
+  else
+    err = out_bf16 ? launch<bf16, bf16, true>(a) : launch<bf16, float, true>(a);
+  return (int)err;
 }
 
 }  // extern "C"

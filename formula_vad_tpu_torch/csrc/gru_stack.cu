@@ -14,8 +14,7 @@
 //   the biases as the triple bh1 = [0, 0, bh1_n], bi2 = [bi2_z + bh2_z,
 //   bi2_r + bh2_r, bi2_n], bh2 = [0, 0, bh2_n] (adding 0.0 is exact, so the
 //   gate sums below are theirs term for term), h2 out in float32 or, for
-//   kernel 6, bf16. Their bf16 forms are csrc/gru_gates.cu (kernels 4
-//   and 6) and csrc/gru_gates_p.cu (kernel 5).
+//   kernel 6, bf16. Their bf16 forms are csrc/gru_gates_p.cu.
 // The gi of gate g at (row, step) is gi_g + (row * T + step) * gi_stride:
 // kernel 1 passes gi1, gi1 + H, gi1 + 2H with stride 3H, the per-gate forms
 // their three arrays with stride H.

@@ -31,16 +31,20 @@ In float32 the three compute kernel 1's function (``nsnet2_cuda``), so
 on the card they run on its kernel, ``csrc/gru_stack.cu``, through
 ``nsnet2_cuda.gru_stack_gates``: its packed weights, and its bias vectors
 built once from the per-gate folding (``stacked_biases``). In bf16 CUDA
-tensors go to hand-written kernels: kernel 5 to ``csrc/gru_gates_p.cu``
-(one persistent cooperative launch; each CTA keeps one group of 16 hidden
-units' weights in shared memory for the whole call, ``p_launch_plan``),
-kernels 4 and 6 to ``csrc/gru_gates.cu``. CPU tensors go to the
-``*_reference`` plain versions, per-step loops of ``torch.matmul`` on
-bf16-rounded operands held in float32 (TF32 off), which reproduce every
+tensors go to one hand-written body, ``csrc/gru_gates_p.cu``: one
+persistent cooperative launch per ``PLaunch`` of ``p_launch_plan``, each
+CTA keeping one group of 16 hidden units' weights in shared memory for the
+whole call. Its three instantiations differ in the gi type (float32 for
+kernel 5, bf16 for kernels 4 and 6), the out type (float32, or
+``out_dtype`` for kernel 6) and where float32 h2[t-1] lives (read back
+from the float32 out in kernels 4 and 5; kernel 6 keeps it in shared
+memory, as a bf16 out read back would round it every step). CPU tensors go
+to the ``*_reference`` plain versions, per-step loops of ``torch.matmul``
+on bf16-rounded operands held in float32 (TF32 off), which reproduce every
 rounding point of their kernel. Weights are packed once per network and
-dtype (``gate_weights``, cached on the module); the bf16 kernels read them
-in ``mma.sync`` fragment order (``pack_fragments``; kernel 5 per unit
-group, ``pack_unit_groups``).
+dtype (``gate_weights``, cached on the module); the bf16 body reads
+``wp1`` and ``wp2``'s non-zero blocks, which are exactly ``w9``, per unit
+group in ``mma.sync`` fragment order (``pack_unit_groups``).
 """
 
 from __future__ import annotations
@@ -60,16 +64,17 @@ H = HIDDEN
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-# Kernel 5's tiling (csrc/gru_gates_p.cu): a CTA owns P_UNITS hidden units
-# (one K step of h) and whole 16-row MMA tiles, at most P_MAX_TILES of them
-# beside its P_W_BYTES of weights (P_TILE_BYTES of shared memory a tile:
-# its gi and float32 h1).
+# The bf16 body's tiling (csrc/gru_gates_p.cu): a CTA owns P_UNITS hidden
+# units (one K step of h) and whole 16-row MMA tiles, at most P_MAX_TILES of
+# them beside its P_W_BYTES of weights. P_TILE_BYTES: shared memory a tile,
+# by kernel: its gi (float32 in kernel 5, bf16 in 4 and 6), its float32 h1
+# and kernel 6's float32 h2.
 P_UNITS = 16
 P_UNIT_GROUPS = H // P_UNITS
 P_ROWS = 16
 P_MAX_TILES = 28
 P_W_BYTES = 3 * H * 3 * P_UNITS * 2  # 3,600 bf16 a unit: 115,200 bytes a group
-P_TILE_BYTES = 4096
+P_TILE_BYTES = {4: 1536 + 1024, 5: 3072 + 1024, 6: 1536 + 2 * 1024}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,17 +82,15 @@ class GateWeights:
     """One network's recurrent weights packed for the three kernels in one
     dtype. ``w9`` [9, H, H]: wh1 z r n, wi2 z r n, wh2 z r n; ``wp1`` [H, 3H];
     ``wp2`` [2H, 4H]; ``b8`` [8, H] float32: bh1_n, bi2_z + bh2_z,
-    bi2_r + bh2_r, bi2_n, bh2_n, 0, 0, 0. In bf16, ``frag9`` holds ``w9`` in
-    fragment order (kernels 4 and 6) and ``units`` holds ``wp1`` and the
-    non-zero blocks of ``wp2`` by unit group (kernel 5,
-    ``pack_unit_groups``)."""
+    bi2_r + bh2_r, bi2_n, bh2_n, 0, 0, 0. In bf16, ``units`` holds ``wp1``
+    and the non-zero blocks of ``wp2`` (``w9``'s nine slabs) by unit group
+    for the bf16 body of kernels 4-6 (``pack_unit_groups``)."""
 
     dtype: torch.dtype
     w9: torch.Tensor
     wp1: torch.Tensor
     wp2: torch.Tensor
     b8: torch.Tensor
-    frag9: torch.Tensor | None = None
     units: torch.Tensor | None = None
 
 
@@ -106,9 +109,9 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
 
 
 def pack_unit_groups(wp1: torch.Tensor, wp2: torch.Tensor) -> torch.Tensor:
-    """Kernel 5's bf16 weights for ``csrc/gru_gates_p.cu``: int32 [25, 75,
-    32, 12], one 115,200-byte block per group of 16 hidden units, which a
-    CTA loads into shared memory once per call. K block kb (16 rows of K)
+    """The bf16 weights of kernels 4-6 for ``csrc/gru_gates_p.cu``: int32
+    [25, 75, 32, 12], one 115,200-byte block per group of 16 hidden units,
+    which a CTA loads into shared memory once per call. K block kb (16 rows of K)
     runs over wp1's rows (kb < 25), wp2's h1 rows (25-49) and its h2 rows
     (50-74); its six n8 tiles are the group's z, r and n columns, 8 units
     each (the n columns of the h1 rows are n_i, of the h2 rows n_h: wp2's
@@ -156,9 +159,7 @@ def pack(net: NSNet2, dtype: torch.dtype) -> GateWeights:
     wp2 = torch.cat([torch.cat([iz, ir, in_, zero], dim=1), torch.cat([hz, hr, zero, hn], dim=1)])
     gw = GateWeights(dtype, w9, g1.wh.to(dtype).contiguous(), wp2.to(dtype).contiguous(), fold_biases(net))
     if dtype == torch.bfloat16:
-        gw = dataclasses.replace(
-            gw, frag9=torch.stack([pack_fragments(w) for w in gw.w9]), units=pack_unit_groups(gw.wp1, gw.wp2)
-        )
+        gw = dataclasses.replace(gw, units=pack_unit_groups(gw.wp1, gw.wp2))
     return gw
 
 
@@ -280,10 +281,10 @@ def gru_gates_f_reference(gw: GateWeights, gi_z, gi_r, gi_n, out_dtype: torch.dt
 
 @dataclasses.dataclass(frozen=True)
 class PLaunch:
-    """One cooperative launch of kernel 5 (``csrc/gru_gates_p.cu``) over rows
-    ``row0`` .. ``row0 + n_rows``: ``tiles`` 16-row tiles in ``row_groups``
-    groups of ``tiles_per_group`` (the last may hold fewer), times the 25
-    unit groups. CTA b owns unit group b % 25 and row group b // 25."""
+    """One cooperative launch of the bf16 body (``csrc/gru_gates_p.cu``)
+    over rows ``row0`` .. ``row0 + n_rows``: ``tiles`` 16-row tiles in
+    ``row_groups`` groups of ``tiles_per_group`` (the last may hold fewer),
+    times the 25 unit groups. CTA b owns unit group b % 25 and row group b // 25."""
 
     row0: int
     n_rows: int
@@ -295,9 +296,9 @@ class PLaunch:
     def grid(self) -> int:
         return P_UNIT_GROUPS * self.row_groups
 
-    @property
-    def smem_bytes(self) -> int:
-        return P_W_BYTES + self.tiles_per_group * P_TILE_BYTES
+    def smem_bytes(self, kind: int) -> int:
+        """Dynamic shared memory of a CTA of kernel ``kind`` (4, 5 or 6)."""
+        return P_W_BYTES + self.tiles_per_group * P_TILE_BYTES[kind]
 
     def cta_span(self, block: int) -> tuple[range, range]:
         """The rows (of the whole call) and the hidden units of CTA ``block``."""
@@ -308,13 +309,15 @@ class PLaunch:
 
 
 def p_launch_plan(n_rows: int, sm_count: int) -> tuple[PLaunch, ...]:
-    """Kernel 5's launches for ``n_rows`` rows on a card of ``sm_count`` SMs
-    (one CTA a SM: its weights take half the SM's shared memory). A launch
-    is one wave: ``sm_count // 25`` row groups beside the 25 unit groups,
-    each of at most P_MAX_TILES 16-row tiles. The tiles are spread evenly
-    over as few launches as that allows, and over the row groups of each
-    (1,680 rows on 132 SMs: one launch, 5 row groups of 21 tiles, 125
-    CTAs). Rows are independent, so a row's bits do not depend on the plan."""
+    """The bf16 body's launches for ``n_rows`` rows on a card of ``sm_count``
+    SMs, the same for kernels 4, 5 and 6 (one CTA a SM: its weights take
+    half the SM's shared memory, and P_MAX_TILES tiles of kernel 5, the
+    largest, fit beside them). A launch is one wave: ``sm_count // 25``
+    row groups beside the 25 unit groups, each of at most P_MAX_TILES
+    16-row tiles. The tiles are spread evenly over as few launches as that
+    allows, and over the row groups of each (1,680 rows on 132 SMs: one
+    launch, 5 row groups of 21 tiles, 125 CTAs). Rows are independent, so a
+    row's bits do not depend on the plan."""
     if n_rows < 1 or sm_count < P_UNIT_GROUPS:
         raise ValueError(f"p_launch_plan: need n_rows >= 1 and sm_count >= {P_UNIT_GROUPS}, got {n_rows}, {sm_count}")
     slots = sm_count // P_UNIT_GROUPS
@@ -333,18 +336,10 @@ def p_launch_plan(n_rows: int, sm_count: int) -> tuple[PLaunch, ...]:
 
 @functools.cache  # called once per forward on the bf16 tier: keep the lookup off that path
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("gru_gates")
-    lib.fvad_gru_gates.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.fvad_gru_gates.restype = ctypes.c_int
-    return lib
-
-
-@functools.cache
-def _lib_p() -> ctypes.CDLL:
     lib = _build.load("gru_gates_p")
-    lib.fvad_gru_gates_p.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fvad_gru_gates_p.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fvad_gru_gates_p.restype = ctypes.c_int
-    lib.fvad_gru_gates_p_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fvad_gru_gates_p_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.fvad_gru_gates_p_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -397,7 +392,7 @@ _P_BARRIERS: dict = {}
 
 
 def _p_barrier(dev: torch.device, stream: int) -> torch.Tensor:
-    """Kernel 5's barrier counters for launches on ``stream`` of card
+    """The bf16 body's barrier counters for launches on ``stream`` of card
     ``dev``: one 128-byte line a row group, zeroed once. The kernel leaves
     them zero at exit, so launches in order on one stream share them and no
     call fills them; each stream has its own, as launches on two streams may
@@ -411,71 +406,47 @@ def _p_barrier(dev: torch.device, stream: int) -> torch.Tensor:
     return _P_BARRIERS[key]
 
 
-def _launch_p(gw: GateWeights, gi: tuple) -> torch.Tensor:
-    """Kernel 5 in bf16 (``csrc/gru_gates_p.cu``): one cooperative launch
-    per ``PLaunch`` of the card's plan, each on its rows' slice of gi and
-    out with its own exchange buffers (``torch.empty``: no fill), all on the
-    stream's barrier counters (``_p_barrier``). Each launch is counted in
-    ``gru_gates_p.launches``."""
+def _launch_p(wrapper, kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype) -> torch.Tensor:
+    """The bf16 form of kernel ``kind`` (``csrc/gru_gates_p.cu``): one
+    cooperative launch per ``PLaunch`` of the card's plan, each on its rows'
+    slice of gi and out with its own exchange buffers (``torch.empty``: no
+    fill), all on the stream's barrier counters (``_p_barrier``). Each
+    launch is counted in ``wrapper.launches``; one the card refuses raises."""
     n, t, _ = gi[0].shape
     dev = gi[0].device
-    _check_weights("gru_gates_p kernel 5", dev, units=gw.units, b8=gw.b8)
-    out = torch.empty((n, t, H), dtype=torch.float32, device=dev)
-    lib = _lib_p()
-    step = t * H * 4  # bytes of one row of gi and out
+    what = f"{wrapper.__name__} kernel {kind}"
+    _check_weights(what, dev, units=gw.units, b8=gw.b8)
+    out = torch.empty((n, t, H), dtype=out_dtype, device=dev)
+    lib = _lib()
+    flags = (int(gw.dtype == torch.bfloat16), int(gi[0].dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         barrier = _p_barrier(dev, stream)
         for launch in device_p_plan(n, dev):
             # x1 and x2, each [2 ping-pong][tiles][25 K steps][32 lanes] x 16 bytes.
             x = torch.empty((2, 2, launch.tiles, H // 16, 32, 4), dtype=torch.int32, device=dev)
-            off = launch.row0 * step
+            rows = slice(launch.row0, launch.row0 + launch.n_rows)
             err = lib.fvad_gru_gates_p(
-                *(g.data_ptr() + off for g in gi), gw.units.data_ptr(), gw.b8.data_ptr(), out.data_ptr() + off,
-                x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(),
+                kind, *flags, *(g[rows].data_ptr() for g in gi), gw.units.data_ptr(), gw.b8.data_ptr(),
+                out[rows].data_ptr(), x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(),
                 launch.n_rows, t, launch.tiles, launch.row_groups, launch.tiles_per_group, stream,
             )
-            _build.check(lib, err, "gru_gates_p kernel 5 launch")
-            gru_gates_p.launches += 1
+            _build.check(lib, err, f"{what} launch")
+            wrapper.launches += 1
     return out
 
 
-def _launch_bf16(kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype, tile: int) -> torch.Tensor:
-    """One launch of the bf16 form of kernel ``kind``: kernel 5 on
-    ``csrc/gru_gates_p.cu``, kernels 4 and 6 on ``csrc/gru_gates.cu``."""
-    if kind == 5:
-        return _launch_p(gw, gi)
-    n, t, _ = gi[0].shape
-    dev = gi[0].device
-    what = f"gru_gates kernel {kind}"
-    _check_weights(what, dev, frag9=gw.frag9, b8=gw.b8)
-    out = torch.empty((n, t, H), dtype=out_dtype, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fvad_gru_gates(
-            kind, 1, int(gi[0].dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            *(x.data_ptr() for x in gi), gw.frag9.data_ptr(), gw.b8.data_ptr(), out.data_ptr(), n, t, tile, stream,
-        )
-    _build.check(lib, err, f"{what} launch")
-    return out
-
-
-def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype,
-            tile: int) -> torch.Tensor:
+def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
     """Run kernel ``kind`` in ``dtype`` on the card and count its launches
     in ``wrapper.launches``: float32 on kernel 1's kernel
-    (``nsnet2_cuda.gru_stack_gates``, one launch), bf16 on
-    ``_launch_bf16``'s (kernel 5 counts each of its launches itself)."""
+    (``nsnet2_cuda.gru_stack_gates``, one launch), bf16 on the bf16 body
+    (``_launch_p``, one count a cooperative launch)."""
     n, t, _ = gi[0].shape
     if n == 0 or t == 0:
         return torch.empty((n, t, H), dtype=out_dtype, device=gi[0].device)
-    if dtype == torch.float32:
-        out = nsnet2_cuda.gru_stack_gates(net, gi, stacked_biases(net), out_dtype)
-    else:
-        out = _launch_bf16(kind, gate_weights(net, dtype), gi, out_dtype, tile)
-        if kind == 5:
-            return out
+    if dtype == torch.bfloat16:
+        return _launch_p(wrapper, kind, gate_weights(net, dtype), gi, out_dtype)
+    out = nsnet2_cuda.gru_stack_gates(net, gi, stacked_biases(net), out_dtype)
     wrapper.launches += 1
     return out
 
@@ -484,11 +455,13 @@ def gru_gates(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32)
     """Kernel 4: gi [N, T, H] (cast to ``dtype``) -> h2 [N, T, H] float32.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (counted in ``gru_gates.launches``) or raises."""
+    or raises. ``gru_gates.launches`` counts launches: one a call in
+    float32; in bf16 one a ``PLaunch`` of ``device_p_plan`` (more than one
+    above 2,240 rows on 132 SMs)."""
     gi = _operands("gru_gates", net, (gi_z, gi_r, gi_n), dtype, dtype)
     if gi[0].device.type == "cpu":
         return gru_gates_reference(gate_weights(net, dtype), *gi)
-    return _launch(gru_gates, 4, net, gi, dtype, torch.float32, gi[0].shape[0])
+    return _launch(gru_gates, 4, net, gi, dtype, torch.float32)
 
 
 def gru_gates_p(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -501,7 +474,7 @@ def gru_gates_p(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float3
     gi = _operands("gru_gates_p", net, (gi_z, gi_r, gi_n), dtype, torch.float32)
     if gi[0].device.type == "cpu":
         return gru_gates_p_reference(gate_weights(net, dtype), *gi)
-    return _launch(gru_gates_p, 5, net, gi, dtype, torch.float32, gi[0].shape[0])
+    return _launch(gru_gates_p, 5, net, gi, dtype, torch.float32)
 
 
 def gru_gates_f(
@@ -511,23 +484,21 @@ def gru_gates_f(
     """Kernel 6: gi [N, T, H] (cast to ``dtype``) -> h2 [N, T, H] in
     ``out_dtype`` (default ``dtype``). ``tile`` rows per grid slice (default
     all) is the TPU kernel's schedule knob: it changes no bit of the result.
-    It is validated in every form, but only the bf16 kernel slices its grid
-    by it; in float32 the card's launch plan (``nsnet2_cuda.launch_plan``)
-    sets the grid whatever the tile.
+    It is validated, and the card's launch plan ignores it in both forms
+    (``nsnet2_cuda.launch_plan`` in float32, ``p_launch_plan`` in bf16).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (counted in ``gru_gates_f.launches``) or raises."""
+    or raises. ``gru_gates_f.launches`` counts launches as
+    ``gru_gates.launches`` does."""
     out_dtype = out_dtype or dtype
     if out_dtype not in DTYPES:
         raise ValueError(f"gru_gates_f: out_dtype must be one of {DTYPES}, got {out_dtype}")
     gi = _operands("gru_gates_f", net, (gi_z, gi_r, gi_n), dtype, dtype)
-    n = gi[0].shape[0]
     if tile is not None and tile < 1:
         raise ValueError(f"gru_gates_f: tile must be a positive number of rows, got {tile}")
-    tile = n if tile is None else min(int(tile), n)  # a tile past N covers the same rows as one of N
     if gi[0].device.type == "cpu":
         return gru_gates_f_reference(gate_weights(net, dtype), *gi, out_dtype=out_dtype)
-    return _launch(gru_gates_f, 6, net, gi, dtype, out_dtype, tile)
+    return _launch(gru_gates_f, 6, net, gi, dtype, out_dtype)
 
 
 gru_gates.launches = 0

@@ -1,19 +1,22 @@
-"""Two checkouts' kernel 5 in bf16 (``nsnet2_gates_cuda.gru_gates_p``) side
-by side, in one process on one card, at the bf16 tier's shape [1680, 54].
+"""Two checkouts' bf16 form of a per-gate GRU kernel side by side, in one
+process on one card, at the bf16 tier's shape [1680, 54]: kernel 5
+(``nsnet2_gates_cuda.gru_gates_p``, the default), 4 (``gru_gates``) or 6
+(``gru_gates_f``, bf16 out).
 
-    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8]
+    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8] [--kernel 4|5|6]
 
 Each ``--root`` names a checkout whose ``formula_vad_tpu_torch`` is loaded
 under a name of its own, so both versions of the wrapper and of the kernel
 run on the same inputs: the experiment tool's features (numpy seed 0)
-through the network's fc_in and ``gi_gates``, as on the bf16 tier, on the
-random-init network with N(0, 0.3) GRU biases (numpy seed 3), each
-checkout building its own copy of the same weights. Both outputs are held
-to the last checkout's plain version (``gru_gates_p_reference``) within
-``chip_smoke.py``'s bf16 bars (mean |dh2| <= 3e-5, max <= 6e-3); the
-distance between the two checkouts' outputs, and each one's distance from
-the plain version on random gi, with whether the two agree bit for bit
-there, are printed for the record: at each of ``RANDOM_SHAPES``, gi
+through the network's fc_in and ``gi_gates``, as on the bf16 tier (cast
+to bf16 before the timed calls for kernels 4 and 6, whose kernels take
+bf16 gi), on the random-init network with N(0, 0.3) GRU biases (numpy
+seed 3), each checkout building its own copy of the same weights. Both
+outputs are held to the last checkout's plain version (the kernel's
+``*_reference``) within ``chip_smoke.py``'s bf16 bars (mean |dh2| <=
+3e-5, max <= 6e-3); the distance between the two checkouts' outputs, and
+each one's distance from the plain version on random gi, with whether the
+two agree bit for bit there, are printed for the record: at each of ``RANDOM_SHAPES``, gi
 N(0, 0.8) of numpy seed rows x steps on the demo network with the same
 biases, the inputs of ``tests/test_torch_cuda.py``'s float32 ragged-shape
 test. Then ``--rounds`` rounds, each timing A B B A: a single call
@@ -35,6 +38,7 @@ import numpy as np
 
 ROWS, STEPS = 1680, 54
 RANDOM_SHAPES = tuple((n, 54) for n in (1, 15, 17, 337, 1680, 4000))
+WRAPPERS = {4: "gru_gates", 5: "gru_gates_p", 6: "gru_gates_f"}
 BF16_MEAN, BF16_MAX = 3e-5, 6e-3
 
 
@@ -64,7 +68,7 @@ def _net(pkg, dev, spec="random"):
 
 
 def _dist(a, b) -> tuple[float, float]:
-    d = (a - b).abs()
+    d = (a.float() - b.float()).abs()
     return float(d.max()), float(d.mean())
 
 
@@ -72,6 +76,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", action="append", required=True, help="a checkout (give two)")
     ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--kernel", type=int, choices=sorted(WRAPPERS), default=5)
     args = ap.parse_args(argv)
     import torch
 
@@ -85,30 +90,34 @@ def main(argv=None) -> int:
     tools = importlib.import_module(f"{pkgs[-1].__name__}.tools")
     exp = importlib.import_module(f"{pkgs[-1].__name__}.tools.gru_kernel_exp")
     dev = torch.device("cuda")
+    name = WRAPPERS[args.kernel]
+    wrappers = [getattr(g, name) for g in gates]
+    plain = getattr(gates[-1], f"{name}_reference")
+    gi_dtype = torch.float32 if args.kernel == 5 else torch.bfloat16  # the kernel's own gi dtype
     nets = [_net(p, dev) for p in pkgs]
     with torch.inference_mode():
-        gi = exp._gi_gates(nets[-1], exp.features(ROWS, dev)[0])
+        gi = tuple(g.to(gi_dtype) for g in exp._gi_gates(nets[-1], exp.features(ROWS, dev)[0]))
         plain_gw = gates[-1].gate_weights(nets[-1], torch.bfloat16)
-        want = gates[-1].gru_gates_p_reference(plain_gw, *gi)
-        calls = [lambda g=g, net=net: g.gru_gates_p(net, *gi, dtype=torch.bfloat16) for g, net in zip(gates, nets)]
+        want = plain(plain_gw, *gi)
+        calls = [lambda w=w, net=net: w(net, *gi, dtype=torch.bfloat16) for w, net in zip(wrappers, nets)]
         outs = [fn() for fn in calls]
         random_gi = {}
         demos = [_net(p, dev, "demo") for p in pkgs]
         demo_gw = gates[-1].gate_weights(demos[-1], torch.bfloat16)
         for n, t in RANDOM_SHAPES:
             rng = np.random.default_rng(n * t)
-            rgi = [torch.from_numpy((rng.standard_normal((n, t, 400)) * 0.8).astype(np.float32)).to(dev)
+            rgi = [torch.from_numpy((rng.standard_normal((n, t, 400)) * 0.8).astype(np.float32)).to(dev, gi_dtype)
                    for _ in range(3)]
-            want_random = gates[-1].gru_gates_p_reference(demo_gw, *rgi)
-            random_outs = [g.gru_gates_p(net, *rgi, dtype=torch.bfloat16) for g, net in zip(gates, demos)]
+            want_random = plain(demo_gw, *rgi)
+            random_outs = [w(net, *rgi, dtype=torch.bfloat16) for w, net in zip(wrappers, demos)]
             random_gi[f"{n}x{t}"] = {"vs_plain": [_dist(o, want_random) for o in random_outs],
                                      "identical": bool(torch.equal(*random_outs))}
         torch.cuda.synchronize()
         result = {"device": torch.cuda.get_device_name(0), "card": tools.card(),
-                  "roots": [os.path.abspath(r) for r in args.root], "shape": [ROWS, STEPS],
+                  "roots": [os.path.abspath(r) for r in args.root], "kernel": args.kernel, "shape": [ROWS, STEPS],
                   "vs_plain": [_dist(o, want) for o in outs], "random_gi": random_gi,
                   "between": _dist(outs[0], outs[1]), "identical": bool(torch.equal(outs[0], outs[1]))}
-        print(f"{result['card']}: vs plain (max, mean) {result['vs_plain']}; between the checkouts "
+        print(f"{result['card']}, kernel {args.kernel} ({name}) bf16: vs plain (max, mean) {result['vs_plain']}; between the checkouts "
               f"{result['between']}, identical {result['identical']}", flush=True)
         for shape, r in random_gi.items():
             print(f"random gi [{shape}]: vs plain (max, mean) {r['vs_plain']}, identical {r['identical']}", flush=True)

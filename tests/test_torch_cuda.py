@@ -532,13 +532,21 @@ def test_gru_gates_refuse_what_they_do_not_take(net, cuda_device):
         nsnet2_cuda.gru_stack_gates(net, gi, biases, torch.float16)
     with pytest.raises(ValueError, match="bh1"):
         nsnet2_cuda.gru_stack_gates(net, gi, (biases[0][:400],) + biases[1:], torch.float32)
-    # gru_gates.cu holds the bf16 forms only: float32 weights are refused.
+    # The bf16 body (csrc/gru_gates_p.cu) holds the bf16 forms only: it
+    # refuses float32 weights, and operand types its kind does not take,
+    # before any launch.
     lib = gates._lib()
-    out = torch.empty((8, 3, 400), device=cuda_device)
     w = gates.gate_weights(net, torch.bfloat16)
-    err = lib.fvad_gru_gates(4, 0, 0, 0, *(x.data_ptr() for x in gi), w.frag9.data_ptr(), w.b8.data_ptr(),
-                             out.data_ptr(), 8, 3, 8, torch.cuda.current_stream().cuda_stream)
-    assert err != 0
+    x = torch.empty((2, 2, 1, 25, 32, 4), dtype=torch.int32, device=cuda_device)
+    barrier = torch.zeros((8, 32), dtype=torch.int32, device=cuda_device)
+    out = torch.empty((8, 3, 400), device=cuda_device)
+    for kind, w_bf16, gi_bf16, out_bf16 in ((4, 0, 1, 0), (6, 0, 1, 0), (5, 0, 0, 0), (4, 1, 0, 0), (4, 1, 1, 1),
+                                            (5, 1, 1, 0), (5, 1, 0, 1), (6, 1, 0, 0), (7, 1, 1, 0)):
+        err = lib.fvad_gru_gates_p(kind, w_bf16, gi_bf16, out_bf16, *(g.data_ptr() for g in gi), w.units.data_ptr(),
+                                   w.b8.data_ptr(), out.data_ptr(), x[0].data_ptr(), x[1].data_ptr(),
+                                   barrier.data_ptr(), 8, 3, 1, 1, 1, torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (kind, w_bf16, gi_bf16, out_bf16)
+    assert lib.fvad_gru_gates_p_smem_bytes(7, 1) == -1
     net.gru1.linear_before_reset = 0
     for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
         for dtype in gates.DTYPES:
@@ -602,7 +610,7 @@ def test_gru_gates_p_bf16_refuses_what_it_does_not_take(net, cuda_device):
     # The C entry point refuses, before any launch, a plan that does not
     # cover the tiles, a CTA of more tiles than its shared memory holds, and
     # a grid the card cannot hold at once.
-    lib = gates._lib_p()
+    lib = gates._lib()
     w = gates.gate_weights(net, torch.bfloat16)
     out = torch.empty((40, 3, 400), device=cuda_device)
     x = torch.empty((2, 2, 3, 25, 32, 4), dtype=torch.int32, device=cuda_device)
@@ -611,13 +619,60 @@ def test_gru_gates_p_bf16_refuses_what_it_does_not_take(net, cuda_device):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for n, tiles, groups, per in ((40, 2, 1, 2), (40, 3, 1, 2), (40, 3, 3, 2), (16 * 29, 29, 1, 29),
                                   (16 * (sms // 25 + 1), sms // 25 + 1, sms // 25 + 1, 1)):
-        err = lib.fvad_gru_gates_p(*(g.data_ptr() for g in gi), w.units.data_ptr(), w.b8.data_ptr(), out.data_ptr(),
-                                   x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(), n, 3, tiles, groups, per,
-                                   stream)
+        err = lib.fvad_gru_gates_p(5, 1, 0, 0, *(g.data_ptr() for g in gi), w.units.data_ptr(), w.b8.data_ptr(),
+                                   out.data_ptr(), x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(), n, 3, tiles,
+                                   groups, per, stream)
         assert err != 0, (n, tiles, groups, per)
     torch.cuda.synchronize()
-    for per in (1, 21, gates.P_MAX_TILES):
-        assert lib.fvad_gru_gates_p_smem_bytes(per) == gates.PLaunch(0, 16, 1, 1, per).smem_bytes
+    for kind in (4, 5, 6):
+        for per in (1, 21, gates.P_MAX_TILES):
+            assert lib.fvad_gru_gates_p_smem_bytes(kind, per) == gates.PLaunch(0, 16, 1, 1, per).smem_bytes(kind)
+
+
+BF16_W9_KERNELS = {"k4": gates.gru_gates, "k6": gates.gru_gates_f}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 54])
+@pytest.mark.parametrize("rows", [1, 15, 17, 337, 1680, 4000])
+@pytest.mark.parametrize("kernel", sorted(BF16_W9_KERNELS))
+def test_gru_gates_4_and_6_bf16_at_ragged_shapes(net, cuda_device, kernel, rows, steps):
+    """Kernels 4 and 6 in bf16, on the bf16 body of kernel 5
+    (csrc/gru_gates_p.cu), against their plain versions on gi as the tool
+    makes it: a partial 16-row tile, one tile a CTA, several tiles a CTA,
+    and 4,000 rows, which take two launches; one count a launch."""
+    net = _biased(net)
+    wrapper, plain = GATE_KERNELS[kernel]
+    gi = tuple(g.to(torch.bfloat16) for g in _gi3(net, rows, steps, rows * steps, cuda_device))
+    before = wrapper.launches
+    with torch.inference_mode():
+        got = wrapper(net, *gi, dtype=torch.bfloat16)
+        want = plain(gates.gate_weights(net, torch.bfloat16), gi, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + len(gates.device_p_plan(rows, cuda_device))
+    assert len(gates.device_p_plan(rows, cuda_device)) == (2 if rows == 4000 else 1)
+    assert got.dtype == want.dtype and got.shape == (rows, steps, 400)
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) <= BF16_MAX and float(d.mean()) <= BF16_MEAN, (float(d.max()), float(d.mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(BF16_W9_KERNELS))
+def test_gru_gates_4_and_6_bf16_rows_are_independent(net, cuda_device, kernel):
+    """As kernel 5's: a repeated call, and the first 17 rows of a 1,680-row
+    call against a 17-row call, bit for bit; the barrier counters left 0."""
+    net = _biased(net)
+    wrapper = BF16_W9_KERNELS[kernel]
+    gi = _gi3(net, 1680, 54, 9, cuda_device)
+    with torch.inference_mode():
+        whole = wrapper(net, *gi, dtype=torch.bfloat16)
+        again = wrapper(net, *gi, dtype=torch.bfloat16)
+        part = wrapper(net, *(g[:17].contiguous() for g in gi), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, again)
+    assert torch.equal(part, whole[:17])
+    barrier = gates._p_barrier(whole.device, torch.cuda.current_stream(whole.device).cuda_stream)
+    assert not bool(barrier.any())
 
 
 @pytest.mark.cuda

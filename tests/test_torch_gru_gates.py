@@ -266,7 +266,9 @@ def test_packed_weights(pair):
     gw = gates.gate_weights(net, torch.bfloat16)
     assert gates.gate_weights(net, torch.bfloat16) is gw  # packed once per net and dtype
     assert gw.w9.dtype == gw.wp1.dtype == gw.wp2.dtype == torch.bfloat16 and gw.b8.dtype == torch.float32
-    assert gw.frag9.shape == (9, 50, 25, 32, 2) and gw.units.shape == (25, 75, 32, 12)
+    # One packing serves the bf16 body of kernels 4, 5 and 6: no per-slab fragments.
+    assert "frag9" not in {f.name for f in dataclasses.fields(gw)}
+    assert gw.units.shape == (25, 75, 32, 12) and set(gates.P_TILE_BYTES) == {4, 5, 6}
     assert gw.units.dtype == torch.int32 and gw.units.is_contiguous()
     assert gw.units.numel() * 4 == 25 * gates.P_W_BYTES  # 115,200 bytes a group of 16 units
     h = 400
@@ -275,7 +277,7 @@ def test_packed_weights(pair):
     assert not gw.wp2[:h, 3 * h :].any() and not gw.wp2[h:, 2 * h : 3 * h].any()
     assert torch.equal(gw.b8[1], net.gru2.bi[:h] + net.gru2.bh[:h]) and not gw.b8[5:].any()
     f32 = gates.gate_weights(net, torch.float32)
-    assert f32.frag9 is None and f32.units is None and torch.equal(f32.w9[8], net.gru2.wh[:, 2 * h :])
+    assert f32.units is None and torch.equal(f32.w9[8], net.gru2.wh[:, 2 * h :])
 
 
 def _unpack_unit_groups(units: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
@@ -315,6 +317,22 @@ def test_unit_group_packing_unpacks_to_the_weights(pair):
         gates.pack_unit_groups(gw.wp1.float(), gw.wp2)
 
 
+def test_unit_group_packing_holds_the_nine_slabs(pair):
+    """Kernels 4 and 6 read ``units`` too: it unpacks to exactly ``w9``'s
+    nine slabs (wh1 z r n from wp1, wi2 z r n from wp2's h1 rows, wh2 z r n
+    from its h2 rows, n_h at columns 1200-1599), bit for bit."""
+    _, net = pair
+    gw = gates.gate_weights(net, torch.bfloat16)
+    wp1, wp2 = _unpack_unit_groups(gw.units)
+    w9 = gw.w9.view(torch.int16).numpy()
+    h = 400
+    slabs = [wp1[:, g * h : (g + 1) * h] for g in range(3)]
+    slabs += [wp2[:h, g * h : (g + 1) * h] for g in range(3)]
+    slabs += [wp2[h:, :h], wp2[h:, h : 2 * h], wp2[h:, 3 * h :]]
+    for k, slab in enumerate(slabs):
+        assert np.array_equal(slab, w9[k]), k
+
+
 def test_unit_group_packing_follows_in_place_updates(pair):
     flat = _flat(pair[0])
     net = nsnet2.from_numpy(flat)
@@ -338,7 +356,7 @@ def test_kernel_5_launch_plan(n_rows):
     for launch in plan:
         assert launch.grid <= 132 and launch.row_groups <= 132 // gates.P_UNIT_GROUPS
         assert launch.tiles == -(-launch.n_rows // 16) and launch.tiles_per_group <= gates.P_MAX_TILES
-        assert launch.smem_bytes <= 232448 and launch.row0 % 16 == 0
+        assert max(launch.smem_bytes(k) for k in gates.P_TILE_BYTES) <= 232448 and launch.row0 % 16 == 0
         for block in range(launch.grid):
             rows, units = launch.cta_span(block)
             assert len(units) == gates.P_UNITS and units.start % gates.P_UNITS == 0
@@ -349,6 +367,24 @@ def test_kernel_5_launch_plan(n_rows):
         assert len(plan) == 1 and (plan[0].row_groups, plan[0].tiles_per_group, plan[0].grid) == (5, 21, 125)
     if n_rows == 4000:  # several tiles a CTA, in two launches
         assert len(plan) == 2 and all(launch.tiles_per_group == 25 for launch in plan)
+
+
+@pytest.mark.parametrize("kind", [4, 5, 6])
+@pytest.mark.parametrize("n_rows", [1, 17, 1680, 2241, 4000])
+def test_bf16_body_shared_bytes_and_plan_per_kind(n_rows, kind):
+    """Kernels 4, 5 and 6 share one plan on 132 SMs; a CTA's shared bytes
+    are its weights plus, a tile, its gi (float32 in kernel 5, bf16 in 4
+    and 6), its float32 h1 and kernel 6's float32 h2, within an H100
+    block's 232,448 bytes at P_MAX_TILES tiles."""
+    tile_bytes = {4: 1536 + 1024, 5: 3072 + 1024, 6: 1536 + 1024 + 1024}[kind]
+    assert gates.P_TILE_BYTES[kind] == tile_bytes
+    assert gates.P_W_BYTES + gates.P_MAX_TILES * tile_bytes <= 232448
+    plan = gates.p_launch_plan(n_rows, 132)
+    want = {1: [(1, 1, 1)], 17: [(2, 2, 1)], 1680: [(105, 5, 21)], 2241: [(71, 5, 15), (70, 5, 14)],
+            4000: [(125, 5, 25)] * 2}[n_rows]
+    assert [(launch.tiles, launch.row_groups, launch.tiles_per_group) for launch in plan] == want
+    for launch in plan:
+        assert launch.smem_bytes(kind) == 115200 + launch.tiles_per_group * tile_bytes
 
 
 def test_kernel_5_launch_plan_refuses_what_it_cannot_run():
