@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs nine phases; any failed check raises and the script exits non-zero.
+runs ten phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -78,6 +78,27 @@ runs nine phases; any failed check raises and the script exits non-zero.
    launch and no gru_stack launch per run; segments against the float
    tier's), then the simulator with --precision default on cuda and on
    cpu: the same segment count, every boundary within one FSM window.
+10. The slab path (parallel/slab_runner.py) on a race-length corpus: 21
+   PCM16 streams of ~320 s (5 slabs of 64 s, ragged ends), scored through
+   SlabRunner.run_readers with raw int16 readers, the float tier and the
+   device FSM: wall, real-time factor, exactly 1 gru_stack and 1 smem-body
+   scan_windows launch a slab, peak device memory within 5% of the same
+   run over the first 2 slabs, the host's part alone (the prefetcher
+   reading every slab; one slab's copy into pinned memory), and the
+   device's busy share and the part of the host-to-device copy hidden under
+   compute (one torch.profiler pass).
+   Its chained FSM outputs over all 5 slabs equal the host decoder's single
+   call over all windows bit for bit, and its segments equal the host-FSM
+   slab run's, the float32-reader run's and a one-shot BatchRunner's over
+   the first 4 streams. Kernels 1, 5 (bf16) and 3 (in-scan product) at the
+   slab's shapes against their plain versions (1e-4; phase 8's bars over
+   kernel 5's 3 launches; bit for bit). One slab run each in the bf16 tier
+   (3 kernel-5 launches a slab) and the int8 tier (167 kernel-3 launches
+   and no gru_stack a slab), each against the same tier's one-shot run on
+   the first 4 streams (the same segment count, every boundary within one
+   FSM window). Then the simulator on a 3-stream x 40 s PCM16 corpus:
+   use_slabs plans on cuda and on cpu and a one-shot plan on cuda write
+   identical report.txt and Audacity files.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -94,6 +115,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -142,6 +164,15 @@ Q8_SHAPES = (
 )
 Q8_LAUNCHES = sum(shape[4] for shape in Q8_SHAPES)  # 167
 WINDOW_SEC = 1024 / 48000  # one FSM window
+# Phase 10, the slab path: 21 streams a little short of 5 slabs of 64 s
+# (320 s) as PCM16 WAV, ragged: no stream ends on a slab edge, each inside
+# a chunk. The device-side slab is a 90-minute race's; the slab count is cut.
+SLAB_STREAMS, SLAB_COUNT, SLAB_CHUNKS = 21, 5, 128
+SLAB_LENGTHS = [SLAB_COUNT * SLAB_CHUNKS * 24000 - 4_801 - 37_017 * i for i in range(SLAB_STREAMS)]
+SLAB_ROWS = SLAB_STREAMS * 2 * SLAB_CHUNKS  # GRU rows a slab: 5,376
+ONE_SHOT_STREAMS = 4  # the one-shot runs that hold phase 10's first streams whole
+PEAK_TOL = 0.05  # peak device memory: 5 slabs within 5% of 2 slabs
+SLAB_CORPUS_SECONDS = 40.0  # phase 10's simulator corpus: 3 streams, 16 s slabs
 
 
 def log(msg: str) -> None:
@@ -413,6 +444,14 @@ def slice_audio() -> np.ndarray:
     return np.stack([synth_stream(rng, SLICE_SECONDS)[0] for _ in range(SLICE_STREAMS)])
 
 
+def reset_counts(counters) -> None:
+    """Set each kernel wrapper's launch counters to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_body"):
+            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+
+
 def timed_runs(runner, audio, counters) -> tuple[list, list[float], dict]:
     """One warm-up run, then the counters set to 0 and three timed runs:
     (results, walls in s, launches counted over the three)."""
@@ -424,10 +463,7 @@ def timed_runs(runner, audio, counters) -> tuple[list, list[float], dict]:
         return res
 
     run()  # warm-up
-    for fn in counters.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_body"):
-            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+    reset_counts(counters)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -945,6 +981,304 @@ def phase_bf16_slice(runner, audio, float_results, float_wall: float, corpus: st
     return launches
 
 
+def capture_slab_fsm(runner) -> dict:
+    """Wrap ``runner``'s front end and final fetch: -> a dict collecting each
+    slab's FSM inputs (on the card) and the fetched FSM outputs."""
+    seen = {"inputs": []}
+    front_end, fetch = runner._front_end, runner._fetch
+
+    def capture_front_end(*args):
+        out = front_end(*args)
+        seen["inputs"].append(out[1:])
+        return out
+
+    def capture_fetch(slab_outs):
+        seen["outputs"] = fetch(slab_outs)
+        return seen["outputs"]
+
+    runner._front_end, runner._fetch = capture_front_end, capture_fetch
+    return seen
+
+
+def spans_within_a_window(tier: str, got, want) -> None:
+    """A non-parity tier against its own one-shot run: the same segment count
+    on every stream, every boundary within one FSM window."""
+    worst = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g.segments) != len(w.segments):
+            raise AssertionError(f"{tier} slab run s{i}: {len(g.segments)} segments, one-shot {len(w.segments)}")
+        for a, b in zip(g.segments, w.segments):
+            worst = max(worst, abs(a["sample_from"] - b["sample_from"]), abs(a["sample_to"] - b["sample_to"]))
+    if worst > 1024:
+        raise AssertionError(f"{tier} slab run: a boundary moved {worst} samples from the one-shot run's")
+    log(f"{tier} slab run vs its one-shot run on the first {len(want)} streams: "
+        f"{sum(len(r.segments) for r in want)} segments, boundaries within {worst} samples")
+
+
+def slab_kernels(net, dev) -> dict:
+    """Kernels 1, 5 (bf16) and 3 at the slab's shapes against their plain
+    versions; -> {kernel name: its slab-shape entry}."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+    from formula_vad_tpu_torch.ops import matmul_q8 as mq
+    from formula_vad_tpu_torch.tools import cuda_ms, graph_ms
+
+    out = {}
+    feats = torch.from_numpy(
+        np.random.default_rng(8).normal(-3.0, 1.5, (SLAB_ROWS, GRU_STEPS, 161)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        x = net.fc_in(feats)
+        gi1 = (x @ net.gru1.wi + net.gru1.bi).contiguous()
+        got = nsnet2_cuda.gru_stack(net, gi1)
+        want = nsnet2_cuda.gru_stack_reference(net, gi1)
+        e = float((got - want).abs().max()) if bool(torch.isfinite(got).all()) else float("inf")
+        if not e <= GRU_TOL:
+            raise AssertionError(f"GRU kernel disagrees with its plain version at [{SLAB_ROWS}, {GRU_STEPS}]: {e}")
+        ms = cuda_ms(lambda: nsnet2_cuda.gru_stack(net, gi1), reps=3)
+        plain_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_reference(net, gi1), reps=3)
+        ops = 3 * 2 * SLAB_ROWS * 400 * 1200 * GRU_STEPS
+        bound_ms, _ = bound(gi1.nbytes + got.nbytes, ops, F32_OPS_PER_MS)
+        out["gru_stack"] = {"rows": SLAB_ROWS, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+        log(f"GRU kernel at the slab's [{SLAB_ROWS}, {GRU_STEPS}]: max |dh2| {e:.3e} (tolerance {GRU_TOL}); "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms")
+
+        gi = gates.gi_gates(net, x)
+        before = gates.gru_gates_p.launches
+        got = gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)
+        launched = gates.gru_gates_p.launches - before
+        want = gates.gru_gates_p_reference(gates.gate_weights(net, torch.bfloat16), *gi)
+        d = (got - want).abs()
+        e, mean = float(d.max()), float(d.mean())
+        plan = gates.device_p_plan(SLAB_ROWS, dev)
+        if launched != len(plan) or len(plan) != 3:
+            raise AssertionError(f"kernel 5 bf16 at {SLAB_ROWS} rows: {launched} launches counted, plan {len(plan)}")
+        if not (e <= BF16_MAX and mean <= BF16_MEAN):
+            raise AssertionError(f"kernel 5 bf16 disagrees with its plain version at {SLAB_ROWS} rows: {e}, {mean}")
+        ms = cuda_ms(lambda: gates.gru_gates_p(net, *gi, dtype=torch.bfloat16), reps=3)
+        plain_ms = cuda_ms(lambda: gates.gru_gates_p_reference(gates.gate_weights(net, torch.bfloat16), *gi), reps=3)
+        bound_ms, _ = bound(sum(g.nbytes for g in gi) + got.nbytes, ops, BF16_OPS_PER_MS)
+        out["gru_gates_p"] = {"rows": SLAB_ROWS, "launches_a_call": launched, "max_abs_err": e, "mean_abs_err": mean,
+                              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+        log(f"kernel 5 bf16 at the slab's {SLAB_ROWS} rows ({launched} launches): max |dh2| {e:.3e}, mean {mean:.3e} "
+            f"(bars {BF16_MAX}, {BF16_MEAN}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a8 = torch.randint(-127, 128, (SLAB_ROWS, 400), dtype=torch.int8, device=dev, generator=gen)
+    b8 = torch.randint(-127, 128, (400, 1200), dtype=torch.int8, device=dev, generator=gen)
+    w = mq.Q8Weight.pack(b8, torch.rand(1200, device=dev, generator=gen) * 1e-3, torch.randn(1200, device=dev, generator=gen))
+    with torch.inference_mode():
+        got = mq.matmul_q8(a8, w, order="col_row")
+        want = mq.matmul_q8_reference(a8, w, order="col_row")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 matmul kernel != plain at the slab's in-scan [{SLAB_ROWS}, 400] x [400, 1200]")
+        ms = graph_ms(lambda: mq.matmul_q8(a8, w, order="col_row"), 20)
+        plain_ms = graph_ms(lambda: mq.matmul_q8_reference(a8, w, order="col_row"), 20)
+    bound_ms, _ = bound(SLAB_ROWS * 400 + 400 * 1200 + 4 * SLAB_ROWS * 1200 + 8 * 1200, 2 * SLAB_ROWS * 400 * 1200,
+                        INT8_OPS_PER_MS)
+    out["matmul_q8"] = {"rows": SLAB_ROWS, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    log(f"int8 matmul at the slab's in-scan [{SLAB_ROWS}, 400] x [400, 1200]: bit for bit; kernel {ms * 1e3:.1f} us, "
+        f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us")
+    return out
+
+
+def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, dict]:
+    """Phase 10; -> (launches a kernel on the slab path, slab-shape entries)."""
+    import torch
+
+    from formula_vad_tpu_torch.io_ import AudioSource
+    from formula_vad_tpu_torch.io_.prefetch import SlabPrefetcher
+    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
+    from formula_vad_tpu_torch.ops import matmul_q8, precision
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+    from formula_vad_tpu_torch.parallel.slab_runner import SlabRunner
+    from formula_vad_tpu_torch.pipeline import fsm_cuda, fsm_host
+    from formula_vad_tpu_torch.testing.synth import write_corpus, write_ragged_corpus
+    from formula_vad_tpu_torch.tools import busy_ms
+
+    t_phase = time.perf_counter()
+    race = os.path.join(root, "race")
+    os.makedirs(race)
+    write_ragged_corpus(race, SLAB_LENGTHS, seed=4)
+    disk = sum(os.path.getsize(os.path.join(race, f"s{i}.wav")) for i in range(SLAB_STREAMS))
+    audio_sec = sum(SLAB_LENGTHS) / 48000
+    log(f"slab corpus: {SLAB_STREAMS} PCM16 streams of {min(SLAB_LENGTHS) / 48000:.2f}-{max(SLAB_LENGTHS) / 48000:.2f} s "
+        f"({audio_sec:.1f} audio-s), {disk / 1e9:.2f} GB on disk, {2 * disk / 1e9:.2f} GB as float32; "
+        f"written in {time.perf_counter() - t_phase:.1f} s")
+    srcs = [AudioSource.open_stream(os.path.join(race, f"s{i}.wav")) for i in range(SLAB_STREAMS)]
+    try:
+        def readers(raw16):
+            def mk(src):
+                def read(start, n):
+                    src.seek_to_sample(start)
+                    return src.read_raw16(n) if raw16 else src.read(n)
+                return read
+            return [mk(src) for src in srcs]
+
+        def run(runner, raw16=True, lengths=SLAB_LENGTHS):
+            results = runner.run_readers(readers(raw16), lengths, raw16=raw16)
+            torch.cuda.synchronize()
+            return results
+
+        # Every kernel's counter, reset before each tier's slab run and read
+        # after it: each run must launch its tier's kernels and no other.
+        counters = {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
+                    "gru_gates": nsnet2_gates_cuda.gru_gates, "gru_gates_p": nsnet2_gates_cuda.gru_gates_p,
+                    "gru_gates_f": nsnet2_gates_cuda.gru_gates_f, "matmul_q8": matmul_q8.matmul_q8}
+
+        def expect(tier, got, **want):
+            want = dict(dict.fromkeys(counters, 0), scan_windows=SLAB_COUNT, **want)
+            if got != want:
+                raise AssertionError(f"the {tier} slab run launched {got}, not {want}")
+
+        runner = SlabRunner(net, slab_chunks=SLAB_CHUNKS)  # the default VAD config, device FSM
+        two = [min(n, 2 * SLAB_CHUNKS * 24000) for n in SLAB_LENGTHS]
+        run(runner, lengths=two)  # the warm-up, so that its one-off allocations stay out of the baseline
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run(runner, lengths=two)
+        two_wall = time.perf_counter() - t0
+        peak_two = torch.cuda.max_memory_allocated(dev)
+
+        seen = capture_slab_fsm(runner)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        results = run(runner)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        smem = fsm_cuda.scan_windows.launches_by_body["smem"]
+        peak = torch.cuda.max_memory_allocated(dev)
+        del runner._front_end, runner._fetch  # the capture's wrappers
+        log(f"slab run, float tier, device FSM, raw16 readers: {SLAB_COUNT} slabs of {SLAB_CHUNKS} chunks, wall "
+            f"{wall * 1e3:.1f} ms, real-time factor {audio_sec / wall:.1f} (one-shot slice in phase 4: {float_rtf:.1f}); "
+            f"2 slabs {two_wall * 1e3:.1f} ms; on {smi}")
+        log(f"slab run launches: {launches}, scan_windows by body {fsm_cuda.scan_windows.launches_by_body}")
+        expect("float", launches, gru_stack=SLAB_COUNT)
+        if smem != SLAB_COUNT:
+            raise AssertionError(f"the slab run launched {smem} smem-body scan_windows, not 1 a slab")
+        log(f"peak device memory: {peak / 2**30:.3f} GiB over {SLAB_COUNT} slabs, {peak_two / 2**30:.3f} GiB over 2 "
+            f"({peak / peak_two:.4f}x; bar {1 + PEAK_TOL})")
+        if not peak <= (1 + PEAK_TOL) * peak_two:
+            raise AssertionError(f"peak device memory grew with the slab count: {peak} against {peak_two}")
+
+        mv, rt, va = (torch.cat(xs, dim=1).cpu().numpy() for xs in zip(*seen["inputs"]))
+        st = runner.st
+        want, _ = fsm_host.scan_windows_host(st.fsm_shape, st.fsm_params, mv, rt, va)
+        for field, a, b in zip(want._fields, seen["outputs"], want):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"chained FSM output {field} != the host decoder's single call over {mv.shape}")
+        log(f"chained FSM over {SLAB_COUNT} slabs == the host decoder's single call over {list(mv.shape)} windows: "
+            f"all 7 outputs, bit for bit")
+        n_seg = sum(len(r.segments) for r in results)
+        if n_seg == 0:
+            raise AssertionError("the slab run found no speech segment")
+        segs = [r.segments for r in results]
+        for name, other in (("host-FSM slab run", lambda: run(SlabRunner(net, slab_chunks=SLAB_CHUNKS, use_host_fsm=True))),
+                            ("float32-reader slab run", lambda: run(runner, raw16=False))):
+            t0 = time.perf_counter()
+            if [r.segments for r in other()] != segs:
+                raise AssertionError(f"the slab run's segments differ from the {name}'s")
+            log(f"slab segments: {n_seg}, identical to the {name}'s ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+
+        def first_streams():
+            batch = np.zeros((ONE_SHOT_STREAMS, 2, max(SLAB_LENGTHS[:ONE_SHOT_STREAMS])), np.float32)
+            for i in range(ONE_SHOT_STREAMS):
+                srcs[i].seek_to_sample(0)
+                batch[i, :, : SLAB_LENGTHS[i]] = srcs[i].read(SLAB_LENGTHS[i])
+            return batch
+
+        batch = first_streams()
+        one = BatchRunner(net).run(batch, SLAB_LENGTHS[:ONE_SHOT_STREAMS])
+        if [r.segments for r in one] != segs[:ONE_SHOT_STREAMS]:
+            raise AssertionError("the slab run's segments differ from a one-shot run over its first streams")
+        log(f"slab segments of the first {ONE_SHOT_STREAMS} streams identical to a one-shot BatchRunner over them")
+
+        # The host's part alone: the prefetcher reading every slab, and one
+        # slab's copy into pinned memory.
+        t0 = time.perf_counter()
+        prefetcher = SlabPrefetcher(readers(True), [n // 24000 for n in SLAB_LENGTHS], n_slabs=SLAB_COUNT,
+                                    slab_chunks=SLAB_CHUNKS, chunk_size=24000, n_channels=2, b_pad=SLAB_STREAMS,
+                                    depth=1, dtype=np.int16)
+        try:
+            slab = [prefetcher.get()[0] for _ in range(SLAB_COUNT)][-1]
+        finally:
+            prefetcher.close()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        pinned = torch.empty(slab.shape, dtype=torch.int16, pin_memory=True)
+        t0 = time.perf_counter()
+        np.copyto(pinned.numpy(), slab)
+        pin_ms = (time.perf_counter() - t0) * 1e3
+        log(f"slab run's host part alone: the prefetcher reads the {SLAB_COUNT} slabs in {read_ms:.1f} ms "
+            f"({read_ms / SLAB_COUNT:.1f} a slab); one slab's copy into pinned memory {pin_ms:.1f} ms "
+            f"({slab.nbytes / 1e6:.0f} MB)")
+        del slab, pinned
+
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run(runner)
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = None
+        if events:
+            busy, kernels, copies = busy_ms(events)
+            hidden = kernels + copies - busy
+            log(f"profiled slab run: wall {prof_wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / prof_wall:.1f}%), "
+                f"kernels {kernels:.1f} ms, copies {copies:.1f} ms of which {hidden:.1f} ms "
+                f"({100 * hidden / max(copies, 1e-9):.1f}%) under kernels; idle {prof_wall - busy:.1f} ms")
+        else:
+            log("profiled slab run: the trace holds no device events")
+
+        tiers = {"float": launches}
+        for tier, enter, leave, counter, per_slab in (
+            ("bf16", lambda: precision.set_matmul_precision("default"), lambda: precision.set_matmul_precision("highest"),
+             "gru_gates_p", 3),
+            ("int8", lambda: precision.set_quant("int8"), lambda: precision.set_quant("off"), "matmul_q8", Q8_LAUNCHES),
+        ):
+            enter()
+            try:
+                reset_counts(counters)
+                t0 = time.perf_counter()
+                got = run(runner)
+                tier_wall = time.perf_counter() - t0
+                tiers[tier] = {name: fn.launches for name, fn in counters.items()}
+                one = BatchRunner(net).run(batch, SLAB_LENGTHS[:ONE_SHOT_STREAMS])
+            finally:
+                leave()
+            log(f"{tier} slab run: wall {tier_wall * 1e3:.1f} ms, real-time factor {audio_sec / tier_wall:.1f}; "
+                f"launches {tiers[tier]}")
+            expect(tier, tiers[tier], **{counter: per_slab * SLAB_COUNT})
+            spans_within_a_window(tier, got[:ONE_SHOT_STREAMS], one)
+        del batch
+        kernels = slab_kernels(net, dev)
+    finally:
+        for src in srcs:
+            src.close()
+        shutil.rmtree(race, ignore_errors=True)
+
+    corpus = os.path.join(root, "sim")
+    os.makedirs(corpus)
+    slab_plan = {"use_slabs": True, "slab_chunks": 32}
+    write_corpus(corpus, CORPUS_STREAMS, SLAB_CORPUS_SECONDS, seed=5, fmt="pcm16",
+                 plans={"slab_cuda": slab_plan, "slab_cpu": slab_plan, "oneshot_cuda": {}})
+    outs = run_simulators(corpus, {"slab_cuda": ("cuda", {}), "slab_cpu": ("cpu", {}), "oneshot_cuda": ("cuda", {})})
+    for name in ["report.txt"] + [f"s{i}-audacity.txt" for i in range(CORPUS_STREAMS)]:
+        texts = {plan: read_text(outs[plan], name) for plan in outs}
+        if len(set(texts.values())) != 1:
+            raise AssertionError(f"{name} differs between the slab (cuda, cpu) and one-shot simulator runs")
+    log("simulator on PCM16: use_slabs plans on cuda and cpu and the one-shot plan write identical report.txt and "
+        "Audacity files; s0: " + read_text(outs["slab_cuda"], "s0-audacity.txt").strip().replace("\n", " | "))
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    # Each kernel's launches in its tier's slab run; kernels 4 and 6, on no
+    # tier's path, the sum of their counts over the three runs (0).
+    return {"gru_stack": tiers["float"]["gru_stack"], "scan_windows": tiers["float"]["scan_windows"],
+            "gru_gates_p": tiers["bf16"]["gru_gates_p"], "matmul_q8": tiers["int8"]["matmul_q8"],
+            **{name: sum(t[name] for t in tiers.values()) for name in ("gru_gates", "gru_gates_f")}}, kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -977,18 +1311,23 @@ def main() -> int:
     launches, float_results, float_wall = phase_slice(runner, audio, smi)
     with tempfile.TemporaryDirectory() as corpus:
         write_corpus(corpus, CORPUS_STREAMS, 20.0, seed=2,
-                     plans=("cuda", "cpu", "int8_cuda", "int8_cpu", "bf16_cuda", "bf16_cpu"))
+                     plans=dict.fromkeys(("cuda", "cpu", "int8_cuda", "int8_cpu", "bf16_cuda", "bf16_cpu"), {}))
         phase_entry_point(corpus)
         kernels.append(phase_q8_kernel(dev))
         launches["matmul_q8"] = phase_q8_slice(runner, audio, float_results, float_wall, corpus, smi)["matmul_q8"]
         gate_rows, path_a = phase_gates(dev, kernels[0]["ms"])
         kernels += gate_rows
         path_b = phase_bf16_slice(runner, audio, float_results, float_wall, corpus, smi)
+    with tempfile.TemporaryDirectory() as root:
+        slab_launches, slab_shapes = phase_slab(net, dev, smi, SLICE_STREAMS * SLICE_SECONDS / float_wall, root)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_slab"] = slab_launches[k["name"]]
+        if k["name"] in slab_shapes:
+            k["slab"] = slab_shapes[k["name"]]
         if k["name"] == "scan_windows":
             k["launches_by_body"] = launches["scan_windows_by_body"]
     print(json.dumps({"kernels": kernels}))

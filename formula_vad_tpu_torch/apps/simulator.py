@@ -3,7 +3,9 @@
 
 Reads a plan JSON (``{"instances": [{name, audio_path, ref_path}],
 "config": {...}}``), scores every recording in one batched device pass
-(``parallel.runner.BatchRunner``), compares against the Audacity reference
+(``parallel.runner.BatchRunner``) or, for ``use_slabs`` plans and batches
+above ``SLAB_AUTO_BYTES`` of float32 audio, slab by slab at constant device
+memory (``parallel.slab_runner.SlabRunner``), compares against the Audacity reference
 labels, writes per-instance Audacity txts, per-segment clips and
 report.txt into a timestamped output directory, and prints the report.
 
@@ -34,11 +36,12 @@ from ..models.nsnet2 import NSNet2
 from ..models.registry import load_denoiser
 from ..ops import precision
 from ..parallel.runner import BatchRunner
+from ..parallel.slab_runner import SlabRunner
 from ..pipeline import offline
 
 log = logging.getLogger("fvad.simulator")
 F32 = np.float32
-SLAB_AUTO_BYTES = 2 << 30  # above this padded batch size the JAX package switches to its slab runner
+SLAB_AUTO_BYTES = 2 << 30  # above this padded float32 batch size plans run slab by slab
 
 
 @dataclasses.dataclass
@@ -150,18 +153,30 @@ def _run_batched_srcs(instances, config, net, srcs, lengths) -> None:
     if use_slabs is None:
         use_slabs = len(srcs) * n_ch * max_t * 4 > SLAB_AUTO_BYTES
     if use_slabs:
-        raise NotImplementedError(
-            "slab-wise scoring (use_slabs, or batches above 2 GB) is not ported yet "
-            "(ROADMAP: port queue, parallel/slab_runner.py)"
-        )
-    runner = BatchRunner(net, config.vad_config)
+        # Constant device memory: the streams stay on disk and the
+        # prefetcher's worker pool reads them slab by slab. PCM16 WAV sources
+        # travel as raw int16, half the bytes, dequantised on the card exactly.
+        runner = SlabRunner(net, config.vad_config, slab_chunks=config.slab_chunks)
+        raw16 = all(src.supports_raw16 for src in srcs)
+
+        def mk_reader(src):
+            def read(start, n):
+                src.seek_to_sample(start)
+                return src.read_raw16(n) if raw16 else src.read(n)
+
+            return read
+
+        results = runner.run_readers([mk_reader(s) for s in srcs], lengths, raw16=raw16)
+    else:
+        runner = BatchRunner(net, config.vad_config)
+        chunk = runner.st.chunk_size
+        pad_t = ((max_t + chunk - 1) // chunk) * chunk
+        batch = np.zeros((len(srcs), n_ch, pad_t), np.float32)
+        for i, src in enumerate(srcs):
+            a = src.read(lengths[i])
+            batch[i, :, : a.shape[1]] = a
+        results = runner.run(batch, lengths)
     chunk = runner.st.chunk_size
-    pad_t = ((max_t + chunk - 1) // chunk) * chunk
-    batch = np.zeros((len(srcs), n_ch, pad_t), np.float32)
-    for i, src in enumerate(srcs):
-        a = src.read(lengths[i])
-        batch[i, :, : a.shape[1]] = a
-    results = runner.run(batch, lengths)
     for inst, res, src, length in zip(instances, results, srcs, lengths):
         inst.vad_segments = res.segments
         if inst.out_dir:

@@ -112,10 +112,12 @@ class WindowOutput(NamedTuple):
     seg_met_sec: torch.Tensor  # f32 seconds the threshold was met
 
 
-def check_carry(shape: FSMShape, carry: dict, b: int) -> None:
+def check_carry(shape: FSMShape, carry: dict, b: int, indices: bool = True) -> None:
     """Refuse a carry (numpy arrays or tensors) that does not belong to B
     machines of ``shape``: the scans stride raw pointers by these shapes and
-    index the rings with the carried indices."""
+    index the rings with the carried indices. ``indices=False`` checks the
+    shapes only: reading the indices of a carry on the card waits for the
+    call that wrote them."""
     L, S, R = shape.long_window, shape.short_window, shape.ratio_window
     for name, want in (
         ("long_buf", (b, L)), ("short_buf", (b, S)), ("ratio_buf", (b, R)),
@@ -123,6 +125,8 @@ def check_carry(shape: FSMShape, carry: dict, b: int) -> None:
     ):
         if tuple(carry[name].shape) != want:
             raise ValueError(f"carry[{name}] shape {tuple(carry[name].shape)} != {want}")
+    if not indices:
+        return
     for col, limit in ((I_LONG_IDX, L), (I_SHORT_IDX, S), (I_RATIO_IDX, R)):
         idx = carry["ireg"][:, col]
         if b and not bool(((idx >= 0) & (idx < limit)).all()):

@@ -68,6 +68,7 @@ def _prepare(shape, params, min_volumes, carry, win_base):
     if seed:
         carry = fsm.fresh_carry(shape, params, b, dev)
     else:
+        fsm.check_carry(shape, carry, b)
         carry = {k: v.clone() for k, v in carry.items()}
     if win_base is None:
         win_base = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -351,12 +352,34 @@ def scan_windows(
 
     ``carry=None`` starts fresh machines (index 0 at ``win_base``, default
     0); a carry returned by an earlier call continues them exactly. The
-    given carry is not modified. A CPU tensor runs the plain version; a CUDA
+    given carry is not modified; its ring indices are checked, which on the
+    card waits for the call that wrote them. A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel or raises. A fresh call on the card makes no
     host-to-device copy and does not synchronise once its parameters and
     seeds are cached. Launches are counted in ``scan_windows.launches`` and,
     by body, in ``scan_windows.launches_by_body``; the last call's plan is
     ``scan_windows.last_plan``."""
+    return _scan(shape, params, min_volumes, volume_ratios, valids, carry, win_base, own_carry=False)
+
+
+def _scan_chained(
+    shape: FSMShape,
+    params: FSMParams,
+    min_volumes: torch.Tensor,
+    volume_ratios: torch.Tensor,
+    valids: torch.Tensor,
+    carry: dict,
+    win_base: torch.Tensor,
+) -> tuple[WindowOutput, dict]:
+    """``scan_windows`` continuing a carry that an earlier call returned and
+    nothing has written since (the slab runner's own chain). On the card its
+    shapes are checked but its ring indices are not read back, so the call
+    neither copies nor synchronises: the kernel wrote them in range. The
+    plain version checks them as for any carry."""
+    return _scan(shape, params, min_volumes, volume_ratios, valids, carry, win_base, own_carry=True)
+
+
+def _scan(shape, params, min_volumes, volume_ratios, valids, carry, win_base, own_carry):
     if min_volumes.device.type == "cpu":
         return scan_windows_reference(shape, params, min_volumes, volume_ratios, valids, carry, win_base)
     if min_volumes.device.type != "cuda":
@@ -372,7 +395,7 @@ def scan_windows(
         _check("win_base", win_base, torch.int32, (b,), dev)
     fresh = carry is None
     if not fresh:
-        fsm.check_carry(shape, carry, b)
+        fsm.check_carry(shape, carry, b, indices=not own_carry)
         for name in CARRY_KEYS:
             x = carry[name]
             _check(f"carry[{name}]", x, torch.int32 if name == "ireg" else torch.float32, tuple(x.shape), dev)

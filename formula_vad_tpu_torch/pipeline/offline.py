@@ -16,6 +16,8 @@ shape matches the audio's (without the sample axis).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -96,11 +98,13 @@ def denoise_offline_16k(net: NSNet2, audio: torch.Tensor, carry: dict, downsampl
     head = ola[..., :NSNET2_N_HOP] + carry["out_tail"].to(ola.dtype)
     ola = torch.cat([head, ola[..., NSNET2_N_HOP:]], dim=-1)
     completed = ola[..., : k * NSNET2_CHUNK_16K]
+    # Copies, not views: a view would keep the slab's audio, features and
+    # OLA alive until the next slab is done with the carry.
     new_carry = {
-        "raw_tail": audio[..., -NSNET2_N_HOP * downsample_rate :],
-        "feat_ctx": feats[..., -NSNET2_CONTEXT_FRAMES:, :],
-        "out_tail": ola[..., k * NSNET2_CHUNK_16K :],
-        "last_sample": completed[..., -1],
+        "raw_tail": audio[..., -NSNET2_N_HOP * downsample_rate :].clone(),
+        "feat_ctx": feats[..., -NSNET2_CONTEXT_FRAMES:, :].clone(),
+        "out_tail": ola[..., k * NSNET2_CHUNK_16K :].clone(),
+        "last_sample": completed[..., -1].clone(),
     }
     return completed, carry["last_sample"].to(completed.dtype), new_carry
 
@@ -135,6 +139,25 @@ def denoise_span(
     return den[..., (start_chunk - k0) * chunk48 :]
 
 
+@functools.lru_cache(maxsize=32)
+def _window_chunks(k: int, n_windows: int, chunk: int, fft_size: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Which chunks each of ``n_windows`` windows overlaps, on ``device``:
+    (first chunk, last chunk (both clipped to the K chunks), samples in the
+    first, samples in the last (float32), whether both are one, end sample).
+    Made once per shape and device, so a slab loop copies nothing to the
+    card for them."""
+    w_start = np.arange(n_windows) * fft_size
+    w_end = w_start + fft_size
+    c0 = w_start // chunk
+    c1 = (w_end - 1) // chunk
+    n_in_c0 = np.minimum((c0 + 1) * chunk - w_start, fft_size)
+    host = (
+        np.clip(c0, 0, k - 1), np.clip(c1, 0, k - 1), n_in_c0.astype(np.float32),
+        (fft_size - n_in_c0).astype(np.float32), c0 == c1, w_end,
+    )
+    return tuple(torch.from_numpy(x).to(device) for x in host)
+
+
 def _ratios_valid(st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: torch.Tensor, n_windows: int):
     """Per-window channel-volume ratios and validity from the raw audio
     [B, C, T]: (ratios [B, W] f32, valid [B, W] bool)."""
@@ -145,21 +168,13 @@ def _ratios_valid(st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: torch
     vol_min = torch.clamp(torch.amin(vols, dim=1), max=1.0)
     vol_max = torch.clamp(torch.amax(vols, dim=1), min=0.0)
     ratio_chunk = torch.where(vol_max == 0.0, torch.zeros_like(vol_max), vol_min / vol_max)
-    w_start = np.arange(n_windows) * st.fft_size
-    w_end = w_start + st.fft_size
-    c0 = w_start // chunk
-    c1 = (w_end - 1) // chunk
-    n_in_c0 = np.minimum((c0 + 1) * chunk - w_start, st.fft_size)
-    dev = audio.device
-    r0 = ratio_chunk[:, torch.from_numpy(np.clip(c0, 0, k - 1)).to(dev)]
-    r1 = ratio_chunk[:, torch.from_numpy(np.clip(c1, 0, k - 1)).to(dev)]
-    w0 = torch.from_numpy(n_in_c0.astype(np.float32)).to(dev)
-    w1 = torch.from_numpy((st.fft_size - n_in_c0).astype(np.float32)).to(dev)
+    c0, c1, w0, w1, one_chunk, w_end = _window_chunks(k, n_windows, chunk, st.fft_size, audio.device)
+    r0, r1 = ratio_chunk[:, c0], ratio_chunk[:, c1]
     weighted = (w0 * r0 + w1 * r1) / np.float32(st.fft_size)
     # Windows inside one chunk take that chunk's ratio verbatim (the weighted
     # form rounds differently), so seg_ratio stays a sum of chunk ratios.
-    ratios = torch.where(torch.from_numpy(c0 == c1).to(dev), r0, weighted)
-    valid = torch.from_numpy(w_end).to(dev)[None, :] <= n_valid_chunks[:, None].long() * chunk
+    ratios = torch.where(one_chunk, r0, weighted)
+    valid = w_end[None, :] <= n_valid_chunks[:, None].long() * chunk
     return ratios, valid
 
 

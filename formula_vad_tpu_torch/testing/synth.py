@@ -4,7 +4,8 @@
 synth_stream``: the same rng draws in the same order, so one seed gives the
 same audio and labels in both packages (``tests/test_torch_slice.py``
 checks this). ``write_corpus`` lays such streams out as the simulator reads
-them. ``fsm_inputs`` and ``fsm_per_row_params`` feed the FSM scans
+them (``write_ragged_corpus``: long streams of ragged lengths, made on
+threads). ``fsm_inputs`` and ``fsm_per_row_params`` feed the FSM scans
 directly, on windows that visit every state and event.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -53,21 +55,44 @@ def synth_stream(rng: np.random.Generator, seconds: float) -> tuple[np.ndarray, 
     return audio.astype(np.float32), labels
 
 
-def write_corpus(root: str, n: int, seconds: float, seed: int, plans: tuple[str, ...]) -> None:
-    """``n`` streams from one rng (``s{i}.wav`` float32 stereo 48 kHz, and
-    Audacity labels ``s{i}.txt``) under ``root``, plus one simulator plan
-    ``plan_{name}.json`` per name in ``plans``, writing to ``out_{name}``."""
+def write_corpus(root: str, n: int, seconds: float, seed: int, plans: dict, fmt: str = "float32") -> None:
+    """``n`` streams from one rng (``s{i}.wav`` stereo 48 kHz in ``fmt``,
+    "float32" or "pcm16", and Audacity labels ``s{i}.txt``) under ``root``,
+    plus the simulator plans ``plans`` (``write_plans``)."""
     rng = np.random.default_rng(seed)
-    instances = []
-    for i in range(n):
-        audio, labels = synth_stream(rng, seconds)
-        write_wav(os.path.join(root, f"s{i}.wav"), audio, SR)
-        with open(os.path.join(root, f"s{i}.txt"), "w") as f:
-            f.writelines(f"{a}\t{b}\tspeech\n" for a, b in labels)
-        instances.append({"name": f"s{i}", "audio_path": f"s{i}.wav", "ref_path": f"s{i}.txt"})
-    for name in plans:
+    instances = [_write_stream(root, i, *synth_stream(rng, seconds), fmt) for i in range(n)]
+    write_plans(root, instances, plans)
+
+
+def write_ragged_corpus(root: str, lengths: list[int], seed: int) -> None:
+    """PCM16 streams of ``lengths[i]`` samples each (``synth_stream`` from
+    the rng of seed ``(seed, i)``, cut to length; labels past the cut
+    dropped), made 8 at a time on threads, written as ``write_corpus``
+    writes them, with no plan."""
+
+    def one(i):
+        n = lengths[i]
+        audio, labels = synth_stream(np.random.default_rng((seed, i)), n / SR + 1.0)
+        _write_stream(root, i, audio[:, :n], [(a, b) for a, b in labels if b * SR <= n], "pcm16")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(len(lengths))))
+
+
+def _write_stream(root: str, i: int, audio: np.ndarray, labels: list, fmt: str) -> dict:
+    write_wav(os.path.join(root, f"s{i}.wav"), audio, SR, fmt=fmt)
+    with open(os.path.join(root, f"s{i}.txt"), "w") as f:
+        f.writelines(f"{a}\t{b}\tspeech\n" for a, b in labels)
+    return {"name": f"s{i}", "audio_path": f"s{i}.wav", "ref_path": f"s{i}.txt"}
+
+
+def write_plans(root: str, instances: list[dict], plans: dict) -> None:
+    """One simulator plan ``plan_{name}.json`` per name of ``plans``,
+    writing to ``out_{name}``, with the config keys ``plans[name]`` adds
+    (``{"use_slabs": True}``, or ``{}``)."""
+    for name, extra in plans.items():
         with open(os.path.join(root, f"plan_{name}.json"), "w") as f:
-            json.dump({"instances": instances, "config": {"output_dir": f"out_{name}"}}, f)
+            json.dump({"instances": instances, "config": {"output_dir": f"out_{name}", **extra}}, f)
 
 
 def fsm_inputs(rows: int, windows: int, seed: int, ratio_lead: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

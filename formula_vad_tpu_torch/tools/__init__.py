@@ -113,3 +113,26 @@ def host_us(fns, calls: int = 20, rounds: int = 7) -> list[float]:
             times[i].append((time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
     return [statistics.median(t) for t in times]
+
+
+def busy_ms(events) -> tuple[float, float, float]:
+    """The union of the device intervals of profiler ``events`` (those with
+    ``device_type`` CUDA), of the kernels only (copies and memsets left
+    out), and of the copies only, in ms."""
+
+    def union(spans):
+        total, end = 0.0, -float("inf")
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e3
+
+    def spans(keep):
+        return [(e.time_range.start, e.time_range.end) for e in events if keep(e.name.lower())]
+
+    return (
+        union(spans(lambda name: True)),
+        union(spans(lambda name: not name.startswith(("memcpy", "memset")))),
+        union(spans(lambda name: name.startswith("memcpy"))),
+    )

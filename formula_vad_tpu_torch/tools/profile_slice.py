@@ -43,7 +43,7 @@ from ..models.registry import load_denoiser
 from ..ops import precision
 from ..parallel.runner import BatchRunner
 from ..testing.synth import synth_stream
-from . import card, cuda_ms
+from . import busy_ms, card, cuda_ms
 
 STREAMS, SECONDS, PAIRS = 21, 20.0, 6
 
@@ -51,27 +51,6 @@ STREAMS, SECONDS, PAIRS = 21, 20.0, 6
 def _quartiles(xs: list[float]) -> str:
     q = statistics.quantiles(xs, n=4)
     return f"median {statistics.median(xs):.2f} ms (quartiles {q[0]:.2f}-{q[2]:.2f}, {len(xs)} runs)"
-
-
-def _busy_ms(events) -> tuple[float, float]:
-    """Union of the device intervals of all events, and of the kernels only
-    (copies and memsets left out), in ms."""
-
-    def union(spans):
-        total, end = 0.0, -float("inf")
-        for a, b in sorted(spans):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total / 1e3
-
-    spans = [(e.time_range.start, e.time_range.end) for e in events]
-    kernels = [
-        (e.time_range.start, e.time_range.end)
-        for e in events
-        if not e.name.lower().startswith(("memcpy", "memset"))
-    ]
-    return union(spans), union(kernels)
 
 
 def _tier_ab(run, audio_sec: float) -> None:
@@ -180,7 +159,7 @@ def main(argv: list[str] | None = None) -> int:
     if not device_events:
         print("profiler: the trace holds no device events; use the CUDA-event split of chip_smoke.py")
     else:
-        busy, kernels = _busy_ms(device_events)
+        busy, kernels, _ = busy_ms(device_events)
         n_kernels = sum(not e.name.lower().startswith(("memcpy", "memset")) for e in device_events)
         print(f"profiled device-FSM run: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
               f"({100 * busy / wall_ms:.1f}% of the wall; kernels alone {kernels:.2f} ms in {n_kernels} launches, "

@@ -32,6 +32,7 @@ from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
 from formula_vad_tpu_torch.ops import matmul_q8 as mq
 from formula_vad_tpu_torch.ops import precision
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
+from formula_vad_tpu_torch.parallel.slab_runner import SlabRunner
 from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host
 from formula_vad_tpu_torch.testing.synth import fsm_inputs, fsm_per_row_params, synth_stream
 
@@ -712,6 +713,137 @@ def test_bf16_tier_slice_on_gpu_matches_cpu(net, cuda_device):
         assert len(g.segments) == len(c.segments)
         for a, b in zip(g.segments, c.segments):
             assert abs(a["sample_from"] - b["sample_from"]) <= FFT and abs(a["sample_to"] - b["sample_to"]) <= FFT
+
+
+SLAB_CHUNKS = 32  # 16 s slabs
+
+
+def _slab_batch(n_slabs=3, streams=3, seed=5):
+    """``streams`` stereo streams a little short of ``n_slabs`` 16 s slabs,
+    ragged, one ending inside a chunk."""
+    rng = np.random.default_rng(seed)
+    n = n_slabs * SLAB_CHUNKS * 24000
+    lengths = [n - 30_000 - 61_111 * i for i in range(streams)]
+    audio = np.zeros((streams, 2, n), np.float32)
+    for i, length in enumerate(lengths):
+        audio[i, :, :length] = synth_stream(rng, n / SR)[0][:, :length]
+    return audio, lengths
+
+
+def _capture(runner):
+    """Wrap ``runner``'s front end and final fetch: -> a dict that collects
+    each slab's FSM inputs and the fetched FSM outputs."""
+    seen = {"inputs": []}
+    front_end, fetch = runner._front_end, runner._fetch
+
+    def capture_front_end(*args):
+        out = front_end(*args)
+        seen["inputs"].append(out[1:])
+        return out
+
+    def capture_fetch(slab_outs):
+        seen["outputs"] = fetch(slab_outs)
+        return seen["outputs"]
+
+    runner._front_end, runner._fetch = capture_front_end, capture_fetch
+    return seen
+
+
+@pytest.mark.cuda
+def test_slab_runner_chains_the_fsm_bit_for_bit(net, cuda_device):
+    """Three 16 s slabs on the card: the FSM outputs chained over the slabs
+    equal the host decoder's single call over all their windows, bit for
+    bit, with one GRU-kernel launch and one smem-body FSM launch a slab;
+    the segments equal the one-shot runner's and the host-FSM slab run's."""
+    audio, lengths = _slab_batch()
+    runner = SlabRunner(net, VADConfig(), slab_chunks=SLAB_CHUNKS)
+    seen = _capture(runner)
+    before = (nsnet2_cuda.gru_stack.launches, fsm_cuda.scan_windows.launches_by_body["smem"])
+    got = runner.run(audio, lengths)
+    assert nsnet2_cuda.gru_stack.launches - before[0] == 3
+    assert fsm_cuda.scan_windows.launches_by_body["smem"] - before[1] == 3
+    mv, rt, va = (torch.cat(xs, dim=1).cpu().numpy() for xs in zip(*seen["inputs"]))
+    assert mv.shape == (3, 3 * SLAB_CHUNKS * 24000 // FFT)
+    shape, params = runner.st.fsm_shape, runner.st.fsm_params
+    want, _ = fsm_host.scan_windows_host(shape, params, mv, rt, va)
+    for field, a, b in zip(fsm.WindowOutput._fields, seen["outputs"], want):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), field
+    assert [r.segments for r in got] == [r.segments for r in BatchRunner(net, VADConfig()).run(audio, lengths)]
+    host = SlabRunner(net, VADConfig(), slab_chunks=SLAB_CHUNKS, use_host_fsm=True).run(audio, lengths)
+    assert [r.segments for r in got] == [r.segments for r in host]
+    assert sum(len(r.segments) for r in got) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float32", "raw16", "host_fsm"])
+def test_slab_loop_makes_no_sync_after_its_first_dispatch(net, cuda_device, mode):
+    """After its first slab is dispatched, the loop never waits on the
+    compute stream (torch.cuda.set_sync_debug_mode("error") raises on any
+    synchronising call) until the final fetch: no carry read-back, no
+    pageable copy."""
+    audio, lengths = _slab_batch(seed=6)
+    q = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+    dec = q.astype(np.float32) / 32768.0
+    runner = SlabRunner(net, VADConfig(), slab_chunks=SLAB_CHUNKS, use_host_fsm=mode == "host_fsm")
+
+    def run():
+        if mode == "raw16":
+            return runner.run_readers([lambda s, n, i=i: q[i, :, s : s + n] for i in range(3)], lengths, raw16=True)
+        return runner.run(dec, lengths)
+
+    want = run()  # builds and caches what a run needs once
+    dispatch, fetch = runner._dispatch, runner._fetch
+
+    def strict_dispatch(*args):
+        out = dispatch(*args)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def relaxed_fetch(slab_outs):
+        torch.cuda.set_sync_debug_mode("default")
+        return fetch(slab_outs)
+
+    runner._dispatch, runner._fetch = strict_dispatch, relaxed_fetch
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [r.segments for r in got] == [r.segments for r in want]
+    assert sum(len(r.segments) for r in got) > 0
+
+
+@pytest.mark.cuda
+def test_fsm_still_checks_an_outside_carry(cuda_device):
+    """A carry from outside (here the host decoder's) continues the machines
+    on the card bit for bit, and its ring indices are read back and checked:
+    a bad one raises, and the read-back synchronises (the slab loop's
+    chained calls skip it for their own carry)."""
+    shape, params, (mv, vr, valid) = _fsm_case(FSM_CONFIGS["default"], 5, 600, seed=9)
+    whole, whole_carry = fsm_host.scan_windows_host(shape, params, mv, vr, valid)
+    _, host_carry = fsm_host.scan_windows_host(shape, params, mv[:, :250], vr[:, :250], valid[:, :250])
+    outside = {k: torch.from_numpy(v).to(cuda_device) for k, v in host_carry.items()}
+    rest = [torch.from_numpy(np.ascontiguousarray(x[:, 250:])).to(cuda_device) for x in (mv, vr, valid)]
+    wb = torch.full((5,), 250, dtype=torch.int32, device=cuda_device)
+    got, got_carry = fsm_cuda.scan_windows(shape, params, *rest, carry=outside, win_base=wb)
+    torch.cuda.synchronize()
+    _assert_fsm_equal(
+        [torch.cat([torch.from_numpy(np.asarray(w)[:, :250]).to(a.device), a], dim=1) for w, a in zip(whole, got)],
+        got_carry, whole, whole_carry, "outside carry",
+    )
+    bad = dict(outside, ireg=outside["ireg"].clone())
+    bad["ireg"][2, fsm.I_RATIO_IDX] = shape.ratio_window
+    with pytest.raises(ValueError, match="ring index"):
+        fsm_cuda.scan_windows(shape, params, *rest, carry=bad, win_base=wb)
+    with pytest.raises(ValueError, match="shape"):
+        fsm_cuda._scan_chained(shape, params, *rest, dict(outside, kahan=outside["kahan"][:, :3]), wb)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fsm_cuda._scan_chained(shape, params, *rest, got_carry, wb)
+        with pytest.raises(RuntimeError):
+            fsm_cuda.scan_windows(shape, params, *rest, carry=outside, win_base=wb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def test_wrappers_refuse_other_devices():

@@ -17,7 +17,8 @@ REFERENCE = REPO / "formula_vad_tpu"
 COPIES = (
     ["config.py"]
     + [f"eval/{m}.py" for m in ("__init__", "evaluator", "formats", "report", "statistics")]
-    + [f"io_/{m}.py" for m in ("__init__", "audio", "wav", "ogg", "flac", "aiff", "au", "caf", "native")]
+    + [f"io_/{m}.py" for m in ("__init__", "audio", "wav", "ogg", "flac", "aiff", "au", "caf", "native", "prefetch")]
+    + ["apps/evaluator_cli.py"]
 )
 
 BLOCKED_RUN = r"""

@@ -209,7 +209,7 @@ def tier_runs(tmp_path_factory):
     3-stream synthetic corpus (3 x 20 s), and the JAX float tier's
     BatchRunner on the same audio: (JAX results, port instances)."""
     root = tmp_path_factory.mktemp("bf16_tier")
-    write_corpus(str(root), 3, 20.0, seed=4, plans=("bf16",))
+    write_corpus(str(root), 3, 20.0, seed=4, plans={"bf16": {}})
     seen = {}
     run_batched = sim.run_batched
 

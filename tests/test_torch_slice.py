@@ -10,7 +10,6 @@ order than XLA:CPU's (ops/volume.py). Each simulator runs once per module.
 
 import json
 import os
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +24,7 @@ from formula_vad_tpu.pipeline import offline as joffline
 from formula_vad_tpu.pipeline import vad as jvad
 from formula_vad_tpu.testing import synth as jsynth
 from formula_vad_tpu_torch.apps import simulator as sim
-from formula_vad_tpu_torch.config import SimConfig, VADConfig, VADMachineConfig
+from formula_vad_tpu_torch.config import VADConfig, VADMachineConfig
 from formula_vad_tpu_torch.models import registry
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 from formula_vad_tpu_torch.pipeline import offline, vad
@@ -50,7 +49,7 @@ def _capture_segments(module, mp):
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_slice")
-    synth.write_corpus(str(root), N_STREAMS, SECONDS, seed=0, plans=("jax", "port"))
+    synth.write_corpus(str(root), N_STREAMS, SECONDS, seed=0, plans={"jax": {}, "port": {}})
     return root
 
 
@@ -140,8 +139,6 @@ def test_unported_paths_raise(corpus, monkeypatch):
     net = registry.load_denoiser("demo", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchRunner(net, VADConfig(alt_vad_machine_configs=[VADMachineConfig()]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim._run_batched_srcs([], SimConfig(use_slabs=True), net, [types.SimpleNamespace(n_channels=2)], [1])
     plan = json.loads((corpus / "plan_port.json").read_text())
     plan["config"] = {"batch_streams": False}
     (corpus / "plan_streaming.json").write_text(json.dumps(plan))
