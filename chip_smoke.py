@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs ten phases; any failed check raises and the script exits non-zero.
+runs eleven phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -99,6 +99,22 @@ runs ten phases; any failed check raises and the script exits non-zero.
    FSM window). Then the simulator on a 3-stream x 40 s PCM16 corpus:
    use_slabs plans on cuda and on cpu and a one-shot plan on cuda write
    identical report.txt and Audacity files.
+11. The precision tiers and the tier-fuzz campaign (testing/tier_fuzz.py).
+   The slice through BatchRunner in the float, high (bf16_3x), bf16 and
+   bf16_io (bf16 activation storage) tiers, one after the other, each a
+   median of 3 after a warm-up, with every kernel's launches counted:
+   exactly 1 gru_stack launch a run under high, 1 kernel-6 launch (bf16,
+   bf16 out) under bf16_io, 1 scan_windows in each, and nothing else;
+   high's segments identical to the float tier's, bf16_io's the same count
+   with every boundary within one FSM window. Kernel 6 in bf16 with a bf16
+   out on the gi the bf16_io tier hands it, at [1,680, 54] and [32, 54]
+   (the campaign's rows), against its plain version (phase 8's bars), with
+   its times, bound and cuDNN's fp16 GRU. Then the campaign on the demo
+   weights, 240 cases of 16 chunks: its table, every kernel's launches over
+   it, a non-vacuous baseline, and at high no segment-count change and no
+   deviated case but the known near-ties (HIGH_KNOWN_TIES, each run alone
+   again), each boundary within one window (the bf16 and bf16_io
+   envelopes are recorded, not gated).
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -173,6 +189,19 @@ SLAB_ROWS = SLAB_STREAMS * 2 * SLAB_CHUNKS  # GRU rows a slab: 5,376
 ONE_SHOT_STREAMS = 4  # the one-shot runs that hold phase 10's first streams whole
 PEAK_TOL = 0.05  # peak device memory: 5 slabs within 5% of 2 slabs
 SLAB_CORPUS_SECONDS = 40.0  # phase 10's simulator corpus: 3 streams, 16 s slabs
+# Phase 11: (tier, matmul level, io dtype, the wrapper of its recurrence).
+TIER_RUNS = (
+    ("float", "highest", "f32", "gru_stack"),
+    ("high", "high", "f32", "gru_stack"),
+    ("bf16", "default", "f32", "gru_gates_p"),
+    ("bf16_io", "default", "bf16", "gru_gates_f"),
+)
+CAMPAIGN_CASES, CAMPAIGN_CHUNKS = 240, 16  # the JAX package's chip-table size (benchmarks/tier_fuzz.py)
+CAMPAIGN_ROWS = 2 * CAMPAIGN_CHUNKS  # one stereo stream of 16 chunks: GRU rows a forward
+# Campaign cases in which `high` is known to move a boundary (ROADMAP §3
+# item 6): near-ties whose decision margin, 3e-6 to 1e-5 of the window
+# volume, lies within bf16_3x's ~16 bits a product (found on the CPU).
+HIGH_KNOWN_TIES = (104,)
 
 
 def log(msg: str) -> None:
@@ -1000,19 +1029,19 @@ def capture_slab_fsm(runner) -> dict:
     return seen
 
 
-def spans_within_a_window(tier: str, got, want) -> None:
-    """A non-parity tier against its own one-shot run: the same segment count
-    on every stream, every boundary within one FSM window."""
+def spans_within_a_window(what: str, got, want) -> None:
+    """A non-parity run's results ``got`` against ``want`` (``what`` names
+    both): the same segment count on every stream, every boundary within one
+    FSM window."""
     worst = 0
     for i, (g, w) in enumerate(zip(got, want)):
         if len(g.segments) != len(w.segments):
-            raise AssertionError(f"{tier} slab run s{i}: {len(g.segments)} segments, one-shot {len(w.segments)}")
+            raise AssertionError(f"{what}, s{i}: {len(g.segments)} segments against {len(w.segments)}")
         for a, b in zip(g.segments, w.segments):
             worst = max(worst, abs(a["sample_from"] - b["sample_from"]), abs(a["sample_to"] - b["sample_to"]))
     if worst > 1024:
-        raise AssertionError(f"{tier} slab run: a boundary moved {worst} samples from the one-shot run's")
-    log(f"{tier} slab run vs its one-shot run on the first {len(want)} streams: "
-        f"{sum(len(r.segments) for r in want)} segments, boundaries within {worst} samples")
+        raise AssertionError(f"{what}: a boundary moved {worst} samples")
+    log(f"{what}: {sum(len(r.segments) for r in want)} segments, boundaries within {worst} samples")
 
 
 def slab_kernels(net, dev) -> dict:
@@ -1251,7 +1280,8 @@ def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, d
             log(f"{tier} slab run: wall {tier_wall * 1e3:.1f} ms, real-time factor {audio_sec / tier_wall:.1f}; "
                 f"launches {tiers[tier]}")
             expect(tier, tiers[tier], **{counter: per_slab * SLAB_COUNT})
-            spans_within_a_window(tier, got[:ONE_SHOT_STREAMS], one)
+            spans_within_a_window(f"{tier} slab run vs its one-shot run on the first {ONE_SHOT_STREAMS} streams",
+                                  got[:ONE_SHOT_STREAMS], one)
         del batch
         kernels = slab_kernels(net, dev)
     finally:
@@ -1277,6 +1307,136 @@ def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, d
     return {"gru_stack": tiers["float"]["gru_stack"], "scan_windows": tiers["float"]["scan_windows"],
             "gru_gates_p": tiers["bf16"]["gru_gates_p"], "matmul_q8": tiers["int8"]["matmul_q8"],
             **{name: sum(t[name] for t in tiers.values()) for name in ("gru_gates", "gru_gates_f")}}, kernels
+
+
+def kernel_6_on_its_path(net, dev, rows: int) -> dict:
+    """Kernel 6 in bf16 with a bf16 out on the gi the bf16_io tier hands it
+    (the per-gate projections of the bf16 fc_in output of random features,
+    numpy seed 12), against its plain version: phase 8's bars; its times,
+    bound and cuDNN's fp16 GRU at that shape."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+    from formula_vad_tpu_torch.ops import precision
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru
+
+    feats = torch.from_numpy(
+        np.random.default_rng(12).normal(-3.0, 1.5, (rows, GRU_STEPS, 161)).astype(np.float32)).to(dev)
+    bf16 = torch.bfloat16
+    precision.set_io_dtype("bf16")
+    try:
+        with torch.inference_mode():
+            x = net.fc_in(precision.io_cast(feats))
+            gi = tuple(g.to(bf16) for g in gates.gi_gates(net, x))
+    finally:
+        precision.set_io_dtype("f32")
+    gw = gates.gate_weights(net, bf16)
+    with torch.inference_mode():
+        before = gates.gru_gates_f.launches
+        got = gates.gru_gates_f(net, *gi, dtype=bf16, out_dtype=bf16)
+        launched = gates.gru_gates_f.launches - before
+        want = gates.gru_gates_f_reference(gw, *gi, out_dtype=bf16)
+        torch.cuda.synchronize()
+        if got.dtype != bf16 or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"kernel 6 on the bf16_io path gave {got.dtype} or non-finite values at {rows} rows")
+        d = (got.float() - want.float()).abs()
+        err, mean = float(d.max()), float(d.mean())
+        if launched != len(gates.device_p_plan(rows, dev)):
+            raise AssertionError(f"kernel 6 at {rows} rows counted {launched} launches")
+        if not (err <= BF16_MAX and mean <= BF16_MEAN):
+            raise AssertionError(f"kernel 6 (bf16 out) disagrees with its plain version at [{rows}, {GRU_STEPS}]: "
+                                 f"max {err}, mean {mean}")
+        ms = cuda_ms(lambda: gates.gru_gates_f(net, *gi, dtype=bf16, out_dtype=bf16))
+        plain_ms = cuda_ms(lambda: gates.gru_gates_f_reference(gw, *gi, out_dtype=bf16), reps=3)
+        gru = cudnn_gru(net, dev, torch.float16)
+        xh = x.to(torch.float16)
+        library_ms = cuda_ms(lambda: gru(xh))
+    ops = 3 * 2 * rows * 400 * 1200 * GRU_STEPS
+    nbytes = sum(g.nbytes for g in gi) + got.nbytes + gw.w9.nbytes + gw.b8.nbytes
+    bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_MS)
+    log(f"kernel 6 bf16 (bf16 out) on the bf16_io path at [{rows}, {GRU_STEPS}] ({launched} launch): max |dh2| "
+        f"{err:.3e}, mean {mean:.3e} (bars {BF16_MAX}, {BF16_MEAN}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by}, cuDNN GRU fp16 {library_ms:.3f} ms")
+    return {"rows": rows, "max_abs_err": err, "mean_abs_err": mean, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_tiers(runner, audio, smi: str) -> dict:
+    """Phase 11; -> {"slice": each kernel's launches in each tier's 3 slice
+    runs, "campaign": each kernel's launches over the campaign,
+    "kernel_6_path": kernel 6's entries at the path's shapes}."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
+    from formula_vad_tpu_torch.ops import matmul_q8, precision
+    from formula_vad_tpu_torch.pipeline import fsm_cuda
+    from formula_vad_tpu_torch.testing import tier_fuzz
+
+    t_phase = time.perf_counter()
+    audio_sec = SLICE_STREAMS * SLICE_SECONDS
+    counters = {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
+                "gru_gates": nsnet2_gates_cuda.gru_gates, "gru_gates_p": nsnet2_gates_cuda.gru_gates_p,
+                "gru_gates_f": nsnet2_gates_cuda.gru_gates_f, "matmul_q8": matmul_q8.matmul_q8}
+    launches, results, walls = {}, {}, {}
+    for tier, level, io, recurrence in TIER_RUNS:
+        precision.set_matmul_precision(level)
+        precision.set_io_dtype(io)
+        try:
+            results[tier], runs, launches[tier] = timed_runs(runner, audio, counters)
+        finally:
+            precision.set_matmul_precision("highest")
+            precision.set_io_dtype("f32")
+        walls[tier] = statistics.median(runs)
+        want = dict(dict.fromkeys(counters, 0), scan_windows=3, **{recurrence: 3})
+        if launches[tier] != want:
+            raise AssertionError(f"the {tier} slice launched {launches[tier]} over 3 runs, not {want}")
+        log(f"{tier} slice {SLICE_STREAMS} x {SLICE_SECONDS:.0f} s: wall {walls[tier] * 1e3:.1f} ms (median of 3, runs "
+            f"{[round(w * 1e3, 1) for w in runs]}), real-time factor {audio_sec / walls[tier]:.1f}; launches over "
+            f"the 3 runs {launches[tier]}; on {smi}")
+    log("tier slice medians (ms): " + ", ".join(f"{t} {w * 1e3:.1f}" for t, w in walls.items()))
+    float_segs = [r.segments for r in results["float"]]
+    if not sum(map(len, float_segs)):
+        raise AssertionError("the float slice found no speech segment")
+    if [r.segments for r in results["high"]] != float_segs:
+        raise AssertionError("the high tier's slice segments differ from the float tier's")
+    log(f"high slice segments: {sum(map(len, float_segs))}, identical to the float tier's")
+    spans_within_a_window("bf16_io slice vs the float tier's", results["bf16_io"], results["float"])
+
+    net, dev = runner.net, runner.device
+    path = [kernel_6_on_its_path(net, dev, rows) for rows in (GRU_ROWS, CAMPAIGN_ROWS)]
+
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    stats = tier_fuzz.run_campaign(net, n_cases=CAMPAIGN_CASES, n_chunks=CAMPAIGN_CHUNKS)
+    torch.cuda.synchronize()
+    campaign = {name: fn.launches for name, fn in counters.items()}
+    log(f"tier-fuzz campaign on the demo weights, {CAMPAIGN_CASES} cases of {CAMPAIGN_CHUNKS} chunks "
+        f"({CAMPAIGN_ROWS} GRU rows and [1, {CAMPAIGN_CHUNKS * 24000 // 1024}] FSM windows a run): "
+        f"{time.perf_counter() - t0:.1f} s on {smi}; launches {campaign}")
+    for line in tier_fuzz.format_table(stats).splitlines():
+        log(line)
+    if (precision.matmul_precision(), precision.io_dtype()) != ("highest", None):
+        raise AssertionError("the campaign left the tier switches changed")
+    n = stats["highest"].n_cases
+    # Each case: the probe and the highest run, and one run a tier.
+    want = dict(dict.fromkeys(counters, 0), gru_stack=3 * n, gru_gates_p=n, gru_gates_f=n, scan_windows=4 * n)
+    if campaign != want:
+        raise AssertionError(f"the campaign launched {campaign}, not {want}")
+    if n != CAMPAIGN_CASES or stats["highest"].n_boundaries < n:
+        raise AssertionError(f"the campaign is vacuous: {n} cases, {stats['highest'].n_boundaries} boundaries")
+    # At high, every deviated case must be a known near-tie: each is run
+    # alone (seed_base + case rebuilds it) and its deviations counted.
+    high = stats["high"]
+    known = {case: tier_fuzz.run_campaign(net, n_cases=1, n_chunks=CAMPAIGN_CHUNKS, seed_base=600_000 + case,
+                                          tiers=tier_fuzz.TIERS[:1])["high"] for case in HIGH_KNOWN_TIES}
+    log(f"high: {high.deviated_cases} deviated cases over the campaign; the known near-ties alone: "
+        + ", ".join(f"case {c} {k.deviated_cases} ({k.n_shifted_boundaries} boundaries, max {k.max_shift_windows} "
+                    f"window)" for c, k in known.items()))
+    if high.seg_count_mismatch_cases or high.max_shift_windows > 1 \
+            or high.deviated_cases != sum(k.deviated_cases for k in known.values()):
+        raise AssertionError(f"the high tier deviated beyond its known near-ties: {high}")
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"slice": launches, "campaign": campaign, "kernel_6_path": path}
 
 
 def main() -> int:
@@ -1320,6 +1480,7 @@ def main() -> int:
         path_b = phase_bf16_slice(runner, audio, float_results, float_wall, corpus, smi)
     with tempfile.TemporaryDirectory() as root:
         slab_launches, slab_shapes = phase_slab(net, dev, smi, SLICE_STREAMS * SLICE_SECONDS / float_wall, root)
+    tiers = phase_tiers(runner, audio, smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -1330,6 +1491,11 @@ def main() -> int:
             k["slab"] = slab_shapes[k["name"]]
         if k["name"] == "scan_windows":
             k["launches_by_body"] = launches["scan_windows_by_body"]
+        # Phase 11: each tier's 3 slice runs at high and bf16_io, and the campaign.
+        k["launches_tiers"] = {t: tiers["slice"][t][k["name"]] for t in ("high", "bf16_io")}
+        k["launches_campaign"] = tiers["campaign"][k["name"]]
+        if k["name"] == "gru_gates_f":
+            k["bf16_io_path"] = tiers["kernel_6_path"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -10,7 +10,7 @@ labels, writes per-instance Audacity txts, per-segment clips and
 report.txt into a timestamped output directory, and prints the report.
 
 Usage: python -m formula_vad_tpu_torch.apps.simulator -i plan.json [--device cuda|cpu]
-[--precision highest|default]
+[--precision highest|high|default] [--io-dtype f32|bf16]
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ def _save_clips(
             span = torch.from_numpy(np.ascontiguousarray(read_span(k0 * chunk, kb * chunk), np.float32))
             with torch.inference_mode():
                 den = offline.denoise_span(net, span.to(net.fc_in.w.device), ka - k0, kb - k0)
-            clips.append(("denoised", den.cpu().numpy()[:, a - ka * chunk : b - ka * chunk]))
+            clips.append(("denoised", den.float().cpu().numpy()[:, a - ka * chunk : b - ka * chunk]))
         for kind, data in clips:
             data = np.ascontiguousarray(data, np.float32)
             rms = io_native.rms_per_channel(data)
@@ -196,14 +196,22 @@ def main(argv=None) -> int:
         help="Device to score on (default cuda; raises when no GPU is visible)",
     )
     ap.add_argument(
-        "--precision", choices=("highest", "default"), default=None,
-        help="Matmul precision: 'highest' = full-f32 parity (the default); 'default' = single-pass bf16 "
-        "operands with float32 sums (the bf16 tier; rare one-window boundary shifts)",
+        "--precision", choices=("highest", "high", "default"), default=None,
+        help="Matmul precision: 'highest' = full-f32 parity (the default); 'high' = bf16_3x products "
+        "(~16 bits a product); 'default' = single-pass bf16 operands with float32 sums (the bf16 tier); "
+        "both can shift a boundary by a window",
+    )
+    ap.add_argument(
+        "--io-dtype", choices=("f32", "bf16"), default=None,
+        help="Activation storage dtype: 'bf16' stores the denoiser's activations in bf16 (the bf16_io "
+        "tier; decisions can shift by a window)",
     )
     args = ap.parse_args(argv)
     device = device_mod.resolve(args.device)
     if args.precision:
         precision.set_matmul_precision(args.precision)
+    if args.io_dtype:
+        precision.set_io_dtype(args.io_dtype)
 
     instances, config, base, plan_text = load_plan(args.input)
     if not config.batch_streams:

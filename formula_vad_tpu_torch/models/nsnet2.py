@@ -9,15 +9,33 @@ Port of ``formula_vad_tpu/models/nsnet2.py`` (``apply``, ``apply_head``,
 
 Weights keep the JAX package's layout ([in, out] kernels, ONNX z|r|n gate
 order), so every product is ``x @ w + b`` as there, at the precision of its
-stage (``ops/precision.py``: fc_in, gru_i, gru_h, ff). The GRU recurrence of
-both layers runs in ``nsnet2_cuda.gru_stack`` (a CUDA kernel for CUDA
-tensors, its plain PyTorch version for CPU tensors); the input Dense, the
-layer-1 input projection and the FF head stay ``torch.matmul`` over the
-whole sequence, as the JAX package computes them outside its kernel too.
-At matmul precision 'default' (the bf16 tier; gru_i and gru_h both at
-'default') the recurrence runs instead through
-``nsnet2_gates_cuda.gru_gates_p`` in bf16, over per-gate input projections
-with the biases folded, as the JAX package's split3 scan rounds there.
+stage (``ops/precision.py``: fc_in, gru_i, gru_h, ff). The input Dense, the
+layer-1 input projection and the FF head are products over the whole
+sequence, as the JAX package computes them outside its kernel too. The
+recurrence of both layers runs in one kernel wrapper (a CUDA kernel for
+CUDA tensors, its plain PyTorch version for CPU tensors), chosen by the
+tier (gru_i and gru_h at one level):
+
+* 'highest': ``nsnet2_cuda.gru_stack`` (kernel 1), float32.
+* 'high' (bf16_3x products): kernel 1 too, in float32. A deliberate
+  deviation: the JAX package's TPU runs the in-scan products as bf16_3x,
+  but a bf16_3x recurrence on the tensor cores would need kernel 5's body
+  to hold both bf16 halves of its weights, 2 x 115,200 bytes of shared
+  memory a CTA, which leaves 2,048 of the block's 232,448 bytes: less than
+  one row tile's gi and h slots. A float32 recurrence is at least as
+  exact, and XLA:CPU computes 'high' in float32 too.
+* 'default' (the bf16 tier): ``nsnet2_gates_cuda.gru_gates_p`` (kernel 5)
+  in bf16, over per-gate input projections with the biases folded, as the
+  JAX package's split3 scan rounds there.
+* bf16 activation storage (``precision.set_io_dtype("bf16")``, at any
+  level: every product then multiplies bf16 operands exactly): features,
+  weights and the fc_in output in bf16, as the JAX package casts them; the
+  per-gate projections; the recurrence through
+  ``nsnet2_gates_cuda.gru_gates_f`` (kernel 6) in bf16 with a bf16 out;
+  the head on that bf16 h2. Kernel 6 keeps float32 h on chip and rounds
+  it only where it enters a product and on the way out, where the JAX
+  scan stores h in bf16 every step: a tier, not a parity mode, whose
+  decisions ``testing/tier_fuzz.py`` measures.
 
 Like the reference's per-chunk ONNX run, ``forward`` always starts the GRUs
 from h = 0. Under the int8 tier (``ops/precision.set_quant("int8")`` or
@@ -27,6 +45,11 @@ runs ``nsnet2_q8.forward_q8`` instead, as the reference's
 the float path. There, on any device, their recurrence runs the plain
 per-step loop ``nsnet2_cuda.gru_stack_reference``: the kernel takes lbr = 1
 only, and the JAX package too scans lbr = 0 weights outside its kernel.
+
+Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
+queue rather than run under another tier's name: gru_i and gru_h at
+different levels, the bf16 tiers of lbr = 0 weights, and the int8 tier with
+bf16 storage.
 """
 
 from __future__ import annotations
@@ -71,7 +94,7 @@ class Dense(nn.Module):
         self.stage = stage
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return precision.matmul(x, self.w, self.stage) + self.b
+        return precision.matmul(x, precision.io_cast(self.w), self.stage) + precision.io_cast(self.b)
 
 
 class NSNet2(nn.Module):
@@ -93,7 +116,14 @@ class NSNet2(nn.Module):
     def forward(self, features: torch.Tensor, out_frames: int | None = None) -> torch.Tensor:
         """features [..., T, 161] -> gains [..., T_out, 161], T_out = out_frames
         (the last frames only; the head skips the dropped ones) or T."""
-        if precision.quant_int8() and self.gru1.linear_before_reset and self.gru2.linear_before_reset:
+        lbr = bool(self.gru1.linear_before_reset and self.gru2.linear_before_reset)
+        io = precision.io_dtype()
+        if precision.quant_int8() and lbr:
+            if io is not None:
+                raise NotImplementedError(
+                    "the int8 tier with bf16 activation storage is not ported yet "
+                    "(ROADMAP: port queue, precision and io-dtype tiers)"
+                )
             from .nsnet2_q8 import forward_q8
 
             return forward_q8(self, features, out_frames)
@@ -103,14 +133,18 @@ class NSNet2(nn.Module):
                 "different matmul precisions for the GRU's gru_i and gru_h stages are not ported yet "
                 "(ROADMAP: port queue, precision and io-dtype tiers)"
             )
+        if not lbr and (level == "default" or io is not None):
+            raise NotImplementedError(
+                "the bf16 tiers of linear_before_reset=0 GRUs are not ported yet "
+                "(ROADMAP: port queue, precision and io-dtype tiers)"
+            )
         lead, t = features.shape[:-2], features.shape[-2]
-        x = self.fc_in(features.reshape((-1, t, N_BINS)))
-        if level == "default":
-            if not (self.gru1.linear_before_reset and self.gru2.linear_before_reset):
-                raise NotImplementedError(
-                    "the bf16 tier of linear_before_reset=0 GRUs is not ported yet "
-                    "(ROADMAP: port queue, precision and io-dtype tiers)"
-                )
+        x = self.fc_in(precision.io_cast(features.reshape((-1, t, N_BINS))))
+        if io is not None:
+            from .nsnet2_gates_cuda import gi_gates, gru_gates_f
+
+            ys = gru_gates_f(self, *gi_gates(self, x), dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+        elif level == "default":
             from .nsnet2_gates_cuda import gi_gates, gru_gates_p
 
             ys = gru_gates_p(self, *gi_gates(self, x), dtype=torch.bfloat16)  # [N, T, H]
@@ -118,7 +152,6 @@ class NSNet2(nn.Module):
             from .nsnet2_cuda import gru_stack, gru_stack_reference
 
             gi1 = precision.matmul(x, self.gru1.wi, "gru_i") + self.gru1.bi  # [N, T, 3H]
-            lbr = self.gru1.linear_before_reset and self.gru2.linear_before_reset
             ys = (gru_stack if lbr else gru_stack_reference)(self, gi1.contiguous())  # [N, T, H]
         if out_frames is not None and out_frames < t:
             ys = ys[:, t - out_frames :]

@@ -21,7 +21,9 @@ wrapper                 replaces               gi operands    h2 out
 
 ``gru_gates_p`` in bf16 is the bf16 precision tier's recurrence
 (``NSNet2.forward`` at matmul precision 'default'): it rounds where the JAX
-package's split3 scan does at single-pass bf16. Its weights are packed as
+package's split3 scan does at single-pass bf16. ``gru_gates_f`` in bf16
+with a bf16 out is the bf16 activation-storage tier's
+(``precision.set_io_dtype("bf16")``). Its weights are packed as
 the TPU kernel's, without the lane padding: ``wp1 = wh1`` [400, 1200] and
 ``wp2`` [800, 1600] whose h1 rows are ``wi2`` z | r | n_i | 0 and whose h2
 rows are ``wh2`` z | r | 0 | n_h, so layer 2 is one product of
@@ -204,9 +206,11 @@ def gi_gates(net: NSNet2, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, 
     400] with the step-invariant biases folded (``_gi_gates`` of the TPU
     tool): z and r see x wi + bi + h wh + bh, so bi + bh fold here; the n
     gate's bh1_n sits inside r1 (..), so only bi1_n does. The product runs
-    at stage 'gru_i''s precision; the three come out contiguous."""
+    at stage 'gru_i''s precision, on weights in the activation-storage
+    dtype (a bf16 product of a bf16 ``x``); the three come out contiguous,
+    in float32 (the folded biases are)."""
     g1 = net.gru1
-    gi1 = precision.matmul(x, g1.wi, "gru_i")
+    gi1 = precision.matmul(x, precision.io_cast(g1.wi), "gru_i")
     gi_z = gi1[..., :H] + (g1.bi[:H] + g1.bh[:H])
     gi_r = gi1[..., H : 2 * H] + (g1.bi[H : 2 * H] + g1.bh[H : 2 * H])
     gi_n = gi1[..., 2 * H :] + g1.bi[2 * H :]

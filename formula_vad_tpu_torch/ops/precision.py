@@ -1,25 +1,42 @@
-"""Matmul precision and model quantization switches (port of
-``formula_vad_tpu/ops/precision.py``).
+"""Matmul precision, activation storage and model quantization switches
+(port of ``formula_vad_tpu/ops/precision.py``).
 
 Matmul precision (``FVAD_PRECISION`` or ``set_matmul_precision``), per
 named stage of the scoring path (``STAGES``, with per-stage overrides):
 
 * ``"highest"`` (default): full float32 products, TF32 off. The parity
   configuration.
+* ``"high"``: bf16_3x, as the JAX package's TPU runs ``Precision.HIGH``:
+  each operand split into a bf16 high half and the bf16 rounding of the
+  rest, and the three products hi x hi, hi x lo and lo x hi summed in
+  float32 (``matmul``): ~16 bits a product. Under it the NSNet2 recurrence
+  runs through kernel 1 (``models/nsnet2_cuda.gru_stack``) in float32,
+  which is at least as exact (``models/nsnet2.py``).
 * ``"default"``: single-pass bf16, as the JAX package's TPU runs it: both
   operands rounded to bfloat16, the exact products summed in float32
   (``matmul``). Under it the NSNet2 recurrence runs through the bf16 form
   of ``models/nsnet2_gates_cuda.gru_gates_p``. A throughput tier, not a
   parity mode: rare one-window boundary shifts are possible.
 
-``"high"`` (bf16_3x) and the activation-storage tier (``FVAD_IO_DTYPE``)
-are not ported: asking for them raises rather than running float32 under
-another name. Levels are names here, not JAX enums.
+Levels are names here, not JAX enums.
+
+Orthogonally, ``set_io_dtype("bf16")`` (env ``FVAD_IO_DTYPE``) stores the
+denoiser path's big activations (spectra, features, GRU projections and
+outputs, gains, the OLA product, the 16 kHz stream) in bfloat16, cast by
+``io_cast`` at the JAX package's cast points. A product of two bf16
+operands is then a float32 sum of exact products, rounded once to bf16, at
+every level. The reductions that feed FSM decisions (band magnitude sums,
+RMS volumes, window ratios) and every carry across chunks and slabs stay
+float32. Under it the NSNet2 recurrence runs through the bf16 form of
+kernel 6 (``gru_gates_f`` with a bf16 out). A throughput tier, not a
+parity mode.
 
 ``set_quant("int8")`` (env ``FVAD_QUANT=int8``) runs every NSNet2 product as
 an int8 x int8 -> int32 contraction with a float dequant epilogue
 (``models/nsnet2_q8.py``, kernel ``ops/matmul_q8.py``). A throughput tier,
 not a parity mode: gains carry ~2 decimal digits, so decisions can shift.
+Together with bf16 storage it is not ported: the model raises rather than
+run either tier under the other's name.
 """
 
 from __future__ import annotations
@@ -29,44 +46,34 @@ import os
 import torch
 
 _LEVELS = ("highest", "high", "default")
-_PORTED_LEVELS = ("highest", "default")
-_IO_DTYPES = ("f32", "bf16")
+_IO_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 _QUANT_MODES = ("off", "int8")
 STAGES = ("stft", "istft", "band", "fc_in", "gru_i", "gru_h", "ff")
 
 
-def _env(name: str, default: str, allowed: tuple[str, ...]) -> str:
+def _env(name: str, default: str, allowed) -> str:
     value = os.environ.get(name, default).lower()
     if value not in allowed:
-        raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+        raise ValueError(f"{name} must be one of {tuple(allowed)}, got {value!r}")
     return value
 
 
-def _ported(level: str, what: str) -> str:
+def _level(level: str) -> str:
     if level not in _LEVELS:
         raise ValueError(f"precision must be one of {_LEVELS}, got {level!r}")
-    if level not in _PORTED_LEVELS:
-        raise NotImplementedError(
-            f"{what}={level!r}: only {_PORTED_LEVELS} are ported; the bf16_3x level is not ported yet "
-            "(ROADMAP: port queue, precision and io-dtype tiers)"
-        )
     return level
 
 
-_current = _ported(_env("FVAD_PRECISION", "highest", _LEVELS), "FVAD_PRECISION")
-if _env("FVAD_IO_DTYPE", "f32", _IO_DTYPES) != "f32":
-    raise NotImplementedError(
-        f"FVAD_IO_DTYPE={os.environ['FVAD_IO_DTYPE']!r}: only 'f32' is ported; the bf16 activation-storage "
-        "tier is not ported yet (ROADMAP: port queue, precision and io-dtype tiers)"
-    )
+_current = _env("FVAD_PRECISION", "highest", _LEVELS)
+_io = _env("FVAD_IO_DTYPE", "f32", _IO_DTYPES)
 _quant = _env("FVAD_QUANT", "off", _QUANT_MODES)
 _stage_overrides: dict[str, str] = {}
 
 
 def set_matmul_precision(level: str) -> None:
-    """Select the global matmul precision ('highest' | 'default')."""
+    """Select the global matmul precision ('highest' | 'high' | 'default')."""
     global _current
-    _current = _ported(level, "precision")
+    _current = _level(level)
 
 
 def matmul_precision(stage: str | None = None) -> str:
@@ -83,7 +90,7 @@ def set_stage_precision(stage: str, level: str | None) -> None:
     if level is None:
         _stage_overrides.pop(stage, None)
         return
-    _stage_overrides[stage] = _ported(level, "precision")
+    _stage_overrides[stage] = _level(level)
 
 
 def set_stage_overrides(overrides: dict[str, str] | None) -> None:
@@ -103,15 +110,55 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def set_io_dtype(name: str) -> None:
+    """Select the activation-storage dtype ('f32' | 'bf16')."""
+    global _io
+    if name not in _IO_DTYPES:
+        raise ValueError(f"io dtype must be one of {tuple(_IO_DTYPES)}, got {name!r}")
+    _io = name
+
+
+def io_dtype() -> torch.dtype | None:
+    """The activation-storage dtype, or None for full float32."""
+    return _IO_DTYPES[_io]
+
+
+def io_cast(x: torch.Tensor) -> torch.Tensor:
+    """Cast an activation to the storage dtype (identity when f32)."""
+    dt = _IO_DTYPES[_io]
+    return x if dt is None or x.dtype == dt else x.to(dt)
+
+
+def _bf16_3x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16_3x: hi = bf16(x), lo = bf16(x - hi) for each operand; the small
+    products hi x lo and lo x hi summed first, then hi x hi added. Each is a
+    float32 GEMM of bf16-valued operands, so exact products in float32 sums;
+    only lo x lo (~2^-16 of a product) is dropped."""
+    a_hi, b_hi = bf16_round(a), bf16_round(b)
+    a_lo, b_lo = bf16_round(a - a_hi), bf16_round(b - b_hi)
+    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, stage: str | None = None) -> torch.Tensor:
-    """``a @ b`` at the stage's precision. At 'default' both operands are
-    rounded to bf16 and multiplied in float32 (TF32 off): a product of two
+    """``a @ b`` at the stage's precision, TF32 off. At 'default' both
+    operands are rounded to bf16 and multiplied in float32: a product of two
     bf16 values is exact in float32, so the result is float32 sums of the
     exact products, the TPU's single-pass bf16 with float32 accumulation.
     (``torch.matmul`` of two bf16 tensors would round the output to bf16
-    too, which the tier does not.)"""
-    if matmul_precision(stage) == "default":
+    too, which the tier does not.) At 'high' it is ``_bf16_3x``.
+
+    Two bf16 operands (bf16 activation storage) are multiplied exactly at
+    every level and the float32 sums rounded once to bf16, as
+    ``jnp.matmul`` of two bf16 arrays returns bf16. A bf16 operand against a
+    float32 one is promoted to float32 first, as in JAX."""
+    if a.dtype == b.dtype == torch.bfloat16:
+        return (a.float() @ b.float()).to(torch.bfloat16)
+    a, b = a.float(), b.float()
+    level = matmul_precision(stage)
+    if level == "default":
         return bf16_round(a) @ bf16_round(b)
+    if level == "high":
+        return _bf16_3x(a, b)
     return a @ b
 
 

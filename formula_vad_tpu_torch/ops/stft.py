@@ -6,6 +6,10 @@ bit-identical to the JAX package's; the products run in torch.
 
 Dropped TPU layout tricks: the 768-lane column padding of the segment basis
 (consumers only read the first 4*n_bins columns) and the iSTFT lane pad.
+
+Under bf16 activation storage (``precision.io_cast``) the products' operands
+are cast where the JAX package casts them, so the spectra, the OLA product
+and the 16 kHz superframes are bf16; the band magnitude sums stay float32.
 """
 
 from __future__ import annotations
@@ -113,17 +117,22 @@ def segmat_prod(
     'default' level its select matmul rounds the samples to bf16, which the
     basis product here does anyway.) The prepended initial segment is the
     previous slab's final raw hop (``raw_tail``, [..., hop * rate]), or
-    zeros at stream start."""
+    zeros at stream start.
+
+    Under bf16 storage the JAX package casts the 48 kHz segments before its
+    select matmul; the cast of the selected samples is the same value as
+    the select of the cast samples, so only the samples read are cast."""
     hop = n_fft // 2
     t = audio.shape[-1]
-    x16 = audio[..., ::downsample_rate]
+    x16 = precision.io_cast(audio[..., ::downsample_rate])
     segs16 = x16.reshape(audio.shape[:-1] + (t // (hop * downsample_rate), hop))
     if raw_tail is None:
         tail16 = segs16.new_zeros(segs16.shape[:-2] + (1, hop))
     else:
-        tail16 = raw_tail[..., None, ::downsample_rate].to(segs16.dtype)
+        tail16 = precision.io_cast(raw_tail[..., None, ::downsample_rate]).to(segs16.dtype)
     segs = torch.cat([tail16, segs16], dim=-2)
-    return precision.matmul(segs, _basis("segmat", window, (n_fft,), audio.device), "stft")
+    basis = precision.io_cast(_basis("segmat", window, (n_fft,), audio.device))
+    return precision.matmul(segs, basis, "stft")
 
 
 def segmat_spectra(prod: torch.Tensor, n_fft: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -142,8 +151,8 @@ def istft_segmat(
     frame s - 1. Returns [..., (n_frames + 1) * hop]; the final hop is the
     dangling OLA tail."""
     hop = n_fft // 2
-    z = torch.cat([re, im], dim=-1)
-    prod = precision.matmul(z, _basis("inv", window, (n_fft,), re.device), "istft")
+    z = torch.cat([precision.io_cast(re), precision.io_cast(im)], dim=-1)
+    prod = precision.matmul(z, precision.io_cast(_basis("inv", window, (n_fft,), re.device)), "istft")
     top = prod[..., :hop]
     bot = prod[..., hop:]
     lead = prod.shape[:-2]
@@ -174,13 +183,14 @@ def band_volume_16k(
     t = x16.shape[-1]
     if t < need:
         x16 = torch.nn.functional.pad(x16, (0, need - t))
-    main = x16[..., :need].reshape(x16.shape[:-1] + (nsw, n_fft))
+    main = precision.io_cast(x16[..., :need].reshape(x16.shape[:-1] + (nsw, n_fft)))
     # The carried sample before each superframe enters as a rank-1 term on
     # the basis's row 0, as in the JAX package. That term is an elementwise
-    # float32 product there (not a matmul), so it is not rounded at any
-    # precision level.
+    # product there (not a matmul), so no precision level rounds it; bf16
+    # storage does. The magnitude sums that feed the FSM stay float32.
     prevs = torch.cat([prev.to(main.dtype)[..., None], main[..., :-1, -1]], dim=-1)
-    prod = precision.matmul(main, basis[1:], "band") + prevs[..., None] * basis[0]
+    basis = precision.io_cast(basis)
+    prod = (precision.matmul(main, basis[1:], "band") + prevs[..., None] * basis[0]).float()
     prod = prod.reshape(prod.shape[:-1] + (rate, 2, n_band))
     mags = torch.sqrt(prod[..., 0, :] ** 2 + prod[..., 1, :] ** 2)
     band = torch.sum(mags, dim=-1) * np.float32(norm_factor)

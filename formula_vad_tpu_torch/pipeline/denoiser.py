@@ -17,6 +17,8 @@ WINDOW = windows.sqrt_hann_symmetric(NSNET2_N_FFT)
 
 
 def compute_features(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
-    """log10 power spectrum, clamped at 1e-12."""
+    """log10 power spectrum, clamped at 1e-12, in the spectra's dtype (bf16
+    under bf16 activation storage, as in the JAX package; the carried
+    context frames are cast to it at the join, ``offline._model_input``)."""
     power = re * re + im * im
     return torch.log10(torch.clamp(power, min=float(FEATURE_P_MIN)))

@@ -12,6 +12,12 @@ serial (``fsm_cuda.scan_windows``).
 Tensors carry any leading batch shape; the stream axis of a batch is an
 ordinary leading dimension. Carries are dicts of tensors whose leading
 shape matches the audio's (without the sample axis).
+
+Under bf16 activation storage (``ops/precision.set_io_dtype``) the spectra,
+features, gains and the 16 kHz stream are bf16, cast at the JAX package's
+cast points (``ops/stft.py``, ``models/nsnet2.py``); the carries stay in
+their float32 storage dtype and are cast at each join, as there, and so do
+the band volumes, ratios and validity the FSM reads.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from ..config import (
 from ..models.nsnet2 import NSNet2
 from ..ops import resample, stft, volume
 from . import denoiser as den_mod
-from . import fsm_cuda, vad
+from . import fsm, fsm_cuda, vad
 
 T_SCAN = NSNET2_N_FRAMES + NSNET2_CONTEXT_FRAMES  # GRU steps per chunk (54)
 WARMUP_CHUNKS = 2
@@ -41,7 +47,7 @@ WARMUP_CHUNKS = 2
 def init_slab_carry(lead: tuple, downsample_rate: int = 3, device="cpu") -> dict[str, torch.Tensor]:
     """Zero denoiser boundary state for audio of leading shape ``lead``
     (e.g. (B, C)): the previous slab's final raw hop, 4 feature frames, OLA
-    tail and last 16 kHz sample."""
+    tail and last 16 kHz sample, float32 under every storage tier."""
     z = lambda *s: torch.zeros(tuple(lead) + s, dtype=torch.float32, device=device)  # noqa: E731
     return {
         "raw_tail": z(NSNET2_N_HOP * downsample_rate),
@@ -99,12 +105,14 @@ def denoise_offline_16k(net: NSNet2, audio: torch.Tensor, carry: dict, downsampl
     ola = torch.cat([head, ola[..., NSNET2_N_HOP:]], dim=-1)
     completed = ola[..., : k * NSNET2_CHUNK_16K]
     # Copies, not views: a view would keep the slab's audio, features and
-    # OLA alive until the next slab is done with the carry.
+    # OLA alive until the next slab is done with the carry. Each keeps the
+    # carry's storage dtype (float32 under bf16 storage too).
+    cdt = carry["feat_ctx"].dtype
     new_carry = {
         "raw_tail": audio[..., -NSNET2_N_HOP * downsample_rate :].clone(),
-        "feat_ctx": feats[..., -NSNET2_CONTEXT_FRAMES:, :].clone(),
-        "out_tail": ola[..., k * NSNET2_CHUNK_16K :].clone(),
-        "last_sample": completed[..., -1].clone(),
+        "feat_ctx": feats[..., -NSNET2_CONTEXT_FRAMES:, :].to(cdt, copy=True),
+        "out_tail": ola[..., k * NSNET2_CHUNK_16K :].to(cdt, copy=True),
+        "last_sample": completed[..., -1].to(cdt, copy=True),
     }
     return completed, carry["last_sample"].to(completed.dtype), new_carry
 
@@ -225,12 +233,43 @@ def window_inputs(net: NSNet2, st: vad.VADStatics, audio: torch.Tensor, n_valid_
 
 
 def process_batch_offline(
-    net: NSNet2, st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: torch.Tensor | None = None
+    net: NSNet2,
+    st: vad.VADStatics,
+    audio: torch.Tensor,
+    n_valid_chunks: torch.Tensor | None = None,
+    fsm_params: fsm.FSMParams | None = None,
 ):
     """Batched whole-stream VAD: the front end, then one FSM scan over the
-    [B, W] windows (the device kernel for CUDA tensors).
+    [B, W] windows (the device kernel for CUDA tensors, its plain version on
+    the CPU) with ``fsm_params`` (default ``st.fsm_params``; the FSM's shape
+    is always ``st.fsm_shape``).
 
     Returns (WindowOutput [B, W], valid [B, W])."""
     min_vol, ratios, valid = window_inputs_batch(net, st, audio, n_valid_chunks)
-    win_out, _ = fsm_cuda.scan_windows(st.fsm_shape, st.fsm_params, min_vol, ratios, valid)
+    params = st.fsm_params if fsm_params is None else fsm_params
+    win_out, _ = fsm_cuda.scan_windows(st.fsm_shape, params, min_vol, ratios, valid)
     return win_out, valid
+
+
+def process_stream_offline(
+    net: NSNet2,
+    st: vad.VADStatics,
+    audio: torch.Tensor,
+    n_valid_chunks: int | None = None,
+    fsm_params: fsm.FSMParams | None = None,
+):
+    """Whole-stream VAD of one stream [C, T] (T a multiple of the chunk;
+    ``n_valid_chunks`` real chunks, default all): ``process_batch_offline``
+    on a batch of one.
+
+    Returns (WindowOutput [W], valid [W]), flat over windows."""
+    k = audio.shape[-1] // st.chunk_size
+    nv = torch.tensor([k if n_valid_chunks is None else n_valid_chunks], dtype=torch.int32, device=audio.device)
+    win_out, valid = process_batch_offline(net, st, audio[None, :, : k * st.chunk_size], nv, fsm_params)
+    return type(win_out)(*(x[0] for x in win_out)), valid[0]
+
+
+def segments_from_offline(st: vad.VADStatics, win_out: fsm.WindowOutput) -> list[dict]:
+    """One stream's segments from ``process_stream_offline``'s outputs (on
+    any device; fetched to the host here)."""
+    return vad.segments_from_outputs(st, type(win_out)(*(x.cpu() for x in win_out)))

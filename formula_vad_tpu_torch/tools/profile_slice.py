@@ -1,6 +1,7 @@
 """Where the batched scoring slice spends its time on one GPU.
 
-    python -m formula_vad_tpu_torch.tools.profile_slice [--quant off|int8] [--precision highest|default] [--out FILE]
+    python -m formula_vad_tpu_torch.tools.profile_slice [--quant off|int8] [--precision highest|high|default]
+        [--io-dtype f32|bf16] [--out FILE]
 
 On one synthetic batch (21 streams x 20 s of stereo 48 kHz audio, the
 batched scoring shape; the packaged demo weights), in one process:
@@ -18,7 +19,9 @@ batched scoring shape; the packaged demo weights), in one process:
 
 ``--quant int8`` runs all of it under the int8 denoiser tier
 (``ops/precision.set_quant``), ``--precision default`` under the bf16 tier
-(``ops/precision.set_matmul_precision``). The bf16 tier adds, after step 1:
+and ``--precision high`` under bf16_3x (``ops/precision.set_matmul_precision``),
+``--io-dtype bf16`` under bf16 activation storage (``set_io_dtype``). The
+bf16 tier (with float32 storage) adds, after step 1:
 
 - a tier A/B: device-FSM walls of the float (F) and bf16 (B) tiers in
   interleaved FBBF / BFFB pairs after one warm-up run of each; medians,
@@ -101,15 +104,20 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the profiler's op table here")
     ap.add_argument("--quant", choices=("off", "int8"), default="off", help="the denoiser model's quantization tier")
-    ap.add_argument("--precision", choices=("highest", "default"), default=None,
+    ap.add_argument("--precision", choices=("highest", "high", "default"), default=None,
                     help="the matmul precision (default: FVAD_PRECISION, else highest)")
+    ap.add_argument("--io-dtype", choices=("f32", "bf16"), default=None,
+                    help="the activation-storage dtype (default: FVAD_IO_DTYPE, else f32)")
     args = ap.parse_args(argv)
 
     dev = device_mod.resolve("cuda")
     precision.set_quant(args.quant)
     if args.precision:
         precision.set_matmul_precision(args.precision)
-    print(f"profile_slice (quant {args.quant}, precision {precision.matmul_precision()}) on {card()}; "
+    if args.io_dtype:
+        precision.set_io_dtype(args.io_dtype)
+    print(f"profile_slice (quant {args.quant}, precision {precision.matmul_precision()}, storage "
+          f"{precision.io_dtype() or torch.float32}) on {card()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     rng = np.random.default_rng(1)
     audio = np.stack([synth_stream(rng, SECONDS)[0] for _ in range(STREAMS)])
@@ -140,7 +148,7 @@ def main(argv: list[str] | None = None) -> int:
     d, h = walls["D"], walls["H"]
     d_wins = sum(d[i] < h[i] for i in range(len(d)))
     print(f"device FSM faster in {d_wins} of {len(d)} interleaved pairs")
-    if precision.matmul_precision() == "default":
+    if precision.matmul_precision() == "default" and precision.io_dtype() is None:
         _tier_ab(run, audio_sec)
         _gemm_probe(dev, 1680 * 54)  # gi1: 21 streams x 2 channels x 40 chunks, 54 frames
 

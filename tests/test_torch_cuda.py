@@ -16,7 +16,10 @@ and the whole carry; the int8 matmul kernel bit for bit
 equal to its plain version; the slice's segments on the GPU equal to the CPU
 run's. Under the int8 tier the GPU and CPU runs give the same segment count
 with every boundary within one FSM window: a one-ulp difference before
-quantization can move a value into the next int8 step.
+quantization can move a value into the next int8 step; so under the bf16 and
+bf16-storage tiers, while 'high' (bf16_3x) keeps the CPU run's segments.
+Each tier launches its recurrence kernel and the FSM and nothing else, and
+a 10-case tier-fuzz campaign on the card finds no deviation at 'high'.
 """
 
 import ctypes
@@ -713,6 +716,84 @@ def test_bf16_tier_slice_on_gpu_matches_cpu(net, cuda_device):
         assert len(g.segments) == len(c.segments)
         for a, b in zip(g.segments, c.segments):
             assert abs(a["sample_from"] - b["sample_from"]) <= FFT and abs(a["sample_to"] - b["sample_to"]) <= FFT
+
+
+# Each tier (global level, io dtype) and the launches of one 3-stream
+# forward: its recurrence kernel and the FSM, nothing else.
+TIERS = {
+    "float": (("highest", "f32"), {"gru_stack": 1}),
+    "high": (("high", "f32"), {"gru_stack": 1}),
+    "bf16": (("default", "f32"), {"gru_gates_p": 1}),
+    "bf16_io": (("default", "bf16"), {"gru_gates_f": 1}),
+}
+COUNTERS = {"gru_stack": nsnet2_cuda.gru_stack, "gru_gates": gates.gru_gates, "gru_gates_p": gates.gru_gates_p,
+            "gru_gates_f": gates.gru_gates_f, "matmul_q8": mq.matmul_q8, "scan_windows": fsm_cuda.scan_windows}
+
+
+def _set_tier(level, io):
+    precision.set_matmul_precision(level)
+    precision.set_io_dtype(io)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_each_tier_launches_its_kernels(net, cuda_device, tier):
+    """A 3-stream forward at each tier launches its recurrence kernel and
+    the FSM once each and no other kernel; its segments keep the CPU run's
+    (identical at 'highest' and 'high', the same count with every boundary
+    within one FSM window in the bf16 tiers)."""
+    rng = np.random.default_rng(3)
+    audio = np.stack([synth_stream(rng, 20.0)[0] for _ in range(3)])
+    (level, io), launches = TIERS[tier]
+    _set_tier(level, io)
+    try:
+        before = {name: fn.launches for name, fn in COUNTERS.items()}
+        gpu = BatchRunner(net, VADConfig()).run(audio)
+        got = {name: fn.launches - before[name] for name, fn in COUNTERS.items()}
+        cpu = BatchRunner(registry.load_denoiser("demo", device="cpu"), VADConfig()).run(audio)
+    finally:
+        _set_tier("highest", "f32")
+    assert got == dict(dict.fromkeys(COUNTERS, 0), scan_windows=1, **launches)
+    assert sum(len(r.segments) for r in gpu) > 0
+    tol = 0 if level != "default" else FFT
+    for g, c in zip(gpu, cpu):
+        assert len(g.segments) == len(c.segments)
+        for a, b in zip(g.segments, c.segments):
+            assert abs(a["sample_from"] - b["sample_from"]) <= tol and abs(a["sample_to"] - b["sample_to"]) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 1680])
+def test_kernel_6_on_the_bf16_storage_path(net, cuda_device, rows):
+    """Kernel 6 in bf16 with a bf16 out, on the gi the bf16-storage tier
+    hands it (the per-gate projections of the bf16 fc_in output), against
+    its plain version: the bf16 bars."""
+    feats = torch.from_numpy(np.random.default_rng(0).normal(-3.0, 1.5, (rows, 54, 161)).astype(np.float32))
+    precision.set_io_dtype("bf16")
+    try:
+        with torch.inference_mode():
+            gi = gates.gi_gates(net, net.fc_in(precision.io_cast(feats.to(cuda_device))))
+            got = gates.gru_gates_f(net, *gi, dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+            want = gates.gru_gates_f_reference(gates.gate_weights(net, torch.bfloat16), *(g.to(torch.bfloat16) for g in gi),
+                                               out_dtype=torch.bfloat16)
+    finally:
+        precision.set_io_dtype("f32")
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) <= BF16_MAX and float(d.mean()) <= BF16_MEAN, (float(d.max()), float(d.mean()))
+
+
+@pytest.mark.cuda
+def test_tier_campaign_on_the_card(net, cuda_device):
+    """10 cases of the tier-fuzz campaign on the demo weights: non-vacuous,
+    and 'high' deviates in no case."""
+    from formula_vad_tpu_torch.testing import tier_fuzz
+
+    stats = tier_fuzz.run_campaign(net, n_cases=10)
+    assert precision.matmul_precision() == "highest" and precision.io_dtype() is None
+    assert stats["highest"].n_cases == 10 and stats["highest"].n_boundaries >= 10, tier_fuzz.format_table(stats)
+    assert stats["high"].deviated_cases == 0, tier_fuzz.format_table(stats)
 
 
 SLAB_CHUNKS = 32  # 16 s slabs

@@ -434,6 +434,11 @@ RANDOM_ROWS, RANDOM_STEPS = 8, 54
 # Rows of the 8 that stay within 1e-5 over all 54 steps: 3 for each of
 # kernels 4, 5 and 6 at this seed (rows 0, 2 and 7 or 0, 2 and 3).
 RANDOM_HELD = 3
+# Row-steps before each row's first bf16 rounding flip, summed over the 8
+# rows: 35 to 129 at this seed (kernels 5 and 4, 6); a plain version
+# that skips the rounding of h before a product flips every row at step 1
+# (7 row-steps), so the floor sits between.
+PRE_FLIP_STEPS = 2 * RANDOM_ROWS
 
 
 @pytest.fixture(scope="module")
@@ -480,3 +485,30 @@ def test_bf16_random_gi_gap_starts_at_a_rounding_flip(pair, random_gi, kernel):
     held = [r for r in range(RANDOM_ROWS) if d[r].max() <= F32_TOL]
     assert len(held) >= RANDOM_HELD, d.max(axis=(1, 2))
     assert np.abs(want - want_f32)[held].mean() > 10 * BF16_MEAN
+
+
+def _first_flips(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """Each row's first step at which some h2 value rounds to another bf16
+    value on the two sides (RANDOM_STEPS where none does)."""
+    flip = (torch.tensor(got).to(torch.bfloat16) != torch.tensor(want).to(torch.bfloat16)).numpy().any(axis=2)
+    return np.where(flip.any(axis=1), flip.argmax(axis=1), got.shape[1])
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_bf16_random_gi_agrees_before_the_first_rounding_flip(pair, random_gi, kernel):
+    """Step 2 on fault 3: a bar on random gi that tells a missing rounding
+    point from a flip cascade. Over each row's steps before its first bf16
+    rounding flip of h2, the plain version and the TPU kernel differ only
+    in float32 summation order: mean |dh2| <= 1e-5 (measured ~2e-8). A
+    plain version that skipped a rounding point would either part from the
+    TPU kernel by ~1e-4 before any flip, or flip every row at once and
+    leave fewer than PRE_FLIP_STEPS row-steps."""
+    kw = {"out_dtype": torch.float32} if kernel == "k6" else {}
+    jkw = {"out_dtype": jnp.float32} if kernel == "k6" else {}
+    want = _jax(pair, random_gi, kernel, torch.bfloat16, **jkw)
+    got = _plain(pair[1], kernel, random_gi, torch.bfloat16, **kw)
+    first = _first_flips(got, want)
+    before = np.arange(RANDOM_STEPS)[None, :] < first[:, None]
+    assert before.sum() >= PRE_FLIP_STEPS, first
+    d = np.abs(got - want)[before]
+    assert d.mean() <= F32_TOL, (d.mean(), first)

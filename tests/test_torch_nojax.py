@@ -28,6 +28,7 @@ sys.modules["formula_vad_tpu"] = None  # and so does any import of the JAX packa
 import numpy as np
 import formula_vad_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(formula_vad_tpu_torch.__path__, "formula_vad_tpu_torch.")]
+assert "formula_vad_tpu_torch.testing.tier_fuzz" in names, names
 for name in names:
     importlib.import_module(name)
 from formula_vad_tpu_torch.testing.synth import synth_stream

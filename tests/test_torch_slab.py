@@ -25,6 +25,7 @@ from formula_vad_tpu.parallel.slab_runner import SlabRunner as JSlabRunner
 from formula_vad_tpu_torch.apps import simulator as sim
 from formula_vad_tpu_torch.config import VADConfig, VADMachineConfig
 from formula_vad_tpu_torch.models import registry
+from formula_vad_tpu_torch.ops import precision
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 from formula_vad_tpu_torch.parallel.slab_runner import SLAB_ALIGN_CHUNKS, SlabRunner
 from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, offline
@@ -162,6 +163,43 @@ def test_denoiser_carry_holds_no_view_of_the_slab(net):
     for name, x in new.items():
         assert x._base is None, name
         assert x.untyped_storage().nbytes() == x.numel() * x.element_size(), name
+
+
+@pytest.mark.parametrize("tier", [("high", "f32"), ("default", "bf16")], ids=["high", "bf16_io"])
+def test_slab_runner_under_the_storage_and_bf16_3x_tiers(net, ragged, tier):
+    """The slab runner under 'high' and under bf16 storage: every slab's
+    denoiser carry stays float32 (a copy, not a view), and the segments keep
+    the one-shot runner's count under the same tier, every boundary within
+    one FSM window (identical under 'high')."""
+    batch, lengths = ragged
+    precision.set_matmul_precision(tier[0])
+    precision.set_io_dtype(tier[1])
+    try:
+        runner = SlabRunner(net, VC, slab_chunks=32)
+        carries = []
+        front_end = runner._front_end
+
+        def capture(*args):
+            out = front_end(*args)
+            carries.append(out[0])
+            return out
+
+        runner._front_end = capture
+        got = runner.run(batch, lengths)
+        want = BatchRunner(net, VC).run(batch, lengths)
+    finally:
+        precision.set_matmul_precision("highest")
+        precision.set_io_dtype("f32")
+    assert len(carries) == 2
+    for carry in carries:
+        for name, x in carry.items():
+            assert x.dtype == torch.float32 and x._base is None, name
+    assert sum(len(r.segments) for r in got) > 0
+    for g, w in zip(got, want):
+        assert len(g.segments) == len(w.segments)
+        for a, b in zip(g.segments, w.segments):
+            for key in ("sample_from", "sample_to"):
+                assert abs(a[key] - b[key]) <= (0 if tier[0] == "high" else 1024), key
 
 
 def test_window_chunk_indices_are_made_once(net):
