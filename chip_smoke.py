@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs eleven phases; any failed check raises and the script exits non-zero.
+runs twelve phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -72,7 +72,11 @@ runs eleven phases; any failed check raises and the script exits non-zero.
    float32 for the float32 forms and in float16 for the bf16 forms (the
    nearest call whose weights cuDNN compacts once; it stores h in 16 bits,
    another function). cuDNN's bf16 GRU, which compacts its weights on every
-   call, is timed beside it.
+   call, is timed beside it. Then each bf16 body on random gi (N(0, 0.8),
+   numpy seed 100, 8 rows x 54 steps, the random-init weights) against
+   its plain version under the CPU tests' pre-flip bar (ROADMAP §3 fault
+   3): mean |dh2| <= 1e-5 over each row's steps before its first bf16
+   rounding flip of h2, over at least 16 such row-steps.
 9. The bf16 tier end to end: BatchRunner on the slice under
    set_matmul_precision("default") (real-time factor; exactly 1 kernel-5
    launch and no gru_stack launch per run; segments against the float
@@ -115,6 +119,35 @@ runs eleven phases; any failed check raises and the script exits non-zero.
    deviated case but the known near-ties (HIGH_KNOWN_TIES, each run alone
    again), each boundary within one window (the bf16 and bf16_io
    envelopes are recorded, not gated).
+12. The streaming path. The slice through BatchRunner(use_offline=False),
+   one chunk step a 0.5 s chunk for all 21 streams (40 steps), in each of
+   the float, bf16, bf16_io and int8 tiers: real-time factor (median of 3
+   after a warm-up; the float tier's beside phase 4's offline one), exactly
+   40 launches of the tier's recurrence a run (gru_stack at 42 rows,
+   kernel 5, kernel 6, or 40 x 167 kernel-3 and no gru_stack) and 40
+   scan_windows ([21, 24]) and nothing else, a chunk step's CUDA-event time
+   and the host time of its Python call, and the device's busy share (one
+   torch.profiler pass). The float tier's segments are identical to phase
+   4's; each other tier's are held to the same tier's offline run (the same
+   segment count, every boundary within one FSM window). Every kernel of
+   the path at a chunk step's shapes, for the slice's 21 streams and for
+   AudioPipeline's one stereo stream, against its plain version with its
+   launch plan, times and bound: the FSM's chained calls of a streaming run
+   at [21, 24] and [1, 24] against the host decoder and the plain version
+   chained over the same chunks, and against the host decoder in one call
+   over each stream's valid windows joined (all seven outputs and the final
+   carry, bit for bit); kernel 1 at 2 and 42 rows x 54 steps (1e-4) with
+   cuDNN's GRU; kernels 5 and 6 at 2 and 42 rows on the gi their tiers hand
+   them (phase 8's bars) with cuDNN's fp16 GRU; kernel 3 at the six products
+   of a 2- and a 42-row forward (bit for bit, both orders and output types)
+   with torch._int_mm. The host AudioPipeline on one 60 s stereo stream
+   pushed in irregular sizes: its segments equal the streaming runner's,
+   one original and one denoised recording a segment at its sample_from,
+   and the latency of each chunk (PCM in, events out) beside the 500 ms
+   cadence. Then the simulator on phase 5's corpus with "batch_streams":
+   false on cuda and on cpu: the same report.txt and Audacity files as each
+   other and as phase 5's batched cuda plan, and the batched plan's clip
+   names and sample counts.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -167,17 +200,24 @@ INT8_OPS_PER_MS = 1979e9  # int8 tensor cores, dense: 1,979 TOP/s
 BF16_OPS_PER_MS = 989e9  # bf16 tensor cores, dense: 989 TFLOP/s
 BF16_MEAN, BF16_MAX = 3e-5, 6e-3  # the bf16 forms' bars against their plain versions (phase 8)
 Q8_STEPS = 54  # GRU steps per chunk: 3 in-scan int8 products each
-# The int8 tier's products on the slice: (name, R, K, N, launches per
-# forward, epilogue order, with a per-row scale). 1,680 rows x 54 frames;
-# the head runs on the last 50 frames only.
-Q8_SHAPES = (
-    ("fc_in", GRU_ROWS * GRU_STEPS, 161, 400, 1, "row_col", True),
-    ("gi1", GRU_ROWS * GRU_STEPS, 400, 1200, 1, "row_col", True),
-    ("in_scan", GRU_ROWS, 400, 1200, 3 * Q8_STEPS, "col_row", False),
-    ("ff1", GRU_ROWS * 50, 400, 600, 1, "col_row", False),
-    ("ff2", GRU_ROWS * 50, 600, 600, 1, "row_col", True),
-    ("out", GRU_ROWS * 50, 600, 161, 1, "row_col", True),
-)
+
+
+def q8_shapes(rows: int) -> tuple:
+    """The int8 tier's products in a forward of ``rows`` GRU rows x 54
+    frames: (name, R, K, N, launches per forward, epilogue order, with a
+    per-row scale). The head runs on the last 50 frames only."""
+    frames, head = rows * Q8_STEPS, rows * 50
+    return (
+        ("fc_in", frames, 161, 400, 1, "row_col", True),
+        ("gi1", frames, 400, 1200, 1, "row_col", True),
+        ("in_scan", rows, 400, 1200, 3 * Q8_STEPS, "col_row", False),
+        ("ff1", head, 400, 600, 1, "col_row", False),
+        ("ff2", head, 600, 600, 1, "row_col", True),
+        ("out", head, 600, 161, 1, "row_col", True),
+    )
+
+
+Q8_SHAPES = q8_shapes(GRU_ROWS)  # the slice's: 1,680 rows
 Q8_LAUNCHES = sum(shape[4] for shape in Q8_SHAPES)  # 167
 WINDOW_SEC = 1024 / 48000  # one FSM window
 # Phase 10, the slab path: 21 streams a little short of 5 slabs of 64 s
@@ -202,6 +242,21 @@ CAMPAIGN_ROWS = 2 * CAMPAIGN_CHUNKS  # one stereo stream of 16 chunks: GRU rows 
 # item 6): near-ties whose decision margin, 3e-6 to 1e-5 of the window
 # volume, lies within bf16_3x's ~16 bits a product (found on the CPU).
 HIGH_KNOWN_TIES = (104,)
+# Phase 8, ROADMAP §3 fault 3 step 3: tests/test_torch_gru_gates.py's random
+# gi (N(0, 0.8), numpy seed 100, 8 rows x 54 steps) and its pre-flip bar.
+PRE_FLIP_ROWS, PRE_FLIP_STEPS, PRE_FLIP_MEAN = 8, 16, 1e-5
+# Phase 12: chunk steps a streaming run of the slice (20 s / 0.5 s); GRU
+# rows a chunk step of one stereo stream (AudioPipeline) and of the slice.
+STREAM_CHUNKS = int(SLICE_SECONDS / 0.5)
+STREAM_ROWS = (2, 2 * SLICE_STREAMS)
+PIPELINE_SECONDS = 60.0
+# (tier, matmul level, io dtype, quant, the wrapper of its recurrence, its launches a chunk step)
+STREAM_TIERS = (
+    ("float", "highest", "f32", "off", "gru_stack", 1),
+    ("bf16", "default", "f32", "off", "gru_gates_p", 1),
+    ("bf16_io", "default", "bf16", "off", "gru_gates_f", 1),
+    ("int8", "highest", "f32", "int8", "matmul_q8", Q8_LAUNCHES),
+)
 
 
 def log(msg: str) -> None:
@@ -573,7 +628,8 @@ def read_text(run_dir: str, name: str) -> str:
         return f.read()
 
 
-def phase_entry_point(corpus: str) -> None:
+def phase_entry_point(corpus: str) -> str:
+    """-> the cuda run's output directory."""
     outs = run_simulators(corpus, {"cuda": ("cuda", {}), "cpu": ("cpu", {})})
     for name in ["report.txt"] + [f"s{i}-audacity.txt" for i in range(CORPUS_STREAMS)]:
         texts = {dev: read_text(outs[dev], name) for dev in outs}
@@ -583,45 +639,52 @@ def phase_entry_point(corpus: str) -> None:
             raise AssertionError(f"{name} differs between the cuda and cpu simulator runs")
     log("simulator segments identical on cuda and cpu; s0: "
         + read_text(outs["cuda"], "s0-audacity.txt").strip().replace("\n", " | "))
+    return outs["cuda"]
 
 
-def phase_q8_kernel(dev) -> dict:
+def q8_product(dev, seed: int, name: str, r: int, k: int, n: int, per_forward: int, order: str,
+               with_row: bool) -> dict:
+    """The int8 matmul kernel against its plain version at one product's
+    shape (random operands, generator ``seed``): bit for bit, for both
+    epilogue orders and float32 and bfloat16 output; the path and tile plan
+    the wrapper picks; device times (CUDA-graph replays) beside the bound and
+    torch._int_mm (cuBLASLt) plus the epilogue, which needs more than 16
+    rows (else null), and the host time of a wrapper call."""
     import torch
 
-    from formula_vad_tpu_torch.ops import matmul_q8 as mq
     from formula_vad_tpu_torch import tools
+    from formula_vad_tpu_torch.ops import matmul_q8 as mq
     from formula_vad_tpu_torch.tools import graph_ms
 
-    # One small ragged case against exact int64 arithmetic on the host.
-    rng = np.random.default_rng(5)
-    a, b = rng.integers(-127, 128, (100, 161)).astype(np.int8), rng.integers(-127, 128, (161, 161)).astype(np.int8)
-    got = mq.matmul_q8(torch.from_numpy(a).to(dev), mq.Q8Weight.pack(torch.from_numpy(b).to(dev), torch.ones(161, device=dev)))
-    if got.cpu().numpy().tobytes() != (a.astype(np.int64) @ b.astype(np.int64)).astype(np.float32).tobytes():
-        raise AssertionError("int8 matmul kernel != int64 numpy on [100, 161] x [161, 161]")
-    log("int8 matmul kernel == int64 numpy on [100, 161] x [161, 161]")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a8 = torch.randint(-127, 128, (r, k), dtype=torch.int8, device=dev, generator=gen)
+    b8 = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
+    scale = torch.rand(n, device=dev, generator=gen) * 1e-3
+    bias = torch.randn(n, device=dev, generator=gen)
+    row = torch.rand((r, 1), device=dev, generator=gen) * 2.0
+    w = mq.Q8Weight.pack(b8, scale, bias)
+    rs = row if with_row else None
+    err = 0.0
+    with torch.inference_mode():
+        for check_order in mq.ORDERS:
+            for dtype in mq.OUT_DTYPES:
+                got = mq.matmul_q8(a8, w, row, order=check_order, out_dtype=dtype)
+                want = mq.matmul_q8_reference(a8, w, row, order=check_order, out_dtype=dtype)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"int8 matmul kernel != plain at {name} [{r}, {k}] x [{k}, {n}] "
+                                         f"{check_order} {dtype}")
+                err = max(err, float((got.float() - want.float()).abs().max()))
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    shapes, err, bound_kinds = [], 0.0, set()
-    for i, (name, r, k, n, per_forward, order, with_row) in enumerate(Q8_SHAPES):
-        gen = torch.Generator(device=dev).manual_seed(i)
-        a8 = torch.randint(-127, 128, (r, k), dtype=torch.int8, device=dev, generator=gen)
-        b8 = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
-        scale = torch.rand(n, device=dev, generator=gen) * 1e-3
-        bias = torch.randn(n, device=dev, generator=gen)
-        row = torch.rand((r, 1), device=dev, generator=gen) * 2.0
-        w = mq.Q8Weight.pack(b8, scale, bias)
-        with torch.inference_mode():
-            for check_order in mq.ORDERS:
-                for dtype in mq.OUT_DTYPES:
-                    got = mq.matmul_q8(a8, w, row, order=check_order, out_dtype=dtype)
-                    want = mq.matmul_q8_reference(a8, w, row, order=check_order, out_dtype=dtype)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"int8 matmul kernel != plain at {name} {check_order} {dtype}")
-                    err = max(err, float((got.float() - want.float()).abs().max()))
-            rs = row if with_row else None
-            # The library yardstick: cuBLASLt's int8 GEMM (K and N padded to
-            # multiples of 8), then the same epilogue as torch ops.
+        def kernel():
+            return mq.matmul_q8(a8, w, rs, order=order)
+
+        kernel()
+        path = mq.matmul_q8.last_path  # the path the wrapper picks for the path's call
+        library = None
+        if r > 16:  # torch._int_mm takes more than 16 rows
+            # cuBLASLt's int8 GEMM (K and N padded to multiples of 8), then
+            # the same epilogue as torch ops.
             k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
             a_pad = torch.zeros((r, k8), dtype=torch.int8, device=dev)
             a_pad[:, :k] = a8
@@ -632,39 +695,58 @@ def phase_q8_kernel(dev) -> dict:
                 out = torch._int_mm(a_pad, bt_pad.t())[:, :n].to(torch.float32)
                 return (out * row if with_row else out) * w.scale + w.bias
 
-            def kernel():
-                return mq.matmul_q8(a8, w, rs, order=order)
-
             if not torch.equal(library(), kernel()):
                 raise AssertionError(f"the library yardstick computes another function at {name}")
-            path = mq.matmul_q8.last_path  # the path the wrapper picked for the main path's call
-            if path.name != "wgmma":
-                raise AssertionError(f"int8 matmul at {name}: the wrapper took {path.name}, not the wgmma body")
-            # Device times from CUDA-graph replays (several launches per
-            # replay where the output is small), so the host's launch cost
-            # stays out; that cost is timed apart, on the host clock.
-            per_replay = 20 if per_forward > 1 else 2
-            ms = graph_ms(kernel, per_replay)
-            plain_ms = graph_ms(lambda: mq.matmul_q8_reference(a8, w, rs, order=order), per_replay)
-            library_ms = graph_ms(library, per_replay)
-            (host_us,) = tools.host_us([kernel])
-        nbytes = r * k + k * n + 4 * r * n + 8 * n + (4 * r if with_row else 0)
-        bound_ms, bound_by = bound(nbytes, 2 * r * k * n, INT8_OPS_PER_MS)
-        bound_kinds.add(bound_by)
-        plan = path.plan
-        plan_info = {"bn": plan.bn, "tiles": plan.tiles, "grid": plan.grid, "waves": plan.waves,
-                     "a_vec": path.a_vec, "out_vec": path.out_vec}
-        log(f"int8 matmul {name} [{r}, {k}] x [{k}, {n}] ({order}{', row scale' if with_row else ''}, x{per_forward} "
-            f"per forward): path {path.name}, tiles 128 x {plan.bn}, {plan.tiles} tiles on {plan.grid} CTAs "
-            f"({plan.waves} a CTA), A loads {path.a_vec} B, {'16-byte' if path.out_vec else 'element'} stores; "
-            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, torch._int_mm + epilogue "
-            f"{library_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB); "
-            f"host time of a wrapper call {host_us:.1f} us")
-        shapes.append({"name": name, "rkn": [r, k, n], "per_forward": per_forward, "path": path.name,
-                       "plan": plan_info, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by, "host_us": host_us})
-        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", bound_ms)):
-            total[key] += per_forward * value
+        # Device times from CUDA-graph replays (several launches per replay
+        # where the output is small), so the host's launch cost stays out;
+        # that cost is timed apart, on the host clock.
+        per_replay = 20 if per_forward > 1 or r * n < 1 << 20 else 2
+        ms = graph_ms(kernel, per_replay)
+        plain_ms = graph_ms(lambda: mq.matmul_q8_reference(a8, w, rs, order=order), per_replay)
+        library_ms = None if library is None else graph_ms(library, per_replay)
+        (host_us,) = tools.host_us([kernel])
+    nbytes = r * k + k * n + 4 * r * n + 8 * n + (4 * r if with_row else 0)
+    bound_ms, bound_by = bound(nbytes, 2 * r * k * n, INT8_OPS_PER_MS)
+    plan = path.plan
+    plan_info = None if plan is None else {"bn": plan.bn, "tiles": plan.tiles, "grid": plan.grid, "waves": plan.waves}
+    tiles = "" if plan is None else (f", tiles 128 x {plan.bn}, {plan.tiles} tiles on {plan.grid} CTAs "
+                                     f"({plan.waves} a CTA)")
+    lib_text = "null (16 rows or fewer)" if library_ms is None else f"{library_ms * 1e3:.1f} us"
+    log(f"int8 matmul {name} [{r}, {k}] x [{k}, {n}] ({order}{', row scale' if with_row else ''}, x{per_forward} "
+        f"per forward): bit for bit; path {path.name}{tiles}, A loads {path.a_vec} B, "
+        f"{'16-byte' if path.out_vec else 'element'} stores; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+        f"torch._int_mm + epilogue {lib_text}; bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.2f} MB); "
+        f"host time of a wrapper call {host_us:.1f} us")
+    return {"name": name, "rkn": [r, k, n], "per_forward": per_forward, "path": path.name,
+            "plan": plan_info, "a_vec": path.a_vec, "out_vec": path.out_vec, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "host_us": host_us}
+
+
+def phase_q8_kernel(dev) -> dict:
+    import torch
+
+    from formula_vad_tpu_torch.ops import matmul_q8 as mq
+
+    # One small ragged case against exact int64 arithmetic on the host.
+    rng = np.random.default_rng(5)
+    a, b = rng.integers(-127, 128, (100, 161)).astype(np.int8), rng.integers(-127, 128, (161, 161)).astype(np.int8)
+    got = mq.matmul_q8(torch.from_numpy(a).to(dev), mq.Q8Weight.pack(torch.from_numpy(b).to(dev), torch.ones(161, device=dev)))
+    if got.cpu().numpy().tobytes() != (a.astype(np.int64) @ b.astype(np.int64)).astype(np.float32).tobytes():
+        raise AssertionError("int8 matmul kernel != int64 numpy on [100, 161] x [161, 161]")
+    log("int8 matmul kernel == int64 numpy on [100, 161] x [161, 161]")
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    shapes = []
+    for i, shape in enumerate(Q8_SHAPES):
+        entry = q8_product(dev, i, *shape)
+        if entry["path"] != "wgmma":
+            raise AssertionError(f"int8 matmul at {entry['name']}: the wrapper took {entry['path']}, not the wgmma body")
+        shapes.append(entry)
+        for key in total:
+            total[key] += entry["per_forward"] * entry[key]
+    err = max(entry["max_abs_err"] for entry in shapes)
+    bound_kinds = {entry["bound_by"] for entry in shapes}
     log("int8 matmul kernel == plain bit for bit at all six shapes, both orders, f32 and bf16 output")
     log(f"int8 matmul per forward ({Q8_LAUNCHES} launches): kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
         f"torch._int_mm + epilogue {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
@@ -673,6 +755,23 @@ def phase_q8_kernel(dev) -> dict:
         "replaces": "formula_vad_tpu/ops/matmul_q8.py:69", "max_abs_err": err,
         **total, "bound_by": "bytes" if bound_kinds == {"bytes"} else "operations", "shapes": shapes,
     }
+
+
+def q8_at(dev, rows: int) -> dict:
+    """The int8 matmul kernel at the products of a chunk step of ``rows`` GRU
+    rows, each against its plain version (``q8_product``); -> the sums over a
+    forward's 167 launches."""
+    shapes = [q8_product(dev, 20 + i, *shape) for i, shape in enumerate(q8_shapes(rows))]
+    total = {key: sum(e["per_forward"] * e[key] for e in shapes) for key in ("ms", "plain_ms", "bound_ms")}
+    libs = [e["library_ms"] for e in shapes]
+    total["library_ms"] = None if None in libs else sum(e["per_forward"] * t for e, t in zip(shapes, libs))
+    lib_text = "null" if total["library_ms"] is None else f"{total['library_ms']:.3f} ms"
+    log(f"int8 matmul over a chunk step's forward at {rows} GRU rows ({Q8_LAUNCHES} launches), bit for bit at all six "
+        f"products: kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, torch._int_mm + epilogue "
+        f"{lib_text}, bound {total['bound_ms']:.4f} ms")
+    kinds = {e["bound_by"] for e in shapes}
+    return {"rows": rows, "max_abs_err": max(e["max_abs_err"] for e in shapes), **total,
+            "bound_by": "bytes" if kinds == {"bytes"} else "operations", "shapes": shapes}
 
 
 def segment_spans(run_dir: str, stream: int) -> list[tuple[float, float]]:
@@ -832,6 +931,37 @@ def check_p_form(name: str, kind: int, wrapper, plain, net, dev) -> dict:
             "tiles_per_group": launch.tiles_per_group, "grid": launch.grid, "smem_bytes": launch.smem_bytes(kind)}
 
 
+def check_pre_flip(name: str, kind: int, wrapper, plain, dev) -> dict:
+    """The bf16 form of kernel ``kind`` on random gi against its plain
+    version, under the CPU tests' pre-flip bar (ROADMAP §3 fault 3 step 3):
+    mean |dh2| <= PRE_FLIP_MEAN over each row's steps before its first bf16
+    rounding flip of h2, over at least PRE_FLIP_STEPS such row-steps."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+
+    net = load_denoiser("random", device=dev)
+    rng = np.random.default_rng(100)
+    gi = [torch.from_numpy((rng.standard_normal((PRE_FLIP_ROWS, GRU_STEPS, 400)) * 0.8).astype(np.float32)).to(dev)
+          for _ in range(3)]
+    args = gi if kind == 5 else [g.to(torch.bfloat16) for g in gi]
+    kw = {"out_dtype": torch.float32} if kind == 6 else {}
+    got = wrapper(net, *args, dtype=torch.bfloat16, **kw).float()
+    want = plain(gates.gate_weights(net, torch.bfloat16), *args, **kw).float()
+    flip = (got.to(torch.bfloat16) != want.to(torch.bfloat16)).any(dim=2)
+    first = torch.where(flip.any(dim=1), flip.int().argmax(dim=1), GRU_STEPS)
+    before = torch.arange(GRU_STEPS, device=dev)[None, :] < first[:, None]
+    d = (got - want).abs()
+    steps, mean = int(before.sum()), float(d[before].mean())
+    log(f"{name} bf16 on random gi [{PRE_FLIP_ROWS}, {GRU_STEPS}] vs plain: first flips {first.tolist()}; before "
+        f"them {steps} row-steps (floor {PRE_FLIP_STEPS}) at mean |dh2| {mean:.3e} (bar {PRE_FLIP_MEAN}); over all "
+        f"steps mean {float(d.mean()):.3e}")
+    if steps < PRE_FLIP_STEPS or not mean <= PRE_FLIP_MEAN:
+        raise AssertionError(f"{name} bf16 misses the pre-flip bar on random gi: {steps} row-steps, mean {mean}")
+    return {"rows": PRE_FLIP_ROWS, "row_steps": steps, "mean_abs_err": mean, "first_flips": first.tolist()}
+
+
 def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
     """Path A (the experiment tool, its own random weights) once with the
     counters at 0, then each per-gate kernel against its plain version on
@@ -917,7 +1047,8 @@ def phase_gates(dev, kernel1_ms: float) -> tuple[list[dict], dict]:
                     extra = {"source": "formula_vad_tpu_torch/csrc/gru_stack.cu"}
                 else:
                     extra = {"source": "formula_vad_tpu_torch/csrc/gru_gates_p.cu",
-                             "plan": check_p_form(name, kind, wrapper, plain, net, dev)}
+                             "plan": check_p_form(name, kind, wrapper, plain, net, dev),
+                             "pre_flip": check_pre_flip(name, kind, wrapper, plain, dev)}
                 extra["queued_ms"] = queued_ms(lambda: wrapper(net, *args, dtype=dtype))
                 if kind == 6:
                     f32_out, bf16_out = (wrapper(net, *args, dtype=dtype, out_dtype=o) for o in gates.DTYPES)
@@ -1309,56 +1440,88 @@ def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, d
             **{name: sum(t[name] for t in tiers.values()) for name in ("gru_gates", "gru_gates_f")}}, kernels
 
 
-def kernel_6_on_its_path(net, dev, rows: int) -> dict:
-    """Kernel 6 in bf16 with a bf16 out on the gi the bf16_io tier hands it
-    (the per-gate projections of the bf16 fc_in output of random features,
-    numpy seed 12), against its plain version: phase 8's bars; its times,
-    bound and cuDNN's fp16 GRU at that shape."""
+def gates_on_path(net, dev, rows: int, kind: int) -> dict:
+    """Kernel 5 (the bf16 tier: float32 gi, bf16 h) or kernel 6 (the bf16_io
+    tier: bf16 gi, bf16 out) on the gi its tier hands it (the per-gate
+    projections of the fc_in output of random features, numpy seed 12), at
+    [rows, 54], against its plain version: phase 8's bars, and as many
+    launches counted as its plan holds; its plan, single and queued times,
+    plain time, bound and cuDNN's fp16 GRU at that shape."""
     import torch
 
     from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
     from formula_vad_tpu_torch.ops import precision
-    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
 
     feats = torch.from_numpy(
         np.random.default_rng(12).normal(-3.0, 1.5, (rows, GRU_STEPS, 161)).astype(np.float32)).to(dev)
     bf16 = torch.bfloat16
-    precision.set_io_dtype("bf16")
+    if kind == 5:
+        wrapper, plain, kw, what = gates.gru_gates_p, gates.gru_gates_p_reference, {}, "kernel 5 bf16 on the bf16 path"
+    else:
+        wrapper, plain, kw = gates.gru_gates_f, gates.gru_gates_f_reference, {"out_dtype": bf16}
+        what = "kernel 6 bf16 (bf16 out) on the bf16_io path"
+    precision.set_io_dtype("bf16" if kind == 6 else "f32")
     try:
         with torch.inference_mode():
             x = net.fc_in(precision.io_cast(feats))
-            gi = tuple(g.to(bf16) for g in gates.gi_gates(net, x))
+            gi = gates.gi_gates(net, x)
+            if kind == 6:
+                gi = tuple(g.to(bf16) for g in gi)
     finally:
         precision.set_io_dtype("f32")
     gw = gates.gate_weights(net, bf16)
+    plan = gates.device_p_plan(rows, dev)
+    launch = plan[0]
+
+    def call():
+        return wrapper(net, *gi, dtype=bf16, **kw)
+
     with torch.inference_mode():
-        before = gates.gru_gates_f.launches
-        got = gates.gru_gates_f(net, *gi, dtype=bf16, out_dtype=bf16)
-        launched = gates.gru_gates_f.launches - before
-        want = gates.gru_gates_f_reference(gw, *gi, out_dtype=bf16)
+        before = wrapper.launches
+        got = call()
+        launched = wrapper.launches - before
+        want = plain(gw, *gi, **kw)
         torch.cuda.synchronize()
-        if got.dtype != bf16 or not bool(torch.isfinite(got.float()).all()):
-            raise AssertionError(f"kernel 6 on the bf16_io path gave {got.dtype} or non-finite values at {rows} rows")
+        if got.dtype != (bf16 if kind == 6 else torch.float32) or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{what} gave {got.dtype} or non-finite values at {rows} rows")
         d = (got.float() - want.float()).abs()
         err, mean = float(d.max()), float(d.mean())
-        if launched != len(gates.device_p_plan(rows, dev)):
-            raise AssertionError(f"kernel 6 at {rows} rows counted {launched} launches")
+        # Phase 8's pre-flip bar: over each row's steps before its first
+        # bf16 rounding flip of h2.
+        flip = (got.to(bf16) != want.to(bf16)).any(dim=2)
+        first = torch.where(flip.any(dim=1), flip.int().argmax(dim=1), GRU_STEPS)
+        pre = torch.arange(GRU_STEPS, device=dev)[None, :] < first[:, None]
+        pre_steps = int(pre.sum())
+        pre_mean = float(d[pre].mean()) if pre_steps else None
+        if launched != len(plan):
+            raise AssertionError(f"{what} at {rows} rows counted {launched} launches, its plan has {len(plan)}")
+        if not pre_steps or not pre_mean <= PRE_FLIP_MEAN:
+            raise AssertionError(f"{what} misses the pre-flip bar at [{rows}, {GRU_STEPS}]: {pre_steps} row-steps "
+                                 f"before the first flips, mean {pre_mean}")
         if not (err <= BF16_MAX and mean <= BF16_MEAN):
-            raise AssertionError(f"kernel 6 (bf16 out) disagrees with its plain version at [{rows}, {GRU_STEPS}]: "
+            raise AssertionError(f"{what} disagrees with its plain version at [{rows}, {GRU_STEPS}]: "
                                  f"max {err}, mean {mean}")
-        ms = cuda_ms(lambda: gates.gru_gates_f(net, *gi, dtype=bf16, out_dtype=bf16))
-        plain_ms = cuda_ms(lambda: gates.gru_gates_f_reference(gw, *gi, out_dtype=bf16), reps=3)
+        ms = cuda_ms(call)
+        queued = queued_ms(call)
+        plain_ms = cuda_ms(lambda: plain(gw, *gi, **kw), reps=3)
         gru = cudnn_gru(net, dev, torch.float16)
         xh = x.to(torch.float16)
         library_ms = cuda_ms(lambda: gru(xh))
     ops = 3 * 2 * rows * 400 * 1200 * GRU_STEPS
     nbytes = sum(g.nbytes for g in gi) + got.nbytes + gw.w9.nbytes + gw.b8.nbytes
     bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_MS)
-    log(f"kernel 6 bf16 (bf16 out) on the bf16_io path at [{rows}, {GRU_STEPS}] ({launched} launch): max |dh2| "
-        f"{err:.3e}, mean {mean:.3e} (bars {BF16_MAX}, {BF16_MEAN}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by}, cuDNN GRU fp16 {library_ms:.3f} ms")
-    return {"rows": rows, "max_abs_err": err, "mean_abs_err": mean, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    log(f"{what} at [{rows}, {GRU_STEPS}]: plan {len(plan)} launch(es), the first {gates.P_UNIT_GROUPS} unit groups "
+        f"x {launch.row_groups} row groups of {launch.tiles_per_group} 16-row tiles, grid {launch.grid}, "
+        f"{launch.smem_bytes(kind)} B shared a CTA; {launched} launch(es) counted; max |dh2| {err:.3e}, mean "
+        f"{mean:.3e} (bars {BF16_MAX}, {BF16_MEAN}); before each row's first flip {pre_steps} row-steps at mean "
+        f"{pre_mean:.3e} (bar {PRE_FLIP_MEAN}){' (first flips ' + str(first.tolist()) + ')' if rows <= 8 else ''}; single call {ms:.3f} ms, queued {queued:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us by {bound_by}, cuDNN GRU fp16 {library_ms:.3f} ms")
+    return {"rows": rows, "launches_a_call": launched, "grid": launch.grid, "row_groups": launch.row_groups,
+            "tiles_per_group": launch.tiles_per_group, "max_abs_err": err, "mean_abs_err": mean,
+            "pre_flip_row_steps": pre_steps, "pre_flip_mean_abs_err": pre_mean, "ms": ms,
+            "queued_ms": queued, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def phase_tiers(runner, audio, smi: str) -> dict:
@@ -1403,7 +1566,7 @@ def phase_tiers(runner, audio, smi: str) -> dict:
     spans_within_a_window("bf16_io slice vs the float tier's", results["bf16_io"], results["float"])
 
     net, dev = runner.net, runner.device
-    path = [kernel_6_on_its_path(net, dev, rows) for rows in (GRU_ROWS, CAMPAIGN_ROWS)]
+    path = [gates_on_path(net, dev, rows, 6) for rows in (GRU_ROWS, CAMPAIGN_ROWS)]
 
     t0 = time.perf_counter()
     reset_counts(counters)
@@ -1439,6 +1602,357 @@ def phase_tiers(runner, audio, smi: str) -> dict:
     return {"slice": launches, "campaign": campaign, "kernel_6_path": path}
 
 
+def kernel_1_at(net, dev, rows: int) -> dict:
+    """Kernel 1 at a chunk step's ``rows`` x 54 steps (gi1 from random
+    features, numpy seed ``rows``) against its plain version on the demo
+    and the biased weights (GRU_TOL), with its launch plan, single and
+    queued times, plain and cuDNN times and bound."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
+
+    plan = nsnet2_cuda.device_plan(rows, dev)
+    rng = np.random.default_rng(rows)
+    feats = torch.from_numpy(rng.normal(-3.0, 1.5, (rows, GRU_STEPS, 161)).astype(np.float32)).to(dev)
+    gru = cudnn_gru(net, dev)
+    err = 0.0
+    with torch.inference_mode():
+        x = net.fc_in(feats)
+        gi1 = (x @ net.gru1.wi + net.gru1.bi).contiguous()
+        for label, weights in (("demo", net), ("biased", biased_net(dev))):
+            got = nsnet2_cuda.gru_stack(weights, gi1)
+            want = nsnet2_cuda.gru_stack_reference(weights, gi1)
+            e = float((got - want).abs().max()) if bool(torch.isfinite(got).all()) else float("inf")
+            if not e <= GRU_TOL:
+                raise AssertionError(f"GRU kernel disagrees with its plain version at [{rows}, {GRU_STEPS}], {label}: {e}")
+            err = max(err, e)
+        got = nsnet2_cuda.gru_stack(net, gi1)
+        ms = cuda_ms(lambda: nsnet2_cuda.gru_stack(net, gi1))
+        queued = queued_ms(lambda: nsnet2_cuda.gru_stack(net, gi1))
+        plain_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_reference(net, gi1), reps=3)
+        library_ms = cuda_ms(lambda: gru(x))
+    ops = 3 * 2 * rows * 400 * 1200 * GRU_STEPS
+    weights = (net.gru1.wh, net.gru1.bh, net.gru2.wi, net.gru2.bi, net.gru2.wh, net.gru2.bh)
+    nbytes = gi1.nbytes + got.nbytes + sum(w.nbytes for w in weights)
+    bound_ms, bound_by = bound(nbytes, ops, F32_OPS_PER_MS)
+    log(f"GRU kernel at a chunk step's [{rows}, {GRU_STEPS}]: plan {plan.tiles} tiles of {plan.row_tile} rows x "
+        f"{plan.unit_tile} units, grid {plan.grid}; max |dh2| {err:.3e} on the demo and biased weights (tolerance "
+        f"{GRU_TOL}); single call {ms:.3f} ms, queued {queued:.3f} ms, plain {plain_ms:.3f} ms, cuDNN GRU "
+        f"{library_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by}")
+    return {"rows": rows, "steps": GRU_STEPS, "grid": plan.grid, "tiles": plan.tiles, "row_tile": plan.row_tile,
+            "unit_tile": plan.unit_tile, "max_abs_err": err, "ms": ms, "queued_ms": queued, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def check_stream_fsm(net, st, audio, dev) -> dict:
+    """The chained FSM calls of a streaming run of ``audio`` [B, 2, T] (one
+    a chunk step, each continuing the last one's carry) against the host
+    decoder and against the kernel's plain version: chained over the same
+    chunks, all seven outputs at every slot and the final carry; and against
+    the host decoder in one call over each stream's valid windows joined (a
+    23-window chunk leaves its last slot empty between valid windows), the
+    outputs at every valid slot and the final carry, every invalid slot
+    inert. All bit for bit. Then the kernel at [B, 24]: its plan, a fresh and
+    a chained call's times, its plain version's and its bound."""
+    import torch
+
+    from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host, vad
+    from formula_vad_tpu_torch.tools import cuda_ms
+
+    with torch.inference_mode():
+        carry, outs = vad.process_stream(net, st, torch.from_numpy(audio).to(dev))
+    mv, rt, va = (x.cpu().numpy() for x in (outs.min_vol, outs.ratios, outs.window_valid))
+    wb = outs.win_indices[..., 0].cpu().numpy()
+    got = fsm.WindowOutput(*(x.cpu().numpy() for x in outs.windows))
+    final = {k: v.cpu().numpy() for k, v in carry["fsm"].items()}
+    shape, params = st.fsm_shape, st.fsm_params
+
+    def same_carry(other, what):
+        for key in final:
+            if final[key].tobytes() != np.ascontiguousarray(other[key]).tobytes():
+                raise AssertionError(f"streaming FSM != {what}: final carry {key}")
+
+    def chunk_args(k):
+        return [torch.from_numpy(np.ascontiguousarray(x[:, k])).to(dev) for x in (mv, rt, va)] + \
+            [torch.from_numpy(np.ascontiguousarray(wb[:, k])).to(dev)]
+
+    host_carry = plain_carry = None
+    for k in range(mv.shape[1]):
+        want, host_carry = fsm_host.scan_windows_host(shape, params, mv[:, k], rt[:, k], va[:, k], host_carry, wb[:, k])
+        *args, base = chunk_args(k)
+        plain, plain_carry = fsm_cuda.scan_windows_reference(shape, params, *args, plain_carry, base)
+        for other, out in (("the host decoder", want), ("the plain version", plain)):
+            for field, a, w in zip(got._fields, got, out):
+                w = w.cpu().numpy() if isinstance(w, torch.Tensor) else w
+                if np.ascontiguousarray(a[:, k]).tobytes() != np.ascontiguousarray(w).tobytes():
+                    raise AssertionError(f"streaming FSM != {other} chained per chunk: chunk {k}, {field}")
+    same_carry({k: v.cpu().numpy() for k, v in plain_carry.items()}, "the plain version chained per chunk")
+    same_carry(host_carry, "the host decoder chained per chunk")
+    b = mv.shape[0]
+    flat = [x.reshape(b, -1) for x in (mv, rt, va)]
+    n = flat[2].sum(axis=1)
+    joined = [np.zeros((b, n.max()), np.float32) for _ in range(2)]
+    for i in range(b):
+        for j in range(2):
+            joined[j][i, : n[i]] = flat[j][i, flat[2][i]]
+    want, one_carry = fsm_host.scan_windows_host(shape, params, *joined, np.arange(n.max()) < n[:, None])
+    for i in range(b):
+        for field, a, w in zip(got._fields, got, want):
+            a = a.reshape(b, -1)[i]
+            if a[flat[2][i]].tobytes() != w[i, : n[i]].tobytes():
+                raise AssertionError(f"streaming FSM != host decoder over the joined valid windows: s{i}, {field}")
+            if field in ("event", "event_win", "seg_valid") and a[~flat[2][i]].any():
+                raise AssertionError(f"streaming FSM: an invalid slot of s{i} is not inert ({field})")
+    same_carry(one_carry, "the host decoder over the joined valid windows")
+    events = np.bincount(want.event.reshape(-1), minlength=4)
+    log(f"streaming FSM at [{b}, {mv.shape[2]}] over {mv.shape[1]} chunk calls ({int(va.sum())} valid windows of "
+        f"{va.size} slots, events none/started/completed/aborted {events.tolist()}) == the host decoder and the plain "
+        f"version chained per chunk, and the host decoder in one call over the joined valid windows: all 7 outputs "
+        f"and the final carry, bit for bit")
+    if events[2] == 0:
+        raise AssertionError("the streaming FSM check saw no completed segment")
+
+    # The kernel at a chunk step's [B, 24]: fresh (the first chunk) and
+    # continuing a carry (every later one), as process_stream calls it.
+    *first_args, first_base = chunk_args(0)
+    *args, base = chunk_args(1)
+    with torch.inference_mode():
+        _, first_carry = fsm_cuda.scan_windows(shape, params, *first_args, win_base=first_base)
+        plan = fsm_cuda.scan_windows.last_plan
+        fresh_ms = cuda_ms(lambda: fsm_cuda.scan_windows(shape, params, *args, win_base=base))
+        ms = cuda_ms(lambda: fsm_cuda._scan_chained(shape, params, *args, first_carry, base))
+        plain_ms = cuda_ms(lambda: fsm_cuda.scan_windows_reference(shape, params, *args, first_carry, base), reps=3)
+        out, out_carry = fsm_cuda._scan_chained(shape, params, *args, first_carry, base)
+    nbytes = sum(x.nbytes for x in args) + base.nbytes + sum(x.nbytes for x in out) \
+        + sum(x.nbytes for x in first_carry.values()) + sum(x.nbytes for x in out_carry.values())
+    bound_ms, bound_by = bound(nbytes, 0, F32_OPS_PER_MS)
+    log(f"FSM kernel at a chunk step's [{b}, {mv.shape[2]}]: plan {plan.body} body, {plan.ctas} CTAs of {plan.threads} "
+        f"threads, tile {plan.tile}, {plan.smem_bytes} B shared a CTA; continuing a carry {ms:.4f} ms, fresh "
+        f"{fresh_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by}")
+    return {"rows": b, "windows": int(mv.shape[2]), "chunks": int(mv.shape[1]), "valid_windows": int(va.sum()),
+            "slots": int(va.size), "body": plan.body, "ctas": plan.ctas, "max_abs_err": 0.0, "ms": ms,
+            "fresh_ms": fresh_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def check_pipeline(net, stream, audio, counters, smi: str) -> dict:
+    """The host AudioPipeline on one PIPELINE_SECONDS stereo stream ``audio`` pushed
+    in irregular sizes: its segments against the streaming runner's, its
+    recordings (one original and one denoised a segment that ends inside
+    the stream, at its sample_from, its length), its launches, and the
+    time from a chunk's PCM leaving the ring to its events (upload, step,
+    fetch, events) beside the 500 ms chunk cadence."""
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.pipeline.pipeline import AudioPipeline, Callbacks
+
+    want = stream.run(audio[None])[0].segments
+    AudioPipeline(PipelineConfig(), net).push_samples(audio[:, : 2 * 24000])  # warm-up: a 2-row chunk step's caches
+    recs = {"original": [], "denoised": []}
+    pipe = AudioPipeline(PipelineConfig(), net, Callbacks(on_original_recording=recs["original"].append,
+                                                          on_denoised_recording=recs["denoised"].append))
+    latency = []
+    process = pipe._process_chunk
+
+    def timed(chunk):
+        t0 = time.perf_counter()
+        process(chunk)
+        latency.append((time.perf_counter() - t0) * 1e3)
+
+    pipe._process_chunk = timed
+    reset_counts(counters)
+    rng, pos = np.random.default_rng(5), 0
+    while pos < audio.shape[1]:
+        n = int(rng.integers(1000, 100_000))
+        pipe.push_samples(audio[:, pos : pos + n])
+        pos += n
+    launches = {name: fn.launches for name, fn in counters.items()}
+    chunks = audio.shape[1] // 24000
+    if launches != dict(dict.fromkeys(counters, 0), gru_stack=chunks, scan_windows=chunks):
+        raise AssertionError(f"AudioPipeline launched {launches} over {chunks} chunks")
+    if not want or pipe.segments != want:
+        raise AssertionError(f"AudioPipeline segments {pipe.segments} != the streaming runner's {want}")
+    ends_inside = [seg for seg in want if seg["sample_to"] <= audio.shape[1]]
+    for kind, bufs in recs.items():
+        spans = [(b.global_start_frame_number, b.length, b.n_channels) for b in bufs]
+        if spans != [(seg["sample_from"], seg["sample_to"] - seg["sample_from"], 1) for seg in ends_inside]:
+            raise AssertionError(f"AudioPipeline {kind} recordings {spans} against the segments {ends_inside}")
+    p50, p95 = (float(np.percentile(latency, q)) for q in (50, 95))
+    log(f"AudioPipeline, one {PIPELINE_SECONDS:.0f} s stereo stream in irregular pushes: {len(want)} segments equal "
+        f"to the streaming runner's; {len(ends_inside)} original and {len(ends_inside)} denoised recordings at each "
+        f"segment's sample_from; launches {launches}; a chunk's PCM to its events {p50:.2f} ms p50, {p95:.2f} ms p95, "
+        f"max {max(latency):.2f} ms over {len(latency)} chunks, against the 500 ms chunk cadence; on {smi}")
+    return {"chunks": len(latency), "segments": len(want), "latency_p50_ms": p50, "latency_p95_ms": p95,
+            "launches": launches}
+
+
+def clip_frames(run_dir: str) -> dict:
+    """{(instance, clip file): its sample count} of a simulator run."""
+    from formula_vad_tpu_torch.io_ import AudioSource
+
+    clips = {}
+    for inst in sorted(d for d in os.listdir(run_dir) if os.path.isdir(os.path.join(run_dir, d))):
+        for name in sorted(os.listdir(os.path.join(run_dir, inst))):
+            src = AudioSource.open_stream(os.path.join(run_dir, inst, name))
+            clips[(inst, name)] = src.n_frames
+            src.close()
+    return clips
+
+
+def step_times(stream, audio) -> tuple[float, float]:
+    """One streaming run of ``audio`` with each chunk step timed: -> the
+    medians of its CUDA-event time and of the host time of its Python call,
+    in ms, both logged with their ranges."""
+    import torch
+
+    from formula_vad_tpu_torch.pipeline import vad
+
+    step = vad.chunk_step
+    host_ms, marks = [], []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = step(*args, **kwargs)
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        marks.append((start, end))
+        return out
+
+    vad.chunk_step = timed
+    try:
+        stream.run(audio)
+    finally:
+        vad.chunk_step = step
+    torch.cuda.synchronize()
+    event_ms = [a.elapsed_time(b) for a, b in marks]
+    log(f"  a chunk step, over {len(marks)}: CUDA-event time median {statistics.median(event_ms):.3f} ms (min "
+        f"{min(event_ms):.3f}, max {max(event_ms):.3f}); host time of the Python call median "
+        f"{statistics.median(host_ms):.3f} ms (min {min(host_ms):.3f}, max {max(host_ms):.3f})")
+    return statistics.median(event_ms), statistics.median(host_ms)
+
+
+def profiled_busy(stream, audio) -> tuple[float | None, float]:
+    """One streaming run of ``audio`` under torch.profiler: -> (the device's
+    busy ms, or None where the trace holds no device event; the run's wall
+    ms), logged with the launches a chunk step and the top kernels."""
+    import torch
+
+    from formula_vad_tpu_torch.tools import busy_ms
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        stream.run(audio)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log("  profiled run: the trace holds no device events")
+        return None, wall
+    busy, kernels, copies = busy_ms(events)
+    n_kernels = sum(1 for e in events if not e.name.lower().startswith(("memcpy", "memset")))
+    log(f"  profiled run: wall {wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%; kernels "
+        f"{kernels:.1f} ms in {n_kernels} launches, {n_kernels / STREAM_CHUNKS:.0f} a chunk step; copies "
+        f"{copies:.1f} ms), idle {wall - busy:.1f} ms")
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("  profiled run, device time by kernel (ms): " + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
+    return busy, wall
+
+
+def phase_stream(runner, audio, float_results, float_wall: float, corpus: str, batched_dir: str, smi: str) -> dict:
+    """Phase 12; -> {"runs": each kernel's launches in each tier's streaming
+    runs, "stream_shapes": each kernel of the path at a chunk step's shapes,
+    "tiers": each tier's wall and chunk-step times, and the measures}."""
+    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
+    from formula_vad_tpu_torch.ops import matmul_q8, precision
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+    from formula_vad_tpu_torch.pipeline import fsm_cuda
+    from formula_vad_tpu_torch.testing.synth import synth_stream
+
+    t_phase = time.perf_counter()
+    net, dev, st = runner.net, runner.device, runner.st
+    counters = {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
+                "gru_gates": nsnet2_gates_cuda.gru_gates, "gru_gates_p": nsnet2_gates_cuda.gru_gates_p,
+                "gru_gates_f": nsnet2_gates_cuda.gru_gates_f, "matmul_q8": matmul_q8.matmul_q8}
+    stream = BatchRunner(net, use_offline=False)
+    audio_sec = SLICE_STREAMS * SLICE_SECONDS
+    runs, tiers = {}, {}
+    for tier, level, io, quant, recurrence, per_step in STREAM_TIERS:
+        precision.set_matmul_precision(level)
+        precision.set_io_dtype(io)
+        precision.set_quant(quant)
+        try:
+            results, walls, runs[tier] = timed_runs(stream, audio, counters)
+            log(f"{tier} streaming slice {SLICE_STREAMS} x {SLICE_SECONDS:.0f} s ({STREAM_CHUNKS} chunk steps a run):")
+            event_ms, host_ms = step_times(stream, audio)
+            busy, prof_wall = profiled_busy(stream, audio)
+            offline = float_results if tier == "float" else runner.run(audio)
+        finally:
+            precision.set_matmul_precision("highest")
+            precision.set_io_dtype("f32")
+            precision.set_quant("off")
+        want = dict(dict.fromkeys(counters, 0), scan_windows=3 * STREAM_CHUNKS,
+                    **{recurrence: 3 * per_step * STREAM_CHUNKS})
+        if runs[tier] != want:
+            raise AssertionError(f"the {tier} streaming slice launched {runs[tier]} over 3 runs, not {want}")
+        wall = statistics.median(walls)
+        tiers[tier] = {"wall_ms": wall * 1e3, "runs_ms": [w * 1e3 for w in walls], "rtf": audio_sec / wall,
+                       "step_event_ms": event_ms, "step_host_ms": host_ms, "busy_ms": busy,
+                       "profiled_wall_ms": prof_wall}
+        log(f"  {tier}: wall {wall * 1e3:.1f} ms (median of 3 after a warm-up, runs "
+            f"{[round(w * 1e3, 1) for w in walls]}), real-time factor {audio_sec / wall:.1f}; launches over the 3 runs "
+            f"{runs[tier]}; on {smi}")
+        if tier == "float":
+            log(f"  the offline path's real-time factor on the same slice: {audio_sec / float_wall:.1f} (phase 4)")
+            got, off = [r.segments for r in results], [r.segments for r in offline]
+            if got != off:
+                for i, (g, w) in enumerate(zip(got, off)):
+                    if g != w:
+                        log(f"s{i} streaming: {g}\ns{i} offline:   {w}")
+                raise AssertionError("the streaming slice's segments differ from phase 4's offline segments")
+            log(f"  streaming slice segments: {sum(map(len, got))}, identical to phase 4's offline segments")
+        else:
+            spans_within_a_window(f"  {tier} streaming slice vs the {tier} offline run", results, offline)
+
+    pipe_audio = synth_stream(np.random.default_rng(4), PIPELINE_SECONDS)[0]
+    # Every kernel of the path at a chunk step's shapes against its plain
+    # version: the slice's B = 21 streams (42 GRU rows) and AudioPipeline's
+    # one stereo stream (2 rows).
+    fsm_shapes = [check_stream_fsm(net, st, audio, dev), check_stream_fsm(net, st, pipe_audio[None], dev)]
+    shapes = {"gru_stack": [kernel_1_at(net, dev, rows) for rows in STREAM_ROWS],
+              "gru_gates_p": [gates_on_path(net, dev, rows, 5) for rows in STREAM_ROWS],
+              "gru_gates_f": [gates_on_path(net, dev, rows, 6) for rows in STREAM_ROWS],
+              "matmul_q8": [q8_at(dev, rows) for rows in STREAM_ROWS],
+              "scan_windows": fsm_shapes}
+    pipeline = check_pipeline(net, stream, pipe_audio, counters, smi)
+
+    outs = run_simulators(corpus, {"stream_cuda": ("cuda", {}), "stream_cpu": ("cpu", {})})
+    outs["batched_cuda"] = batched_dir
+    for name in ["report.txt"] + [f"s{i}-audacity.txt" for i in range(CORPUS_STREAMS)]:
+        texts = {plan: read_text(d, name) for plan, d in outs.items()}
+        if len(set(texts.values())) != 1:
+            for plan, text in texts.items():
+                log(f"--- {name}, {plan}:\n{text}")
+            raise AssertionError(f"{name} differs between the streaming cuda, streaming cpu and batched cuda runs")
+    clips = {plan: clip_frames(d) for plan, d in outs.items()}
+    if not clips["batched_cuda"] or not clips["stream_cuda"] == clips["stream_cpu"] == clips["batched_cuda"]:
+        raise AssertionError(f"the streaming plans' clips differ from the batched plan's: {clips}")
+    log(f"streaming simulator plans on cuda and cpu: report.txt and Audacity files identical to each other and to "
+        f"phase 5's batched cuda plan; {len(clips['batched_cuda'])} clips with the batched plan's names and sample counts")
+    log("streaming tiers (median wall ms; chunk step event / host ms; device busy %): " + "; ".join(
+        f"{t} {v['wall_ms']:.1f}, {v['step_event_ms']:.3f} / {v['step_host_ms']:.3f}, "
+        + ("not traced" if v["busy_ms"] is None else f"{100 * v['busy_ms'] / v['profiled_wall_ms']:.1f}%")
+        for t, v in tiers.items()))
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "stream_shapes": shapes, "pipeline": pipeline, "tiers": tiers,
+            "offline_rtf": audio_sec / float_wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -1471,16 +1985,18 @@ def main() -> int:
     launches, float_results, float_wall = phase_slice(runner, audio, smi)
     with tempfile.TemporaryDirectory() as corpus:
         write_corpus(corpus, CORPUS_STREAMS, 20.0, seed=2,
-                     plans=dict.fromkeys(("cuda", "cpu", "int8_cuda", "int8_cpu", "bf16_cuda", "bf16_cpu"), {}))
-        phase_entry_point(corpus)
+                     plans={**dict.fromkeys(("cuda", "cpu", "int8_cuda", "int8_cpu", "bf16_cuda", "bf16_cpu"), {}),
+                            **dict.fromkeys(("stream_cuda", "stream_cpu"), {"batch_streams": False})})
+        batched_dir = phase_entry_point(corpus)
         kernels.append(phase_q8_kernel(dev))
         launches["matmul_q8"] = phase_q8_slice(runner, audio, float_results, float_wall, corpus, smi)["matmul_q8"]
         gate_rows, path_a = phase_gates(dev, kernels[0]["ms"])
         kernels += gate_rows
         path_b = phase_bf16_slice(runner, audio, float_results, float_wall, corpus, smi)
-    with tempfile.TemporaryDirectory() as root:
-        slab_launches, slab_shapes = phase_slab(net, dev, smi, SLICE_STREAMS * SLICE_SECONDS / float_wall, root)
-    tiers = phase_tiers(runner, audio, smi)
+        with tempfile.TemporaryDirectory() as root:
+            slab_launches, slab_shapes = phase_slab(net, dev, smi, SLICE_STREAMS * SLICE_SECONDS / float_wall, root)
+        tiers = phase_tiers(runner, audio, smi)
+        stream = phase_stream(runner, audio, float_results, float_wall, corpus, batched_dir, smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -1496,6 +2012,10 @@ def main() -> int:
         k["launches_campaign"] = tiers["campaign"][k["name"]]
         if k["name"] == "gru_gates_f":
             k["bf16_io_path"] = tiers["kernel_6_path"]
+        # Phase 12: the sum over its streaming runs (3 in each of float, bf16, bf16_io, int8).
+        k["launches_stream"] = sum(run[k["name"]] for run in stream["runs"].values())
+        if k["name"] in stream["stream_shapes"]:
+            k["stream_shapes"] = stream["stream_shapes"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -5,7 +5,10 @@ Reads a plan JSON (``{"instances": [{name, audio_path, ref_path}],
 "config": {...}}``), scores every recording in one batched device pass
 (``parallel.runner.BatchRunner``) or, for ``use_slabs`` plans and batches
 above ``SLAB_AUTO_BYTES`` of float32 audio, slab by slab at constant device
-memory (``parallel.slab_runner.SlabRunner``), compares against the Audacity reference
+memory (``parallel.slab_runner.SlabRunner``); a ``"batch_streams": false``
+plan runs the streams one after the other through the host streaming
+pipeline (``pipeline.pipeline.AudioPipeline``), whose recorders save the
+clips. It compares against the Audacity reference
 labels, writes per-instance Audacity txts, per-segment clips and
 report.txt into a timestamped output directory, and prints the report.
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from ..config import SIMULATOR_STAT_CONFIG, SimConfig, StatConfig, sim_config_from_dict
+from ..config import SIMULATOR_STAT_CONFIG, PipelineConfig, SimConfig, StatConfig, sim_config_from_dict
 from ..eval import SpeechSegment, formats, init_and_run, report
 from ..io_ import AudioSource, ogg
 from ..io_ import native as io_native
@@ -38,6 +41,7 @@ from ..ops import precision
 from ..parallel.runner import BatchRunner
 from ..parallel.slab_runner import SlabRunner
 from ..pipeline import offline
+from ..pipeline.pipeline import AudioPipeline, Callbacks
 
 log = logging.getLogger("fvad.simulator")
 F32 = np.float32
@@ -188,6 +192,42 @@ def _run_batched_srcs(instances, config, net, srcs, lengths) -> None:
             _save_clips(net, inst, read_span, length, length // chunk, chunk, config)
 
 
+def run_streaming(instances: list[Instance], config: SimConfig, device: torch.device) -> None:
+    """The streams one after the other through the host streaming pipeline
+    on ``device``; each recording goes to ``{global start frame}-{original
+    or denoised}{ext}`` in the instance's output directory."""
+    net = load_denoiser(config.vad_config.denoiser_model_path, device=device)
+    for inst in instances:
+        callbacks = Callbacks()
+        if inst.out_dir:
+            ext, write = _clip_writer(config)
+
+            def on_rec(buf, kind, out_dir=inst.out_dir):
+                write(os.path.join(out_dir, f"{buf.global_start_frame_number}-{kind}{ext}"), buf.channel_pcm, buf.sample_rate)
+
+            callbacks = Callbacks(
+                on_original_recording=lambda b: on_rec(b, "original"),
+                on_denoised_recording=lambda b: on_rec(b, "denoised"),
+            )
+        src = AudioSource.preload(inst.audio_path) if config.preload_audio else AudioSource.open_stream(inst.audio_path)
+        try:
+            pipe = AudioPipeline(
+                PipelineConfig(sample_rate=src.sample_rate, n_channels=src.n_channels, vad_config=config.vad_config),
+                net, callbacks,
+            )
+            if config.preload_audio:
+                pipe.push_samples(src.read_all())
+            else:
+                while True:
+                    frames = src.read(config.audio_read_frame_count)
+                    if frames.shape[1] == 0:
+                        break
+                    pipe.push_samples(frames)
+        finally:
+            src.close()
+        inst.vad_segments = pipe.segments
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Run the VAD simulation plan.")
     ap.add_argument("-i", "--input", required=True, help="Simulation plan (path to JSON)")
@@ -214,10 +254,6 @@ def main(argv=None) -> int:
         precision.set_io_dtype(args.io_dtype)
 
     instances, config, base, plan_text = load_plan(args.input)
-    if not config.batch_streams:
-        raise NotImplementedError(
-            "batch_streams=false (sequential streaming) is not ported yet (ROADMAP: port queue, streaming)"
-        )
 
     # Timestamped output dir + verbatim plan copy; a second run in the same
     # second gets a suffix instead of overwriting the first.
@@ -243,7 +279,7 @@ def main(argv=None) -> int:
         with open(inst.ref_path) as f:
             inst.reference_segments = formats.parse_audacity_segments(f.read(), side="ref")
 
-    run_batched(instances, config, device)
+    (run_batched if config.batch_streams else run_streaming)(instances, config, device)
 
     evaluators = []
     for inst in instances:

@@ -1,8 +1,9 @@
-"""Lerp upsampling with a carried sample (port of ``upsample`` in
-``formula_vad_tpu/ops/resample.py``).
+"""Integer-ratio resampling (port of ``formula_vad_tpu/ops/resample.py``).
 
-For rate R each input sample lands at output index i*R + (R-1) and the R-1
-slots before it interpolate from the previous sample:
+``downsample`` is naive decimation, out[i] = in[i * rate], with no
+anti-alias filter, as the reference. In ``upsample``, for rate R each
+input sample lands at output index i*R + (R-1) and the R-1 slots before
+it interpolate from the previous sample:
 ``lerp(a, b, t) = a + (b - a) * t`` in float32 with t = (j+1)/R. The JAX
 package moves the data with exact 0/1 matmuls; here it is a stack and a
 reshape, and the values are bit-identical.
@@ -12,6 +13,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def calc_downsample_rate(in_rate: int, base_rate: int) -> int:
+    if in_rate % base_rate != 0:
+        raise ValueError("sample rate must be divisible by base_rate")
+    return in_rate // base_rate
+
+
+def downsample(x: torch.Tensor, rate: int) -> torch.Tensor:
+    """Decimate the trailing axis by ``rate`` (a strided view)."""
+    return x if rate == 1 else x[..., ::rate]
 
 
 def upsample(x: torch.Tensor, prev_last: torch.Tensor, rate: int) -> tuple[torch.Tensor, torch.Tensor]:

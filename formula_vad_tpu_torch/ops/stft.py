@@ -4,6 +4,12 @@ Port of the live parts of ``formula_vad_tpu/ops/stft.py``. The bases are
 built in numpy exactly as there (float64, then float32), so they are
 bit-identical to the JAX package's; the products run in torch.
 
+Two families: the per-chunk forms of the streaming step (``frame_signal``,
+``stft``, ``istft_overlap_add``, ``magnitude_windows``: frames, then the
+DFT of ``ops/dft.py``), and the offline path's segment-basis forms
+(``segmat_prod``, ``istft_segmat``, ``band_volume_16k``), which fold the
+window and the framing into one basis.
+
 Dropped TPU layout tricks: the 768-lane column padding of the segment basis
 (consumers only read the first 4*n_bins columns) and the iSTFT lane pad.
 
@@ -88,12 +94,72 @@ def band16_basis(
 @functools.lru_cache(maxsize=None)
 def _on_device(kind: str, window_bytes: bytes, args: tuple, device: torch.device) -> torch.Tensor:
     window = np.frombuffer(window_bytes, np.float32)
-    basis_fns = {"segmat": segmat_basis, "inv": inv_segmat_basis, "band16": band16_basis}
+    basis_fns = {"segmat": segmat_basis, "inv": inv_segmat_basis, "band16": band16_basis, "window": np.copy}
     return torch.from_numpy(basis_fns[kind](window, *args)).to(device)
 
 
 def _basis(kind: str, window: np.ndarray, args: tuple, device: torch.device) -> torch.Tensor:
     return _on_device(kind, np.asarray(window, np.float32).tobytes(), args, torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# Per-chunk STFT (the streaming step)
+# ---------------------------------------------------------------------------
+
+
+def _half_overlap(what: str, n_fft: int, hop: int) -> None:
+    if n_fft != 2 * hop:
+        raise ValueError(f"{what}: only half overlap (hop = n_fft / 2) is ported, got n_fft {n_fft}, hop {hop}")
+
+
+def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Slice ``x[..., T]`` into half-overlapping frames [..., n_frames,
+    n_fft], n_frames = (T - n_fft) // hop + 1 (no padding): two shifted
+    reshapes joined, as in the JAX package. Other hops raise ValueError."""
+    _half_overlap("frame_signal", n_fft, hop)
+    n_frames = (x.shape[-1] - n_fft) // hop + 1
+    segs = x[..., : (n_frames + 1) * hop].reshape(x.shape[:-1] + (n_frames + 1, hop))
+    return torch.cat([segs[..., :-1, :], segs[..., 1:, :]], dim=-1)
+
+
+def stft_frames(frames: torch.Tensor, window: np.ndarray, n_fft: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed forward DFT of pre-gathered frames [..., n_fft]."""
+    return dft.rdft(frames * _basis("window", window, (), frames.device), n_fft)
+
+
+def stft(x: torch.Tensor, window: np.ndarray, n_fft: int, hop: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed forward STFT at half overlap: x[..., T] -> (re, im), each
+    [..., n_frames, n_bins]."""
+    return stft_frames(frame_signal(x, n_fft, hop), window, n_fft)
+
+
+def istft_overlap_add(
+    re: torch.Tensor, im: torch.Tensor, window: np.ndarray, n_fft: int, hop: int, out_len: int
+) -> torch.Tensor:
+    """Inverse STFT with windowed overlap-add, kissfft's 1/n_fft folded into
+    the synthesis window: frame f of [..., n_frames, n_bins] adds at offset
+    f * hop of an ``out_len`` buffer. At half overlap the even and the odd
+    frames are each one contiguous stream, added in two shifted adds (no
+    scatter). Other hops raise ValueError."""
+    _half_overlap("istft_overlap_add", n_fft, hop)
+    frames = dft.irdft_kiss(re, im, n_fft)
+    scale = np.asarray(window, np.float32) * np.float32(1.0 / n_fft)
+    frames = frames * _basis("window", scale, (), frames.device).to(frames.dtype)
+    lead = frames.shape[:-2]
+    out = frames.new_zeros(lead + (out_len,))
+    even = frames[..., 0::2, :].reshape(lead + (-1,))
+    odd = frames[..., 1::2, :].reshape(lead + (-1,))
+    out[..., : even.shape[-1]] += even
+    out[..., hop : hop + odd.shape[-1]] += odd
+    return out
+
+
+def magnitude_windows(frames: torch.Tensor, window: np.ndarray, n_fft: int, norm_factor: float) -> torch.Tensor:
+    """Magnitude bins |X| * norm_factor [..., n_bins] of non-overlapping
+    analysis windows [..., n_fft]. The magnitudes feed the FSM's decisions,
+    so they are taken in float32 under every storage tier."""
+    re, im = dft.rdft(frames * _basis("window", window, (), frames.device).to(frames.dtype), n_fft)
+    return dft.magnitude(re.float(), im.float()) * np.float32(norm_factor)
 
 
 # ---------------------------------------------------------------------------

@@ -172,10 +172,7 @@ def _ratios_valid(st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: torch
     b, c, t = audio.shape
     chunk = st.chunk_size
     k = t // chunk
-    vols = volume.rms_volume(audio.reshape(b, c, k, chunk))  # [B, C, K]
-    vol_min = torch.clamp(torch.amin(vols, dim=1), max=1.0)
-    vol_max = torch.clamp(torch.amax(vols, dim=1), min=0.0)
-    ratio_chunk = torch.where(vol_max == 0.0, torch.zeros_like(vol_max), vol_min / vol_max)
+    ratio_chunk, _, _ = volume.volume_analysis(audio.reshape(b, c, k, chunk).transpose(1, 2))  # [B, K]
     c0, c1, w0, w1, one_chunk, w_end = _window_chunks(k, n_windows, chunk, st.fft_size, audio.device)
     r0, r1 = ratio_chunk[:, c0], ratio_chunk[:, c1]
     weighted = (w0 * r0 + w1 * r1) / np.float32(st.fft_size)

@@ -1,16 +1,33 @@
-"""VAD statics and segment assembly (port of ``formula_vad_tpu/pipeline/vad.py``
-:39-80, :181 and :336)."""
+"""The VAD a 0.5 s chunk at a time, its statics and segment assembly (port
+of ``formula_vad_tpu/pipeline/vad.py``).
+
+``chunk_step(net, st, carry, chunk)`` is one pipeline chunk [..., C,
+24000] of any leading batch shape: the stereo volume ratio, the denoiser
+chunk (``denoiser.denoise_chunk``), the re-chunking of the denoised audio
+into 1024-sample windows across chunk edges (each chunk finishes 23 or 24
+of ``max_windows`` = 24 slots), their speech-band volume and the FSM window
+scan continuing its carry (``fsm_cuda.scan_windows``: the kernel on the
+card, the plain version on the CPU). ``process_stream`` steps it over whole
+streams. A chunk's host work is arithmetic of the valid chunk count, so
+the loop reads nothing back from the card.
+
+Not ported, and raising ``NotImplementedError``: K machines a stream
+(``stack_machine_params``, a K-machine ``fsm_params``; ROADMAP §1 item 5)
+and ``run_fsm=False``, the host-FSM serving tier (item 3).
+"""
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..config import VADConfig, VADMachineConfig
-from ..ops import dft, windows
-from . import fsm
+from ..ops import dft, stft, volume, windows
+from . import denoiser, fsm, fsm_cuda
 
 
 class VADStatics(NamedTuple):
@@ -58,9 +75,229 @@ def hann(fft_size: int) -> np.ndarray:
     return windows.hann_periodic(fft_size)
 
 
+def _alt_machines_not_ported():
+    return NotImplementedError(
+        "K state machines a stream (alt_vad_machine_configs) are not ported yet "
+        "(ROADMAP §1 item 5: apps/tune.py and the alt-config rows)"
+    )
+
+
+def stack_machine_params(st: VADStatics, configs) -> fsm.FSMParams:
+    raise _alt_machines_not_ported()
+
+
+def _machine_params(st: VADStatics, fsm_params: fsm.FSMParams | None) -> fsm.FSMParams:
+    params = st.fsm_params if fsm_params is None else fsm_params
+    if any(np.ndim(x) for x in params):
+        raise _alt_machines_not_ported()
+    return params
+
+
+def init_carry(st: VADStatics, lead: tuple = (), device="cpu", fsm_params: fsm.FSMParams | None = None) -> dict:
+    """Fresh carry for streams of leading shape ``lead``: the JAX carry's
+    fields (the denoiser's, the window re-chunking buffer ``fft_buf``, its
+    fill ``fft_fill`` and ``win_base`` as int32, ``prev_ratio``), float32
+    copies, and ``fsm`` None: the first scan starts fresh machines and
+    returns the kernel's packed carry (``fsm.fresh_carry``'s layout)."""
+    _machine_params(st, fsm_params)
+    lead = tuple(lead)
+    return {
+        "denoiser": denoiser.init_carry(st.n_channels, device, lead),
+        "fft_buf": torch.zeros(lead + (st.n_channels, st.fft_size), dtype=torch.float32, device=device),
+        "fft_fill": torch.zeros(lead, dtype=torch.int32, device=device),
+        "prev_ratio": torch.zeros(lead, dtype=torch.float32, device=device),
+        "win_base": torch.zeros(lead, dtype=torch.int32, device=device),
+        "fsm": None,
+    }
+
+
+class ChunkOutput(NamedTuple):
+    windows: fsm.WindowOutput  # the FSM's outputs a window slot, each [..., max_windows]
+    window_valid: torch.Tensor  # [..., max_windows] bool
+    denoised: torch.Tensor  # [..., C, chunk] (zero-width without collect_denoised)
+    min_vol: torch.Tensor  # [..., max_windows] speech-band volume (FSM input)
+    ratios: torch.Tensor  # [..., max_windows] weighted channel ratio (FSM input)
+    win_indices: torch.Tensor  # [..., max_windows] global window indices (int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(n: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def _accumulate_windows(st: VADStatics, carry: dict, denoised: torch.Tensor, shared_start: int | None = None):
+    """Re-chunk denoised audio [..., C, chunk] into fft_size windows across
+    chunk edges -> (new_buf, new_fill, frames [..., C, max_windows, fft],
+    n_windows, win_indices, valid [..., max_windows]).
+
+    The framing reads ``max_windows`` windows from offset fft_size - fill of
+    the carried tail and the chunk, zero-padded: a valid window never
+    reaches the padding, and invalid slots are masked downstream.
+    ``shared_start`` is that offset when every valid row shares it, as the
+    callers know from their chunk counts (the JAX package's lockstep fast
+    path): then the framing is one slice. Without it each row's offset is
+    read from the carry on the card, a per-row gather."""
+    fft = st.fft_size
+    fill = carry["fft_fill"]
+    ext = torch.cat([carry["fft_buf"].to(denoised.dtype), denoised], dim=-1)  # [..., C, fft + chunk]
+    span = st.max_windows * fft
+    ext_p = torch.nn.functional.pad(ext, (0, max(0, span + fft - ext.shape[-1])))
+    if shared_start is None:
+        start = (fft - fill).long()[..., None, None] + _slots(span, ext.device)
+        frames = torch.gather(ext_p, -1, start.expand(ext.shape[:-1] + (span,)))
+    else:
+        frames = ext_p[..., shared_start : shared_start + span]
+    frames = frames.reshape(ext.shape[:-1] + (st.max_windows, fft))
+    n_windows = torch.div(fill + st.chunk_size, fft, rounding_mode="floor")
+    slots = _slots(st.max_windows, ext.device)
+    valid = slots < n_windows[..., None]
+    win_indices = carry["win_base"][..., None] + slots
+    new_fill = fill + st.chunk_size - n_windows * fft
+    return ext[..., -fft:].clone(), new_fill, frames, n_windows, win_indices, valid
+
+
+def chunk_step(
+    net,
+    st: VADStatics,
+    carry: dict,
+    chunk: torch.Tensor,
+    chunk_valid: bool | torch.Tensor = True,
+    fsm_params: fsm.FSMParams | None = None,
+    run_fsm: bool = True,
+    collect_denoised: bool = True,
+    shared_start: int | None = None,
+    chained: bool = False,
+) -> tuple[dict, ChunkOutput]:
+    """One pipeline chunk [..., C, chunk_size] -> (new carry, ChunkOutput).
+
+    ``chunk_valid`` (a bool, or a bool tensor of the leading shape) False
+    marks padding chunks of ragged batches: their carry is frozen and every
+    output masked. ``collect_denoised=False`` returns a zero-width
+    ``denoised``. ``shared_start``: see ``_accumulate_windows``.
+    ``chained=True`` says the carry's FSM part was returned by the previous
+    step and nothing has written it since, so the scan continues it without
+    reading its ring indices back (``fsm_cuda._scan_chained``: no sync on the
+    card); a carry from elsewhere is checked. The first scan (``fsm`` None)
+    starts fresh machines at ``win_base``."""
+    if not run_fsm:
+        raise NotImplementedError(
+            "run_fsm=False (the host-FSM serving tier) is not ported yet (ROADMAP §1 item 3: serving)"
+        )
+    params = _machine_params(st, fsm_params)
+    lead = chunk.shape[:-2]
+    cv = None if chunk_valid is True else torch.as_tensor(chunk_valid, dtype=torch.bool, device=chunk.device)
+
+    cur_ratio, _, _ = volume.volume_analysis(chunk)
+    den_carry, denoised = denoiser.denoise_chunk(net, carry["denoiser"], chunk, st.downsample_rate)
+    fill = carry["fft_fill"]
+    new_buf, new_fill, frames, n_windows, win_indices, valid = _accumulate_windows(st, carry, denoised, shared_start)
+    mags = stft.magnitude_windows(frames, hann(st.fft_size), st.fft_size, st.norm_factor)
+    # The speech band's volume is the SUM of its magnitude bins, then the
+    # smallest over the channels.
+    min_vol = torch.amin(torch.sum(mags[..., st.min_bin : st.max_bin + 1], dim=-1), dim=-2)
+    # Window 0 may straddle the previous chunk: its ratio is weighted by the
+    # samples it takes from each.
+    f32fill = fill.float()
+    w0_ratio = (f32fill * carry["prev_ratio"] + (st.fft_size - f32fill) * cur_ratio) / np.float32(st.fft_size)
+    ratios = torch.where(_slots(st.max_windows, chunk.device) == 0, w0_ratio[..., None], cur_ratio[..., None])
+    if cv is not None:
+        valid = valid & cv[..., None]
+
+    b, w = math.prod(lead), st.max_windows
+    flat = [x.reshape(b, w).contiguous() for x in (min_vol, ratios, valid)]
+    win_base = carry["win_base"].reshape(b)
+    if carry["fsm"] is not None and chained:
+        win_out, fsm_carry = fsm_cuda._scan_chained(st.fsm_shape, params, *flat, carry["fsm"], win_base)
+    else:
+        win_out, fsm_carry = fsm_cuda.scan_windows(st.fsm_shape, params, *flat, carry["fsm"], win_base)
+
+    new_carry = {
+        "denoiser": den_carry,
+        "fft_buf": new_buf,
+        "fft_fill": new_fill,
+        "prev_ratio": cur_ratio,
+        "win_base": carry["win_base"] + n_windows,
+    }
+    if cv is not None:  # padding chunks freeze the carry; their windows already froze the FSM's
+        def freeze(new, old):
+            if isinstance(new, dict):
+                return {k: freeze(new[k], old[k]) for k in new}
+            return torch.where(cv.reshape(lead + (1,) * (new.dim() - len(lead))), new, old)
+
+        new_carry = freeze(new_carry, {k: carry[k] for k in new_carry})
+    new_carry["fsm"] = fsm_carry
+    out = ChunkOutput(
+        windows=fsm.WindowOutput(*(x.reshape(lead + (w,)) for x in win_out)),
+        window_valid=valid,
+        denoised=denoised if collect_denoised else denoised[..., :0],
+        min_vol=min_vol,
+        ratios=ratios,
+        win_indices=win_indices,
+    )
+    return new_carry, out
+
+
+def _host_mask(chunk_valids, lead: tuple, n_chunks: int) -> np.ndarray | None:
+    if chunk_valids is None:
+        return None
+    mask = chunk_valids.cpu().numpy() if torch.is_tensor(chunk_valids) else np.asarray(chunk_valids)
+    return np.broadcast_to(mask.astype(bool), lead + (n_chunks,))
+
+
+def process_stream(
+    net,
+    st: VADStatics,
+    audio: torch.Tensor,
+    carry: dict | None = None,
+    chunk_valids=None,
+    collect_denoised: bool = False,
+    fsm_params: fsm.FSMParams | None = None,
+) -> tuple[dict, ChunkOutput]:
+    """Step ``chunk_step`` over whole streams [..., C, T] (only whole chunks;
+    the reference never processes a partial one).
+
+    ``chunk_valids`` [..., T // chunk_size] bool (numpy or a tensor, read
+    once before the loop) masks padding chunks. Every framing offset follows
+    from the valid chunk counts, so the loop passes it as ``shared_start``
+    whenever the valid rows share it, and chains the FSM carry: between the
+    uploads before the loop and the caller's fetch after it nothing is read
+    back from the card. Returns (final carry, ChunkOutput with every field
+    stacked over chunks after the leading shape: [..., n_chunks, ...])."""
+    lead = tuple(audio.shape[:-2])
+    n_chunks = audio.shape[-1] // st.chunk_size
+    dev = audio.device
+    if carry is None:
+        carry = init_carry(st, lead, dev, fsm_params)
+        fills = np.zeros(lead, np.int64)
+    else:
+        fills = carry["fft_fill"].cpu().numpy().astype(np.int64)
+    mask = _host_mask(chunk_valids, lead, n_chunks)
+    mask_dev = None if mask is None else torch.from_numpy(mask.copy()).to(dev)
+    outs = []
+    for k in range(n_chunks):
+        rows = np.ones(lead, bool) if mask is None else mask[..., k]
+        cv = True if rows.all() else mask_dev[..., k]
+        shared = set(fills[rows].tolist())
+        start = st.fft_size - shared.pop() if len(shared) == 1 else (st.fft_size if not shared else None)
+        chunk = audio[..., k * st.chunk_size : (k + 1) * st.chunk_size]
+        carry, out = chunk_step(
+            net, st, carry, chunk, cv, fsm_params, collect_denoised=collect_denoised,
+            shared_start=start, chained=k > 0,
+        )
+        fills = np.where(rows, (fills + st.chunk_size) % st.fft_size, fills)
+        outs.append(out)
+    d = len(lead)
+    stacked = ChunkOutput(
+        windows=fsm.WindowOutput(*(torch.stack(xs, dim=d) for xs in zip(*(o.windows for o in outs)))),
+        **{f: torch.stack([getattr(o, f) for o in outs], dim=d) for f in ChunkOutput._fields[1:]},
+    )
+    return carry, stacked
+
+
 def segments_from_outputs(st: VADStatics, windows_out: fsm.WindowOutput) -> list[dict]:
-    """One stream's per-window FSM outputs (numpy or CPU tensors, [W]) ->
-    speech segments with the reference's +/-2 s recording margins."""
+    """One stream's per-window FSM outputs (numpy or CPU tensors, any shape,
+    read in order) -> speech segments with the reference's +/-2 s recording
+    margins."""
     margin = VADMachineConfig().recording_margin_samples(st.sample_rate)
     valid = np.asarray(windows_out.seg_valid).reshape(-1)
     starts = np.asarray(windows_out.seg_start_win).reshape(-1)

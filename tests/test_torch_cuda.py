@@ -20,6 +20,13 @@ quantization can move a value into the next int8 step; so under the bf16 and
 bf16-storage tiers, while 'high' (bf16_3x) keeps the CPU run's segments.
 Each tier launches its recurrence kernel and the FSM and nothing else, and
 a 10-case tier-fuzz campaign on the card finds no deviation at 'high'.
+The streaming path (``BatchRunner(use_offline=False)``) launches one GRU
+kernel and one FSM scan a chunk step and never synchronises inside its
+chunk loop; its segments equal the card's offline run and the CPU's
+streaming run, and its chained FSM calls equal the host decoder bit for
+bit. The bf16 GRU bodies on random gi meet the CPU's pre-flip bar (ROADMAP
+§3 fault 3): mean |dh2| <= 1e-5 over each row's steps before its first
+bf16 rounding flip of h2.
 """
 
 import ctypes
@@ -36,7 +43,7 @@ from formula_vad_tpu_torch.ops import matmul_q8 as mq
 from formula_vad_tpu_torch.ops import precision
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 from formula_vad_tpu_torch.parallel.slab_runner import SlabRunner
-from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host
+from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host, vad
 from formula_vad_tpu_torch.testing.synth import fsm_inputs, fsm_per_row_params, synth_stream
 
 GRU_TOL = 1e-4
@@ -361,6 +368,9 @@ def test_slice_on_gpu_equals_cpu(net, cuda_device):
         (300, 600, 161, 1), (300, 600, 161, 8),
         # a K the wgmma body does not hold
         (130, 700, 200, 0),
+        # a chunk step's in-scan product at 2 and 42 GRU rows, and its
+        # fc_in and out products at 2 rows
+        (2, 400, 1200, 0), (42, 400, 1200, 0), (108, 161, 400, 0), (100, 600, 161, 0),
     ],
 )
 def test_matmul_q8_kernel_matches_plain(cuda_device, r, k, n, offset):
@@ -925,6 +935,182 @@ def test_fsm_still_checks_an_outside_carry(cuda_device):
             fsm_cuda.scan_windows(shape, params, *rest, carry=outside, win_base=wb)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+STREAM_COUNTERS = {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
+                   "gru_gates": gates.gru_gates, "gru_gates_p": gates.gru_gates_p, "gru_gates_f": gates.gru_gates_f,
+                   "matmul_q8": mq.matmul_q8}
+
+
+def _stream_batch(seed=8, seconds=20.0):
+    rng = np.random.default_rng(seed)
+    audio = np.stack([synth_stream(rng, seconds)[0] for _ in range(3)])
+    return audio, [audio.shape[-1], audio.shape[-1] - 50_000, audio.shape[-1] - 150_000]
+
+
+@pytest.mark.cuda
+def test_streaming_runner_makes_no_sync_in_its_chunk_loop(net, cuda_device, monkeypatch):
+    """One gru_stack and one scan_windows launch a chunk step and nothing
+    else; no chunk step synchronises (torch.cuda.set_sync_debug_mode
+    ("error") raises on any synchronising call); the segments equal the
+    card's offline run and the CPU's streaming run."""
+    audio, lengths = _stream_batch()
+    runner = BatchRunner(net, use_offline=False)
+    runner.run(audio, lengths)  # builds and caches what a run needs once
+    step = vad.chunk_step
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(vad, "chunk_step", strict)
+    before = {name: fn.launches for name, fn in STREAM_COUNTERS.items()}
+    got = runner.run(audio, lengths)
+    launched = {name: fn.launches - before[name] for name, fn in STREAM_COUNTERS.items()}
+    n_chunks = audio.shape[-1] // 24000
+    assert launched == dict(dict.fromkeys(STREAM_COUNTERS, 0), gru_stack=n_chunks, scan_windows=n_chunks)
+    assert sum(len(r.segments) for r in got) > 0
+    assert [r.segments for r in got] == [r.segments for r in BatchRunner(net).run(audio, lengths)]
+    cpu = BatchRunner(registry.load_denoiser("demo", device="cpu"), use_offline=False).run(audio, lengths)
+    assert [r.segments for r in got] == [r.segments for r in cpu]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2, 42])
+@pytest.mark.parametrize("weights", ["demo", "biased"])
+def test_gru_kernel_at_the_streaming_rows(net, cuda_device, rows, weights):
+    """Kernel 1 at a chunk step's rows: one stereo stream (2) and the
+    slice's 21 streams (42), 54 steps."""
+    w = net if weights == "demo" else _biased(net)
+    gi1 = _gi1(rows, 54, rows, cuda_device)
+    got = nsnet2_cuda.gru_stack(w, gi1)
+    want = nsnet2_cuda.gru_stack_reference(w, gi1)
+    assert float((got - want).abs().max()) <= GRU_TOL
+
+
+def _chunk_fsm_inputs(outs):
+    """The FSM's per-chunk inputs and outputs of a streaming run, numpy [B, K, W]."""
+    mv, rt, va = (x.cpu().numpy() for x in (outs.min_vol, outs.ratios, outs.window_valid))
+    return mv, rt, va, outs.win_indices[..., 0].cpu().numpy(), fsm.WindowOutput(*(x.cpu().numpy() for x in outs.windows))
+
+
+@pytest.mark.cuda
+def test_chained_chunk_fsm_equals_host_decoder(net, cuda_device):
+    """The kernel's per-chunk calls, each continuing the last one's carry,
+    against the host decoder: chained over the same chunks, all seven
+    outputs and the final carry bit for bit; and in one call over each
+    row's valid windows joined (the slot left empty by a 23-window chunk
+    and padding chunks lie between them), the same outputs at every valid
+    slot and the same final carry, with every invalid slot inert."""
+    audio, lengths = _stream_batch(seed=9)
+    st = vad.statics_from_config(VADConfig())
+    n_chunks = audio.shape[-1] // 24000
+    cv = np.arange(n_chunks)[None, :] < np.array([n // 24000 for n in lengths])[:, None]
+    cv[0, 3] = False  # a padding chunk between valid ones
+    with torch.inference_mode():
+        carry, outs = vad.process_stream(net, st, torch.from_numpy(audio).to(cuda_device), chunk_valids=cv)
+    mv, rt, va, wb, got = _chunk_fsm_inputs(outs)
+    final = {k: v.cpu().numpy() for k, v in carry["fsm"].items()}
+    assert (va.sum(axis=2) == 23).any() and not va[0, 3].any()
+    host_carry = None
+    for k in range(n_chunks):
+        want, host_carry = fsm_host.scan_windows_host(st.fsm_shape, st.fsm_params, mv[:, k], rt[:, k], va[:, k],
+                                                      host_carry, wb[:, k])
+        for field, a, w in zip(got._fields, got, want):
+            assert np.ascontiguousarray(a[:, k]).tobytes() == w.tobytes(), (k, field)
+    for key in final:
+        assert final[key].tobytes() == host_carry[key].tobytes(), key
+    b = mv.shape[0]
+    flat = [x.reshape(b, -1) for x in (mv, rt, va)]
+    n = flat[2].sum(axis=1)
+    joined = [np.zeros((b, n.max()), x.dtype) for x in flat[:2]]
+    for i in range(b):
+        for j in range(2):
+            joined[j][i, : n[i]] = flat[j][i, flat[2][i]]
+    want, one_carry = fsm_host.scan_windows_host(st.fsm_shape, st.fsm_params, *joined, np.arange(n.max()) < n[:, None])
+    for i in range(b):
+        for field, a, w in zip(got._fields, got, want):
+            a = a.reshape(b, -1)[i]
+            assert a[flat[2][i]].tobytes() == w[i, : n[i]].tobytes(), (i, field)
+            if field in ("event", "event_win", "seg_valid"):
+                assert not a[~flat[2][i]].any(), (i, field)
+    for key in final:
+        assert final[key].tobytes() == one_carry[key].tobytes(), key
+    assert (want.event == fsm.EV_COMPLETED).any()
+
+
+# ROADMAP §3 fault 3, step 3: tests/test_torch_gru_gates.py's random gi
+# (N(0, 0.8), numpy seed 100, 8 rows x 54 steps) and its pre-flip bar.
+PRE_FLIP_ROWS, PRE_FLIP_STEPS, PRE_FLIP_MEAN = 8, 16, 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [4, 5, 6])
+def test_bf16_kernels_agree_before_the_first_rounding_flip(cuda_device, kind):
+    """Each bf16 body against its plain version on random gi: over each
+    row's steps before its first bf16 rounding flip of h2, mean |dh2| <=
+    1e-5, with at least PRE_FLIP_STEPS such row-steps (a version that
+    dropped a rounding point flips every row at once)."""
+    name = {4: "gru_gates", 5: "gru_gates_p", 6: "gru_gates_f"}[kind]
+    net = registry.load_denoiser("random", device=cuda_device)
+    rng = np.random.default_rng(100)
+    gi = [torch.from_numpy((rng.standard_normal((PRE_FLIP_ROWS, 54, 400)) * 0.8).astype(np.float32)).to(cuda_device)
+          for _ in range(3)]
+    args = gi if kind == 5 else [g.to(torch.bfloat16) for g in gi]
+    kw = {"out_dtype": torch.float32} if kind == 6 else {}
+    got = getattr(gates, name)(net, *args, dtype=torch.bfloat16, **kw).float()
+    want = getattr(gates, f"{name}_reference")(gates.gate_weights(net, torch.bfloat16), *args, **kw).float()
+    flip = (got.to(torch.bfloat16) != want.to(torch.bfloat16)).any(dim=2)
+    first = torch.where(flip.any(dim=1), flip.int().argmax(dim=1), 54)
+    before = torch.arange(54, device=cuda_device)[None, :] < first[:, None]
+    assert int(before.sum()) >= PRE_FLIP_STEPS, first.tolist()
+    assert float((got - want).abs()[before].mean()) <= PRE_FLIP_MEAN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["demo", "biased"])
+@pytest.mark.parametrize("rows", [2, 42])
+@pytest.mark.parametrize("kind", [5, 6])
+def test_bf16_kernels_at_the_streaming_rows(net, cuda_device, kind, rows, weights):
+    """Kernel 5 (the bf16 tier) and kernel 6 (bf16 out, the bf16_io tier) at
+    a chunk step's rows, one stereo stream (2) and the slice's 21 streams
+    (42), on the gi their tiers hand them, against their plain versions:
+    one launch, max |dh2| <= BF16_MAX, and the pre-flip bar (mean |dh2| <=
+    PRE_FLIP_MEAN over each row's steps before its first bf16 rounding flip
+    of h2). At 42 rows also the whole-call mean bar (BF16_MEAN). At 2 rows
+    one row's flips carry the whole-call mean, which the 1,680-row bar does
+    not bound (ROADMAP §3 fault 3)."""
+    net = _biased(net) if weights == "biased" else net
+    feats = torch.from_numpy(np.random.default_rng(rows).normal(-3.0, 1.5, (rows, 54, 161)).astype(np.float32))
+    bf16 = torch.bfloat16
+    precision.set_io_dtype("bf16" if kind == 6 else "f32")
+    try:
+        with torch.inference_mode():
+            gi = gates.gi_gates(net, net.fc_in(precision.io_cast(feats.to(cuda_device))))
+    finally:
+        precision.set_io_dtype("f32")
+    wrapper, plain = (gates.gru_gates_p, gates.gru_gates_p_reference) if kind == 5 else \
+        (gates.gru_gates_f, gates.gru_gates_f_reference)
+    gi = tuple(g.contiguous() if kind == 5 else g.to(bf16) for g in gi)
+    kw = {} if kind == 5 else {"out_dtype": bf16}
+    before = wrapper.launches
+    with torch.inference_mode():
+        got = wrapper(net, *gi, dtype=bf16, **kw).float()
+        want = plain(gates.gate_weights(net, bf16), *gi, **kw).float()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    d = (got - want).abs()
+    assert float(d.max()) <= BF16_MAX, float(d.max())
+    flip = (got.to(bf16) != want.to(bf16)).any(dim=2)
+    first = torch.where(flip.any(dim=1), flip.int().argmax(dim=1), 54)
+    pre = torch.arange(54, device=cuda_device)[None, :] < first[:, None]
+    assert bool(pre.any()), first.tolist()
+    assert float(d[pre].mean()) <= PRE_FLIP_MEAN, (first.tolist(), float(d[pre].mean()))
+    if rows > 2:
+        assert float(d.mean()) <= BF16_MEAN, float(d.mean())
 
 
 def test_wrappers_refuse_other_devices():

@@ -36,6 +36,12 @@ from formula_vad_tpu_torch.models.registry import load_denoiser
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 audio, _ = synth_stream(np.random.default_rng(0), 1.0)
 (res,) = BatchRunner(load_denoiser("demo", device="cpu")).run(audio[None])
+from formula_vad_tpu_torch.config import PipelineConfig
+from formula_vad_tpu_torch.pipeline.pipeline import AudioPipeline
+pipe = AudioPipeline(PipelineConfig(), device="cpu")
+for part in np.array_split(np.tile(audio, 2), 3, axis=1):
+    pipe.push_samples(part)
+assert pipe.total_write_count == 96000 and pipe.denoised_ring.total_written == 96000, pipe.denoised_ring.total_written
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert not loaded & {"jax", "formula_vad_tpu"}, loaded
 print("modules", len(names), "segments", len(res.segments))

@@ -139,8 +139,9 @@ def test_unported_paths_raise(corpus, monkeypatch):
     net = registry.load_denoiser("demo", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchRunner(net, VADConfig(alt_vad_machine_configs=[VADMachineConfig()]))
+    # Streaming plans are ported; their alternative machines are not.
     plan = json.loads((corpus / "plan_port.json").read_text())
-    plan["config"] = {"batch_streams": False}
+    plan["config"] = {"batch_streams": False, "vad_config": {"alt_vad_machine_configs": [{}]}}
     (corpus / "plan_streaming.json").write_text(json.dumps(plan))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.main(["-i", str(corpus / "plan_streaming.json"), "--device", "cpu"])
