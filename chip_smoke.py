@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs twelve phases; any failed check raises and the script exits non-zero.
+runs thirteen phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -148,6 +148,34 @@ runs twelve phases; any failed check raises and the script exits non-zero.
    false on cuda and on cpu: the same report.txt and Audacity files as each
    other and as phase 5's batched cuda plan, and the batched plan's clip
    names and sample counts.
+13. Serving (parallel/online.py, apps/daemon.py, apps/multidaemon.py).
+   (a) OnlineBatchServer with the slice's 21 streams, one tick a 0.5 s
+   chunk (40), float tier, device FSM: segments identical to phase 4's
+   offline and phase 12's streaming runs, exactly 40 gru_stack (42 rows)
+   and 40 scan_windows ([21, 24]) launches and nothing else, tick_stats
+   p50/p95/max against the 500 ms budget, the host time a tick spends
+   waiting for its fetch and its ingest. Then the same fleet with the host
+   FSM (40 gru_stack, no scan_windows), with microbatch=3 and with
+   collect_denoised=False, and an int16 push against a float32 push of the
+   same PCM16 samples: segments, original recordings and every decision and
+   index bit for bit; the float outputs (denoised audio, window volumes)
+   bit for bit at the same row count, and at microbatch=3 (14 rows a step)
+   within 1e-5, their bit-exactness logged. (b) A fleet of 256 streams (512
+   GRU rows, ~2 GB of host rings) over 8 ticks: tick p50/p95, launches, and
+   kernel 1 at [512, 54] (1e-4) and kernel 2 chained at [256, 24] (bit for
+   bit with the host decoder) as in phase 12 ("serve_shapes"). (c) Ragged
+   serving: 4 streams on a random valid pattern with one reset_stream,
+   against solo AudioPipelines on the card (segments and original
+   recordings identical, denoised ones within 1e-5); then a save_state at
+   tick 20 and a new server's load_state: segments and recordings equal to
+   the uninterrupted run bit for bit, and the first tick after the load on
+   the checked FSM path (one carry index check, then none). (d) The daemons
+   as processes on the card over phase 5's corpus: apps.multidaemon with
+   --state and --checkpoint-every 1, SIGKILLed after its second checkpoint
+   ack, restarted and fed stdin again from commands_processed: its events
+   and WAVs equal an uninterrupted run's byte for byte; apps.daemon on one
+   of the streams: its original WAVs equal the multidaemon's byte for byte,
+   its denoised ones within 1e-5.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -162,6 +190,7 @@ result, when no CUDA device is visible or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -257,6 +286,13 @@ STREAM_TIERS = (
     ("bf16_io", "default", "bf16", "off", "gru_gates_f", 1),
     ("int8", "highest", "f32", "int8", "matmul_q8", Q8_LAUNCHES),
 )
+# Phase 13, serving: the large fleet (512 GRU rows a tick), the ragged
+# fleet with its reset and checkpoint ticks, and the bar for float outputs
+# between runs whose steps have other row counts (cuBLAS picks its GEMM
+# kernels by shape, so their sums may round otherwise).
+SERVE_BIG_STREAMS, SERVE_BIG_TICKS = 256, 8
+SERVE_RAGGED_STREAMS, SERVE_RESET_TICK, SERVE_SAVE_TICK = 4, 10, 20
+SERVE_ROWS_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1916,6 +1952,7 @@ def phase_stream(runner, audio, float_results, float_wall: float, corpus: str, b
                         log(f"s{i} streaming: {g}\ns{i} offline:   {w}")
                 raise AssertionError("the streaming slice's segments differ from phase 4's offline segments")
             log(f"  streaming slice segments: {sum(map(len, got))}, identical to phase 4's offline segments")
+            float_segments = got
         else:
             spans_within_a_window(f"  {tier} streaming slice vs the {tier} offline run", results, offline)
 
@@ -1950,7 +1987,542 @@ def phase_stream(runner, audio, float_results, float_wall: float, corpus: str, b
         for t, v in tiers.items()))
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return {"runs": runs, "stream_shapes": shapes, "pipeline": pipeline, "tiers": tiers,
-            "offline_rtf": audio_sec / float_wall}
+            "offline_rtf": audio_sec / float_wall, "float_segments": float_segments}
+
+
+def path_counters() -> dict:
+    """Every kernel wrapper of the port, by its name in the kernels line."""
+    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
+    from formula_vad_tpu_torch.ops import matmul_q8
+    from formula_vad_tpu_torch.pipeline import fsm_cuda
+
+    return {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
+            "gru_gates": nsnet2_gates_cuda.gru_gates, "gru_gates_p": nsnet2_gates_cuda.gru_gates_p,
+            "gru_gates_f": nsnet2_gates_cuda.gru_gates_f, "matmul_q8": matmul_q8.matmul_q8}
+
+
+def recorders(n: int, slot_of=None):
+    """({"original": [...], "denoised": [...]} of (start frame, samples) a
+    stream, and the Callbacks that fill them)."""
+    from formula_vad_tpu_torch.pipeline.pipeline import Callbacks
+
+    recs = {"original": [[] for _ in range(n)], "denoised": [[] for _ in range(n)]}
+
+    def cb(i):
+        return Callbacks(
+            on_original_recording=lambda b: recs["original"][i].append((b.global_start_frame_number, b.channel_pcm.copy())),
+            on_denoised_recording=lambda b: recs["denoised"][i].append((b.global_start_frame_number, b.channel_pcm.copy())),
+        )
+
+    return recs, [cb(i) for i in range(n)]
+
+
+def serve_run(net, chunks, record: bool = True, **kw) -> dict:
+    """One OnlineBatchServer run of ``chunks`` [ticks, B, C, 24000]
+    (float32 or int16), every stream valid every tick: its segments,
+    recordings, each tick's host outputs (``record``), tick_stats, and on
+    the host's clock each push (ingest included) and each shard's fetch
+    (its wait for its copies, and the host-FSM decode where on)."""
+    import torch
+
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+
+    n_ticks, b = chunks.shape[:2]
+    recs, cbs = recorders(b)
+    server = OnlineBatchServer(PipelineConfig(), b, params=net, callbacks=cbs, **kw)
+    ticks, fetch_ms, push_ms = [], [], []
+    run_step, finish = server._run_step, server._finish_fetch
+
+    def step(c, v):
+        out = run_step(c, v)
+        if record:
+            ticks.append({k: x.copy() for k, x in out.items()})
+        return out
+
+    def timed_finish(*args):
+        t0 = time.perf_counter()
+        out = finish(*args)
+        fetch_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    server._run_step, server._finish_fetch = step, timed_finish
+    for k in range(n_ticks):
+        t0 = time.perf_counter()
+        server.push(chunks[k])
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {"segments": server.segments, "recs": recs, "ticks": ticks, "stats": server.tick_stats(),
+            "fetch_ms": fetch_ms, "push_ms": push_ms}
+
+
+def same_recordings(what: str, got: dict, want: dict, exact: bool) -> float:
+    """Original recordings bit for bit; denoised ones at the same starts,
+    bit for bit or (``exact`` False) within SERVE_ROWS_TOL, or absent in
+    ``got`` (the events-only tier). -> their max |difference|."""
+    err = 0.0
+    for kind in ("original", "denoised"):
+        if kind == "denoised" and not any(got[kind]):
+            continue
+        for i, (g, w) in enumerate(zip(got[kind], want[kind])):
+            if [s for s, _ in g] != [s for s, _ in w]:
+                raise AssertionError(f"{what}: stream {i}'s {kind} recordings start at {[s for s, _ in g]}, "
+                                     f"not {[s for s, _ in w]}")
+            for (start, a), (_, b) in zip(g, w):
+                if a.shape != b.shape:
+                    raise AssertionError(f"{what}: stream {i}'s {kind} recording at {start}: {a.shape} != {b.shape}")
+                e = float(np.abs(a.astype(np.float64) - b).max()) if a.size else 0.0
+                if (kind == "original" or exact) and a.tobytes() != b.tobytes() or e > SERVE_ROWS_TOL:
+                    raise AssertionError(f"{what}: stream {i}'s {kind} recording at {start} differs by {e}")
+                err = max(err, e)
+    return err
+
+
+def same_serving(what: str, got: dict, want: dict, exact: bool) -> float:
+    """Two serving runs of the same audio: segments, original recordings
+    and every decision and index of every tick bit for bit; the float
+    outputs (denoised audio and recordings, window volumes and ratios) bit
+    for bit, or (``exact`` False) within SERVE_ROWS_TOL. -> their max
+    |difference| (0.0: bit for bit)."""
+    if got["segments"] != want["segments"]:
+        raise AssertionError(f"{what}: segments differ:\n{got['segments']}\n!=\n{want['segments']}")
+    err = same_recordings(what, got["recs"], want["recs"], exact)
+    if len(got["ticks"]) != len(want["ticks"]):
+        raise AssertionError(f"{what}: {len(got['ticks'])} ticks recorded, not {len(want['ticks'])}")
+    for k, (g, w) in enumerate(zip(got["ticks"], want["ticks"])):
+        for field, a in g.items():
+            b = w[field]
+            if a.size == 0 and field == "denoised":
+                continue
+            if a.dtype.kind == "f":
+                e = float(np.abs(a.astype(np.float64) - b).max())
+                if exact and a.tobytes() != b.tobytes() or e > SERVE_ROWS_TOL:
+                    raise AssertionError(f"{what}: tick {k} {field} differs by {e}")
+                err = max(err, e)
+            elif a.tobytes() != b.tobytes():
+                raise AssertionError(f"{what}: tick {k} {field} differs")
+    return err
+
+
+def launches_of(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def check_launches(what: str, counters, **want) -> dict:
+    got = launches_of(counters)
+    if got != dict(dict.fromkeys(counters, 0), **want):
+        raise AssertionError(f"{what} launched {got}, not {want} and nothing else")
+    return got
+
+
+def serve_stats(what: str, run: dict, smi: str) -> dict:
+    """Log a serving run's tick latencies, pushes and fetches; -> them."""
+    st = run["stats"]
+    push, fetch = run["push_ms"], run["fetch_ms"]
+    log(f"  {what}: tick p50 {st['p50_ms']:.3f} ms, p95 {st['p95_ms']:.3f} ms, max {st['max_ms']:.3f} ms over "
+        f"{st['window']} ticks of {st['streams']} streams ({st['over_budget']} over the {st['budget_ms']:.0f} ms "
+        f"budget); a push (tick and ingest) p50 {statistics.median(push):.3f} ms, p95 "
+        f"{float(np.percentile(push, 95)):.3f} ms; a shard's fetch p50 {statistics.median(fetch):.3f} ms over "
+        f"{len(fetch)}; on {smi}")
+    return {"tick_p50_ms": st["p50_ms"], "tick_p95_ms": st["p95_ms"], "tick_max_ms": st["max_ms"],
+            "over_budget": st["over_budget"], "push_p50_ms": statistics.median(push),
+            "push_p95_ms": float(np.percentile(push, 95)), "fetch_p50_ms": statistics.median(fetch),
+            "streams": st["streams"], "ticks": st["window"]}
+
+
+def serve_fleet(net, audio, offline_results, stream_segments, counters, smi: str) -> dict:
+    """Phase 13 (a): the slice's fleet and its variants."""
+    n_ticks = audio.shape[-1] // 24000
+    b = audio.shape[0]
+    chunks = np.ascontiguousarray(audio[..., : n_ticks * 24000].reshape(b, 2, n_ticks, 24000).transpose(2, 0, 1, 3))
+    serve_run(net, chunks[:2], record=False)  # warm-up: caches, pinned buffers of this shape
+    reset_counts(counters)
+    main = serve_run(net, chunks)
+    launches = check_launches("the serving fleet", counters, gru_stack=n_ticks, scan_windows=n_ticks)
+    if main["segments"] != [r.segments for r in offline_results] or main["segments"] != stream_segments:
+        raise AssertionError("the serving fleet's segments differ from phase 4's offline or phase 12's streaming run")
+    n_segments = sum(map(len, main["segments"]))
+    if not n_segments:
+        raise AssertionError("the serving fleet found no segment")
+    log(f"serving fleet {b} x {n_ticks} ticks (float tier, device FSM): {n_segments} segments identical to phase 4's "
+        f"offline and phase 12's streaming runs; {sum(map(len, main['recs']['original']))} original and "
+        f"{sum(map(len, main['recs']['denoised']))} denoised recordings; launches {launches}")
+    out = {"fleet": serve_stats("device FSM", main, smi), "launches": launches, "variants": {}}
+    pcm = np.clip(np.round(chunks * 32768.0), -32768, 32767).astype(np.int16)
+    for name, kw, want_launches, exact in (
+        ("host_fsm", dict(use_host_fsm=True), dict(gru_stack=n_ticks), True),
+        ("microbatch_3", dict(microbatch=3), dict(gru_stack=3 * n_ticks, scan_windows=3 * n_ticks), False),
+        ("events_only", dict(collect_denoised=False), dict(gru_stack=n_ticks, scan_windows=n_ticks), True),
+    ):
+        reset_counts(counters)
+        run = serve_run(net, chunks, **kw)
+        check_launches(f"the serving fleet with {name}", counters, **want_launches)
+        err = same_serving(f"serving fleet, {name} against the default", run, main, exact)
+        out["variants"][name] = dict(serve_stats(name, run, smi), max_abs_err=err, bitwise=err == 0.0,
+                                     launches=launches_of(counters))
+        log(f"  {name}: segments, original recordings, decisions and indices bit for bit with the default run; "
+            f"float outputs {'bit for bit' if err == 0.0 else f'within {err:.3e}'}")
+    reset_counts(counters)
+    as_float = serve_run(net, pcm.astype(np.float32) / np.float32(32768.0))
+    as_int16 = serve_run(net, pcm)
+    check_launches("the serving fleet's float32 and int16 pushes", counters, gru_stack=2 * n_ticks,
+                   scan_windows=2 * n_ticks)
+    same_serving("serving fleet, int16 push against float32 push", as_int16, as_float, True)
+    out["variants"]["int16_push"] = dict(serve_stats("int16 push", as_int16, smi), max_abs_err=0.0, bitwise=True)
+    log("  int16 push: bit for bit with the float32 push of the same PCM16 samples")
+    return out
+
+
+@contextlib.contextmanager
+def host_split():
+    """Time, over every AudioPipeline, the ring writes with their recorders
+    (``_write_and_record``, both rings) and the rest of a chunk's output
+    consumption (``_consume_chunk_output`` less its denoised ring write), in
+    ms summed over the block: {"rings": .., "events": ..}."""
+    from formula_vad_tpu_torch.pipeline.pipeline import AudioPipeline
+
+    split = {"rings": 0.0, "events": 0.0}
+    write, consume = AudioPipeline._write_and_record, AudioPipeline._consume_chunk_output
+
+    def timed_write(self, *args):
+        t0 = time.perf_counter()
+        write(self, *args)
+        split["rings"] += (time.perf_counter() - t0) * 1e3
+
+    def timed_consume(self, out):
+        before = split["rings"]
+        t0 = time.perf_counter()
+        consume(self, out)
+        split["events"] += (time.perf_counter() - t0) * 1e3 - (split["rings"] - before)
+
+    AudioPipeline._write_and_record, AudioPipeline._consume_chunk_output = timed_write, timed_consume
+    try:
+        yield split
+    finally:
+        AudioPipeline._write_and_record, AudioPipeline._consume_chunk_output = write, consume
+
+
+def serve_big(net, audio, counters, smi: str) -> dict:
+    """Phase 13 (b): SERVE_BIG_STREAMS streams over SERVE_BIG_TICKS ticks,
+    each a window of a slice stream at its own offset. Kernel 2's chained
+    check runs over twice the ticks: a fresh stream completes no segment in
+    its first 4 s."""
+    from formula_vad_tpu_torch.config import VADConfig
+    from formula_vad_tpu_torch.pipeline import vad
+
+    b, n = SERVE_BIG_STREAMS, SERVE_BIG_TICKS
+    src = np.stack([audio[j % SLICE_STREAMS, :, 2 * (j // SLICE_STREAMS) * 24000:][:, : 2 * n * 24000]
+                    for j in range(b)])
+    chunks = np.ascontiguousarray(src[..., : n * 24000].reshape(b, 2, n, 24000).transpose(2, 0, 1, 3))
+    serve_run(net, chunks[:1], record=False)  # warm-up at this fleet's shapes
+    reset_counts(counters)
+    with host_split() as split:
+        run = serve_run(net, chunks, record=False)
+    launches = check_launches(f"the {b}-stream fleet", counters, gru_stack=n, scan_windows=n)
+    rings_gb = b * 2 * 2 * 10 * 48000 * 4 / 1e9
+    log(f"serving fleet {b} x {n} ticks ({2 * b} GRU rows a tick, {rings_gb:.2f} GB of host rings): launches {launches}")
+    stats = serve_stats(f"{b} streams", run, smi)
+    stats.update({f"{k}_ms_a_tick": v / n for k, v in split.items()})
+    log(f"  {b} streams, the host's ingest a tick: ring writes and recorders {split['rings'] / n:.1f} ms, the rest of "
+        f"the outputs' consumption (events, segments) {split['events'] / n:.1f} ms, against a push's "
+        f"{sum(run['push_ms']) / n:.1f} ms and a tick's {stats['tick_p50_ms']:.1f} ms (p50)")
+    st = vad.statics_from_config(VADConfig())
+    dev = next(net.parameters()).device
+    shapes = {"gru_stack": [kernel_1_at(net, dev, 2 * b)], "scan_windows": [check_stream_fsm(net, st, src, dev)]}
+    return {"fleet": stats, "launches": launches, "serve_shapes": shapes}
+
+
+def ragged_plan(audio) -> tuple[list, list, list]:
+    """Phase 13 (c)'s ticks: 4 slots on a random valid pattern (numpy seed
+    13, tick 0 all valid), each slot serving slice stream i; slot 2 reset at
+    SERVE_RESET_TICK to slice stream 4. -> (each tick's (valid, chunks),
+    each logical stream's chunks in order (slots 0-3, then slot 2's new
+    stream), each tick's slot -> logical stream)."""
+    rng = np.random.default_rng(13)
+    n = audio.shape[-1] // 24000
+    sources = [0, 1, 2, 3]
+    pos = [0] * 4
+    logical = [[] for _ in range(5)]
+    ticks, owners = [], []
+    k = 0
+    while True:
+        if k == SERVE_RESET_TICK:
+            sources[2], pos[2] = 4, 0
+        owner = [4 if (i == 2 and k >= SERVE_RESET_TICK) else i for i in range(4)]
+        left = np.array([pos[i] < n for i in range(4)])
+        if not left.any():
+            break
+        valid = (np.ones(4, bool) if k == 0 else rng.random(4) < 0.75) & left
+        chunk = np.zeros((4, 2, 24000), np.float32)
+        for i in np.nonzero(valid)[0]:
+            chunk[i] = audio[sources[i], :, pos[i] * 24000 : (pos[i] + 1) * 24000]
+            logical[owner[i]].append(chunk[i])
+            pos[i] += 1
+        ticks.append((valid, chunk))
+        owners.append(owner)
+        k += 1
+    return ticks, logical, owners
+
+
+def serve_ragged(net, audio, counters, smi: str) -> dict:
+    """Phase 13 (c): ragged serving with a reset, against solo pipelines;
+    then a checkpoint and a resume against the uninterrupted run."""
+    import torch
+
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+    from formula_vad_tpu_torch.pipeline import fsm
+    from formula_vad_tpu_torch.pipeline.pipeline import AudioPipeline
+
+    ticks, logical, owners = ragged_plan(audio)
+
+    def serve(server, cbs, span, segments):
+        """Push ``ticks[span]``, resetting slot 2 to logical stream 4 at
+        SERVE_RESET_TICK; keep the old slot 2's segments in ``segments``."""
+        for k in span:
+            if k == SERVE_RESET_TICK:
+                segments[2] = list(server.pipelines[2].segments)
+                server.reset_stream(2, cbs[4])
+            server.push(ticks[k][1], valid=ticks[k][0])
+
+    def new_server(cbs):
+        return OnlineBatchServer(PipelineConfig(), SERVE_RAGGED_STREAMS, params=net, callbacks=cbs[:4])
+
+    recs_a, cbs_a = recorders(5)
+    server_a = new_server(cbs_a)
+    segs_a = {}
+    reset_counts(counters)
+    serve(server_a, cbs_a, range(len(ticks)), segs_a)
+    check_launches("the ragged fleet", counters, gru_stack=len(ticks), scan_windows=len(ticks))
+    segs_a.update({0: server_a.segments[0], 1: server_a.segments[1], 3: server_a.segments[3],
+                   4: server_a.segments[2]})
+
+    recs_solo, cbs_solo = recorders(5)
+    segs_solo = {}
+    for i, chunks in enumerate(logical):
+        pipe = AudioPipeline(PipelineConfig(), net, cbs_solo[i])
+        pipe.push_samples(np.concatenate(chunks, axis=1))
+        segs_solo[i] = pipe.segments
+    if segs_solo != segs_a:
+        raise AssertionError(f"ragged serving with a reset: segments {segs_a} != solo pipelines' {segs_solo}")
+    solo_err = same_recordings("ragged serving against solo pipelines", recs_a, recs_solo, exact=False)
+
+    # A checkpoint at SERVE_SAVE_TICK, loaded by a new server.
+    recs_b, cbs_b = recorders(5)
+    server_b = new_server(cbs_b)
+    segs_b = {}
+    serve(server_b, cbs_b, range(SERVE_SAVE_TICK), segs_b)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        server_b.save_state(ckpt)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        before = [list(s) for s in server_b.segments]
+        recs_c, cbs_c = recorders(5)
+        server_c = OnlineBatchServer(PipelineConfig(), SERVE_RAGGED_STREAMS, params=net,
+                                     callbacks=[cbs_c[i] for i in (0, 1, 4, 3)])
+        t0 = time.perf_counter()
+        server_c.load_state(ckpt)
+        load_ms = (time.perf_counter() - t0) * 1e3
+    checked = []
+    check_carry = fsm.check_carry
+
+    def counted(shape, carry, b, indices=True):
+        checked.append(indices)
+        return check_carry(shape, carry, b, indices)
+
+    fsm.check_carry = counted
+    try:
+        for k in range(SERVE_SAVE_TICK, len(ticks)):
+            server_c.push(ticks[k][1], valid=ticks[k][0])
+    finally:
+        fsm.check_carry = check_carry
+    torch.cuda.synchronize()
+    if checked[0] is not True or any(checked[1:]):
+        raise AssertionError(f"after the load the FSM's carry checks were {checked}: not the checked path once, then chained")
+    segs_bc = {i: before[i] + server_c.segments[i] for i in (0, 1, 3)}
+    segs_bc[2] = segs_b[2]
+    segs_bc[4] = before[2] + server_c.segments[2]
+    if segs_bc != segs_a:
+        raise AssertionError(f"resumed serving: segments {segs_bc} != the uninterrupted run's {segs_a}")
+    joined = {kind: [recs_b[kind][i] + recs_c[kind][i] for i in range(5)] for kind in recs_b}
+    same_recordings("resumed serving against the uninterrupted run", joined, recs_a, exact=True)
+    n_recs = sum(map(len, recs_a["original"]))
+    log(f"ragged serving, {SERVE_RAGGED_STREAMS} slots x {len(ticks)} ticks, a reset at tick {SERVE_RESET_TICK}: "
+        f"{sum(len(v) for v in segs_a.values())} segments and {n_recs} original recordings equal to 5 solo "
+        f"AudioPipelines' (denoised recordings within {solo_err:.3e}); a save_state at tick {SERVE_SAVE_TICK} "
+        f"({save_ms:.1f} ms) and a new server's load_state ({load_ms:.1f} ms): segments and recordings bit for bit "
+        f"with the uninterrupted run; the FSM carry checked once after the load, then chained "
+        f"({len(checked)} scans); on {smi}")
+    return {"ticks": len(ticks), "segments": sum(len(v) for v in segs_a.values()), "recordings": n_recs,
+            "solo_denoised_max_abs": solo_err, "save_ms": save_ms, "load_ms": load_ms}
+
+
+class DaemonProcess:
+    """A daemon as a process on the card: newline-JSON in, lines out (a
+    reader thread), standard error to a file."""
+
+    def __init__(self, module: str, args: list[str], err_path: str):
+        import threading
+
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.err = open(err_path, "w")
+        self.proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=REPO, env=env, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=self.err, text=True)
+        self.lines: list[str] = []
+        self.reader = threading.Thread(target=self._pump, daemon=True)
+        self.reader.start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def send(self, lines):
+        for line in lines:
+            self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+
+    def wait_for(self, line: str, timeout: float = 300.0) -> None:
+        deadline = time.monotonic() + timeout
+        while line not in self.lines:
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.kill()
+                raise AssertionError(f"no {line} from the daemon (rc {self.proc.returncode})")
+            time.sleep(0.02)
+
+    def finish(self, timeout: float = 300.0) -> list[str]:
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout=timeout)
+        self.reader.join(timeout=30)
+        self.err.close()
+        if rc != 0:
+            raise AssertionError(f"daemon exited {rc}:\n{open(self.err.name).read()[-4000:]}")
+        return list(self.lines)
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait(timeout=60)
+        self.reader.join(timeout=30)
+        self.proc.stdin.close()
+        self.err.close()
+
+
+def wav_tree(root: str) -> dict:
+    """{relative path: bytes} of every WAV under ``root``."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".wav"):
+                path = os.path.join(d, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def serve_daemons(corpus: str, smi: str) -> dict:
+    """Phase 13 (d): the multidaemon SIGKILLed after its second checkpoint
+    ack and resumed, against an uninterrupted run; the solo daemon on one
+    stream against the multidaemon's."""
+    import io
+
+    from formula_vad_tpu_torch.apps.multidaemon import MultiDaemon
+    from formula_vad_tpu_torch.io_.audio import AudioBuffer
+
+    streams = [f"s{i}" for i in range(CORPUS_STREAMS)]
+    wav = [os.path.join(corpus, f"s{i}.wav") for i in range(CORPUS_STREAMS)]
+    cmds = [json.dumps(c) for c in (
+        {"action": "segment", "stream": "s0", "file_path": wav[0], "playhead_timestamp_ms": 0},
+        {"action": "segment", "stream": "s1", "file_path": wav[1], "playhead_timestamp_ms": 1000},
+        {"action": "segment", "stream": "s2", "file_path": wav[2], "playhead_timestamp_ms": 2000},
+        {"action": "skip_segment", "stream": "s0"},
+        {"action": "segment", "stream": "s1", "file_path": wav[0], "playhead_timestamp_ms": 40000},
+        {"action": "segment", "stream": "s2", "file_path": wav[1], "playhead_timestamp_ms": 50000},
+        {"action": "segment", "stream": "s0", "file_path": wav[2], "playhead_timestamp_ms": 60000},
+    )]
+    args = ["-n", "RACE", "--streams", ",".join(streams), "--denoiser", "demo", "--checkpoint-every", "1"]
+    with tempfile.TemporaryDirectory() as root:
+        out_a, out_b, out_solo = (os.path.join(root, d) for d in ("a", "b", "solo"))
+        for d in (out_a, out_b, out_solo):
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        MultiDaemon("RACE", out_a, streams, "demo", stdout=buf, state_dir=os.path.join(root, "state_a"),
+                    checkpoint_every=1).run(stdin=io.StringIO("".join(c + "\n" for c in cmds)))
+        want = [line.replace(out_a, "OUT") for line in buf.getvalue().splitlines()]
+        uninterrupted_s = time.perf_counter() - t0
+        if not any('"recording"' in line for line in want):
+            raise AssertionError("the multidaemon's run made no recording")
+
+        state = os.path.join(root, "state_b")
+        t0 = time.perf_counter()
+        first = DaemonProcess("formula_vad_tpu_torch.apps.multidaemon", ["-o", out_b, "--state", state, *args],
+                              os.path.join(root, "first.err"))
+        first.send(cmds[:2])
+        first.wait_for(json.dumps({"action": "checkpoint", "commands_processed": 2}))
+        first.send(cmds[2:3])  # in flight when the SIGKILL lands
+        time.sleep(0.05)
+        first.kill()
+        # The supervisor keeps the lines up to the last ack and replays stdin from there.
+        acks = [i for i, line in enumerate(first.lines) if json.loads(line)["action"] == "checkpoint"]
+        kept = first.lines[: acks[-1] + 1]
+        acked = json.loads(kept[-1])["commands_processed"]
+        second = DaemonProcess("formula_vad_tpu_torch.apps.multidaemon", ["-o", out_b, "--state", state, *args],
+                               os.path.join(root, "second.err"))
+        second.send(cmds[acked:])
+        got = [line.replace(out_b, "OUT") for line in kept + second.finish()]
+        resumed_s = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError("the resumed multidaemon's events differ from the uninterrupted run's:\n"
+                                 + "\n".join(got) + "\n!=\n" + "\n".join(want))
+        tree_a, tree_b = wav_tree(out_a), wav_tree(out_b)
+        if tree_a != tree_b or not tree_a:
+            raise AssertionError(f"the resumed multidaemon's WAVs differ: {sorted(tree_a)} vs {sorted(tree_b)}")
+
+        t0 = time.perf_counter()
+        solo = DaemonProcess("formula_vad_tpu_torch.apps.daemon", ["-o", out_solo, "-n", "RACE", "--denoiser", "demo"],
+                             os.path.join(root, "solo.err"))
+        solo.send([json.dumps({k: v for k, v in json.loads(c).items() if k != "stream"})
+                   for c in cmds if json.loads(c)["stream"] == "s1"])
+        solo.finish()
+        solo_s = time.perf_counter() - t0
+        tree_solo = wav_tree(out_solo)
+        mine = {os.path.basename(k): v for k, v in tree_a.items() if k.startswith("s1" + os.sep)}
+        if sorted(tree_solo) != sorted(mine) or not mine:
+            raise AssertionError(f"the solo daemon's WAVs {sorted(tree_solo)} != the multidaemon's s1 {sorted(mine)}")
+        den_err = 0.0
+        for name, data in tree_solo.items():
+            if name.endswith("-original.wav") and data != mine[name]:
+                raise AssertionError(f"the solo daemon's {name} differs from the multidaemon's")
+            if name.endswith("-denoised.wav"):
+                a = AudioBuffer.load_from_file(os.path.join(out_solo, name)).channel_pcm
+                b = AudioBuffer.load_from_file(os.path.join(out_a, "s1", name)).channel_pcm
+                den_err = max(den_err, float(np.abs(a.astype(np.float64) - b).max()))
+        if den_err > SERVE_ROWS_TOL:
+            raise AssertionError(f"the solo daemon's denoised WAVs differ from the multidaemon's by {den_err}")
+    n_recs = sum('"recording"' in line for line in want)
+    log(f"daemons on the card over phase 5's corpus ({len(cmds)} commands, {n_recs} recordings, {len(tree_a)} WAVs): "
+        f"the multidaemon SIGKILLed after its ack of command 2 (replayed from command {acked + 1}) and resumed from "
+        f"its state directory: events and WAVs "
+        f"byte for byte with the uninterrupted run ({uninterrupted_s:.1f} s in this process; killed and resumed "
+        f"processes {resumed_s:.1f} s); the solo daemon on s1: {len(tree_solo)} WAVs, the originals byte for byte "
+        f"with the multidaemon's, the denoised ones {'byte for byte' if den_err == 0 else f'within {den_err:.3e}'} "
+        f"({solo_s:.1f} s); on {smi}")
+    return {"commands": len(cmds), "recordings": n_recs, "wavs": len(tree_a), "solo_denoised_max_abs": den_err,
+            "uninterrupted_s": uninterrupted_s, "killed_and_resumed_s": resumed_s, "solo_s": solo_s}
+
+
+def phase_serve(net, audio, offline_results, stream_segments, corpus: str, smi: str) -> dict:
+    """Phase 13; -> {"launches": each kernel's launches in the slice
+    fleet's run, "serve_shapes": kernels 1 and 2 at the large fleet's
+    shapes, and the measures}."""
+    t_phase = time.perf_counter()
+    counters = path_counters()
+    fleet = serve_fleet(net, audio, offline_results, stream_segments, counters, smi)
+    big = serve_big(net, audio, counters, smi)
+    ragged = serve_ragged(net, audio, counters, smi)
+    daemons = serve_daemons(corpus, smi)
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": fleet.pop("launches"), "serve_shapes": big.pop("serve_shapes"), "fleet": fleet,
+            "big": big, "ragged": ragged, "daemons": daemons}
 
 
 def main() -> int:
@@ -1997,6 +2569,7 @@ def main() -> int:
             slab_launches, slab_shapes = phase_slab(net, dev, smi, SLICE_STREAMS * SLICE_SECONDS / float_wall, root)
         tiers = phase_tiers(runner, audio, smi)
         stream = phase_stream(runner, audio, float_results, float_wall, corpus, batched_dir, smi)
+        serve = phase_serve(net, audio, float_results, stream["float_segments"], corpus, smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -2016,6 +2589,10 @@ def main() -> int:
         k["launches_stream"] = sum(run[k["name"]] for run in stream["runs"].values())
         if k["name"] in stream["stream_shapes"]:
             k["stream_shapes"] = stream["stream_shapes"][k["name"]]
+        # Phase 13: the slice fleet's serving run (40 ticks, float tier, device FSM).
+        k["launches_serve"] = serve["launches"][k["name"]]
+        if k["name"] in serve["serve_shapes"]:
+            k["serve_shapes"] = serve["serve_shapes"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

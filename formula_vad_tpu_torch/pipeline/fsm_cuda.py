@@ -302,6 +302,18 @@ def fresh_kahan(long_window: int, has_initial_avg: bool, initial_avg: bytes, dev
     return torch.from_numpy(kahan).to(device)
 
 
+def seeded_fresh_carry(shape: FSMShape, params: FSMParams, b: int, device) -> dict[str, torch.Tensor]:
+    """``fsm.fresh_carry`` with its Kahan slots seeded (``fresh_kahan``):
+    a carry that every scan continues exactly as a fresh scan (``carry=None``)
+    starts. The form of a fresh machine's carry where one must exist before
+    its first scan: a checkpoint, a reset row of a fleet's carry."""
+    dev = torch.device(device)
+    carry = fsm.fresh_carry(shape, params, b, dev)
+    raw = fsm.param_rows(params, b).initial_long_term_avg.tobytes()
+    carry["kahan"] = fresh_kahan(shape.long_window, bool(shape.has_initial_avg), raw, dev).clone()
+    return carry
+
+
 @functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fsm_scan", extra_flags=("-fmad=false",))

@@ -17,15 +17,16 @@ ring-aware recorders.
   global start frame.
 
 Each chunk's outputs are read to the host once, for the events
-(``_consume_chunk_output``). Not ported, and raising
-``NotImplementedError``: ``save_state``/``load_state`` (they need the
-serving tier's checkpoint format, ROADMAP §1 item 3) and
-``alt_vad_machine_configs`` (item 5).
+(``_consume_chunk_output``). ``save_state``/``load_state`` checkpoint the
+whole stream (carry, rings, counters and the recordings in flight,
+``utils/checkpoint.py``). Not ported, and raising
+``NotImplementedError``: ``alt_vad_machine_configs`` (ROADMAP §1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -33,7 +34,8 @@ import torch
 
 from ..config import PipelineConfig
 from ..io_.audio import AudioBuffer
-from . import fsm, vad
+from ..utils import checkpoint
+from . import fsm, fsm_cuda, vad
 
 
 class RingBuffer:
@@ -154,13 +156,6 @@ def _to_host(out: vad.ChunkOutput) -> tuple:
     return fsm.WindowOutput(*host[:7]), host[7], host[8]
 
 
-def _checkpoints_not_ported():
-    return NotImplementedError(
-        "AudioPipeline checkpoints are not ported yet: they need the serving tier's torch-native "
-        "checkpoint format (ROADMAP §1 item 3: serving, utils/checkpoint.py)"
-    )
-
-
 class AudioPipeline:
     """Streaming host pipeline for one audio stream."""
 
@@ -202,6 +197,10 @@ class AudioPipeline:
         self.denoised_recorder = StreamRecorder(self.denoised_ring, config.sample_rate)
         self._read_count = 0  # samples consumed by the VAD so far
         self._carry = None if server_managed else vad.init_carry(self.st, device=self.device)
+        # The FSM carry is the previous step's own, so the next scan may
+        # continue it unchecked (vad.chunk_step's ``chained``); not so for
+        # a fresh or a just-loaded carry.
+        self._chained = False
         self.server_managed = server_managed
         self.segments: list[dict] = []
         self._margin = 2 * config.sample_rate
@@ -241,15 +240,15 @@ class AudioPipeline:
         if self.server_managed:
             raise RuntimeError("pipeline is server-managed: feed it through the server, not push_samples")
         # The framing offset is arithmetic of the chunks read so far, and the
-        # FSM carry is this pipeline's own after the first chunk.
-        first = self._read_count == 0
+        # FSM carry is this pipeline's own after its first step.
         fill = self._read_count % self.st.fft_size
         self._read_count += self.chunk_size
         x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
         with torch.inference_mode():
             self._carry, out = vad.chunk_step(
-                self.net, self.st, self._carry, x, shared_start=self.st.fft_size - fill, chained=not first
+                self.net, self.st, self._carry, x, shared_start=self.st.fft_size - fill, chained=self._chained
             )
+        self._chained = True
         self._consume_chunk_output(out)
 
     def ingest_processed_chunk(self, chunk: np.ndarray, out: vad.ChunkOutput) -> None:
@@ -327,11 +326,75 @@ class AudioPipeline:
         ring.write(samples)
         self._emit(recorder.on_new_samples(samples), kind)
 
+    # ---- checkpoint / resume (the reference loses all state on exit) ------
+
     def save_state(self, path: str) -> None:
-        raise _checkpoints_not_ported()
+        """Serialize the whole streaming state (the carry, the rings, the
+        int64 counters and the recorders) so that a restarted process
+        resumes bit-identically, recordings in flight included: their
+        accumulated buffers go to a ``<path>.rec.npz`` sidecar, since they
+        are of any length and may outlive the ring's history. A carry whose
+        FSM has not scanned yet is saved as a fresh packed carry with its
+        Kahan slots seeded, so the file's layout is fixed; a server-managed
+        pipeline saves a fresh placeholder carry (the server's batched
+        carries are authoritative)."""
+        rec = {}
+        for prefix, r in (("orig", self.original_recorder), ("den", self.denoised_recorder)):
+            rec[f"{prefix}_recording"] = np.bool_(r.recording)
+            rec[f"{prefix}_start"] = np.int64(r.start_index)
+            rec[f"{prefix}_stop_at"] = np.int64(-1 if r.stop_at is None else r.stop_at)
+            rec[f"{prefix}_keep"] = np.bool_(r.keep)
+            rec[f"{prefix}_buffer"] = (
+                r.buffer if r.buffer is not None else np.zeros((self.config.n_channels, 0), np.float32)
+            )
+        np.savez(path + ".rec.npz", **rec)
+        carry = self._carry if self._carry is not None else vad.init_carry(self.st, device=self.device)
+        checkpoint.save_carry(path, {
+            "carry": self._with_fsm(carry),
+            "read_count": np.int64(self._read_count),
+            "orig_ring": self.original_ring.data,
+            "orig_written": np.int64(self.original_ring.total_written),
+            "den_ring": self.denoised_ring.data,
+            "den_written": np.int64(self.denoised_ring.total_written),
+        })
+
+    def _with_fsm(self, carry: dict) -> dict:
+        """``carry`` with a fresh seeded FSM carry where it has none yet."""
+        if carry["fsm"] is not None:
+            return carry
+        dev = carry["win_base"].device
+        return {**carry, "fsm": fsm_cuda.seeded_fresh_carry(self.st.fsm_shape, self.st.fsm_params, 1, dev)}
 
     def load_state(self, path: str) -> None:
-        raise _checkpoints_not_ported()
+        """Restore a ``save_state`` checkpoint. The next step checks the
+        loaded FSM carry (it did not come from the previous step)."""
+        template = {
+            "carry": self._with_fsm(vad.init_carry(self.st, device=self.device)),
+            "read_count": np.int64(0),
+            "orig_ring": np.zeros_like(self.original_ring.data),
+            "orig_written": np.int64(0),
+            "den_ring": np.zeros_like(self.denoised_ring.data),
+            "den_written": np.int64(0),
+        }
+        state = checkpoint.load_carry(path, template)
+        if not self.server_managed:
+            self._carry = state["carry"]
+            self._chained = False
+        self._read_count = int(state["read_count"])
+        self.original_ring.data = np.array(state["orig_ring"])  # writable copies
+        self.original_ring.total_written = int(state["orig_written"])
+        self.denoised_ring.data = np.array(state["den_ring"])
+        self.denoised_ring.total_written = int(state["den_written"])
+        rec_path = path + ".rec.npz"
+        if os.path.exists(rec_path):
+            with np.load(rec_path, allow_pickle=False) as z:
+                for prefix, r in (("orig", self.original_recorder), ("den", self.denoised_recorder)):
+                    r.recording = bool(z[f"{prefix}_recording"])
+                    r.start_index = int(z[f"{prefix}_start"])
+                    stop_at = int(z[f"{prefix}_stop_at"])
+                    r.stop_at = None if stop_at < 0 else stop_at
+                    r.keep = bool(z[f"{prefix}_keep"])
+                    r.buffer = np.array(z[f"{prefix}_buffer"]) if r.recording else None
 
     def _emit(self, buf: Optional[AudioBuffer], kind: str) -> None:
         if buf is None:

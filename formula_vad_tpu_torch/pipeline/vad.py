@@ -11,9 +11,10 @@ card, the plain version on the CPU). ``process_stream`` steps it over whole
 streams. A chunk's host work is arithmetic of the valid chunk count, so
 the loop reads nothing back from the card.
 
-Not ported, and raising ``NotImplementedError``: K machines a stream
-(``stack_machine_params``, a K-machine ``fsm_params``; ROADMAP §1 item 5)
-and ``run_fsm=False``, the host-FSM serving tier (item 3).
+``run_fsm=False`` skips the scan and returns its inputs for a host decode
+(the host-FSM serving tier, ``parallel/online.py``). Not ported, and
+raising ``NotImplementedError``: K machines a stream
+(``stack_machine_params``, a K-machine ``fsm_params``; ROADMAP §1 item 5).
 """
 
 from __future__ import annotations
@@ -112,7 +113,7 @@ def init_carry(st: VADStatics, lead: tuple = (), device="cpu", fsm_params: fsm.F
 
 
 class ChunkOutput(NamedTuple):
-    windows: fsm.WindowOutput  # the FSM's outputs a window slot, each [..., max_windows]
+    windows: fsm.WindowOutput | None  # the FSM's outputs a window slot, each [..., max_windows]; None without run_fsm
     window_valid: torch.Tensor  # [..., max_windows] bool
     denoised: torch.Tensor  # [..., C, chunk] (zero-width without collect_denoised)
     min_vol: torch.Tensor  # [..., max_windows] speech-band volume (FSM input)
@@ -173,16 +174,16 @@ def chunk_step(
     ``chunk_valid`` (a bool, or a bool tensor of the leading shape) False
     marks padding chunks of ragged batches: their carry is frozen and every
     output masked. ``collect_denoised=False`` returns a zero-width
-    ``denoised``. ``shared_start``: see ``_accumulate_windows``.
+    ``denoised``. ``run_fsm=False`` skips the FSM scan: ``windows`` is None,
+    the carry's FSM part passes through untouched, and ``min_vol``,
+    ``ratios``, ``win_indices`` and ``window_valid`` are the inputs of a
+    host decode (``fsm_host.scan_windows_host``).
+    ``shared_start``: see ``_accumulate_windows``.
     ``chained=True`` says the carry's FSM part was returned by the previous
     step and nothing has written it since, so the scan continues it without
     reading its ring indices back (``fsm_cuda._scan_chained``: no sync on the
     card); a carry from elsewhere is checked. The first scan (``fsm`` None)
     starts fresh machines at ``win_base``."""
-    if not run_fsm:
-        raise NotImplementedError(
-            "run_fsm=False (the host-FSM serving tier) is not ported yet (ROADMAP §1 item 3: serving)"
-        )
     params = _machine_params(st, fsm_params)
     lead = chunk.shape[:-2]
     cv = None if chunk_valid is True else torch.as_tensor(chunk_valid, dtype=torch.bool, device=chunk.device)
@@ -204,12 +205,15 @@ def chunk_step(
         valid = valid & cv[..., None]
 
     b, w = math.prod(lead), st.max_windows
-    flat = [x.reshape(b, w).contiguous() for x in (min_vol, ratios, valid)]
-    win_base = carry["win_base"].reshape(b)
-    if carry["fsm"] is not None and chained:
-        win_out, fsm_carry = fsm_cuda._scan_chained(st.fsm_shape, params, *flat, carry["fsm"], win_base)
+    if not run_fsm:
+        win_out, fsm_carry = None, carry["fsm"]
     else:
-        win_out, fsm_carry = fsm_cuda.scan_windows(st.fsm_shape, params, *flat, carry["fsm"], win_base)
+        flat = [x.reshape(b, w).contiguous() for x in (min_vol, ratios, valid)]
+        win_base = carry["win_base"].reshape(b)
+        if carry["fsm"] is not None and chained:
+            win_out, fsm_carry = fsm_cuda._scan_chained(st.fsm_shape, params, *flat, carry["fsm"], win_base)
+        else:
+            win_out, fsm_carry = fsm_cuda.scan_windows(st.fsm_shape, params, *flat, carry["fsm"], win_base)
 
     new_carry = {
         "denoiser": den_carry,
@@ -227,7 +231,7 @@ def chunk_step(
         new_carry = freeze(new_carry, {k: carry[k] for k in new_carry})
     new_carry["fsm"] = fsm_carry
     out = ChunkOutput(
-        windows=fsm.WindowOutput(*(x.reshape(lead + (w,)) for x in win_out)),
+        windows=None if win_out is None else fsm.WindowOutput(*(x.reshape(lead + (w,)) for x in win_out)),
         window_valid=valid,
         denoised=denoised if collect_denoised else denoised[..., :0],
         min_vol=min_vol,

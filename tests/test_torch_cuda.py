@@ -26,7 +26,11 @@ chunk loop; its segments equal the card's offline run and the CPU's
 streaming run, and its chained FSM calls equal the host decoder bit for
 bit. The bf16 GRU bodies on random gi meet the CPU's pre-flip bar (ROADMAP
 §3 fault 3): mean |dh2| <= 1e-5 over each row's steps before its first
-bf16 rounding flip of h2.
+bf16 rounding flip of h2. The serving fleet (``OnlineBatchServer``) fetches
+each stream's outputs to its row: the plain FSM over the card's fetched
+window inputs gives the card's FSM outputs and carry bit for bit; a reset
+row is a fresh stream's with no read-back; a checkpoint written on the card
+continues on the CPU.
 """
 
 import ctypes
@@ -1111,6 +1115,179 @@ def test_bf16_kernels_at_the_streaming_rows(net, cuda_device, kind, rows, weight
     assert float(d[pre].mean()) <= PRE_FLIP_MEAN, (first.tolist(), float(d[pre].mean()))
     if rows > 2:
         assert float(d.mean()) <= BF16_MEAN, float(d.mean())
+
+
+def _serve_chunks(n_streams, seconds, seed):
+    """[ticks, B, 2, 24000] float32 chunks of ``synth_stream`` streams."""
+    rng = np.random.default_rng(seed)
+    audio = np.stack([synth_stream(rng, seconds)[0] for _ in range(n_streams)])
+    n = audio.shape[-1] // 24000
+    return np.ascontiguousarray(audio[..., : n * 24000].reshape(n_streams, 2, n, 24000).transpose(2, 0, 1, 3))
+
+
+def _serve(server, chunks, valid=None):
+    """Push ``chunks`` tick by tick; -> each tick's host outputs (copies)."""
+    ticks, run = [], server._run_step
+
+    def step(c, v):
+        out = run(c, v)
+        ticks.append({k: x.copy() for k, x in out.items()})
+        return out
+
+    server._run_step = step
+    for k in range(len(chunks)):
+        server.push(chunks[k], None if valid is None else valid[k])
+    return ticks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("microbatch", [1, 2])
+def test_server_ticks_on_the_card_move_data_like_the_cpu(net, cuda_device, microbatch):
+    """4 streams, 8 ticks, streams idle now and then, on the card and on the
+    CPU port: the card's fetched window validity and indices equal the
+    CPU's bit for bit and its window volumes and ratios are within 1e-4;
+    the plain FSM chained over the card's fetched window inputs gives the
+    card's fetched FSM outputs at every tick and its final carry bit for
+    bit (what the kernel computed reached each stream's row)."""
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+
+    chunks = _serve_chunks(4, 4.0, seed=3)
+    valid = np.ones(chunks.shape[:2], bool)
+    valid[2, 1] = valid[5, 3] = valid[6, 0] = False
+    cpu_net = registry.load_denoiser("demo", device="cpu")
+    card = OnlineBatchServer(PipelineConfig(), 4, params=net, microbatch=microbatch)
+    cpu = OnlineBatchServer(PipelineConfig(), 4, params=cpu_net, device="cpu")
+    got, want = _serve(card, chunks, valid), _serve(cpu, chunks, valid)
+    st = card.st
+    carry = None
+    for k, (g, w) in enumerate(zip(got, want)):
+        for f in ("window_valid", "win_indices"):
+            assert g[f].tobytes() == w[f].tobytes(), (k, f)
+        for f in ("min_vol", "ratios"):
+            np.testing.assert_allclose(g[f], w[f], rtol=1e-4, atol=1e-6, err_msg=f"tick {k} {f}")
+        args = [torch.from_numpy(g[f]) for f in ("min_vol", "ratios", "window_valid")]
+        out, carry = fsm_cuda.scan_windows_reference(st.fsm_shape, st.fsm_params, *args, carry,
+                                                     torch.from_numpy(g["win_indices"][:, 0].copy()))
+        for f, x in zip(fsm.WindowOutput._fields, out):
+            assert g[f].tobytes() == x.numpy().tobytes(), (k, f)
+    final = card._full_carries()["fsm"]
+    for key, x in carry.items():
+        assert final[key].tobytes() == x.numpy().tobytes(), key
+
+
+@pytest.mark.cuda
+def test_server_shards_dispatch_with_no_sync(net, cuda_device):
+    """At microbatch=2, after two ticks, a push dispatches every shard
+    (upload, step, fetch) without synchronising
+    (torch.cuda.set_sync_debug_mode("error") raises on any synchronising
+    call, a pageable upload included) until it waits on the first shard's
+    event; a ragged valid mask and int16 pushes included. The outputs equal
+    those of the same fleet pushed the dequantized float32 chunks."""
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+
+    chunks = _serve_chunks(4, 4.0, seed=7)
+    valid = np.ones(chunks.shape[:2], bool)
+    valid[2, 1] = False
+    pcm = np.clip(np.round(chunks * 32768.0), -32768, 32767).astype(np.int16)
+    dec = pcm.astype(np.float32) / np.float32(32768.0)
+    server = OnlineBatchServer(PipelineConfig(), 4, params=net, microbatch=2)
+    floats = OnlineBatchServer(PipelineConfig(), 4, params=net, microbatch=2)
+    got, want = _serve(server, chunks[:0]), _serve(floats, chunks[:0])  # each tick's outputs from here
+    finish = server._finish_fetch
+
+    def relaxed(*args):
+        torch.cuda.set_sync_debug_mode("default")
+        return finish(*args)
+
+    server._finish_fetch = relaxed
+    for k in range(len(chunks)):
+        if k >= 2:  # ticks 0 and 1 start the FSM and stage the first float32 and int16 batches
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            server.push((pcm if k % 2 else chunks)[k], valid[k])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        floats.push((dec if k % 2 else chunks)[k], valid[k])
+    assert len(got) == len(want) == len(chunks)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys()
+        for f in g:
+            assert g[f].tobytes() == w[f].tobytes(), (k, f)
+    assert server.segments == floats.segments
+
+
+@pytest.mark.cuda
+def test_reset_row_on_the_card_is_a_fresh_stream(net, cuda_device):
+    """reset_stream on the card: the row's carry becomes a fresh stream's
+    (its FSM part with seeded Kahan slots, under the default machine's
+    initial long-term average), every other row is untouched, nothing is
+    read back; and the slot then serves a new stream as a fresh server does."""
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+    from formula_vad_tpu_torch.parallel.online import _to_host
+
+    chunks = _serve_chunks(2, 19.0, seed=4)
+    new = _serve_chunks(1, 16.0, seed=5)
+    server = OnlineBatchServer(PipelineConfig(), 2, params=net)
+    assert server.st.fsm_shape.has_initial_avg
+    _serve(server, chunks[:5])
+    before = _to_host(server._carries[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        server.reset_stream(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = _to_host(server._carries[0])
+    fresh = _to_host(vad.init_carry(server.st, (1,)))
+    fresh["fsm"] = _to_host(fsm_cuda.seeded_fresh_carry(server.st.fsm_shape, server.st.fsm_params, 1, "cpu"))
+
+    def rows(a, b, f, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                rows(a[k], b[k], f, f"{path}/{k}")
+        else:
+            f(a, b, path)
+
+    rows(after, before, lambda a, b, p: np.testing.assert_array_equal(a[0], b[0], err_msg=p))
+    rows(after, fresh, lambda a, b, p: np.testing.assert_array_equal(a[1], b[0], err_msg=p))
+    both = np.concatenate([chunks[5:37, :1], new], axis=1)
+    _serve(server, both)
+    alone = OnlineBatchServer(PipelineConfig(), 1, params=net)
+    _serve(alone, new)
+    assert server.segments[1] == alone.segments[0] and alone.segments[0]
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_the_card_continues_on_the_cpu(net, cuda_device, tmp_path):
+    """A fleet checkpoint written on the card loads into a CPU server bit
+    for bit (the carries, FSM included) and both continue to the same
+    segments."""
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+
+    chunks = _serve_chunks(2, 20.0, seed=6)
+    card = OnlineBatchServer(PipelineConfig(), 2, params=net)
+    _serve(card, chunks[:19])
+    card.save_state(str(tmp_path / "ckpt"))
+    cpu = OnlineBatchServer(PipelineConfig(), 2, params=registry.load_denoiser("demo", device="cpu"), device="cpu")
+    cpu.load_state(str(tmp_path / "ckpt"))
+    want, got = card._full_carries(), cpu._full_carries()
+
+    def same(a, b, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{path}/{k}")
+        else:
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), path
+
+    same(got, want)
+    assert [p._read_count for p in cpu.pipelines] == [p._read_count for p in card.pipelines]
+    done = [len(x) for x in card.segments]  # a checkpoint carries no finished segment
+    _serve(card, chunks[19:])
+    _serve(cpu, chunks[19:])
+    assert cpu.segments == [x[n:] for x, n in zip(card.segments, done)] and any(cpu.segments)
 
 
 def test_wrappers_refuse_other_devices():

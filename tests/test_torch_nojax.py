@@ -19,6 +19,7 @@ COPIES = (
     + [f"eval/{m}.py" for m in ("__init__", "evaluator", "formats", "report", "statistics")]
     + [f"io_/{m}.py" for m in ("__init__", "audio", "wav", "ogg", "flac", "aiff", "au", "caf", "native", "prefetch")]
     + ["apps/evaluator_cli.py"]
+    + [f"utils/{m}.py" for m in ("uuid", "logging")]
 )
 
 BLOCKED_RUN = r"""
@@ -42,6 +43,17 @@ pipe = AudioPipeline(PipelineConfig(), device="cpu")
 for part in np.array_split(np.tile(audio, 2), 3, axis=1):
     pipe.push_samples(part)
 assert pipe.total_write_count == 96000 and pipe.denoised_ring.total_written == 96000, pipe.denoised_ring.total_written
+import io, json, tempfile
+from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+server = OnlineBatchServer(PipelineConfig(), 2, params=pipe.net, device="cpu")
+server.push(np.stack([audio[:, :24000], audio[:, 24000:48000]]))
+assert server.tick_stats()["ticks"] == 1
+from formula_vad_tpu_torch.apps.multidaemon import MultiDaemon
+with tempfile.TemporaryDirectory() as d:
+    out = io.StringIO()
+    MultiDaemon("M", d, ["x", "y"], "demo", stdout=out, state_dir=d + "/state", device="cpu").run(
+        stdin=io.StringIO(json.dumps({"action": "stats"}) + "\n"))
+    assert json.loads(out.getvalue())["streams"] == 2, out.getvalue()
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert not loaded & {"jax", "formula_vad_tpu"}, loaded
 print("modules", len(names), "segments", len(res.segments))

@@ -508,10 +508,6 @@ def test_pipeline_server_mode_matches_push(pair, pipelines):
 def test_unported_streaming_parts_raise(pair):
     _, net = pair
     _, st = _statics()
-    pipe = AudioPipeline(PipelineConfig(), net)
-    for call in (lambda: pipe.save_state("x"), lambda: pipe.load_state("x")):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            call()
     with pytest.raises(NotImplementedError, match="item 5"):
         AudioPipeline(PipelineConfig(vad_config=VADConfig(alt_vad_machine_configs=[VADMachineConfig()])), net)
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -520,8 +516,6 @@ def test_unported_streaming_parts_raise(pair):
     x = torch.zeros((2, CHUNK))
     with pytest.raises(NotImplementedError, match="item 5"):
         vad.chunk_step(net, st, vad.init_carry(st), x, fsm_params=k_machines)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        vad.chunk_step(net, st, vad.init_carry(st), x, run_fsm=False)
     with pytest.raises(ValueError, match="use_offline"):
         BatchRunner(net, use_host_fsm=True, use_offline=False)
     with pytest.raises(ValueError, match="24000"):
