@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs thirteen phases; any failed check raises and the script exits non-zero.
+runs fourteen phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -176,6 +176,27 @@ runs thirteen phases; any failed check raises and the script exits non-zero.
    and WAVs equal an uninterrupted run's byte for byte; apps.daemon on one
    of the streams: its original WAVs equal the multidaemon's byte for byte,
    its denoised ones within 1e-5.
+14. The low-latency mode (pipeline/lowlatency.py) and the sweep. (a) The
+   slice's 21 streams x 2 channels in one lowlatency.run (2,000 hops of 10
+   ms: wall, real-time factor, 1 gru_stack launch) and in 200 chained
+   steps (per-hop p50/p95 on CUDA events and the host clock, 1 launch a
+   hop), the chain against the run within 1e-5, 50 chained steps under
+   torch.profiler (the device's busy share, launches and synchronising
+   calls a step), kernel 1 as a run from a nonzero state launches it at
+   [42, 2,000] caught at its wrapper and held against its plain version,
+   an impulse that reaches no output hop before its own, the scale curve
+   at 64 to 4,096 streams as tools/lowlatency_scale.py prints it, each
+   tier's step launching its recurrence (int8: its 8 products) and nothing
+   else, and kernels 1 (at 42 and 8,192 rows, beside cuDNN's GRU from the
+   same h0), 5, 6 (42 rows) and 3 (a hop's 8 products at 42 rows)
+   continuing a nonzero state against their plain versions. (b) The slice with K = 8 alternative
+   machines (a 4 x 2 grid of speech_threshold_factor x
+   channel_vol_ratio_threshold, the base config among them): one kernel-2
+   launch a run at [189, 937], the primary's and the base machine's
+   segments equal phase 4's, every (stream, config) row's outputs bit for
+   bit with the host decoder, the wall beside the plain slice's, kernel 2
+   at the sweep's rows, and apps.tune on phase 5's corpus with the same
+   leaderboard on cuda and on cpu.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -190,6 +211,7 @@ result, when no CUDA device is visible or the package is missing.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -231,15 +253,16 @@ BF16_MEAN, BF16_MAX = 3e-5, 6e-3  # the bf16 forms' bars against their plain ver
 Q8_STEPS = 54  # GRU steps per chunk: 3 in-scan int8 products each
 
 
-def q8_shapes(rows: int) -> tuple:
-    """The int8 tier's products in a forward of ``rows`` GRU rows x 54
+def q8_shapes(rows: int, steps: int = Q8_STEPS, head_frames: int = 50) -> tuple:
+    """The int8 tier's products in a forward of ``rows`` GRU rows x ``steps``
     frames: (name, R, K, N, launches per forward, epilogue order, with a
-    per-row scale). The head runs on the last 50 frames only."""
-    frames, head = rows * Q8_STEPS, rows * 50
+    per-row scale). The head runs on the last ``head_frames`` frames only
+    (a chunk's 50; a low-latency hop's 1)."""
+    frames, head = rows * steps, rows * head_frames
     return (
         ("fc_in", frames, 161, 400, 1, "row_col", True),
         ("gi1", frames, 400, 1200, 1, "row_col", True),
-        ("in_scan", rows, 400, 1200, 3 * Q8_STEPS, "col_row", False),
+        ("in_scan", rows, 400, 1200, 3 * steps, "col_row", False),
         ("ff1", head, 400, 600, 1, "col_row", False),
         ("ff2", head, 600, 600, 1, "row_col", True),
         ("out", head, 600, 161, 1, "row_col", True),
@@ -293,6 +316,25 @@ STREAM_TIERS = (
 SERVE_BIG_STREAMS, SERVE_BIG_TICKS = 256, 8
 SERVE_RAGGED_STREAMS, SERVE_RESET_TICK, SERVE_SAVE_TICK = 4, 10, 20
 SERVE_ROWS_TOL = 1e-5
+# Phase 14: the low-latency mode on the slice's 21 streams x 2 channels
+# (2,000 hops of 10 ms in one run; LL_STEPS chained steps), the GRU rows of a
+# hop of the slice and of 4,096 streams, the scale curve's stream counts;
+# the sweep's 4 x 2 grid of alternative machines, the base config (10, 0.5)
+# among them, and the tuner's grid on phase 5's corpus.
+LL_HOP, LL_STEPS, LL_TOL = 480, 200, 1e-5
+LL_ROWS = (2 * SLICE_STREAMS, 8192)
+LL_SCALE = (64, 256, 1024, 4096)
+# (tier, matmul level, io dtype, quant, the wrapper of its recurrence, its launches a step)
+LL_TIERS = (
+    ("float", "highest", "f32", "off", "gru_stack", 1),
+    ("high", "high", "f32", "off", "gru_stack", 1),
+    ("bf16", "default", "f32", "off", "gru_gates_p", 1),
+    ("bf16_io", "default", "bf16", "off", "gru_gates_f", 1),
+    ("int8", "highest", "f32", "int8", "matmul_q8", 8),
+)
+SWEEP_FACTORS, SWEEP_RATIOS = (6.0, 10.0, 14.0, 20.0), (0.3, 0.5)
+SWEEP_BASE = SWEEP_FACTORS.index(10.0) * len(SWEEP_RATIOS) + SWEEP_RATIOS.index(0.5)
+TUNE_GRID = "speech_threshold_factor=3,10,40"
 
 
 def log(msg: str) -> None:
@@ -793,16 +835,19 @@ def phase_q8_kernel(dev) -> dict:
     }
 
 
-def q8_at(dev, rows: int) -> dict:
-    """The int8 matmul kernel at the products of a chunk step of ``rows`` GRU
-    rows, each against its plain version (``q8_product``); -> the sums over a
-    forward's 167 launches."""
-    shapes = [q8_product(dev, 20 + i, *shape) for i, shape in enumerate(q8_shapes(rows))]
+def q8_at(dev, rows: int, steps: int = Q8_STEPS, head_frames: int = 50) -> dict:
+    """The int8 matmul kernel at the products of a forward of ``rows`` GRU
+    rows x ``steps`` frames (a chunk step's 54, a low-latency hop's 1), each
+    against its plain version (``q8_product``); -> the sums over the
+    forward's launches (167 or 8)."""
+    products = q8_shapes(rows, steps, head_frames)
+    shapes = [q8_product(dev, 20 + i, *shape) for i, shape in enumerate(products)]
     total = {key: sum(e["per_forward"] * e[key] for e in shapes) for key in ("ms", "plain_ms", "bound_ms")}
     libs = [e["library_ms"] for e in shapes]
     total["library_ms"] = None if None in libs else sum(e["per_forward"] * t for e, t in zip(shapes, libs))
     lib_text = "null" if total["library_ms"] is None else f"{total['library_ms']:.3f} ms"
-    log(f"int8 matmul over a chunk step's forward at {rows} GRU rows ({Q8_LAUNCHES} launches), bit for bit at all six "
+    log(f"int8 matmul over a forward at {rows} GRU rows x {steps} frames ({sum(p[4] for p in products)} launches), "
+        f"bit for bit at all six "
         f"products: kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, torch._int_mm + epilogue "
         f"{lib_text}, bound {total['bound_ms']:.4f} ms")
     kinds = {e["bound_by"] for e in shapes}
@@ -2525,6 +2570,449 @@ def phase_serve(net, audio, offline_results, stream_segments, corpus: str, smi: 
             "big": big, "ragged": ragged, "daemons": daemons}
 
 
+def _nonzero_state(rows: int, seed: int, dev):
+    """A GRU state (h1, h2) as a run leaves one: tanh of N(0, 0.8), numpy seed ``seed``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (rows, 400))).astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
+def _hop_features(net, dev, rows: int, seed: int):
+    """The fc_in output of one hop's random features a row, [rows, 1, 400]."""
+    import torch
+
+    feats = torch.from_numpy(np.random.default_rng(seed).normal(-3.0, 1.5, (rows, 1, 161)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        return feats, net.fc_in(feats)
+
+
+def state_kernel_1_at(net, dev, rows: int) -> dict:
+    """Kernel 1 at a low-latency hop, [rows, 1], continuing a nonzero state:
+    ``kernel_1_with_a_state`` on one hop's random features a row."""
+    import torch
+
+    _, x = _hop_features(net, dev, rows, rows)
+    with torch.inference_mode():
+        gi1 = (x @ net.gru1.wi + net.gru1.bi).contiguous()
+    return kernel_1_with_a_state(net, x, gi1, _nonzero_state(rows, rows + 1, dev), "at a hop's")
+
+
+def kernel_1_with_a_state(net, x, gi1, state, what: str, launched=None) -> dict:
+    """Kernel 1 on ``gi1`` [rows, T, 1200] continuing ``state``, against its
+    plain version (LL_TOL, the sequence and the final state): the wrapper's
+    output ``launched`` where the caller caught it on its path, else a new
+    call's; with its plan, single and queued times, plain time, bound and
+    cuDNN's two-layer GRU from the same h0 on ``x``, the fc_in output that
+    ``gi1`` projects."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
+
+    rows, steps = gi1.shape[:2]
+    dev = gi1.device
+    plan = nsnet2_cuda.device_plan(rows, dev)
+    gru = cudnn_gru(net, dev)
+    h0 = torch.stack(state).contiguous()  # [layers, rows, 400]
+    with torch.inference_mode():
+        got, (h1, h2) = launched if launched is not None else nsnet2_cuda.gru_stack(net, gi1, state)
+        want, (w1, w2) = nsnet2_cuda.gru_stack_reference(net, gi1, state)
+        err = max(float((a - b).abs().max()) for a, b in ((got, want), (h1, w1), (h2, w2)))
+        lib_out, _ = gru(x, h0)
+        lib_err = float((lib_out - got).abs().max())
+        if not err <= LL_TOL:
+            raise AssertionError(f"kernel 1 with a state disagrees with its plain version at [{rows}, {steps}]: {err}")
+
+        def call():
+            return nsnet2_cuda.gru_stack(net, gi1, state)
+
+        ms = cuda_ms(call)
+        queued = queued_ms(call)
+        plain_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_reference(net, gi1, state), reps=3 if steps == 1 else 1)
+        library_ms = cuda_ms(lambda: gru(x, h0))
+    ops = 3 * 2 * rows * steps * 400 * 1200
+    weights = (net.gru1.wh, net.gru1.bh, net.gru2.wi, net.gru2.bi, net.gru2.wh, net.gru2.bh)
+    nbytes = gi1.nbytes + got.nbytes + 2 * sum(h.nbytes for h in state) + sum(w.nbytes for w in weights)
+    bound_ms, bound_by = bound(nbytes, ops, F32_OPS_PER_MS)
+    log(f"kernel 1 with a state {what} [{rows}, {steps}]: plan {plan.tiles} tiles of {plan.row_tile} rows x "
+        f"{plan.unit_tile} units, grid {plan.grid} ({-(-plan.tiles // plan.grid)} a CTA at most); max |dh| {err:.3e} "
+        f"(tolerance {LL_TOL}); single call {ms:.4f} ms, queued {queued:.4f} ms, plain {plain_ms:.3f} ms, cuDNN GRU "
+        f"with h0 {library_ms:.4f} ms (its h2 {lib_err:.1e} from the kernel's); bound {bound_ms * 1e3:.2f} us by "
+        f"{bound_by}")
+    return {"rows": rows, "steps": steps, "grid": plan.grid, "tiles": plan.tiles, "row_tile": plan.row_tile,
+            "max_abs_err": err, "ms": ms, "queued_ms": queued, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "library_max_abs_diff": lib_err}
+
+
+def kernel_1_on_a_run(net, x) -> dict:
+    """Kernel 1 as ``lowlatency.run`` launches it over all the hops of ``x``
+    [B, 2, T] from a nonzero GRU state: the launch's gi1, state and outputs
+    caught at the wrapper (the fc_in output by a forward hook), then
+    ``kernel_1_with_a_state`` on them."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.pipeline import lowlatency
+
+    b, dev = x.shape[0], x.device
+    state = lowlatency.init_state((b, 2), dev)
+    state["gru"] = tuple(h.reshape(b, 2, 400) for h in _nonzero_state(2 * b, 2 * b + 3, dev))
+    caught, fc_in = [], []
+    wrapper = nsnet2_cuda.gru_stack
+
+    def catching(net_, gi1, state=None):
+        out = wrapper(net_, gi1, state=state)
+        caught.append((gi1, state, out))
+        return out
+
+    hook = net.fc_in.register_forward_hook(lambda module, args, out: fc_in.append(out))
+    # The wrapper counts its launches on the module's name, here ``catching``.
+    catching.launches = wrapper.launches
+    nsnet2_cuda.gru_stack = catching
+    try:
+        with torch.inference_mode():
+            lowlatency.run(net, x, state)
+    finally:
+        nsnet2_cuda.gru_stack = wrapper
+        wrapper.launches = catching.launches
+        hook.remove()
+    if len(caught) != 1 or len(fc_in) != 1:
+        raise AssertionError(f"a low-latency run from a nonzero state called kernel 1 {len(caught)} times")
+    gi1, h0, launched = caught[0]
+    return kernel_1_with_a_state(net, fc_in[0], gi1, h0, "on a low-latency run's", launched)
+
+
+def state_gates_at(net, dev, rows: int, kind: int) -> dict:
+    """Kernel 5 (the bf16 tier) or kernel 6 (bf16 out, the bf16_io tier) at a
+    low-latency hop, [rows, 1], continuing a nonzero state, on the gi its
+    tier hands it, against its plain version: max |dh2| <= BF16_MAX, the
+    pre-flip bar, the whole-call mean bar for the output and the final
+    float32 state; its times, plain time, bound and cuDNN's fp16 GRU from
+    the same h0."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+    from formula_vad_tpu_torch.ops import precision
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
+
+    bf16 = torch.bfloat16
+    feats, _ = _hop_features(net, dev, rows, rows + kind)
+    precision.set_io_dtype("bf16" if kind == 6 else "f32")
+    try:
+        with torch.inference_mode():
+            x = net.fc_in(precision.io_cast(feats))
+            gi = gates.gi_gates(net, x)
+    finally:
+        precision.set_io_dtype("f32")
+    if kind == 5:
+        wrapper, plain, kw, what = gates.gru_gates_p, gates.gru_gates_p_reference, {}, "kernel 5 bf16"
+    else:
+        wrapper, plain, kw, what = gates.gru_gates_f, gates.gru_gates_f_reference, {"out_dtype": bf16}, \
+            "kernel 6 bf16 (bf16 out)"
+        gi = tuple(g.to(bf16) for g in gi)
+    state = _nonzero_state(rows, rows + kind + 1, dev)
+    gw = gates.gate_weights(net, bf16)
+    plan = gates.device_p_plan(rows, dev)
+
+    def call():
+        return wrapper(net, *gi, dtype=bf16, state=state, **kw)
+
+    with torch.inference_mode():
+        before = wrapper.launches
+        got, (h1, h2) = call()
+        launched = wrapper.launches - before
+        want, (w1, w2) = plain(gw, *gi, state=state, **kw)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        err, mean = float(d.max()), float(d.mean())
+        flip = (got.to(bf16) != want.to(bf16)).any(dim=2)
+        pre = ~flip  # one step: the rows whose output did not flip
+        pre_mean = float(d[pre].mean()) if bool(pre.any()) else None
+        state_err = max(float((a - b).abs().max()) for a, b in ((h1, w1), (h2, w2)))
+        state_mean = max(float((a - b).abs().mean()) for a, b in ((h1, w1), (h2, w2)))
+        if launched != len(plan):
+            raise AssertionError(f"{what} with a state at {rows} rows counted {launched} launches, its plan has {len(plan)}")
+        if pre_mean is None or not pre_mean <= PRE_FLIP_MEAN:
+            raise AssertionError(f"{what} with a state misses the pre-flip bar at [{rows}, 1]: {pre_mean}")
+        if not (err <= BF16_MAX and mean <= BF16_MEAN and state_err <= BF16_MAX and state_mean <= BF16_MEAN):
+            raise AssertionError(f"{what} with a state disagrees with its plain version at [{rows}, 1]: max {err}, "
+                                 f"mean {mean}, final state max {state_err}, mean {state_mean}")
+        ms = cuda_ms(call)
+        queued = queued_ms(call)
+        plain_ms = cuda_ms(lambda: plain(gw, *gi, state=state, **kw), reps=3)
+        gru = cudnn_gru(net, dev, torch.float16)
+        xh, h0 = x.to(torch.float16), torch.stack(state).to(torch.float16).contiguous()
+        library_ms = cuda_ms(lambda: gru(xh, h0))
+    ops = 3 * 2 * rows * 400 * 1200
+    nbytes = sum(g.nbytes for g in gi) + got.nbytes + 2 * sum(h.nbytes for h in state) + gw.w9.nbytes + gw.b8.nbytes
+    bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_MS)
+    log(f"{what} with a state at a hop's [{rows}, 1]: {launched} launch(es), grid {plan[0].grid}; max |dh2| {err:.3e}, "
+        f"mean {mean:.3e}, over the {int(pre.sum())} rows without a flip {pre_mean:.3e}, final state max "
+        f"{state_err:.3e}, mean {state_mean:.3e} (bars {BF16_MAX}, {BF16_MEAN}, {PRE_FLIP_MEAN}); single call "
+        f"{ms:.4f} ms, queued {queued:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us by "
+        f"{bound_by}, cuDNN GRU fp16 with h0 {library_ms:.4f} ms")
+    return {"rows": rows, "steps": 1, "launches_a_call": launched, "grid": plan[0].grid, "max_abs_err": err,
+            "mean_abs_err": mean, "pre_flip_mean_abs_err": pre_mean, "state_max_abs_err": state_err, "ms": ms,
+            "queued_ms": queued, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def profiled_steps(net, state, x, steps: int = 50) -> dict:
+    """``steps`` chained low-latency steps of ``x``'s hops from ``state``
+    under torch.profiler -> the device's busy share of the wall, the device
+    events a step and the top kernels (logged); where the trace holds no
+    device event, only the wall."""
+    import torch
+
+    from formula_vad_tpu_torch.pipeline import lowlatency
+    from formula_vad_tpu_torch.tools import busy_ms
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, _ = lowlatency.step(net, state, x[..., i * LL_HOP : (i + 1) * LL_HOP])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # Every synchronising runtime call by name; the steps' own are besides the
+    # one cudaDeviceSynchronize at the end.
+    syncs = collections.Counter(e.name for e in prof.events() if "synchronize" in e.name.lower())
+    if not events:
+        log(f"  {steps} profiled steps: wall {wall:.1f} ms; the trace holds no device events")
+        return {"steps": steps, "wall_ms": wall, "busy_ms": None}
+    busy, kernels, copies = busy_ms(events)
+    n_kernels = sum(1 for e in events if not e.name.lower().startswith(("memcpy", "memset")))
+    n_copies = sum(1 for e in events if e.name.lower().startswith("memcpy"))
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  {steps} chained steps under torch.profiler: wall {wall:.1f} ms ({wall / steps:.3f} ms a step), device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}%; kernels {kernels:.1f} ms in {n_kernels} launches, "
+        f"{n_kernels / steps:.0f} a step; copies {copies:.2f} ms in {n_copies}), synchronising calls "
+        f"{dict(syncs)}; device time by kernel (ms): " + "; ".join(f"{n[:50]} {t:.2f}" for n, t in top))
+    return {"steps": steps, "wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+            "kernels_a_step": n_kernels / steps, "copies": n_copies, "syncs": dict(syncs)}
+
+
+def phase_lowlatency(net, dev, audio, smi: str) -> dict:
+    """Phase 14, the low-latency mode (``pipeline/lowlatency.py``): the
+    slice's 21 streams x 2 channels in one ``run`` (2,000 hops) and in
+    LL_STEPS chained ``step`` calls, the chain against the run (LL_TOL), the
+    profiled steps, kernel 1 on a run from a nonzero state, the impulse
+    check, the scale curve (``tools/lowlatency_scale.py``), each tier's step
+    and kernels 1, 3, 5 and 6 at a hop's shapes with a state;
+    -> {"launches": each kernel's launches in the run, the chain and the
+    tiers' steps, "shapes", and the measures}."""
+    import torch
+
+    from formula_vad_tpu_torch.ops import precision
+    from formula_vad_tpu_torch.pipeline import lowlatency
+    from formula_vad_tpu_torch.tools import lowlatency_scale
+
+    t_phase = time.perf_counter()
+    counters = path_counters()
+    b = audio.shape[0]
+    x = torch.from_numpy(audio).to(dev)
+    n_hops = audio.shape[-1] // LL_HOP
+    audio_sec = b * n_hops * LL_HOP / 48000
+    with torch.inference_mode():
+        lowlatency.run(net, x[..., : 10 * LL_HOP])  # warm-up: weights packed, bases cached
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        final, out = lowlatency.run(net, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = check_launches("the low-latency run", counters, gru_stack=1)
+        if tuple(out.shape) != (b, 2, n_hops * LL_HOP) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"the low-latency run gave {tuple(out.shape)} or non-finite values")
+        log(f"low-latency run, {b} streams x 2 channels x {n_hops} hops ({audio_sec:.0f} s of audio) in one call: wall "
+            f"{wall * 1e3:.1f} ms, real-time factor {audio_sec / wall:.1f}, launches {run_launches}; on {smi}")
+    run_shape = kernel_1_on_a_run(net, x)
+    with torch.inference_mode():
+        reset_counts(counters)
+        state = lowlatency.init_state((b, 2), dev)
+        outs, event_ms, host_ms = [], [], []
+        for i in range(LL_STEPS):
+            hop = x[..., i * LL_HOP : (i + 1) * LL_HOP]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, o = lowlatency.step(net, state, hop)
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+            outs.append(o)
+        step_launches = check_launches("the chained low-latency steps", counters, gru_stack=LL_STEPS)
+        chain = torch.cat(outs, -1)
+        part_state, _ = lowlatency.run(net, x[..., : LL_STEPS * LL_HOP])
+        chain_err = float((chain - out[..., : LL_STEPS * LL_HOP]).abs().max())
+        state_err = max(float((state[k] - part_state[k]).abs().max()) for k in ("in_tail", "out_tail", "last_sample"))
+        state_err = max([state_err] + [float((a - c).abs().max()) for a, c in zip(state["gru"], part_state["gru"])])
+        if not (chain_err <= LL_TOL and state_err <= LL_TOL):
+            raise AssertionError(f"the step chain disagrees with the run: outputs {chain_err}, state {state_err}")
+        pct = lambda v, q: float(np.percentile(v, q))  # noqa: E731
+        log(f"low-latency step at {b} streams x 2 channels, {LL_STEPS} chained: CUDA events p50 {pct(event_ms, 50):.3f} "
+            f"ms, p95 {pct(event_ms, 95):.3f} ms; host clock to completion p50 {pct(host_ms, 50):.3f} ms, p95 "
+            f"{pct(host_ms, 95):.3f} ms (budget 10 ms a hop); launches {step_launches}; the chain against the run: "
+            f"outputs {chain_err:.2e}, final state {state_err:.2e} (tolerance {LL_TOL})")
+
+        step_profile = profiled_steps(net, state, x)
+
+        impulse = torch.zeros((1, 2, 10 * LL_HOP), device=dev)
+        impulse[..., 5 * LL_HOP + 99] = 1.0  # on the decimation grid
+        energy = lowlatency.run(net, impulse)[1].abs().reshape(2, 10, LL_HOP).sum(dim=(0, 2)).cpu().numpy()
+        if (energy[:5] > 1e-6).any() or (energy[8:] > 1e-6).any() or not (energy[5:7] > 1e-6).any():
+            raise AssertionError(f"an impulse in hop 5 reaches output hops {np.nonzero(energy > 1e-6)[0].tolist()}")
+        log(f"impulse in input hop 5 reaches output hops {np.nonzero(energy > 1e-6)[0].tolist()} (energy "
+            f"{np.round(energy[4:9], 4).tolist()} at hops 4-8): one hop of latency and the OLA tail")
+
+    scale = []
+    log(f"{'B':>6} {'ms/hop':>8} {'<10ms':>6} {'ceiling':>8}   (tools/lowlatency_scale.py, float tier, demo weights)")
+    for streams in LL_SCALE:
+        r = lowlatency_scale.measure(net, streams)
+        scale.append(r)
+        log(f"{r['b']:>6} {r['ms_per_hop']:>8.3f} {str(r['fits_10ms']):>6} {r['streams_ceiling']:>8}")
+
+    tiers, tier_launches = {}, dict.fromkeys(counters, 0)
+    hop = x[..., :LL_HOP]
+    for tier, level, io, quant, recurrence, per_step in LL_TIERS:
+        precision.set_matmul_precision(level)
+        precision.set_io_dtype(io)
+        precision.set_quant(quant)
+        try:
+            with torch.inference_mode():
+                st0 = lowlatency.init_state((b, 2), dev)
+                lowlatency.step(net, st0, hop)  # warm-up
+                torch.cuda.synchronize()
+                reset_counts(counters)
+                st1, o = lowlatency.step(net, st0, hop)
+                torch.cuda.synchronize()
+                got = check_launches(f"the {tier} tier's low-latency step", counters, **{recurrence: per_step})
+                times = []
+                for _ in range(20):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    st1, o = lowlatency.step(net, st1, hop)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+        finally:
+            precision.set_matmul_precision("highest")
+            precision.set_io_dtype("f32")
+            precision.set_quant("off")
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"the {tier} tier's low-latency step gave non-finite values")
+        for name in tier_launches:
+            tier_launches[name] += got[name]
+        tiers[tier] = {"step_event_ms_p50": statistics.median(times), "launches": got}
+        log(f"  {tier} tier: a step launches {got} and nothing else; {statistics.median(times):.3f} ms a step (CUDA "
+            f"events, median of 20, {b} streams)")
+
+    shapes = {"gru_stack": [state_kernel_1_at(net, dev, rows) for rows in LL_ROWS] + [run_shape],
+              "gru_gates_p": [state_gates_at(net, dev, LL_ROWS[0], 5)],
+              "gru_gates_f": [state_gates_at(net, dev, LL_ROWS[0], 6)],
+              "matmul_q8": [q8_at(dev, LL_ROWS[0], steps=1, head_frames=1)]}
+    launches = {name: run_launches[name] + step_launches[name] + tier_launches[name] for name in counters}
+    log(f"phase 14 (low latency) took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "shapes": shapes, "run_wall_ms": wall * 1e3, "run_rtf": audio_sec / wall,
+            "step_event_ms": {"p50": pct(event_ms, 50), "p95": pct(event_ms, 95)},
+            "step_host_ms": {"p50": pct(host_ms, 50), "p95": pct(host_ms, 95)}, "chain_max_abs_err": chain_err,
+            "step_profile": step_profile, "scale": scale, "tiers": tiers}
+
+
+def phase_sweep(net, dev, audio, float_results, float_wall: float, corpus: str, smi: str) -> dict:
+    """Phase 14, the sweep: the slice with K = 8 alternative machines (a 4 x
+    2 grid of speech_threshold_factor x channel_vol_ratio_threshold, the
+    base config among them) behind one front end; kernel 2's launches and
+    shape; the base machine's alternative segments and the primary's
+    against phase 4's; every machine's outputs bit for bit with the host
+    decoder; the wall against the plain slice; kernel 2 at the sweep's rows;
+    ``apps.tune`` on phase 5's corpus, cuda against cpu. -> {"launches",
+    "shape", and the measures}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from formula_vad_tpu_torch.apps import tune
+    from formula_vad_tpu_torch.config import VADConfig, VADMachineConfig
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+    from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host, offline
+    from formula_vad_tpu_torch.tools import cuda_ms
+
+    t_phase = time.perf_counter()
+    counters = path_counters()
+    grid = [VADMachineConfig(speech_threshold_factor=f, channel_vol_ratio_threshold=r)
+            for f in SWEEP_FACTORS for r in SWEEP_RATIOS]
+    runner = BatchRunner(net, VADConfig(alt_vad_machine_configs=grid))
+    st, machines, k = runner.st, runner.machines, len(grid)
+    results, walls, launches = timed_runs(runner, audio, counters)
+    plan = fsm_cuda.scan_windows.last_plan
+    if launches != dict(dict.fromkeys(counters, 0), gru_stack=3, scan_windows=3) or plan.ctas != len(audio) * (k + 1):
+        raise AssertionError(f"the sweep launched {launches} over 3 runs, the FSM at {plan.ctas} rows")
+    primary = [r.segments for r in results]
+    if primary != [r.segments for r in float_results] or any(r.alt_segments[SWEEP_BASE] != r.segments for r in results):
+        raise AssertionError("the sweep's primary or base-config machine differs from phase 4's segments")
+    wall = statistics.median(walls)
+    counts = [sum(len(r.alt_segments[m]) for r in results) for m in range(k)]
+    log(f"sweep: the slice with {k} alternative machines ({len(SWEEP_FACTORS)} x {len(SWEEP_RATIOS)} grid of "
+        f"speech_threshold_factor x channel_vol_ratio_threshold): wall {wall * 1e3:.1f} ms (median of 3 after a "
+        f"warm-up) against the plain slice's {float_wall * 1e3:.1f} ms (phase 4), x{wall / float_wall:.3f}; launches "
+        f"over the 3 runs {launches}; kernel 2 at [{plan.ctas}, {audio.shape[-1] // st.fft_size}] ({len(audio)} streams x {k + 1} "
+        f"machines, stream-major); segments a machine {counts}; the base machine's and the primary's equal phase "
+        f"4's; on {smi}")
+
+    # Every machine's seven outputs against the host decoder, bit for bit.
+    x = torch.from_numpy(audio).to(dev)
+    with torch.inference_mode():
+        win_out, _ = offline.process_batch_offline(net, st, x, fsm_params=machines)
+        mv, rt, va = offline.window_inputs_batch(net, st, x)
+    b, w = mv.shape
+    rows = [fsm.repeat_rows(t, k + 1) for t in (mv, rt, va)]
+    host, _ = fsm_host.scan_windows_host(st.fsm_shape, fsm.tile_rows(machines, b), *(t.cpu().numpy() for t in rows))
+    for field, got, want in zip(host._fields, win_out, host):
+        if got.cpu().numpy().reshape(b * (k + 1), w).tobytes() != np.ascontiguousarray(want).tobytes():
+            raise AssertionError(f"the sweep's FSM != the host decoder: {field}")
+    log(f"sweep: all {b * (k + 1)} (stream, config) rows' 7 outputs == the host decoder, bit for bit")
+    params = fsm.tile_rows(machines, b)
+    with torch.inference_mode():
+        out, carry = fsm_cuda.scan_windows(st.fsm_shape, params, *rows)
+        err = max(float(np.abs(got.cpu().numpy().reshape(want.shape).astype(np.float64) - want).max())
+                  for got, want in zip(out, host))
+        if err != 0.0:
+            raise AssertionError(f"kernel 2 at the sweep's rows differs from the host decoder by {err}")
+        ms = cuda_ms(lambda: fsm_cuda.scan_windows(st.fsm_shape, params, *rows))
+        plain_ms = cuda_ms(lambda: fsm_cuda.scan_windows_reference(st.fsm_shape, params, *rows), reps=1)
+    nbytes = sum(t.nbytes for t in rows) + sum(t.nbytes for t in out) + sum(t.nbytes for t in carry.values())
+    bound_ms, bound_by = bound(nbytes, 0, F32_OPS_PER_MS)
+    log(f"FSM kernel at the sweep's [{b * (k + 1)}, {w}]: max |d| {err} against the host decoder; {ms:.4f} ms a fresh "
+        f"call, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us by {bound_by}")
+    shape = {"rows": b * (k + 1), "windows": w, "ctas": plan.ctas, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+    boards = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            tune.main(["-i", os.path.join(corpus, "plan_cuda.json"), "--grid", TUNE_GRID, "--device", device])
+        boards[device] = text.getvalue()
+    if boards["cuda"] != boards["cpu"] or "base" not in boards["cuda"]:
+        raise AssertionError(f"the tuner's leaderboard differs between cuda and cpu:\n{boards['cuda']}\n{boards['cpu']}")
+    log(f"apps.tune --grid {TUNE_GRID} on phase 5's corpus: the same leaderboard on cuda and cpu "
+        f"({time.perf_counter() - t0:.1f} s both):\n{boards['cuda'].rstrip()}")
+    log(f"phase 14 (sweep) took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "shape": shape, "wall_ms": wall * 1e3, "plain_wall_ms": float_wall * 1e3,
+            "segments_a_machine": counts}
+
+
 def main() -> int:
     try:
         import torch
@@ -2570,6 +3058,10 @@ def main() -> int:
         tiers = phase_tiers(runner, audio, smi)
         stream = phase_stream(runner, audio, float_results, float_wall, corpus, batched_dir, smi)
         serve = phase_serve(net, audio, float_results, stream["float_segments"], corpus, smi)
+        t14 = time.perf_counter()
+        low = phase_lowlatency(net, dev, audio, smi)
+        sweep = phase_sweep(net, dev, audio, float_results, float_wall, corpus, smi)
+        log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -2593,6 +3085,14 @@ def main() -> int:
         k["launches_serve"] = serve["launches"][k["name"]]
         if k["name"] in serve["serve_shapes"]:
             k["serve_shapes"] = serve["serve_shapes"][k["name"]]
+        # Phase 14: the low-latency run, its chained steps and each tier's
+        # step; the sweep's 3 slice runs with 8 alternative machines.
+        k["launches_lowlatency"] = low["launches"][k["name"]]
+        if k["name"] in low["shapes"]:
+            k["lowlatency_shapes"] = low["shapes"][k["name"]]
+        k["launches_sweep"] = sweep["launches"][k["name"]]
+        if k["name"] == "scan_windows":
+            k["sweep_shape"] = sweep["shape"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

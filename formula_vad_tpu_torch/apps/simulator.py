@@ -56,6 +56,7 @@ class Instance:
     out_dir: str | None = None
     reference_segments: list | None = None
     vad_segments: list | None = None  # raw dicts from the runner
+    alt_vad_segments: list | None = None  # one list an alternative machine config (batched plans)
     evaluator: object | None = None
 
 
@@ -183,6 +184,7 @@ def _run_batched_srcs(instances, config, net, srcs, lengths) -> None:
     chunk = runner.st.chunk_size
     for inst, res, src, length in zip(instances, results, srcs, lengths):
         inst.vad_segments = res.segments
+        inst.alt_vad_segments = res.alt_segments
         if inst.out_dir:
 
             def read_span(a, b, src=src):

@@ -12,7 +12,11 @@
 //             in float32 or bf16 (out_dtype); its `tile` changes no bit and
 //             the host's plan ignores it.
 // Both GRU layers (H = 400, ONNX z|r|n, linear_before_reset = 1) step T
-// times from h = 0 over per-gate layer-1 input projections gi_z, gi_r, gi_n
+// times from h = 0, or from a carried state (h1_0, h2_0 [N, H] float32, the
+// low-latency mode's GRU state, which the call continues and whose final
+// value it writes to h1_T and, for kernel 6, h2_T; kernels 4 and 5 leave
+// the final float32 h2 in out's last step), over per-gate layer-1 input
+// projections gi_z, gi_r, gi_n
 // [N, T, H] (bi1 + bh1 folded into z and r, bi1 only into n), with the
 // packed weights wp1 = wh1 [H, 3H] and wp2 [2H, 4H] (h1 rows
 // wi2 z | r | n_i | 0, h2 rows wh2 z | r | 0 | n_h: kernels 4 and 6's nine
@@ -85,6 +89,12 @@
 // bf16, its h1, 1,024, and kernel 6's h2, 1,024. A row's sums depend on its
 // own inputs only, in a fixed order, so its bits do not depend on N or on
 // the plan.
+// A carried state is seeded before the first step: each CTA writes its
+// units' float32 h1 (and kernel 6's h2) into its shared slots and their
+// bf16 fragments into the x1 and x2 halves that step 0 reads, then one
+// row-group barrier more makes every unit group's fragments visible. That
+// is an instantiation of its own (CARRIED), so a call without a state runs
+// the stateless code as it was.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,6 +147,10 @@ struct Params {
   uint4* x1;        // [2][tiles][KS][32]: bf16(h1) in A-fragment order
   uint4* x2;        // the same for bf16(h2)
   unsigned int* barrier;  // [row groups][BARRIER_STRIDE]: zero at launch, left zero at exit
+  const float* h1_0;  // [n_rows, H] each: the carried state h[-1], or null for h = 0
+  const float* h2_0;
+  float* h1_T;        // [n_rows, H]: the final h1 (with a state)
+  float* h2_T;        // [n_rows, H]: kernel 6's final h2 (with a state)
   int n_rows, n_steps, tiles, tiles_per_group;
 };
 
@@ -230,7 +244,46 @@ __device__ __forceinline__ void prefetch_gi(const Params<GI, OUT>& p, Pair<GI>* 
       }
 }
 
+// The eight (row, unit) pairs of a lane's slots and fragments in a tile:
+// slot s * 4 + q holds row g + 8 (q >> 1), unit col + 8 s + (q & 1).
+__device__ __forceinline__ size_t slot_index(int tile, int g, int col, int s, int q) {
+  return (size_t)(tile * MMA_ROWS + g + 8 * (q >> 1)) * H + col + 8 * s + (q & 1);
+}
+
+__device__ __forceinline__ uint4 fragment(const float (&v)[2][4]) {
+  return make_uint4(pack_bf16(v[0][0], v[0][1]), pack_bf16(v[0][2], v[0][3]), pack_bf16(v[1][0], v[1][1]),
+                    pack_bf16(v[1][2], v[1][3]));
+}
+
+// The carried state of this warp's tiles: float32 h1 (and kernel 6's h2)
+// into the shared slots, bf16 h1 and h2 into the x1 and x2 halves that step
+// 0 reads (half 1), in this CTA's unit group's A-fragment slot. Rows past
+// n_rows are zero.
 template <typename GI, typename OUT, bool H2_SHARED>
+__device__ void seed_state(const Params<GI, OUT>& p, float* h1s, float* h2s, int tile0, int n_tiles, int own,
+                           int col, int g) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t half_u4 = (size_t)p.tiles * KS * 32;
+  for (int i = warp; i < n_tiles; i += WARPS) {
+    const int tile = tile0 + i;
+    float v1[2][4], v2[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool valid = tile * MMA_ROWS + g + 8 * (q >> 1) < p.n_rows;
+        const size_t at = slot_index(tile, g, col, s, q);
+        v1[s][q] = valid ? p.h1_0[at] : 0.0f;
+        v2[s][q] = valid ? p.h2_0[at] : 0.0f;
+        h1s[i * H_SLOTS * 32 + (s * 4 + q) * 32 + lane] = v1[s][q];
+        if (H2_SHARED) h2s[i * H_SLOTS * 32 + (s * 4 + q) * 32 + lane] = v2[s][q];
+      }
+    p.x1[half_u4 + (size_t)tile * KS * 32 + own] = fragment(v1);
+    p.x2[half_u4 + (size_t)tile * KS * 32 + own] = fragment(v2);
+  }
+}
+
+template <typename GI, typename OUT, bool H2_SHARED, bool CARRIED>
 __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT> p) {
   static_assert(H2_SHARED || std::is_same_v<OUT, float>, "h2 is read back from out only where out is float32");
   extern __shared__ uint4 smem[];
@@ -244,11 +297,16 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT>
   const int n_tiles = min(p.tiles_per_group, p.tiles - tile0);  // >= 1: the launcher checks the plan
   const int col = ug * U + (lane & 3) * 2;  // the lane's first unit; +8 in the second n8 tile
 
+  const size_t own = (size_t)ug * 32 + lane;  // this thread's uint4 of a tile's fragments
   const uint4* wsrc = p.w + (size_t)ug * W_U4;
   for (int i = threadIdx.x; i < W_U4; i += THREADS) cp_async16(ws + i, wsrc + i);
-  for (int i = threadIdx.x; i < n_tiles * H_SLOTS * 32; i += THREADS) {
-    h1s[i] = 0.0f;
-    if (H2_SHARED) h2s[i] = 0.0f;
+  if constexpr (CARRIED) {  // step 0 continues a carried state
+    seed_state<GI, OUT, H2_SHARED>(p, h1s, h2s, tile0, n_tiles, own, col, g);
+  } else {
+    for (int i = threadIdx.x; i < n_tiles * H_SLOTS * 32; i += THREADS) {
+      h1s[i] = 0.0f;
+      if (H2_SHARED) h2s[i] = 0.0f;
+    }
   }
   for (int i = warp; i < n_tiles; i += WARPS) prefetch_gi(p, gis + i * GI_SLOTS * 32 + lane, tile0 + i, 0, col, g);
   cp_async_commit();
@@ -260,23 +318,30 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT>
   const uint4* w2b = ws + (2 * KS * 32 + lane) * 3;  // wp2, h2 rows
   const size_t half_u4 = (size_t)p.tiles * KS * 32;  // one ping-pong half
   const size_t frag_u4 = (size_t)KS * 32;            // one tile's K steps
-  const size_t own = (size_t)ug * 32 + lane;         // this thread's uint4 of a tile's fragments
   // Bias of row b8[k] at this lane's units of n8 tile s.
   auto bias = [&](int k, int s) { return __ldg(reinterpret_cast<const float2*>(p.b8 + k * H + col + 8 * s)); };
 
   uint4 ring[KS];
   unsigned int target = 0;
+  if constexpr (CARRIED) {
+    // Every unit group's fragments of h[-1] are written; step 0's first
+    // layer-1 tile reads its h1[-1].
+    target += UNIT_GROUPS;
+    grid_barrier(p.barrier + rg * BARRIER_STRIDE, target);
+    if (warp < n_tiles) load_block(ring, p.x1 + half_u4 + lane + (tile0 + warp) * frag_u4);
+  }
   for (int t = 0; t < p.n_steps; ++t) {
+    const bool has_prev = t > 0 || CARRIED;  // h[t-1] is not h = 0
     const uint4* x1_prev = p.x1 + ((t + 1) & 1) * half_u4 + lane;
     uint4* x1_cur = p.x1 + (t & 1) * half_u4;
     const uint4* x2_prev = p.x2 + ((t + 1) & 1) * half_u4 + lane;
     uint4* x2_cur = p.x2 + (t & 1) * half_u4;
 
-    // ---- phase 1: h1[t]. The ring holds tile `warp`'s h1[t-1] (t > 0).
+    // ---- phase 1: h1[t]. The ring holds tile `warp`'s h1[t-1] (has_prev).
     for (int i = warp; i < n_tiles; i += WARPS) {
       const int tile = tile0 + i;
       float acc[8][4] = {};
-      if (t > 0) mma_block<4>(ring, i + WARPS < n_tiles ? x1_prev + (tile + WARPS) * frag_u4 : nullptr, w1, acc);
+      if (has_prev) mma_block<4>(ring, i + WARPS < n_tiles ? x1_prev + (tile + WARPS) * frag_u4 : nullptr, w1, acc);
       if (i == warp) cp_async_wait_all();  // this thread's gi copies of step t
       const Pair<GI>* gs = gis + i * GI_SLOTS * 32 + lane;
       float* hs = h1s + i * H_SLOTS * 32 + lane;
@@ -300,8 +365,7 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT>
           }
         }
       }
-      x1_cur[tile * frag_u4 + own] = make_uint4(pack_bf16(hn[0][0], hn[0][1]), pack_bf16(hn[0][2], hn[0][3]),
-                                                pack_bf16(hn[1][0], hn[1][1]), pack_bf16(hn[1][2], hn[1][3]));
+      x1_cur[tile * frag_u4 + own] = fragment(hn);
     }
     target += UNIT_GROUPS;
     grid_barrier(p.barrier + rg * BARRIER_STRIDE, target);
@@ -318,7 +382,8 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT>
       const uint4* after = i + WARPS < n_tiles ? x1_now + (tile + WARPS) * frag_u4
                            : t + 1 < p.n_steps ? x1_now + (tile0 + warp) * frag_u4
                                                : nullptr;
-      // f32 h2[t-1]: kernel 6's shared slots (zero at t = 0), else out.
+      // f32 h2[t-1]: kernel 6's shared slots (zero or seeded at t = 0),
+      // else out, or at t = 0 the carried state.
       float* h2 = h2s + i * H_SLOTS * 32 + lane;
       float2 hold[2][2];
 #pragma unroll
@@ -328,16 +393,19 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT>
         for (int s = 0; s < 2; ++s) {
           if constexpr (H2_SHARED)
             hold[s][half] = make_float2(h2[(s * 4 + half * 2) * 32], h2[(s * 4 + half * 2 + 1) * 32]);
-          else
+          else if (!CARRIED || t > 0)
             hold[s][half] = t > 0 && row < p.n_rows
                                 ? __ldcg(reinterpret_cast<const float2*>(p.out + ((size_t)row * p.n_steps + t - 1) * H +
                                                                          col + 8 * s))
                                 : make_float2(0.0f, 0.0f);
+          else
+            hold[s][half] = row < p.n_rows ? *reinterpret_cast<const float2*>(p.h2_0 + (size_t)row * H + col + 8 * s)
+                                           : make_float2(0.0f, 0.0f);
         }
       }
       float acc[8][4] = {};
-      mma_block<4>(ring, t > 0 ? x2_prev + tile * frag_u4 : after, w2a, acc);
-      if (t > 0) mma_block<6>(ring, after, w2b, acc);
+      mma_block<4>(ring, has_prev ? x2_prev + tile * frag_u4 : after, w2a, acc);
+      if (has_prev) mma_block<6>(ring, after, w2b, acc);
       float hn[2][4];
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
@@ -360,9 +428,22 @@ __global__ void __launch_bounds__(THREADS, 1) gru_gates_p_kernel(Params<GI, OUT>
           for (int s = 0; s < 2; ++s)
             store_pair(p.out + ((size_t)row * p.n_steps + t) * H + col + 8 * s, hn[s][half * 2], hn[s][half * 2 + 1]);
       }
-      x2_cur[tile * frag_u4 + own] = make_uint4(pack_bf16(hn[0][0], hn[0][1]), pack_bf16(hn[0][2], hn[0][3]),
-                                                pack_bf16(hn[1][0], hn[1][1]), pack_bf16(hn[1][2], hn[1][3]));
+      x2_cur[tile * frag_u4 + own] = fragment(hn);
     }
+  }
+  // The final state, from the thread's own slots: h1, and kernel 6's h2.
+  if constexpr (CARRIED) {
+    for (int i = warp; i < n_tiles; i += WARPS)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int tile = tile0 + i;
+          if (tile * MMA_ROWS + g + 8 * (q >> 1) >= p.n_rows) continue;
+          const size_t at = slot_index(tile, g, col, s, q);
+          p.h1_T[at] = h1s[i * H_SLOTS * 32 + (s * 4 + q) * 32 + lane];
+          if (H2_SHARED) p.h2_T[at] = h2s[i * H_SLOTS * 32 + (s * 4 + q) * 32 + lane];
+        }
   }
   // Leave the row group's counters at 0 for the next launch on the stream:
   // each CTA's thread 0 is past its last wait when it checks out, so the
@@ -391,6 +472,8 @@ struct Launch {
   const float* b8;
   void *out, *x1, *x2;
   unsigned int* barrier;
+  const float *h1_0, *h2_0;
+  float *h1_T, *h2_T;
   int n_rows, n_steps, tiles, row_groups, tiles_per_group;
   cudaStream_t stream;
 };
@@ -399,7 +482,8 @@ struct Launch {
 // device cannot hold at once (a barrier would deadlock).
 template <typename GI, typename OUT, bool H2_SHARED>
 cudaError_t launch(const Launch& a) {
-  void (*kernel)(Params<GI, OUT>) = gru_gates_p_kernel<GI, OUT, H2_SHARED>;
+  void (*kernel)(Params<GI, OUT>) = a.h1_0 ? gru_gates_p_kernel<GI, OUT, H2_SHARED, true>
+                                           : gru_gates_p_kernel<GI, OUT, H2_SHARED, false>;
   const int smem = W_BYTES + a.tiles_per_group * tile_bytes<GI, H2_SHARED>();
   const int grid = UNIT_GROUPS * a.row_groups;
   int dev = 0, coop = 0, sms = 0, blocks = 0;
@@ -413,7 +497,8 @@ cudaError_t launch(const Launch& a) {
   if (blocks < 1 || grid > blocks * sms) return cudaErrorCooperativeLaunchTooLarge;
   Params<GI, OUT> p{static_cast<const GI*>(a.gz), static_cast<const GI*>(a.gr), static_cast<const GI*>(a.gn),
                     static_cast<const uint4*>(a.w), a.b8, static_cast<OUT*>(a.out), static_cast<uint4*>(a.x1),
-                    static_cast<uint4*>(a.x2), a.barrier, a.n_rows, a.n_steps, a.tiles, a.tiles_per_group};
+                    static_cast<uint4*>(a.x2), a.barrier, a.h1_0, a.h2_0, a.h1_T, a.h2_T, a.n_rows, a.n_steps,
+                    a.tiles, a.tiles_per_group};
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args, smem, a.stream);
   if (err != cudaSuccess) return err;
@@ -441,7 +526,10 @@ int fvad_gru_gates_p_smem_bytes(int kind, int tiles_per_group) { return smem_byt
 // [2][tiles][25][32] uint4 of scratch; barrier: row_groups x 32 unsigned
 // ints, zero at launch (two counters a row group, 128 bytes apart; the
 // kernel leaves them zero, so launches in order on one stream can share
-// them). All contiguous on the current device, 16-byte aligned. The plan
+// them); h1_0, h2_0 [n_rows, H] float32 the carried state, or null for
+// h = 0, and with a state h1_T [n_rows, H] for the final h1 and, for kernel
+// 6, h2_T for the final float32 h2 (kernels 4 and 5 leave it in out's last
+// step). All contiguous on the current device, 16-byte aligned. The plan
 // (tiles = ceil(n_rows / 16), row_groups x tiles_per_group covering them,
 // grid 25 x row_groups) comes from the host. Operand types a kind does not
 // take, a plan that does not cover the tiles exactly, a CTA of more than
@@ -449,16 +537,20 @@ int fvad_gru_gates_p_smem_bytes(int kind, int tiles_per_group) { return smem_byt
 // cannot hold at once (a barrier would deadlock) are refused before any
 // launch. Launches cooperatively on `stream`; returns the cudaError_t.
 int fvad_gru_gates_p(int kind, int w_bf16, int gi_bf16, int out_bf16, const void* gz, const void* gr, const void* gn,
-                     const void* w, const float* b8, void* out, void* x1, void* x2, unsigned int* barrier, int n_rows,
-                     int n_steps, int tiles, int row_groups, int tiles_per_group, void* stream) {
+                     const void* w, const float* b8, void* out, void* x1, void* x2, unsigned int* barrier,
+                     const float* h1_0, const float* h2_0, float* h1_T, float* h2_T, int n_rows, int n_steps, int tiles,
+                     int row_groups, int tiles_per_group, void* stream) {
   const bool types = w_bf16 && ((kind == 5 && !gi_bf16 && !out_bf16) || (kind == 4 && gi_bf16 && !out_bf16) ||
                                 (kind == 6 && gi_bf16));
-  if (!types || n_rows < 1 || n_steps < 1 || tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 ||
+  const bool carried = h1_0 != nullptr;
+  const bool state = (h2_0 != nullptr) == carried && (h1_T != nullptr) == carried &&
+                     (h2_T != nullptr) == (carried && kind == 6);
+  if (!types || !state || n_rows < 1 || n_steps < 1 || tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 ||
       tiles_per_group > MAX_TILES || row_groups < 1 || (long long)row_groups * tiles_per_group < tiles ||
       (long long)(row_groups - 1) * tiles_per_group >= tiles)
     return (int)cudaErrorInvalidValue;
-  const Launch a{gz, gr, gn, w, b8, out, x1, x2, barrier, n_rows, n_steps, tiles, row_groups, tiles_per_group,
-                 (cudaStream_t)stream};
+  const Launch a{gz, gr, gn, w, b8, out, x1, x2, barrier, h1_0, h2_0, h1_T, h2_T, n_rows, n_steps, tiles,
+                 row_groups, tiles_per_group, (cudaStream_t)stream};
   cudaError_t err;
   if (kind == 5)
     err = launch<float, float, false>(a);

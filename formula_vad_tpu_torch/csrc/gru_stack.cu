@@ -3,7 +3,11 @@
 // Replaces four TPU kernels that compute one function in float32: both GRU
 // layers (H = 400, ONNX z|r|n gate order, linear_before_reset = 1) stepped
 // T times from h = 0 over the precomputed layer-1 input projection; out =
-// the layer-2 hidden sequence [N, T, H]. Per step and row:
+// the layer-2 hidden sequence [N, T, H]. A call may instead continue a
+// carried state (h1_0, h2_0 [N, H] float32, the low-latency mode's GRU
+// state): step 0 then reads h[t-1] from them, where it reads nothing from
+// h = 0, and the final h1 and h2 stay in the scratch (or out) for the host
+// to hand back. Per step and row:
 //   gh1 = h1 Wh1 + bh1;  h1 = gates(gi1[t], gh1, h1)
 //   gi2 = h1 Wi2 + bi2;  gh2 = h2 Wh2 + bh2;  h2 = gates(gi2, gh2, h2)
 // - formula_vad_tpu/models/nsnet2_pallas.py::gru_stack_pallas (body
@@ -99,6 +103,8 @@ struct Params {
   float* h1;         // [2, n_rows, H]: h1 of steps t-1 and t
   float* h2;         // bf16 out only: [2, n_rows, H], h2 of steps t-1 and t
   unsigned int* barrier;  // zero at launch
+  const float* h1_0;  // [n_rows, H] each: the carried state h[-1], or null for h = 0
+  const float* h2_0;
   int gi_stride, n_rows, n_steps, row_tile, unit_groups, tiles;
 };
 
@@ -200,12 +206,18 @@ __device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
   const bool active = ty < rows_here;
   const bool full = (threadIdx.x & ~31) / TU + TR * (RM - 1) < rows_here;
   const size_t rows_h = (size_t)p.n_rows * H;
-  const float* h1_prev = p.h1 + (size_t)((t + 1) & 1) * rows_h;
+  // h[t-1] exists from t = 1, and at t = 0 too where a state is carried in.
+  const bool from_state = t == 0 && p.h1_0 != nullptr;
+  const bool has_prev = t > 0 || from_state;
+  const float* h1_prev = from_state ? p.h1_0 : p.h1 + (size_t)((t + 1) & 1) * rows_h;
   float* h1_cur = p.h1 + (size_t)(t & 1) * rows_h;
   const size_t out_stride = (size_t)p.n_steps * H;
-  const float* h2_prev;  // row 0 of h2[t-1] (layer 2, t > 0)
+  const float* h2_prev;  // row 0 of h2[t-1] (layer 2, has_prev)
   size_t h2_stride;
-  if constexpr (H2_IN_OUT) {
+  if (from_state) {
+    h2_prev = p.h2_0;
+    h2_stride = H;
+  } else if constexpr (H2_IN_OUT) {
     h2_prev = p.out + (size_t)(t - 1) * H;
     h2_stride = out_stride;
   } else {
@@ -213,11 +225,12 @@ __device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
     h2_stride = H;
   }
 
-  // Layer 1: h1[t-1] Wh1 (nothing at t = 0: h = 0). Layer 2: h1[t] Wi2,
-  // then h2[t-1] Wh2 (from t = 1); the n sums of the two stay apart.
+  // Layer 1: h1[t-1] Wh1 (nothing at t = 0 from h = 0). Layer 2: h1[t]
+  // Wi2, then h2[t-1] Wh2 (where it exists); the n sums of the two stay
+  // apart.
   const Operand a = LAYER2 ? Operand{h1_cur, (size_t)H, p.wi2} : Operand{h1_prev, (size_t)H, p.wh1};
   const Operand b = {h2_prev, h2_stride, p.wh2};  // layer 2 only
-  const int total = LAYER2 ? (t > 0 ? 2 * CHUNKS : CHUNKS) : (t > 0 ? CHUNKS : 0);
+  const int total = LAYER2 ? (has_prev ? 2 * CHUNKS : CHUNKS) : (has_prev ? CHUNKS : 0);
   const int swap_at = LAYER2 ? CHUNKS : -1;
   // Chunk c of the phase: its operands picked field by field, so that the
   // choice stays in registers.
@@ -278,7 +291,7 @@ __device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
     const size_t row = row0 + ty + TR * i;
     const bool valid = ty + TR * i < rows_here;
     const float* prev = LAYER2 ? h2_prev + row * h2_stride : h1_prev + row * H;
-    hold[i] = valid && t > 0 ? __ldcg(reinterpret_cast<const float4*>(prev + u0)) : zero;
+    hold[i] = valid && has_prev ? __ldcg(reinterpret_cast<const float4*>(prev + u0)) : zero;
     if (!LAYER2) {
       const size_t g = (row * p.n_steps + t) * p.gi_stride + u0;
       gz[i] = valid ? __ldcs(reinterpret_cast<const float4*>(p.gi_z + g)) : zero;
@@ -393,26 +406,30 @@ int fvad_gru_stack_blocks_per_sm(int* blocks) { return (int)blocks_per_sm<float>
 // (models/nsnet2_cuda.py::pack); bh1, bi2, bh2 [3H]; out [n_rows, n_steps,
 // H], bf16 when out_bf16, else float32; h1 scratch [2, n_rows, H]; h2
 // scratch [2, n_rows, H] when out_bf16, else unused; barrier: one zeroed
-// unsigned int. All float32 but a bf16 out, contiguous and 16-byte aligned,
-// on the current device. The plan (row_tile, row_groups, unit_groups, grid)
+// unsigned int; h1_0, h2_0 [n_rows, H] the carried state, or both null for
+// h = 0. The final h1 ends in h1 scratch slot (n_steps - 1) & 1, the final
+// h2 in out's last step or, with a bf16 out, in h2 scratch slot
+// (n_steps - 1) & 1. All float32 but a bf16 out, contiguous and 16-byte
+// aligned, on the current device. The plan (row_tile, row_groups, unit_groups, grid)
 // comes from the host. A plan that does not cover the rows exactly, or a
 // grid the device cannot hold at once (the grid barrier would deadlock), is
 // refused before any launch. Launches cooperatively on `stream`; returns
 // the launch's cudaError_t.
 int fvad_gru_stack(const float* gi_z, const float* gi_r, const float* gi_n, const float* wh1, const float* bh1,
                    const float* wi2, const float* bi2, const float* wh2, const float* bh2, void* out, float* h1,
-                   float* h2, unsigned int* barrier, int gi_stride, int out_bf16, int n_rows, int n_steps,
-                   int row_tile, int row_groups, int unit_groups, int grid, void* stream) {
-  if (gi_stride < H || gi_stride % 4) return (int)cudaErrorInvalidValue;
+                   float* h2, unsigned int* barrier, const float* h1_0, const float* h2_0, int gi_stride,
+                   int out_bf16, int n_rows, int n_steps, int row_tile, int row_groups, int unit_groups, int grid,
+                   void* stream) {
+  if (gi_stride < H || gi_stride % 4 || (h1_0 == nullptr) != (h2_0 == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (out_bf16) {
     if (!h2) return (int)cudaErrorInvalidValue;
     return (int)launch(Params<bf16>{gi_z, gi_r, gi_n, wh1, wi2, wh2, bh1, bi2, bh2, static_cast<bf16*>(out), h1, h2,
-                                    barrier, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
+                                    barrier, h1_0, h2_0, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
                        row_groups, grid, st);
   }
   return (int)launch(Params<float>{gi_z, gi_r, gi_n, wh1, wi2, wh2, bh1, bi2, bh2, static_cast<float*>(out), h1,
-                                   nullptr, barrier, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
+                                   nullptr, barrier, h1_0, h2_0, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
                      row_groups, grid, st);
 }
 

@@ -1,7 +1,8 @@
 """NSNet2 noise-suppression network as a PyTorch module.
 
-Port of ``formula_vad_tpu/models/nsnet2.py`` (``apply``, ``apply_head``,
-``load_npz``). Architecture (Microsoft DNS-Challenge NSNet2 baseline):
+Port of ``formula_vad_tpu/models/nsnet2.py`` (``apply``,
+``apply_streaming``, ``apply_head``, ``zero_state``, ``load_npz``).
+Architecture (Microsoft DNS-Challenge NSNet2 baseline):
 
     [*, T, 161] log-power -> Dense 161->400 -> GRU 400 -> GRU 400
         -> Dense 400->600 + ReLU -> Dense 600->600 + ReLU
@@ -38,7 +39,11 @@ tier (gru_i and gru_h at one level):
   decisions ``testing/tier_fuzz.py`` measures.
 
 Like the reference's per-chunk ONNX run, ``forward`` always starts the GRUs
-from h = 0. Under the int8 tier (``ops/precision.set_quant("int8")`` or
+from h = 0. ``forward_streaming`` (the low-latency mode's model step,
+``pipeline/lowlatency.py``) continues a carried state ``(h1, h2)`` through
+the same routes, each recurrence wrapper taking the state; the JAX
+package's TPU-only options of ``apply_streaming`` (``rider``,
+``defer_head``, the wavefront schedule) are not ported. Under the int8 tier (``ops/precision.set_quant("int8")`` or
 ``FVAD_QUANT=int8``) a network whose GRUs both have linear_before_reset = 1
 runs ``nsnet2_q8.forward_q8`` instead, as the reference's
 ``apply_streaming`` routes to ``apply_streaming_q8``; lbr = 0 weights keep
@@ -97,6 +102,11 @@ class Dense(nn.Module):
         return precision.matmul(x, precision.io_cast(self.w), self.stage) + precision.io_cast(self.b)
 
 
+def zero_state(lead: tuple = (), device="cpu", dtype: torch.dtype = torch.float32) -> tuple:
+    """The GRU state (h1, h2) at h = 0, each [*lead, 400]."""
+    return tuple(torch.zeros(tuple(lead) + (HIDDEN,), dtype=dtype, device=device) for _ in range(2))
+
+
 class NSNet2(nn.Module):
     def __init__(self, lbr1: int = 1, lbr2: int = 1):
         super().__init__()
@@ -116,6 +126,23 @@ class NSNet2(nn.Module):
     def forward(self, features: torch.Tensor, out_frames: int | None = None) -> torch.Tensor:
         """features [..., T, 161] -> gains [..., T_out, 161], T_out = out_frames
         (the last frames only; the head skips the dropped ones) or T."""
+        return self._run(features, out_frames, None)
+
+    def forward_streaming(self, state: tuple, features: torch.Tensor, out_frames: int | None = None):
+        """The network over features [..., T, 161] continuing the GRU state
+        ``state = (h1, h2)``, each [..., 400] -> (new state, gains [..., T_out,
+        161]), the state in its dtype. The recurrence runs on the tier's
+        route as in ``forward``, from the state (cast to float32). Under bf16
+        activation storage the state goes in and comes back rounded to bf16
+        (widened to its dtype), as the JAX package casts it and its scan
+        stores it: a chain of calls rounds it once a call."""
+        if features.shape[-2] == 0:
+            return state, features.new_zeros(features.shape[:-1] + (N_BINS,))
+        return self._run(features, out_frames, state)
+
+    def _run(self, features: torch.Tensor, out_frames: int | None, state: tuple | None):
+        """``forward`` (``state`` None: h = 0, -> gains) or
+        ``forward_streaming`` (-> (state, gains))."""
         lbr = bool(self.gru1.linear_before_reset and self.gru2.linear_before_reset)
         io = precision.io_dtype()
         if precision.quant_int8() and lbr:
@@ -126,7 +153,7 @@ class NSNet2(nn.Module):
                 )
             from .nsnet2_q8 import forward_q8
 
-            return forward_q8(self, features, out_frames)
+            return forward_q8(self, features, out_frames, state)
         level = precision.matmul_precision("gru_h")
         if precision.matmul_precision("gru_i") != level:
             raise NotImplementedError(
@@ -140,23 +167,34 @@ class NSNet2(nn.Module):
             )
         lead, t = features.shape[:-2], features.shape[-2]
         x = self.fc_in(precision.io_cast(features.reshape((-1, t, N_BINS))))
+        # The recurrence wrappers take the state flat, float32 and contiguous;
+        # under bf16 storage rounded to bf16, as the JAX package casts it.
+        h0 = None if state is None else tuple(h.reshape(-1, HIDDEN).float().contiguous() for h in state)
+        if h0 is not None and io is not None:
+            h0 = tuple(precision.bf16_round(h) for h in h0)
         if io is not None:
             from .nsnet2_gates_cuda import gi_gates, gru_gates_f
 
-            ys = gru_gates_f(self, *gi_gates(self, x), dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+            ys = gru_gates_f(self, *gi_gates(self, x), dtype=torch.bfloat16, out_dtype=torch.bfloat16, state=h0)
         elif level == "default":
             from .nsnet2_gates_cuda import gi_gates, gru_gates_p
 
-            ys = gru_gates_p(self, *gi_gates(self, x), dtype=torch.bfloat16)  # [N, T, H]
+            ys = gru_gates_p(self, *gi_gates(self, x), dtype=torch.bfloat16, state=h0)  # [N, T, H]
         else:
             from .nsnet2_cuda import gru_stack, gru_stack_reference
 
             gi1 = precision.matmul(x, self.gru1.wi, "gru_i") + self.gru1.bi  # [N, T, 3H]
-            ys = (gru_stack if lbr else gru_stack_reference)(self, gi1.contiguous())  # [N, T, H]
+            ys = (gru_stack if lbr else gru_stack_reference)(self, gi1.contiguous(), state=h0)  # [N, T, H]
+        if state is not None:
+            ys, h_t = ys
+            if io is not None:
+                h_t = tuple(precision.bf16_round(h) for h in h_t)
+            state = tuple(h.to(s.dtype).reshape(s.shape) for h, s in zip(h_t, state))
         if out_frames is not None and out_frames < t:
             ys = ys[:, t - out_frames :]
         gains = self.head(ys)
-        return gains.reshape(lead + gains.shape[-2:])
+        gains = gains.reshape(lead + gains.shape[-2:])
+        return gains if state is None else (state, gains)
 
 
 def weights_key(net: NSNet2) -> tuple:

@@ -4,7 +4,10 @@
 gru_stack_pallas``: both GRU layers (hidden 400, ONNX z|r|n gate order,
 linear_before_reset = 1) stepped T times from h = 0 over the precomputed
 layer-1 input projection ``gi1 [N, T, 1200]``; it returns the layer-2
-hidden sequence ``[N, T, 400]``. Per step and row:
+hidden sequence ``[N, T, 400]``. Given ``state=(h1, h2)`` ([N, 400]
+float32 each, the low-latency mode's carried GRU state) the steps continue
+it instead, and the call also returns the final ``(h1, h2)``; without one
+the launch is the stateless one, bit for bit. Per step and row:
 
     gh1 = h1 @ Wh1 + bh1;  h1 = gru(gi1[t], gh1, h1)
     gi2 = h1 @ Wi2 + bi2;  gh2 = h2 @ Wh2 + bh2;  h2 = gru(gi2, gh2, h2)
@@ -54,17 +57,18 @@ def _cell(gru, h: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
     return (1.0 - z) * n + z * h
 
 
-def gru_stack_reference(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: gi1 [N, T, 1200] -> h2 sequence [N, T, 400]."""
+def gru_stack_reference(net: NSNet2, gi1: torch.Tensor, state: tuple | None = None):
+    """Plain PyTorch version: gi1 [N, T, 1200] -> h2 sequence [N, T, 400];
+    with ``state=(h1, h2)`` -> (sequence, final (h1, h2))."""
     n, t, _ = gi1.shape
-    h1 = gi1.new_zeros((n, HIDDEN))
-    h2 = gi1.new_zeros((n, HIDDEN))
+    h1, h2 = state if state is not None else (gi1.new_zeros((n, HIDDEN)), gi1.new_zeros((n, HIDDEN)))
     ys = []
     for step in range(t):
         h1 = _cell(net.gru1, h1, gi1[:, step])
         h2 = _cell(net.gru2, h2, h1 @ net.gru2.wi + net.gru2.bi)
         ys.append(h2)
-    return torch.stack(ys, dim=1)
+    out = torch.stack(ys, dim=1) if ys else gi1.new_zeros((n, 0, HIDDEN))
+    return out if state is None else (out, (h1, h2))
 
 
 # The kernel's tile geometry (csrc/gru_stack.cu: UNIT_TILE, TR * RM).
@@ -146,7 +150,7 @@ def packed_weights(net: NSNet2) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
 @functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_stack")
-    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.fvad_gru_stack.restype = ctypes.c_int
     lib.fvad_gru_stack_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fvad_gru_stack_blocks_per_sm.restype = ctypes.c_int
@@ -193,17 +197,27 @@ def _check_net(what: str, net: NSNet2, biases: tuple, device: torch.device) -> N
         _check_operand(what, name, b, (G3,), device)
 
 
+def _check_state(what: str, state: tuple | None, n: int, device: torch.device) -> None:
+    if state is None:
+        return
+    if len(state) != 2:
+        raise ValueError(f"{what}: state must be (h1, h2)")
+    for name, h in zip(("h1", "h2"), state):
+        _check_operand(what, name, h, (n, HIDDEN), device)
+
+
 def _launch(gi: tuple[int, int, int], gi_stride: int, shape: tuple[int, int], dev: torch.device,
-            net: NSNet2, biases: tuple, out_dtype: torch.dtype) -> torch.Tensor:
+            net: NSNet2, biases: tuple, out_dtype: torch.dtype, state: tuple | None = None):
     """One launch of the kernel on checked operands: ``gi`` the addresses
     of the z, r and n columns of row 0, step 0, each (row, step)
-    ``gi_stride`` floats after the last -> h2 [N, T, 400] in ``out_dtype``
-    (float32, or bf16 with h2 kept float32 inside). Counts nothing: each
-    caller counts its own launches."""
+    ``gi_stride`` floats after the last -> (h2 [N, T, 400] in ``out_dtype``
+    (float32, or bf16 with h2 kept float32 inside), the final (h1, h2) in
+    float32 where a ``state`` was carried in, else None). Counts nothing:
+    each caller counts its own launches."""
     n, t = shape
     out = torch.empty((n, t, HIDDEN), dtype=out_dtype, device=dev)
     if n == 0 or t == 0:
-        return out
+        return out, state
     lib = _lib()
     plan = device_plan(n, dev)
     wh1, wi2, wh2 = packed_weights(net)
@@ -217,19 +231,27 @@ def _launch(gi: tuple[int, int, int], gi_stride: int, shape: tuple[int, int], de
         err = lib.fvad_gru_stack(
             *gi, wh1.data_ptr(), bh1.data_ptr(), wi2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(), bh2.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), scratch[2].data_ptr() if bf16_out else None, barrier.data_ptr(),
+            *((None, None) if state is None else (state[0].data_ptr(), state[1].data_ptr())),
             gi_stride, int(bf16_out), n, t, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid, stream,
         )
     _build.check(lib, err, "gru_stack launch")
-    return out
+    if state is None:
+        return out, None
+    # The final h1 is in its ping-pong slot of the scratch; the final h2 in
+    # out's last step (float32) or in its own slot (bf16 out).
+    last = (t - 1) & 1
+    return out, (scratch[last], scratch[2 + last] if bf16_out else out[:, -1].contiguous())
 
 
-def gru_stack(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
-    """gi1 [N, T, 1200] -> h2 sequence [N, T, 400].
+def gru_stack(net: NSNet2, gi1: torch.Tensor, state: tuple | None = None):
+    """gi1 [N, T, 1200] -> h2 sequence [N, T, 400]; with ``state=(h1, h2)``
+    ([N, 400] float32 each, contiguous) the steps continue it and the call
+    returns (sequence, final (h1, h2)).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``gru_stack.launches``) or raises."""
     if gi1.device.type == "cpu":
-        return gru_stack_reference(net, gi1)
+        return gru_stack_reference(net, gi1, state=state)
     if gi1.device.type != "cuda":
         raise ValueError(f"gru_stack: unsupported device {gi1.device}")
     biases = (net.gru1.bh, net.gru2.bi, net.gru2.bh)
@@ -238,23 +260,25 @@ def gru_stack(net: NSNet2, gi1: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gru_stack: gi1 must be [N, T, {G3}], got {tuple(gi1.shape)}")
     n, t, _ = gi1.shape
     _check_operand("gru_stack", "gi1", gi1, (n, t, G3), gi1.device)
+    _check_state("gru_stack", state, n, gi1.device)
     g = gi1.data_ptr()
-    out = _launch((g, g + 4 * HIDDEN, g + 8 * HIDDEN), G3, (n, t), gi1.device, net, biases, torch.float32)
+    out, final = _launch((g, g + 4 * HIDDEN, g + 8 * HIDDEN), G3, (n, t), gi1.device, net, biases, torch.float32, state)
     if n and t:
         gru_stack.launches += 1
-    return out
+    return out if state is None else (out, final)
 
 
 gru_stack.launches = 0
 
 
-def gru_stack_gates(net: NSNet2, gi: tuple, biases: tuple, out_dtype: torch.dtype) -> torch.Tensor:
+def gru_stack_gates(net: NSNet2, gi: tuple, biases: tuple, out_dtype: torch.dtype, state: tuple | None = None):
     """The float32 forms of the per-gate kernels 4-6 (``nsnet2_gates_cuda``)
     on this kernel: CUDA tensors ``gi = (gi_z, gi_r, gi_n)``, each [N, T,
     400] float32, and the bias triple ``biases = (bh1, bi2, bh2)``
     (``nsnet2_gates_cuda.stacked_biases``) -> h2 [N, T, 400] in
-    ``out_dtype`` (float32 or bf16). Raises on anything else. The launch is
-    not counted here: the per-gate wrappers count their own."""
+    ``out_dtype`` (float32 or bf16); with ``state`` as ``gru_stack``'s ->
+    (h2, final (h1, h2)). Raises on anything else. The launch is not
+    counted here: the per-gate wrappers count their own."""
     what = "gru_stack_gates"
     dev = gi[0].device
     if dev.type != "cuda":
@@ -267,4 +291,6 @@ def gru_stack_gates(net: NSNet2, gi: tuple, biases: tuple, out_dtype: torch.dtyp
     n, t, _ = gi[0].shape
     for name, x in zip(("gi_z", "gi_r", "gi_n"), gi):
         _check_operand(what, name, x, (n, t, HIDDEN), dev)
-    return _launch(tuple(x.data_ptr() for x in gi), HIDDEN, (n, t), dev, net, biases, out_dtype)
+    _check_state(what, state, n, dev)
+    out, final = _launch(tuple(x.data_ptr() for x in gi), HIDDEN, (n, t), dev, net, biases, out_dtype, state)
+    return out if state is None else (out, final)

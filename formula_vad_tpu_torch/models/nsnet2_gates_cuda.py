@@ -6,7 +6,11 @@ compute one function, both GRU layers (hidden 400, ONNX z|r|n,
 linear_before_reset = 1) stepped T times from h = 0 over the per-gate
 layer-1 input projections ``gi_z, gi_r, gi_n [N, T, 400]`` (``gi_gates``:
 bi1 + bh1 folded into z and r, bi1 only into n), and return the layer-2
-hidden sequence ``h2 [N, T, 400]``. With ``dtype`` bf16 the weights are
+hidden sequence ``h2 [N, T, 400]``. Given ``state=(h1, h2)`` ([N, 400]
+float32 each, the low-latency mode's carried GRU state) the steps continue
+it instead, and each returns ``(h2, final (h1, h2))`` with the final state
+in float32; a call without a state is the stateless one, bit for bit.
+With ``dtype`` bf16 the weights are
 bf16, each h is rounded to bf16 before it enters a product, and the
 products accumulate in float32; h1, h2 and the gate math stay float32. The
 kernels differ in where else they round:
@@ -224,12 +228,25 @@ def _rounder(dtype: torch.dtype):
     return (lambda x: x) if dtype == torch.float32 else precision.bf16_round
 
 
-def _run_w9(gw: GateWeights, gi_z, gi_r, gi_n) -> torch.Tensor:
+def _initial(gi: torch.Tensor, state: tuple | None) -> tuple[torch.Tensor, torch.Tensor]:
+    if state is not None:
+        return state
+    zero = gi.new_zeros((gi.shape[0], H), dtype=torch.float32)
+    return zero, zero
+
+
+def _finish(ys: list, gi: torch.Tensor, state: tuple | None, h1, h2):
+    """The stacked sequence, and the final state where one was carried in."""
+    out = torch.stack(ys, dim=1) if ys else gi.new_zeros((gi.shape[0], 0, H), dtype=torch.float32)
+    return out if state is None else (out, (h1, h2))
+
+
+def _run_w9(gw: GateWeights, gi_z, gi_r, gi_n, state: tuple | None = None):
     """Kernels 4 and 6: per-gate slabs, gi and each h rounded to the dtype."""
     q = _rounder(gw.dtype)
     w, b = gw.w9.float(), gw.b8
     gz, gr, gn = q(gi_z), q(gi_r), q(gi_n)
-    h1 = h2 = gz.new_zeros((gz.shape[0], H))
+    h1, h2 = _initial(gz, state)
     ys = []
     for t in range(gz.shape[1]):
         h1d = q(h1)
@@ -243,20 +260,22 @@ def _run_w9(gw: GateWeights, gi_z, gi_r, gi_n) -> torch.Tensor:
         n2 = torch.tanh((h1d @ w[5] + b[3]) + r2 * (h2d @ w[8] + b[4]))
         h2 = (1.0 - z2) * n2 + z2 * h2
         ys.append(h2)
-    return torch.stack(ys, dim=1)
+    return _finish(ys, gz, state, h1, h2)
 
 
-def gru_gates_reference(gw: GateWeights, gi_z, gi_r, gi_n) -> torch.Tensor:
-    """Plain version of kernel 4: -> h2 [N, T, H] float32."""
-    return _run_w9(gw, gi_z, gi_r, gi_n)
+def gru_gates_reference(gw: GateWeights, gi_z, gi_r, gi_n, state: tuple | None = None):
+    """Plain version of kernel 4: -> h2 [N, T, H] float32 (and the final
+    state, with ``state``)."""
+    return _run_w9(gw, gi_z, gi_r, gi_n, state)
 
 
-def gru_gates_p_reference(gw: GateWeights, gi_z, gi_r, gi_n) -> torch.Tensor:
+def gru_gates_p_reference(gw: GateWeights, gi_z, gi_r, gi_n, state: tuple | None = None):
     """Plain version of kernel 5: gi stays float32; one product per layer,
-    ``h1 @ wp1`` and ``[h1 | h2] @ wp2`` -> h2 [N, T, H] float32."""
+    ``h1 @ wp1`` and ``[h1 | h2] @ wp2`` -> h2 [N, T, H] float32 (and the
+    final state, with ``state``)."""
     q = _rounder(gw.dtype)
     wp1, wp2, b = gw.wp1.float(), gw.wp2.float(), gw.b8
-    h1 = h2 = gi_z.new_zeros((gi_z.shape[0], H))
+    h1, h2 = _initial(gi_z, state)
     ys = []
     for t in range(gi_z.shape[1]):
         g1 = q(h1) @ wp1
@@ -270,14 +289,19 @@ def gru_gates_p_reference(gw: GateWeights, gi_z, gi_r, gi_n) -> torch.Tensor:
         n2 = torch.tanh((g2[:, 2 * H : 3 * H] + b[3]) + r2 * (g2[:, 3 * H :] + b[4]))
         h2 = (1.0 - z2) * n2 + z2 * h2
         ys.append(h2)
-    return torch.stack(ys, dim=1)
+    return _finish(ys, gi_z, state, h1, h2)
 
 
-def gru_gates_f_reference(gw: GateWeights, gi_z, gi_r, gi_n, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+def gru_gates_f_reference(gw: GateWeights, gi_z, gi_r, gi_n, out_dtype: torch.dtype | None = None,
+                          state: tuple | None = None):
     """Plain version of kernel 6: kernel 4's arithmetic, h2 stored in
-    ``out_dtype`` (default: the weight dtype) -> [N, T, H] ``out_dtype``.
-    Its ``tile`` changes no bit, so the plain version has none."""
-    return _run_w9(gw, gi_z, gi_r, gi_n).to(out_dtype or gw.dtype)
+    ``out_dtype`` (default: the weight dtype) -> [N, T, H] ``out_dtype``
+    (and the final float32 state, with ``state``). Its ``tile`` changes no
+    bit, so the plain version has none."""
+    out = _run_w9(gw, gi_z, gi_r, gi_n, state)
+    if state is None:
+        return out.to(out_dtype or gw.dtype)
+    return out[0].to(out_dtype or gw.dtype), out[1]
 
 
 # --------------------------------------------------------------- wrappers
@@ -341,7 +365,7 @@ def p_launch_plan(n_rows: int, sm_count: int) -> tuple[PLaunch, ...]:
 @functools.cache  # called once per forward on the bf16 tier: keep the lookup off that path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_gates_p")
-    lib.fvad_gru_gates_p.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fvad_gru_gates_p.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fvad_gru_gates_p.restype = ctypes.c_int
     lib.fvad_gru_gates_p_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.fvad_gru_gates_p_smem_bytes.restype = ctypes.c_int
@@ -369,8 +393,8 @@ def _check(what: str, name: str, x: torch.Tensor, dtype: torch.dtype, shape: tup
         raise ValueError(f"{what}: {name} must be 16-byte aligned on the card")
 
 
-def _operands(what: str, net: NSNet2, gi: tuple, dtype: torch.dtype, gi_dtype) -> tuple:
-    """Validate; -> gi cast to the kernel's gi dtype."""
+def _operands(what: str, net: NSNet2, gi: tuple, dtype: torch.dtype, gi_dtype, state: tuple | None = None) -> tuple:
+    """Validate gi and the carried state; -> gi cast to the kernel's gi dtype."""
     if not (net.gru1.linear_before_reset and net.gru2.linear_before_reset):
         raise NotImplementedError(f"{what}: the per-gate GRU kernels support linear_before_reset=1 GRUs only")
     if dtype not in DTYPES:
@@ -383,6 +407,11 @@ def _operands(what: str, net: NSNet2, gi: tuple, dtype: torch.dtype, gi_dtype) -
     gi = tuple(x.to(gi_dtype) for x in gi)
     for name, x in zip(("gi_z", "gi_r", "gi_n"), gi):
         _check(what, name, x, gi_dtype, tuple(gi[0].shape), dev)
+    if state is not None:
+        if len(state) != 2:
+            raise ValueError(f"{what}: state must be (h1, h2)")
+        for name, h in zip(("h1", "h2"), state):
+            _check(what, name, h, torch.float32, (gi[0].shape[0], H), dev)
     return gi
 
 
@@ -410,17 +439,23 @@ def _p_barrier(dev: torch.device, stream: int) -> torch.Tensor:
     return _P_BARRIERS[key]
 
 
-def _launch_p(wrapper, kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype) -> torch.Tensor:
+def _launch_p(wrapper, kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.dtype, state: tuple | None = None):
     """The bf16 form of kernel ``kind`` (``csrc/gru_gates_p.cu``): one
     cooperative launch per ``PLaunch`` of the card's plan, each on its rows'
-    slice of gi and out with its own exchange buffers (``torch.empty``: no
-    fill), all on the stream's barrier counters (``_p_barrier``). Each
-    launch is counted in ``wrapper.launches``; one the card refuses raises."""
+    slice of gi, out and the carried state with its own exchange buffers
+    (``torch.empty``: no fill), all on the stream's barrier counters
+    (``_p_barrier``). Each launch is counted in ``wrapper.launches``; one
+    the card refuses raises. -> out, and with ``state`` (out, final (h1,
+    h2)): h1 written by the kernel, h2 too for kernel 6, else out's last
+    step (float32)."""
     n, t, _ = gi[0].shape
     dev = gi[0].device
     what = f"{wrapper.__name__} kernel {kind}"
     _check_weights(what, dev, units=gw.units, b8=gw.b8)
     out = torch.empty((n, t, H), dtype=out_dtype, device=dev)
+    final = None
+    if state is not None:
+        final = tuple(torch.empty((n, H), dtype=torch.float32, device=dev) for _ in range(2 if kind == 6 else 1))
     lib = _lib()
     flags = (int(gw.dtype == torch.bfloat16), int(gi[0].dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
     with torch.cuda.device(dev):
@@ -430,63 +465,74 @@ def _launch_p(wrapper, kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.d
             # x1 and x2, each [2 ping-pong][tiles][25 K steps][32 lanes] x 16 bytes.
             x = torch.empty((2, 2, launch.tiles, H // 16, 32, 4), dtype=torch.int32, device=dev)
             rows = slice(launch.row0, launch.row0 + launch.n_rows)
+            carried = (None,) * 4
+            if state is not None:
+                carried = (*(h[rows].data_ptr() for h in state), final[0][rows].data_ptr(),
+                           final[1][rows].data_ptr() if kind == 6 else None)
             err = lib.fvad_gru_gates_p(
                 kind, *flags, *(g[rows].data_ptr() for g in gi), gw.units.data_ptr(), gw.b8.data_ptr(),
-                out[rows].data_ptr(), x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(),
+                out[rows].data_ptr(), x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(), *carried,
                 launch.n_rows, t, launch.tiles, launch.row_groups, launch.tiles_per_group, stream,
             )
             _build.check(lib, err, f"{what} launch")
             wrapper.launches += 1
-    return out
+    if state is None:
+        return out
+    return out, (final[0], final[1] if kind == 6 else out[:, -1].contiguous())
 
 
-def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
+def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype,
+            state: tuple | None = None):
     """Run kernel ``kind`` in ``dtype`` on the card and count its launches
     in ``wrapper.launches``: float32 on kernel 1's kernel
     (``nsnet2_cuda.gru_stack_gates``, one launch), bf16 on the bf16 body
     (``_launch_p``, one count a cooperative launch)."""
     n, t, _ = gi[0].shape
     if n == 0 or t == 0:
-        return torch.empty((n, t, H), dtype=out_dtype, device=gi[0].device)
+        out = torch.empty((n, t, H), dtype=out_dtype, device=gi[0].device)
+        return out if state is None else (out, state)
     if dtype == torch.bfloat16:
-        return _launch_p(wrapper, kind, gate_weights(net, dtype), gi, out_dtype)
-    out = nsnet2_cuda.gru_stack_gates(net, gi, stacked_biases(net), out_dtype)
+        return _launch_p(wrapper, kind, gate_weights(net, dtype), gi, out_dtype, state)
+    out = nsnet2_cuda.gru_stack_gates(net, gi, stacked_biases(net), out_dtype, state)
     wrapper.launches += 1
     return out
 
 
-def gru_gates(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Kernel 4: gi [N, T, H] (cast to ``dtype``) -> h2 [N, T, H] float32.
+def gru_gates(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32, state: tuple | None = None):
+    """Kernel 4: gi [N, T, H] (cast to ``dtype``) -> h2 [N, T, H] float32;
+    with ``state`` -> (h2, final (h1, h2)).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     or raises. ``gru_gates.launches`` counts launches: one a call in
     float32; in bf16 one a ``PLaunch`` of ``device_p_plan`` (more than one
     above 2,240 rows on 132 SMs)."""
-    gi = _operands("gru_gates", net, (gi_z, gi_r, gi_n), dtype, dtype)
+    gi = _operands("gru_gates", net, (gi_z, gi_r, gi_n), dtype, dtype, state)
     if gi[0].device.type == "cpu":
-        return gru_gates_reference(gate_weights(net, dtype), *gi)
-    return _launch(gru_gates, 4, net, gi, dtype, torch.float32)
+        return gru_gates_reference(gate_weights(net, dtype), *gi, state=state)
+    return _launch(gru_gates, 4, net, gi, dtype, torch.float32, state)
 
 
-def gru_gates_p(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Kernel 5: float32 gi [N, T, H] -> h2 [N, T, H] float32.
+def gru_gates_p(net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32, state: tuple | None = None):
+    """Kernel 5: float32 gi [N, T, H] -> h2 [N, T, H] float32; with
+    ``state`` -> (h2, final (h1, h2)).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     or raises. ``gru_gates_p.launches`` counts launches: one a call in
     float32; in bf16 one a ``PLaunch`` of ``device_p_plan`` (more than one
     above 2,240 rows on 132 SMs)."""
-    gi = _operands("gru_gates_p", net, (gi_z, gi_r, gi_n), dtype, torch.float32)
+    gi = _operands("gru_gates_p", net, (gi_z, gi_r, gi_n), dtype, torch.float32, state)
     if gi[0].device.type == "cpu":
-        return gru_gates_p_reference(gate_weights(net, dtype), *gi)
-    return _launch(gru_gates_p, 5, net, gi, dtype, torch.float32)
+        return gru_gates_p_reference(gate_weights(net, dtype), *gi, state=state)
+    return _launch(gru_gates_p, 5, net, gi, dtype, torch.float32, state)
 
 
 def gru_gates_f(
     net: NSNet2, gi_z, gi_r, gi_n, dtype: torch.dtype = torch.float32,
-    tile: int | None = None, out_dtype: torch.dtype | None = None,
-) -> torch.Tensor:
+    tile: int | None = None, out_dtype: torch.dtype | None = None, state: tuple | None = None,
+):
     """Kernel 6: gi [N, T, H] (cast to ``dtype``) -> h2 [N, T, H] in
-    ``out_dtype`` (default ``dtype``). ``tile`` rows per grid slice (default
+    ``out_dtype`` (default ``dtype``); with ``state`` -> (h2, final (h1,
+    h2) in float32). ``tile`` rows per grid slice (default
     all) is the TPU kernel's schedule knob: it changes no bit of the result.
     It is validated, and the card's launch plan ignores it in both forms
     (``nsnet2_cuda.launch_plan`` in float32, ``p_launch_plan`` in bf16).
@@ -497,12 +543,12 @@ def gru_gates_f(
     out_dtype = out_dtype or dtype
     if out_dtype not in DTYPES:
         raise ValueError(f"gru_gates_f: out_dtype must be one of {DTYPES}, got {out_dtype}")
-    gi = _operands("gru_gates_f", net, (gi_z, gi_r, gi_n), dtype, dtype)
+    gi = _operands("gru_gates_f", net, (gi_z, gi_r, gi_n), dtype, dtype, state)
     if tile is not None and tile < 1:
         raise ValueError(f"gru_gates_f: tile must be a positive number of rows, got {tile}")
     if gi[0].device.type == "cpu":
-        return gru_gates_f_reference(gate_weights(net, dtype), *gi, out_dtype=out_dtype)
-    return _launch(gru_gates_f, 6, net, gi, dtype, out_dtype)
+        return gru_gates_f_reference(gate_weights(net, dtype), *gi, out_dtype=out_dtype, state=state)
+    return _launch(gru_gates_f, 6, net, gi, dtype, out_dtype, state)
 
 
 gru_gates.launches = 0

@@ -1,6 +1,6 @@
 """Int8 NSNet2: port of ``formula_vad_tpu/models/nsnet2_q8.py::
-apply_streaming_q8`` for the stateless offline run (h = 0, both GRUs with
-linear_before_reset = 1, float32 storage).
+apply_streaming_q8`` (both GRUs with linear_before_reset = 1, float32
+storage), from h = 0 or from a carried GRU state.
 
 The scheme is the reference's, op for op (symmetric, no zero point):
 
@@ -9,7 +9,8 @@ The scheme is the reference's, op for op (symmetric, no zero point):
 * Out-of-scan activations (features, the fc_in output, the head's ReLU
   outputs): dynamic per-frame scales, one max-abs over the last axis.
 * In-scan activations (h1, h2) and the GRU output entering the head: the
-  static scale 127, since |h| <= 1 by gate algebra from h = 0.
+  static scale 127, since |h| <= 1 by gate algebra from h = 0 (and from any
+  state the recurrence reached).
 * Accumulation in int32, dequantized to float32 for the gate math.
 
 Every ``_dot8(...).astype(f32) * ...`` of the reference is one call of
@@ -19,7 +20,7 @@ Quantization is per output column, so quantizing the z|r|n slabs one by one
 quantizing the whole [in, 1200] matrix: gi1, ``h1 @ wh1``, ``h1 @ wi2`` and
 ``h2 @ wh2`` are each one launch over 1,200 columns, split afterwards. Per
 forward of T steps that is fc_in, gi1, 3 per step, ff1, ff2 and out: 3T + 5
-launches, 167 at T = 54. The gate math stays plain torch per step, as the
+launches, 167 at T = 54 and 8 at the low-latency mode's T = 1. The gate math stays plain torch per step, as the
 reference runs it in XLA outside any kernel.
 """
 
@@ -87,15 +88,21 @@ def _weights(net: NSNet2) -> dict[str, Q8Weight]:
     return cached[1]
 
 
-def forward_q8(net: NSNet2, features: torch.Tensor, out_frames: int | None = None) -> torch.Tensor:
-    """features [..., T, 161] -> gains [..., T_out, 161], as ``NSNet2.forward``."""
+def forward_q8(net: NSNet2, features: torch.Tensor, out_frames: int | None = None, state: tuple | None = None):
+    """features [..., T, 161] -> gains [..., T_out, 161], as ``NSNet2.forward``;
+    with ``state = (h1, h2)`` ([..., 400] each) the recurrence continues it,
+    cast to float32, and the call returns (new state in the state's dtype,
+    gains), as ``NSNet2.forward_streaming``."""
     w = _weights(net)
     lead, t = features.shape[:-2], features.shape[-2]
     qx, sx = qa_dyn(features.reshape((-1, t, N_BINS)))
     x = matmul_q8(qx, w["fc_in"], sx, order="row_col")  # [N, T, 400]
     qx1, sx1 = qa_dyn(x)
     gi1 = matmul_q8(qx1, w["wi1"], sx1 * 127.0, order="row_col")  # [N, T, 1200]
-    h1 = h2 = x.new_zeros((x.shape[0], HIDDEN))
+    if state is None:
+        h1 = h2 = x.new_zeros((x.shape[0], HIDDEN))
+    else:
+        h1, h2 = (h.reshape(-1, HIDDEN).float() for h in state)
     ys = []
     for step in range(t):
         h1 = _gates(gi1[:, step], matmul_q8(qa_static(h1), w["wh1"]), h1)
@@ -109,4 +116,7 @@ def forward_q8(net: NSNet2, features: torch.Tensor, out_frames: int | None = Non
     a = torch.relu(matmul_q8(qa2, w["ff2"], sa2, order="row_col"))
     qa3, sa3 = qa_dyn(a)
     gains = torch.sigmoid(matmul_q8(qa3, w["out"], sa3, order="row_col"))
-    return gains.reshape(lead + gains.shape[-2:])
+    gains = gains.reshape(lead + gains.shape[-2:])
+    if state is None:
+        return gains
+    return tuple(h.to(s.dtype).reshape(s.shape) for h, s in zip((h1, h2), state)), gains

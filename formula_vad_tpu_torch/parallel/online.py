@@ -22,7 +22,8 @@ the same and share the packed carry layout of ``pipeline/fsm.py``, so the
 default changes no result and a checkpoint loads under either backend.
 
 Not ported: serving over a device mesh (``mesh`` / ``use_mesh=True``,
-ROADMAP §1 item 11, multi-GPU).
+ROADMAP §1 item 11, multi-GPU). Alternative machine configs are refused:
+the server runs one machine a stream, as the JAX server does.
 """
 
 from __future__ import annotations
@@ -118,6 +119,8 @@ class OnlineBatchServer:
             raise NotImplementedError(
                 "serving over a device mesh is not ported yet (ROADMAP §1 item 11: multi-GPU)"
             )
+        if config.vad_config.alt_vad_machine_configs:
+            raise ValueError("the server runs one machine a stream, as the JAX server: no alt_vad_machine_configs")
         if params is None:
             from ..models.registry import load_denoiser
 

@@ -18,6 +18,12 @@ chunk-parallel front end inside each slab:
 
 Segments equal the one-shot runner's.
 
+``alt_vad_machine_configs`` run as the one-shot runner's do: the primary
+machine and the K alternatives are 1 + K (stream, config) rows a stream,
+stream-major, of one FSM scan a slab behind the one front end, their
+carry chained on the card from slab to slab with the primary's (or in the
+host decoder with ``use_host_fsm=True``).
+
 Each slab goes host to device through a fixed pair of pinned buffers
 (int16 for PCM16 readers, ``raw16=True``: half the bytes, dequantised on the
 card exactly), copied on a side stream while the card computes the previous
@@ -32,9 +38,6 @@ Not ported, and why:
   (ROADMAP: measured dead ends); this is the "off" form.
 * ``mesh`` and ``use_mesh`` wait on the multi-GPU port (ROADMAP: port
   queue, multi-GPU).
-* ``alt_vad_machine_configs`` raise (ROADMAP: port queue, apps/tune.py and
-  the alt-config rows). The FSM carry keeps the JAX layout, one row a
-  stream, so alt machines can join it as (stream, config) rows, stream-major.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from ..config import VADConfig
 from ..io_.prefetch import Reader, SlabPrefetcher
 from ..models.nsnet2 import NSNet2
 from ..pipeline import fsm, fsm_cuda, fsm_host, offline, vad
-from .runner import StreamResult
+from .runner import StreamResult, results
 
 SLAB_ALIGN_CHUNKS = 32  # 16 s: lcm(chunk=24000, fft=1024) / 24000
 STAGING_BUFFERS = 2
@@ -126,14 +129,12 @@ class SlabRunner:
         if slab_chunks <= 0 or slab_chunks % SLAB_ALIGN_CHUNKS != 0:
             raise ValueError(f"slab_chunks must be a positive multiple of {SLAB_ALIGN_CHUNKS}")
         vad_config = vad_config or VADConfig()
-        if vad_config.alt_vad_machine_configs:
-            raise NotImplementedError(
-                "alt_vad_machine_configs are not ported yet (ROADMAP: port queue, apps/tune.py and the alt-config rows)"
-            )
         self.net = net
         self.device = next(net.parameters()).device
         self.use_host_fsm = use_host_fsm
         self.st = vad.statics_from_config(vad_config, sample_rate, n_channels)
+        self.alt_configs = tuple(vad_config.alt_vad_machine_configs or ())
+        self.machines = vad.machines_of(self.st, vad_config)
         self.slab_chunks = slab_chunks
         self.slab_samples = slab_chunks * self.st.chunk_size
         self.windows_per_slab = self.slab_samples // self.st.fft_size
@@ -166,7 +167,7 @@ class SlabRunner:
         valid_chunks = np.asarray([n // st.chunk_size for n in lengths], np.int64)
         max_chunks = int(valid_chunks.max(initial=0))
         if max_chunks == 0:
-            return [StreamResult(segments=[]) for _ in range(b)]
+            return [StreamResult([], [[] for _ in self.alt_configs]) for _ in range(b)]
         n_slabs = -(-max_chunks // self.slab_chunks)
         dtype = np.int16 if raw16 else np.float32
         prefetcher = SlabPrefetcher(
@@ -180,10 +181,15 @@ class SlabRunner:
                 outs = loop(prefetcher, staging, n_slabs, b)
         finally:
             prefetcher.close()
-        return [
-            StreamResult(segments=vad.segments_from_outputs(st, fsm.WindowOutput(*(x[i] for x in outs))))
-            for i in range(b)
-        ]
+        k = len(self.alt_configs)
+        if k:
+            outs = fsm.WindowOutput(*(x.reshape(b, k + 1, -1) for x in outs))
+        return results(st, outs, k)
+
+    def _rows(self, b: int):
+        """The FSM's rows for ``b`` streams (``fsm.machine_rows``): one a
+        stream, or 1 + K (stream, config) rows with alternative machines."""
+        return fsm.machine_rows(self.st.fsm_params if self.machines is None else self.machines, b)
 
     def _front_end(self, audio: torch.Tensor, cv: torch.Tensor, den_carry: dict):
         """One slab's window inputs -> (den_carry, min_vol, ratios, valid) [B, W]."""
@@ -202,16 +208,18 @@ class SlabRunner:
         """The FSM on the card, its carry chained from slab to slab; every
         slab's outputs stay on the card until one fetch at the end."""
         st = self.st
+        rows, expand, params = self._rows(b)
         den_carry = offline.init_slab_carry((b, st.n_channels), st.downsample_rate, self.device)
         fsm_carry = None
-        win_base = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        win_base = torch.zeros((rows,), dtype=torch.int32, device=self.device)
         slab_outs = []
         for s in range(n_slabs):
-            den_carry, mv, rt, va = self._dispatch(staging, s, *prefetcher.get(), den_carry)
+            den_carry, *inputs = self._dispatch(staging, s, *prefetcher.get(), den_carry)
+            mv, rt, va = (expand(x) for x in inputs)
             if fsm_carry is None:
-                out, fsm_carry = fsm_cuda.scan_windows(st.fsm_shape, st.fsm_params, mv, rt, va, win_base=win_base)
+                out, fsm_carry = fsm_cuda.scan_windows(st.fsm_shape, params, mv, rt, va, win_base=win_base)
             else:
-                out, fsm_carry = fsm_cuda._scan_chained(st.fsm_shape, st.fsm_params, mv, rt, va, fsm_carry, win_base)
+                out, fsm_carry = fsm_cuda._scan_chained(st.fsm_shape, params, mv, rt, va, fsm_carry, win_base)
             win_base = win_base + self.windows_per_slab
             slab_outs.append(out)
         return self._fetch(slab_outs)
@@ -227,8 +235,9 @@ class SlabRunner:
         state included) chained exactly."""
         st = self.st
         on_card = self.device.type != "cpu"
+        rows, expand, params = self._rows(b)
         den_carry = offline.init_slab_carry((b, st.n_channels), st.downsample_rate, self.device)
-        host_carry = fsm_host.fresh_host_carry(st.fsm_shape, st.fsm_params, b)
+        host_carry = fsm_host.fresh_host_carry(st.fsm_shape, params, rows)
         w = self.windows_per_slab
         if on_card:
             pinned = [
@@ -241,9 +250,9 @@ class SlabRunner:
             nonlocal host_carry
             if copied is not None:
                 copied.synchronize()
-            win_base = np.full((b,), s * w, np.int32)
+            win_base = np.full((rows,), s * w, np.int32)
             out, host_carry = fsm_host.scan_windows_host(
-                st.fsm_shape, st.fsm_params, *(x.numpy() for x in inputs), carry=host_carry, win_base=win_base
+                st.fsm_shape, params, *(expand(x.numpy()) for x in inputs), carry=host_carry, win_base=win_base
             )
             slab_outs.append(out)
 

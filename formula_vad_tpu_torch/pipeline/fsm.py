@@ -13,6 +13,13 @@ lives in ``fsm_cuda`` (device kernel and plain version) and ``fsm_host``
 * ``kahan [B, NK]`` float32 — the rings' compensated running sums
   (sum, comp) x (long, short, ratio), which chain exactly across calls.
 
+K machines a stream (the reference's ``alt_vad_machine_configs``) are K
+machines' parameters stacked into [K] leaves (``vad.stack_machine_params``)
+and run as (stream, config) rows, stream-major: row r = stream * K + k,
+the inputs repeated K times a stream (``repeat_rows``) and the parameters
+tiled (``tile_rows``), as the JAX slab runner lays them out. Every scan
+takes per-row parameters, so K machines are K times the rows of one scan.
+
 States: 0 closed, 1 opening, 2 open, 3 closing.
 Events: 0 none, 1 started, 2 completed, 3 aborted.
 """
@@ -85,6 +92,38 @@ def statics_from_config(
         initial_long_term_avg=np.float32(cfg.initial_long_term_avg or 0.0),
     )
     return shape, params
+
+
+def n_machines(params: FSMParams) -> int:
+    """K for K machines' stacked parameters ([K] leaves), 0 for one machine
+    (scalar leaves)."""
+    return int(np.shape(params.threshold_factor)[0]) if np.ndim(params.threshold_factor) else 0
+
+
+def tile_rows(params: FSMParams, b: int) -> FSMParams:
+    """K machines' parameters as the (stream, config) rows of ``b`` streams:
+    [b * K] leaves, row stream * K + k holding machine k (``np.tile``)."""
+    return FSMParams(*(np.tile(np.asarray(leaf, dtype), b) for leaf, dtype in zip(params, PARAM_DTYPES)))
+
+
+def repeat_rows(x, k: int):
+    """Each stream's row of ``x`` [B, ...] (a tensor or numpy array) ``k``
+    times in a row: the (stream, config) rows' inputs, [B * k, ...] (a copy;
+    on the card without a sync)."""
+    if not isinstance(x, torch.Tensor):
+        return np.repeat(x, k, axis=0)
+    return x[:, None].expand((x.shape[0], k) + tuple(x.shape[1:])).reshape((x.shape[0] * k,) + tuple(x.shape[1:]))
+
+
+def machine_rows(params: FSMParams, b: int):
+    """The scan's rows for ``b`` streams under ``params``: (their count, a
+    function from a stream's [B, ...] inputs to the rows', the rows'
+    parameters). One row a stream for one machine; for K machines
+    (stacked parameters) K rows a stream, stream-major."""
+    k = n_machines(params)
+    if not k:
+        return b, (lambda x: x), params
+    return b * k, (lambda x: repeat_rows(x, k)), tile_rows(params, b)
 
 
 def param_rows(params: FSMParams, b: int) -> FSMParams:

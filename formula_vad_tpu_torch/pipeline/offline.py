@@ -239,12 +239,19 @@ def process_batch_offline(
     """Batched whole-stream VAD: the front end, then one FSM scan over the
     [B, W] windows (the device kernel for CUDA tensors, its plain version on
     the CPU) with ``fsm_params`` (default ``st.fsm_params``; the FSM's shape
-    is always ``st.fsm_shape``).
+    is always ``st.fsm_shape``). K machines a stream
+    (``vad.stack_machine_params``) share the one front end: its window
+    inputs repeated K times a stream make one scan at [B * K, W] over
+    (stream, config) rows (``fsm.tile_rows``).
 
-    Returns (WindowOutput [B, W], valid [B, W])."""
+    Returns (WindowOutput [B, W] or, for K machines, [B, K, W]; valid [B, W])."""
     min_vol, ratios, valid = window_inputs_batch(net, st, audio, n_valid_chunks)
     params = st.fsm_params if fsm_params is None else fsm_params
-    win_out, _ = fsm_cuda.scan_windows(st.fsm_shape, params, min_vol, ratios, valid)
+    b, w = min_vol.shape
+    _, expand, row_params = fsm.machine_rows(params, b)
+    win_out, _ = fsm_cuda.scan_windows(st.fsm_shape, row_params, *(expand(x) for x in (min_vol, ratios, valid)))
+    if fsm.n_machines(params):
+        win_out = type(win_out)(*(x.reshape(b, -1, w) for x in win_out))
     return win_out, valid
 
 
@@ -259,7 +266,8 @@ def process_stream_offline(
     ``n_valid_chunks`` real chunks, default all): ``process_batch_offline``
     on a batch of one.
 
-    Returns (WindowOutput [W], valid [W]), flat over windows."""
+    Returns (WindowOutput [W] ([K, W] for K machines), valid [W]), flat over
+    windows."""
     k = audio.shape[-1] // st.chunk_size
     nv = torch.tensor([k if n_valid_chunks is None else n_valid_chunks], dtype=torch.int32, device=audio.device)
     win_out, valid = process_batch_offline(net, st, audio[None, :, : k * st.chunk_size], nv, fsm_params)

@@ -19,8 +19,15 @@ ring-aware recorders.
 Each chunk's outputs are read to the host once, for the events
 (``_consume_chunk_output``). ``save_state``/``load_state`` checkpoint the
 whole stream (carry, rings, counters and the recordings in flight,
-``utils/checkpoint.py``). Not ported, and raising
-``NotImplementedError``: ``alt_vad_machine_configs`` (ROADMAP §1 item 5).
+``utils/checkpoint.py``).
+
+``alt_vad_machine_configs`` (a parameter sweep) run K more state machines
+over the same window stream, as 1 + K (stream, config) rows of the step's
+one FSM scan (``vad.machines_of``), the primary machine first. Only their
+segments are kept, one list a config in ``alt_segments``: they record
+nothing, as in the JAX package. Their carry is part of the FSM carry, so a
+checkpoint holds it. A server-managed pipeline takes none: the server runs
+one machine a stream.
 """
 
 from __future__ import annotations
@@ -176,8 +183,8 @@ class AudioPipeline:
         results arrive through ``ingest_processed_chunk`` or
         ``complete_chunk``. ``statics`` shares one VADStatics across many
         pipelines."""
-        if config.vad_config.alt_vad_machine_configs:
-            raise vad._alt_machines_not_ported()
+        if server_managed and config.vad_config.alt_vad_machine_configs:
+            raise ValueError("a server-managed pipeline runs one machine a stream: no alt_vad_machine_configs")
         self.config = config
         self.callbacks = callbacks or Callbacks()
         if net is None:
@@ -190,6 +197,9 @@ class AudioPipeline:
             config.vad_config, config.sample_rate, config.n_channels
         )
         self.chunk_size = self.st.chunk_size
+        # The primary machine and the alternatives stacked, or None.
+        self._machines = vad.machines_of(self.st, config.vad_config)
+        self.alt_segments: list[list[dict]] = [[] for _ in config.vad_config.alt_vad_machine_configs or ()]
         cap = config.resolved_buffer_length
         self.original_ring = RingBuffer(config.n_channels, cap)
         self.denoised_ring = RingBuffer(config.n_channels, cap)
@@ -246,7 +256,8 @@ class AudioPipeline:
         x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
         with torch.inference_mode():
             self._carry, out = vad.chunk_step(
-                self.net, self.st, self._carry, x, shared_start=self.st.fft_size - fill, chained=self._chained
+                self.net, self.st, self._carry, x, fsm_params=self._machines, shared_start=self.st.fft_size - fill,
+                chained=self._chained,
             )
         self._chained = True
         self._consume_chunk_output(out)
@@ -293,6 +304,11 @@ class AudioPipeline:
 
     def _consume_chunk_output(self, out: vad.ChunkOutput) -> None:
         windows, valid, denoised = _to_host(out)
+        if self._machines is not None:  # [1 + K, W]: the primary machine, then the alternatives
+            for k, segs in enumerate(self.alt_segments, 1):
+                for w in np.nonzero(windows.seg_valid[k])[0]:
+                    segs += vad.segments_from_outputs(self.st, fsm.WindowOutput(*(x[k, w : w + 1] for x in windows)))
+            windows = fsm.WindowOutput(*(x[0] for x in windows))
         # Without collect_denoised the denoised audio never left the device:
         # the denoised ring and recorder stay idle for this stream.
         has_denoised = denoised.size > 0
@@ -359,15 +375,21 @@ class AudioPipeline:
         })
 
     def _with_fsm(self, carry: dict) -> dict:
-        """``carry`` with a fresh seeded FSM carry where it has none yet."""
+        """``carry`` with a fresh seeded FSM carry where it has none yet (a
+        row a machine)."""
         if carry["fsm"] is not None:
             return carry
         dev = carry["win_base"].device
-        return {**carry, "fsm": fsm_cuda.seeded_fresh_carry(self.st.fsm_shape, self.st.fsm_params, 1, dev)}
+        if self._machines is None:
+            params, rows = self.st.fsm_params, 1
+        else:
+            params, rows = fsm.tile_rows(self._machines, 1), len(self.alt_segments) + 1
+        return {**carry, "fsm": fsm_cuda.seeded_fresh_carry(self.st.fsm_shape, params, rows, dev)}
 
     def load_state(self, path: str) -> None:
         """Restore a ``save_state`` checkpoint. The next step checks the
-        loaded FSM carry (it did not come from the previous step)."""
+        loaded FSM carry, the alternative machines' rows included (it did
+        not come from the previous step)."""
         template = {
             "carry": self._with_fsm(vad.init_carry(self.st, device=self.device)),
             "read_count": np.int64(0),

@@ -12,9 +12,14 @@ streams. A chunk's host work is arithmetic of the valid chunk count, so
 the loop reads nothing back from the card.
 
 ``run_fsm=False`` skips the scan and returns its inputs for a host decode
-(the host-FSM serving tier, ``parallel/online.py``). Not ported, and
-raising ``NotImplementedError``: K machines a stream
-(``stack_machine_params``, a K-machine ``fsm_params``; ROADMAP §1 item 5).
+(the host-FSM serving tier, ``parallel/online.py``).
+
+K machines a stream (the reference's ``alt_vad_machine_configs``, a
+parameter sweep): ``stack_machine_params`` stacks K configs that share the
+rings' sizes and the speech band, and a ``fsm_params`` so stacked runs the
+scan over (stream, config) rows, stream-major (``fsm.tile_rows``): one
+scan at [B * K, max_windows] behind one front end, the FSM carry holding
+B * K rows and the windows' outputs [..., K, max_windows].
 """
 
 from __future__ import annotations
@@ -76,31 +81,51 @@ def hann(fft_size: int) -> np.ndarray:
     return windows.hann_periodic(fft_size)
 
 
-def _alt_machines_not_ported():
-    return NotImplementedError(
-        "K state machines a stream (alt_vad_machine_configs) are not ported yet "
-        "(ROADMAP §1 item 5: apps/tune.py and the alt-config rows)"
-    )
-
-
 def stack_machine_params(st: VADStatics, configs) -> fsm.FSMParams:
-    raise _alt_machines_not_ported()
+    """K machine configs as one FSMParams of [K] leaves. They must share the
+    rings' sizes (``st.fsm_shape``) and the speech band; thresholds and
+    durations may differ."""
+    stacked = []
+    for cfg in configs:
+        shape, params = fsm.statics_from_config(cfg, st.sample_rate, st.fft_size)
+        if shape != st.fsm_shape:
+            raise ValueError(
+                "alt machine config changes ring-buffer sizes; run it as a "
+                f"separate group (got {shape}, expected {st.fsm_shape})"
+            )
+        if (
+            dft.freq_to_bin(cfg.speech_min_freq, st.fft_size, st.sample_rate) != st.min_bin
+            or dft.freq_to_bin(cfg.speech_max_freq, st.fft_size, st.sample_rate) != st.max_bin
+        ):
+            raise ValueError("alt machine config changes the speech band")
+        stacked.append(params)
+    return fsm.FSMParams(*(np.stack(xs).astype(dt) for xs, dt in zip(zip(*stacked), fsm.PARAM_DTYPES)))
 
 
-def _machine_params(st: VADStatics, fsm_params: fsm.FSMParams | None) -> fsm.FSMParams:
-    params = st.fsm_params if fsm_params is None else fsm_params
-    if any(np.ndim(x) for x in params):
-        raise _alt_machines_not_ported()
-    return params
+def machines_of(st: VADStatics, vad_config: VADConfig) -> fsm.FSMParams | None:
+    """The primary machine and the ``alt_vad_machine_configs`` stacked,
+    the primary first, or None without alternatives."""
+    alt = tuple(vad_config.alt_vad_machine_configs or ())
+    return stack_machine_params(st, (vad_config.vad_machine_config,) + alt) if alt else None
+
+
+def _machines(fsm_params: fsm.FSMParams) -> int:
+    """K of a stacked ``fsm_params``, 0 for one machine a stream; refuses
+    leaves of other shapes."""
+    k = fsm.n_machines(fsm_params)
+    if any(np.shape(x) != ((k,) if k else ()) for x in fsm_params):
+        raise ValueError(f"fsm_params: every leaf must be a scalar or [K], got {[np.shape(x) for x in fsm_params]}")
+    return k
 
 
 def init_carry(st: VADStatics, lead: tuple = (), device="cpu", fsm_params: fsm.FSMParams | None = None) -> dict:
     """Fresh carry for streams of leading shape ``lead``: the JAX carry's
     fields (the denoiser's, the window re-chunking buffer ``fft_buf``, its
     fill ``fft_fill`` and ``win_base`` as int32, ``prev_ratio``), float32
-    copies, and ``fsm`` None: the first scan starts fresh machines and
-    returns the kernel's packed carry (``fsm.fresh_carry``'s layout)."""
-    _machine_params(st, fsm_params)
+    copies, and ``fsm`` None: the first scan starts fresh machines (K a
+    stream for a stacked ``fsm_params``) and returns the kernel's packed
+    carry (``fsm.fresh_carry``'s layout)."""
+    _machines(st.fsm_params if fsm_params is None else fsm_params)
     lead = tuple(lead)
     return {
         "denoiser": denoiser.init_carry(st.n_channels, device, lead),
@@ -113,7 +138,9 @@ def init_carry(st: VADStatics, lead: tuple = (), device="cpu", fsm_params: fsm.F
 
 
 class ChunkOutput(NamedTuple):
-    windows: fsm.WindowOutput | None  # the FSM's outputs a window slot, each [..., max_windows]; None without run_fsm
+    # The FSM's outputs a window slot, each [..., max_windows] ([..., K,
+    # max_windows] for K machines a stream); None without run_fsm.
+    windows: fsm.WindowOutput | None
     window_valid: torch.Tensor  # [..., max_windows] bool
     denoised: torch.Tensor  # [..., C, chunk] (zero-width without collect_denoised)
     min_vol: torch.Tensor  # [..., max_windows] speech-band volume (FSM input)
@@ -183,8 +210,10 @@ def chunk_step(
     step and nothing has written it since, so the scan continues it without
     reading its ring indices back (``fsm_cuda._scan_chained``: no sync on the
     card); a carry from elsewhere is checked. The first scan (``fsm`` None)
-    starts fresh machines at ``win_base``."""
-    params = _machine_params(st, fsm_params)
+    starts fresh machines at ``win_base``. A stacked ``fsm_params`` runs K
+    machines a stream as (stream, config) rows of the one scan."""
+    params = st.fsm_params if fsm_params is None else fsm_params
+    k = _machines(params)
     lead = chunk.shape[:-2]
     cv = None if chunk_valid is True else torch.as_tensor(chunk_valid, dtype=torch.bool, device=chunk.device)
 
@@ -208,8 +237,9 @@ def chunk_step(
     if not run_fsm:
         win_out, fsm_carry = None, carry["fsm"]
     else:
-        flat = [x.reshape(b, w).contiguous() for x in (min_vol, ratios, valid)]
-        win_base = carry["win_base"].reshape(b)
+        _, expand, params = fsm.machine_rows(params, b)
+        flat = [expand(x.reshape(b, w).contiguous()) for x in (min_vol, ratios, valid)]
+        win_base = expand(carry["win_base"].reshape(b))
         if carry["fsm"] is not None and chained:
             win_out, fsm_carry = fsm_cuda._scan_chained(st.fsm_shape, params, *flat, carry["fsm"], win_base)
         else:
@@ -230,8 +260,9 @@ def chunk_step(
 
         new_carry = freeze(new_carry, {k: carry[k] for k in new_carry})
     new_carry["fsm"] = fsm_carry
+    machine_shape = lead + ((k,) if k else ()) + (w,)
     out = ChunkOutput(
-        windows=None if win_out is None else fsm.WindowOutput(*(x.reshape(lead + (w,)) for x in win_out)),
+        windows=None if win_out is None else fsm.WindowOutput(*(x.reshape(machine_shape) for x in win_out)),
         window_valid=valid,
         denoised=denoised if collect_denoised else denoised[..., :0],
         min_vol=min_vol,
@@ -266,7 +297,8 @@ def process_stream(
     whenever the valid rows share it, and chains the FSM carry: between the
     uploads before the loop and the caller's fetch after it nothing is read
     back from the card. Returns (final carry, ChunkOutput with every field
-    stacked over chunks after the leading shape: [..., n_chunks, ...])."""
+    stacked over chunks after the leading shape: [..., n_chunks, ...]; the
+    windows [..., n_chunks, K, max_windows] for K machines a stream)."""
     lead = tuple(audio.shape[:-2])
     n_chunks = audio.shape[-1] // st.chunk_size
     dev = audio.device

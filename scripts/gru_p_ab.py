@@ -1,9 +1,10 @@
 """Two checkouts' bf16 form of a per-gate GRU kernel side by side, in one
 process on one card, at the bf16 tier's shape [1680, 54]: kernel 5
 (``nsnet2_gates_cuda.gru_gates_p``, the default), 4 (``gru_gates``) or 6
-(``gru_gates_f``, bf16 out).
+(``gru_gates_f``, bf16 out); or kernel 1 (``nsnet2_cuda.gru_stack``, the
+float tier's recurrence, on its float32 gi1 and within its 1e-4 bar).
 
-    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8] [--kernel 4|5|6]
+    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8] [--kernel 1|4|5|6]
 
 Each ``--root`` names a checkout whose ``formula_vad_tpu_torch`` is loaded
 under a name of its own, so both versions of the wrapper and of the kernel
@@ -38,8 +39,9 @@ import numpy as np
 
 ROWS, STEPS = 1680, 54
 RANDOM_SHAPES = tuple((n, 54) for n in (1, 15, 17, 337, 1680, 4000))
-WRAPPERS = {4: "gru_gates", 5: "gru_gates_p", 6: "gru_gates_f"}
+WRAPPERS = {1: "gru_stack", 4: "gru_gates", 5: "gru_gates_p", 6: "gru_gates_f"}
 BF16_MEAN, BF16_MAX = 3e-5, 6e-3
+GRU_TOL = 1e-4  # kernel 1's bar (chip_smoke.py)
 
 
 def _package(root: str, alias: str):
@@ -86,30 +88,52 @@ def main(argv=None) -> int:
         print("gru_p_ab: needs a CUDA device", file=sys.stderr)
         return 2
     pkgs = [_package(root, f"_gru_p_ab_checkout_{i}") for i, root in enumerate(args.root)]
-    gates = [importlib.import_module(f"{p.__name__}.models.nsnet2_gates_cuda") for p in pkgs]
+    module = "nsnet2_cuda" if args.kernel == 1 else "nsnet2_gates_cuda"
+    kernels = [importlib.import_module(f"{p.__name__}.models.{module}") for p in pkgs]
     tools = importlib.import_module(f"{pkgs[-1].__name__}.tools")
     exp = importlib.import_module(f"{pkgs[-1].__name__}.tools.gru_kernel_exp")
     dev = torch.device("cuda")
     name = WRAPPERS[args.kernel]
-    wrappers = [getattr(g, name) for g in gates]
-    plain = getattr(gates[-1], f"{name}_reference")
-    gi_dtype = torch.float32 if args.kernel == 5 else torch.bfloat16  # the kernel's own gi dtype
+    wrappers = [getattr(k, name) for k in kernels]
+    plain = getattr(kernels[-1], f"{name}_reference")
+    bf16 = torch.bfloat16
+    if args.kernel == 1:  # float32 gi1 [N, T, 1200]; the plain version takes the network
+        gi_dtype, gi_width, bar_max, bar_mean = torch.float32, 1200, GRU_TOL, GRU_TOL
+
+        def run(w, net, gi):
+            return w(net, *gi)
+
+        def reference(net, gi):
+            return plain(net, *gi)
+
+        def gi_of(net, feats):
+            return ((net.fc_in(feats) @ net.gru1.wi + net.gru1.bi).contiguous(),)
+    else:
+        gi_dtype = torch.float32 if args.kernel == 5 else bf16  # the kernel's own gi dtype
+        gi_width, bar_max, bar_mean = 400, BF16_MAX, BF16_MEAN
+
+        def run(w, net, gi):
+            return w(net, *gi, dtype=bf16)
+
+        def reference(net, gi):
+            return plain(kernels[-1].gate_weights(net, bf16), *gi)
+
+        def gi_of(net, feats):
+            return tuple(g.to(gi_dtype) for g in exp._gi_gates(net, feats))
     nets = [_net(p, dev) for p in pkgs]
     with torch.inference_mode():
-        gi = tuple(g.to(gi_dtype) for g in exp._gi_gates(nets[-1], exp.features(ROWS, dev)[0]))
-        plain_gw = gates[-1].gate_weights(nets[-1], torch.bfloat16)
-        want = plain(plain_gw, *gi)
-        calls = [lambda w=w, net=net: w(net, *gi, dtype=torch.bfloat16) for w, net in zip(wrappers, nets)]
+        gi = gi_of(nets[-1], exp.features(ROWS, dev)[0])
+        want = reference(nets[-1], gi)
+        calls = [lambda w=w, net=net: run(w, net, gi) for w, net in zip(wrappers, nets)]
         outs = [fn() for fn in calls]
         random_gi = {}
         demos = [_net(p, dev, "demo") for p in pkgs]
-        demo_gw = gates[-1].gate_weights(demos[-1], torch.bfloat16)
         for n, t in RANDOM_SHAPES:
             rng = np.random.default_rng(n * t)
-            rgi = [torch.from_numpy((rng.standard_normal((n, t, 400)) * 0.8).astype(np.float32)).to(dev, gi_dtype)
-                   for _ in range(3)]
-            want_random = plain(demo_gw, *rgi)
-            random_outs = [w(net, *rgi, dtype=torch.bfloat16) for w, net in zip(wrappers, demos)]
+            rgi = [torch.from_numpy((rng.standard_normal((n, t, gi_width)) * 0.8).astype(np.float32)).to(dev, gi_dtype)
+                   for _ in range(1 if args.kernel == 1 else 3)]
+            want_random = reference(demos[-1], rgi)
+            random_outs = [run(w, net, rgi) for w, net in zip(wrappers, demos)]
             random_gi[f"{n}x{t}"] = {"vs_plain": [_dist(o, want_random) for o in random_outs],
                                      "identical": bool(torch.equal(*random_outs))}
         torch.cuda.synchronize()
@@ -117,13 +141,14 @@ def main(argv=None) -> int:
                   "roots": [os.path.abspath(r) for r in args.root], "kernel": args.kernel, "shape": [ROWS, STEPS],
                   "vs_plain": [_dist(o, want) for o in outs], "random_gi": random_gi,
                   "between": _dist(outs[0], outs[1]), "identical": bool(torch.equal(outs[0], outs[1]))}
-        print(f"{result['card']}, kernel {args.kernel} ({name}) bf16: vs plain (max, mean) {result['vs_plain']}; between the checkouts "
-              f"{result['between']}, identical {result['identical']}", flush=True)
+        print(f"{result['card']}, kernel {args.kernel} ({name}) {'float32' if args.kernel == 1 else 'bf16'}: vs plain "
+              f"(max, mean) {result['vs_plain']}; between the checkouts {result['between']}, identical "
+              f"{result['identical']}", flush=True)
         for shape, r in random_gi.items():
             print(f"random gi [{shape}]: vs plain (max, mean) {r['vs_plain']}, identical {r['identical']}", flush=True)
         for root, (worst, mean) in zip(args.root, result["vs_plain"]):
-            if not (worst <= BF16_MAX and mean <= BF16_MEAN):
-                raise AssertionError(f"gru_p_ab: {root} misses the bf16 bars: max {worst}, mean {mean}")
+            if not (worst <= bar_max and mean <= bar_mean):
+                raise AssertionError(f"gru_p_ab: {root} misses the kernel's bars: max {worst}, mean {mean}")
         single, queued = [[], []], [[], []]
         for r in range(args.rounds):
             for j in (0, 1, 1, 0):

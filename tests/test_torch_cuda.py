@@ -143,9 +143,15 @@ def test_gru_kernel_refuses_a_grid_that_cannot_be_resident(net, cuda_device):
     for row_tile, row_groups, grid in ((plan.row_tile, plan.row_groups, plan.tiles), (100, 39, 100), (200, 20, 100)):
         err = lib.fvad_gru_stack(
             g, g + 1600, g + 3200, *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), None,
-            barrier.data_ptr(), 1200, 0, 4000, 2, row_tile, row_groups, plan.unit_groups, grid, stream,
+            barrier.data_ptr(), None, None, 1200, 0, 4000, 2, row_tile, row_groups, plan.unit_groups, grid, stream,
         )
         assert err != 0, (row_tile, row_groups, grid)
+    # Half a carried state (h1 without h2) is refused too, on a plan it takes.
+    err = lib.fvad_gru_stack(
+        g, g + 1600, g + 3200, *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), None, barrier.data_ptr(),
+        h1[0].data_ptr(), None, 1200, 0, 4000, 2, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid, stream,
+    )
+    assert err != 0
     assert plan.tiles > plan.grid == sms * nsnet2_cuda._card(cuda_device.index or 0)[1]
     torch.cuda.synchronize()
 
@@ -562,7 +568,8 @@ def test_gru_gates_refuse_what_they_do_not_take(net, cuda_device):
                                             (5, 1, 1, 0), (5, 1, 0, 1), (6, 1, 0, 0), (7, 1, 1, 0)):
         err = lib.fvad_gru_gates_p(kind, w_bf16, gi_bf16, out_bf16, *(g.data_ptr() for g in gi), w.units.data_ptr(),
                                    w.b8.data_ptr(), out.data_ptr(), x[0].data_ptr(), x[1].data_ptr(),
-                                   barrier.data_ptr(), 8, 3, 1, 1, 1, torch.cuda.current_stream().cuda_stream)
+                                   barrier.data_ptr(), None, None, None, None, 8, 3, 1, 1, 1,
+                                   torch.cuda.current_stream().cuda_stream)
         assert err != 0, (kind, w_bf16, gi_bf16, out_bf16)
     assert lib.fvad_gru_gates_p_smem_bytes(7, 1) == -1
     net.gru1.linear_before_reset = 0
@@ -638,9 +645,17 @@ def test_gru_gates_p_bf16_refuses_what_it_does_not_take(net, cuda_device):
     for n, tiles, groups, per in ((40, 2, 1, 2), (40, 3, 1, 2), (40, 3, 3, 2), (16 * 29, 29, 1, 29),
                                   (16 * (sms // 25 + 1), sms // 25 + 1, sms // 25 + 1, 1)):
         err = lib.fvad_gru_gates_p(5, 1, 0, 0, *(g.data_ptr() for g in gi), w.units.data_ptr(), w.b8.data_ptr(),
-                                   out.data_ptr(), x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(), n, 3, tiles,
-                                   groups, per, stream)
+                                   out.data_ptr(), x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(),
+                                   None, None, None, None, n, 3, tiles, groups, per, stream)
         assert err != 0, (n, tiles, groups, per)
+    # A carried state without its final-state buffer (h1_T), or with kernel
+    # 6's h2_T on kernel 5, is refused on a plan the kernel takes.
+    h = torch.zeros((40, 400), device=cuda_device)
+    for h1_t, h2_t in ((None, None), (h.data_ptr(), h.data_ptr())):
+        err = lib.fvad_gru_gates_p(5, 1, 0, 0, *(g.data_ptr() for g in gi), w.units.data_ptr(), w.b8.data_ptr(),
+                                   out.data_ptr(), x[0].data_ptr(), x[1].data_ptr(), barrier.data_ptr(),
+                                   h.data_ptr(), h.data_ptr(), h1_t, h2_t, 40, 3, 3, 1, 3, stream)
+        assert err != 0, (h1_t, h2_t)
     torch.cuda.synchronize()
     for kind in (4, 5, 6):
         for per in (1, 21, gates.P_MAX_TILES):
@@ -1288,6 +1303,216 @@ def test_checkpoint_from_the_card_continues_on_the_cpu(net, cuda_device, tmp_pat
     _serve(card, chunks[19:])
     _serve(cpu, chunks[19:])
     assert cpu.segments == [x[n:] for x, n in zip(card.segments, done)] and any(cpu.segments)
+
+
+def _state(rows, seed, device):
+    """A nonzero GRU state (h1, h2), |h| < 1, [rows, 400] float32 each."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (rows, 400))).astype(np.float32)).to(device)
+                 for _ in range(2))
+
+
+STATE_SHAPES = [(42, 1), (42, 54), (8192, 1)]  # a low-latency hop of 21 streams, a chunk's steps, 4,096 streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,steps", STATE_SHAPES)
+def test_gru_kernel_carries_a_state(net, cuda_device, rows, steps):
+    """Kernel 1 continuing a nonzero state against its plain version, the
+    sequence and the final state within 1e-5; from a zero state it is the
+    stateless call bit for bit; split at step 27 and chained, one call bit
+    for bit."""
+    gi1 = _gi1(rows, steps, rows + steps, cuda_device)
+    state = _state(rows, steps, cuda_device)
+    before = nsnet2_cuda.gru_stack.launches
+    with torch.inference_mode():
+        got, (h1, h2) = nsnet2_cuda.gru_stack(net, gi1, state)
+        want, (w1, w2) = nsnet2_cuda.gru_stack_reference(net, gi1, state)
+        stateless = nsnet2_cuda.gru_stack(net, gi1)
+        zero, _ = nsnet2_cuda.gru_stack(net, gi1, tuple(torch.zeros_like(h) for h in state))
+        torch.cuda.synchronize()
+        assert nsnet2_cuda.gru_stack.launches == before + 3
+        for a, b in ((got, want), (h1, w1), (h2, w2)):
+            assert float((a - b).abs().max()) <= 1e-5
+        assert torch.equal(h2, got[:, -1]) and torch.equal(zero, stateless)
+        if steps > 27:
+            first, mid = nsnet2_cuda.gru_stack(net, gi1[:, :27].contiguous(), state)
+            second, (g1, g2) = nsnet2_cuda.gru_stack(net, gi1[:, 27:].contiguous(), mid)
+            assert torch.equal(torch.cat([first, second], 1), got) and torch.equal(g1, h1) and torch.equal(g2, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [5, 6])
+@pytest.mark.parametrize("rows,steps", STATE_SHAPES)
+def test_bf16_kernels_carry_a_state(net, cuda_device, kind, rows, steps):
+    """Kernel 5 (the bf16 tier) and kernel 6 (bf16 out, the bf16_io tier)
+    continuing a nonzero state, on the gi their tiers hand them, against
+    their plain versions: max |dh2| <= BF16_MAX, the pre-flip bar and, above
+    2 rows, the whole-call mean bar, for the sequence and the final float32
+    state; as many launches as the plan holds (4 at 8,192 rows, each on its
+    rows' state); from a zero state the stateless call bit for bit; split
+    at step 27 and chained, one call bit for bit."""
+    feats = torch.from_numpy(np.random.default_rng(rows).normal(-3.0, 1.5, (rows, steps, 161)).astype(np.float32))
+    bf16 = torch.bfloat16
+    precision.set_io_dtype("bf16" if kind == 6 else "f32")
+    try:
+        with torch.inference_mode():
+            gi = gates.gi_gates(net, net.fc_in(precision.io_cast(feats.to(cuda_device))))
+    finally:
+        precision.set_io_dtype("f32")
+    wrapper, plain = (gates.gru_gates_p, gates.gru_gates_p_reference) if kind == 5 else \
+        (gates.gru_gates_f, gates.gru_gates_f_reference)
+    gi = tuple(g.contiguous() if kind == 5 else g.to(bf16) for g in gi)
+    kw = {} if kind == 5 else {"out_dtype": bf16}
+    state = _state(rows, steps + kind, cuda_device)
+    before = wrapper.launches
+    with torch.inference_mode():
+        got, (h1, h2) = wrapper(net, *gi, dtype=bf16, state=state, **kw)
+        want, (w1, w2) = plain(gates.gate_weights(net, bf16), *gi, state=state, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + len(gates.device_p_plan(rows, cuda_device))
+        assert h1.dtype == h2.dtype == torch.float32 and torch.equal(h2.to(got.dtype), got[:, -1])
+        d = (got.float() - want.float()).abs()
+        assert float(d.max()) <= BF16_MAX, float(d.max())
+        flip = (got.to(bf16) != want.to(bf16)).any(dim=2)
+        first = torch.where(flip.any(dim=1), flip.int().argmax(dim=1), steps)
+        pre = torch.arange(steps, device=cuda_device)[None, :] < first[:, None]
+        assert bool(pre.any()) and float(d[pre].mean()) <= PRE_FLIP_MEAN, float(d[pre].mean())
+        for a, b in ((h1, w1), (h2, w2)):
+            e = (a - b).abs()
+            assert float(e.max()) <= BF16_MAX and float(e.mean()) <= BF16_MEAN, (float(e.max()), float(e.mean()))
+        if rows > 2:
+            assert float(d.mean()) <= BF16_MEAN, float(d.mean())
+        stateless = wrapper(net, *gi, dtype=bf16, **kw)
+        zero, _ = wrapper(net, *gi, dtype=bf16, state=tuple(torch.zeros_like(h) for h in state), **kw)
+        assert torch.equal(zero, stateless)
+        if steps > 27:
+            first_half, mid = wrapper(net, *(g[:, :27].contiguous() for g in gi), dtype=bf16, state=state, **kw)
+            second_half, (g1, g2) = wrapper(net, *(g[:, 27:].contiguous() for g in gi), dtype=bf16, state=mid, **kw)
+            assert torch.equal(torch.cat([first_half, second_half], 1), got)
+            assert torch.equal(g1, h1) and torch.equal(g2, h2)
+
+
+LOWLATENCY_TIERS = {  # tier: (matmul level, io dtype, quant, the recurrence's wrapper, its launches a step)
+    "float": ("highest", "f32", "off", "gru_stack", 1),
+    "high": ("high", "f32", "off", "gru_stack", 1),
+    "bf16": ("default", "f32", "off", "gru_gates_p", 1),
+    "bf16_io": ("default", "bf16", "off", "gru_gates_f", 1),
+    "int8": ("highest", "f32", "int8", "matmul_q8", 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(LOWLATENCY_TIERS))
+def test_lowlatency_on_the_card(net, cuda_device, tier):
+    """The low-latency mode at 4 streams x 2 channels x 40 hops: a chain of
+    ``step`` calls launches the tier's recurrence once a hop and nothing
+    else (int8: its 8 products), ``run`` once for all hops (int8: 3 a hop
+    and 5); in the float32 recurrences (float, high) the chain equals the
+    run within 1e-5, and the float tier's run the CPU's."""
+    from formula_vad_tpu_torch.pipeline import lowlatency
+
+    level, io, quant, name, per_step = LOWLATENCY_TIERS[tier]
+    audio = (0.05 * np.random.default_rng(9).standard_normal((4, 2, 40 * 480))).astype(np.float32)
+    x = torch.from_numpy(audio).to(cuda_device)
+    precision.set_matmul_precision(level)
+    precision.set_io_dtype(io)
+    precision.set_quant(quant)
+    try:
+        with torch.inference_mode():
+            lowlatency.run(net, x[..., :480])  # builds the kernels, packs the weights
+            torch.cuda.synchronize()
+            before = {k: fn.launches for k, fn in STREAM_COUNTERS.items()}
+            state = lowlatency.init_state((4, 2), cuda_device)
+            outs = []
+            for i in range(40):
+                state, o = lowlatency.step(net, state, x[..., i * 480 : (i + 1) * 480])
+                outs.append(o)
+            chain = torch.cat(outs, -1)
+            mid = {k: fn.launches for k, fn in STREAM_COUNTERS.items()}
+            final, whole = lowlatency.run(net, x)
+            after = {k: fn.launches for k, fn in STREAM_COUNTERS.items()}
+        torch.cuda.synchronize()
+    finally:
+        precision.set_matmul_precision("highest")
+        precision.set_io_dtype("f32")
+        precision.set_quant("off")
+    assert {k: mid[k] - before[k] for k in before} == dict(dict.fromkeys(STREAM_COUNTERS, 0), **{name: 40 * per_step})
+    run_launches = 3 * 40 + 5 if tier == "int8" else 1
+    assert {k: after[k] - mid[k] for k in mid} == dict(dict.fromkeys(STREAM_COUNTERS, 0), **{name: run_launches})
+    assert bool(torch.isfinite(chain).all()) and bool(torch.isfinite(whole).all())
+    if tier in ("float", "high"):
+        assert float((chain - whole).abs().max()) <= 1e-5
+        for a, b in zip(state["gru"], final["gru"]):
+            assert float((a - b).abs().max()) <= 1e-5
+    if tier == "float":
+        with torch.inference_mode():
+            _, cpu = lowlatency.run(registry.load_denoiser("demo", device="cpu"), torch.from_numpy(audio))
+        assert float((whole.cpu() - cpu).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(LOWLATENCY_TIERS))
+def test_lowlatency_step_makes_no_sync(net, cuda_device, tier):
+    """After a first step has built and cached what a step needs, a chain of
+    ``step`` calls never waits on the card (torch.cuda.set_sync_debug_mode
+    ("error") raises on any synchronising call: a read-back, a pageable
+    copy), and gives the same outputs as the same chain without the mode."""
+    from formula_vad_tpu_torch.pipeline import lowlatency
+
+    level, io, quant, _, _ = LOWLATENCY_TIERS[tier]
+    audio = (0.05 * np.random.default_rng(10).standard_normal((3, 2, 8 * 480))).astype(np.float32)
+    x = torch.from_numpy(audio).to(cuda_device)
+    precision.set_matmul_precision(level)
+    precision.set_io_dtype(io)
+    precision.set_quant(quant)
+
+    def chain():
+        state, outs = lowlatency.init_state((3, 2), cuda_device), []
+        for i in range(8):
+            state, o = lowlatency.step(net, state, x[..., i * 480 : (i + 1) * 480])
+            outs.append(o)
+        return torch.cat(outs, -1)
+
+    try:
+        with torch.inference_mode():
+            want = chain()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = chain()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        precision.set_matmul_precision("highest")
+        precision.set_io_dtype("f32")
+        precision.set_quant("off")
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_alt_machines_on_the_card(net, cuda_device):
+    """K = 4 alternative machines (the base config among them) as rows of
+    one FSM scan: one kernel-2 launch at [B * 5, W] offline, one a chunk
+    step streaming, and on the slab path one a slab; every path's segments
+    and alternative segments equal the CPU's offline run, and the base
+    machine's alternative segments are the primary's bit for bit."""
+    audio, lengths = _stream_batch(seconds=18.0)
+    grid = [VADMachineConfig(speech_threshold_factor=f, channel_vol_ratio_threshold=r)
+            for f in (6.0, 10.0) for r in (0.3, 0.5)]
+    cfg = VADConfig(alt_vad_machine_configs=grid)
+    want = BatchRunner(registry.load_denoiser("demo", device="cpu"), cfg).run(audio, lengths)
+    n_chunks = audio.shape[-1] // 24000
+    runs = (("offline", BatchRunner(net, cfg), 1), ("streaming", BatchRunner(net, cfg, use_offline=False), n_chunks),
+            ("slab", SlabRunner(net, cfg, slab_chunks=32), 2))
+    for what, runner, launches in runs:
+        before = fsm_cuda.scan_windows.launches
+        got = runner.run(audio, lengths)
+        assert fsm_cuda.scan_windows.launches - before == launches, what
+        assert [(r.segments, r.alt_segments) for r in got] == [(r.segments, r.alt_segments) for r in want], what
+    assert fsm_cuda.scan_windows.last_plan.ctas == 3 * 5  # the smem body: one CTA a (stream, config) row
+    assert all(r.alt_segments[3] == r.segments for r in want) and any(r.segments for r in want)
+    assert len({str(s) for r in want for s in r.alt_segments}) > 3
 
 
 def test_wrappers_refuse_other_devices():

@@ -123,7 +123,7 @@ def test_lbr0_forward_runs_the_plain_loop_on_any_device(monkeypatch):
     tier and in the int8 tier's fallback."""
     from formula_vad_tpu_torch.ops import precision
 
-    def no_kernel(*args):
+    def no_kernel(*args, **kw):
         raise AssertionError("gru_stack called for lbr = 0 weights")
 
     monkeypatch.setattr(nsnet2_cuda, "gru_stack", no_kernel)

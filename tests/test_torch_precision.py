@@ -283,9 +283,9 @@ def test_forward_at_default_matches_jax_bf16(monkeypatch):
         calls = [0]
         plain = nsnet2_gates_cuda.gru_gates_p_reference
 
-        def counted(*args):
+        def counted(*args, **kw):
             calls[0] += 1
-            return plain(*args)
+            return plain(*args, **kw)
 
         monkeypatch.setattr(nsnet2_gates_cuda, "gru_gates_p_reference", counted)
         monkeypatch.setattr(nsnet2_cuda, "gru_stack_reference", None)  # the float recurrence must not run
@@ -410,9 +410,9 @@ def test_kernel_6_runs_in_bf16_with_a_bf16_out(random_pair, monkeypatch):
     seen = []
     gru_gates_f = nsnet2_gates_cuda.gru_gates_f
 
-    def spy(net_, gi_z, gi_r, gi_n, dtype=torch.float32, tile=None, out_dtype=None):
+    def spy(net_, gi_z, gi_r, gi_n, dtype=torch.float32, tile=None, out_dtype=None, **kw):
         seen.append((gi_z.dtype, dtype, out_dtype))
-        return gru_gates_f(net_, gi_z, gi_r, gi_n, dtype=dtype, tile=tile, out_dtype=out_dtype)
+        return gru_gates_f(net_, gi_z, gi_r, gi_n, dtype=dtype, tile=tile, out_dtype=out_dtype, **kw)
 
     monkeypatch.setattr(nsnet2_gates_cuda, "gru_gates_f", spy)
     precision.set_io_dtype("bf16")

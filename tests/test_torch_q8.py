@@ -159,7 +159,7 @@ def test_int8_forward_launch_count(pair, feats, monkeypatch):
     _, net = pair
     calls = _count_matmuls(monkeypatch)
 
-    def no_float_gru(*args):
+    def no_float_gru(*args, **kw):
         raise AssertionError("the float GRU ran under the int8 tier")
 
     monkeypatch.setattr(nsnet2_cuda, "gru_stack_reference", no_float_gru)

@@ -149,8 +149,9 @@ def test_empty_and_refused(net):
     assert [r.segments for r in res] == [[], []]
     with pytest.raises(ValueError, match="multiple of 32"):
         SlabRunner(net, slab_chunks=48)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlabRunner(net, VADConfig(alt_vad_machine_configs=[VADMachineConfig()]))
+    # Alternative machines are ported: empty input gives each an empty list.
+    res = SlabRunner(net, VADConfig(alt_vad_machine_configs=[VADMachineConfig()])).run(np.zeros((2, 2, CHUNK - 1), np.float32))
+    assert [(r.segments, r.alt_segments) for r in res] == [([], [[]])] * 2
 
 
 def test_denoiser_carry_holds_no_view_of_the_slab(net):

@@ -8,7 +8,6 @@ held at rtol 1e-6, because the chunk RMS behind it is reduced in another
 order than XLA:CPU's (ops/volume.py). Each simulator runs once per module.
 """
 
-import json
 import os
 
 import jax.numpy as jnp
@@ -27,7 +26,7 @@ from formula_vad_tpu_torch.apps import simulator as sim
 from formula_vad_tpu_torch.config import VADConfig, VADMachineConfig
 from formula_vad_tpu_torch.models import registry
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
-from formula_vad_tpu_torch.pipeline import offline, vad
+from formula_vad_tpu_torch.pipeline import fsm, offline, vad
 from formula_vad_tpu_torch.testing import synth
 
 N_STREAMS, SECONDS = 2, 20.0
@@ -135,16 +134,15 @@ def test_device_fsm_equals_host_decoder(audio):
     assert [r.segments for r in device_fsm] == [r.segments for r in host_fsm]
 
 
-def test_unported_paths_raise(corpus, monkeypatch):
+def test_unported_paths_raise(corpus, monkeypatch, tmp_path):
     net = registry.load_denoiser("demo", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchRunner(net, VADConfig(alt_vad_machine_configs=[VADMachineConfig()]))
-    # Streaming plans are ported; their alternative machines are not.
-    plan = json.loads((corpus / "plan_port.json").read_text())
-    plan["config"] = {"batch_streams": False, "vad_config": {"alt_vad_machine_configs": [{}]}}
-    (corpus / "plan_streaming.json").write_text(json.dumps(plan))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.main(["-i", str(corpus / "plan_streaming.json"), "--device", "cpu"])
+    # Alternative machines are ported: the base config's is the primary
+    # machine, and a streaming plan with them runs (one 4 s stream).
+    runner = BatchRunner(net, VADConfig(alt_vad_machine_configs=[VADMachineConfig()]))
+    assert runner.alt_configs == (VADMachineConfig(),) and fsm.n_machines(runner.machines) == 2
+    synth.write_corpus(str(tmp_path), 1, 4.0, seed=0, plans={
+        "streaming": {"batch_streams": False, "vad_config": {"alt_vad_machine_configs": [{}]}}})
+    assert sim.main(["-i", str(tmp_path / "plan_streaming.json"), "--device", "cpu"]) == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.main(["-i", str(corpus / "plan_port.json")])

@@ -508,13 +508,20 @@ def test_pipeline_server_mode_matches_push(pair, pipelines):
 def test_unported_streaming_parts_raise(pair):
     _, net = pair
     _, st = _statics()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        AudioPipeline(PipelineConfig(vad_config=VADConfig(alt_vad_machine_configs=[VADMachineConfig()])), net)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        vad.stack_machine_params(st, [VADMachineConfig()])
-    k_machines = st.fsm_params._replace(threshold_factor=np.array([5.0, 6.0], np.float32))
+    # K machines a stream are ported: the pipeline keeps a segment list an
+    # alternative, a stacked config runs as rows of the one scan, and a
+    # parameter leaf of another shape is refused.
+    pipe = AudioPipeline(PipelineConfig(vad_config=VADConfig(alt_vad_machine_configs=[VADMachineConfig()])), net)
+    assert pipe.alt_segments == [[]]
+    stacked = vad.stack_machine_params(
+        st, [VADMachineConfig(**MACHINE), VADMachineConfig(**MACHINE, speech_threshold_factor=5.0)])
+    assert stacked.threshold_factor.tolist() == [10.0, 5.0]
     x = torch.zeros((2, CHUNK))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with torch.inference_mode():
+        _, out = vad.chunk_step(net, st, vad.init_carry(st), x, fsm_params=stacked)
+    assert out.windows.event.shape == (2, st.max_windows)
+    k_machines = st.fsm_params._replace(threshold_factor=np.array([5.0, 6.0], np.float32))
+    with pytest.raises(ValueError, match="scalar or \\[K\\]"):
         vad.chunk_step(net, st, vad.init_carry(st), x, fsm_params=k_machines)
     with pytest.raises(ValueError, match="use_offline"):
         BatchRunner(net, use_host_fsm=True, use_offline=False)
