@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs fourteen phases; any failed check raises and the script exits non-zero.
+runs fifteen phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -197,6 +197,23 @@ runs fourteen phases; any failed check raises and the script exits non-zero.
    bit with the host decoder, the wall beside the plain slice's, kernel 2
    at the sweep's rows, and apps.tune on phase 5's corpus with the same
    leaderboard on cuda and on cpu.
+15. The rest of the denoiser registry. (a) The demo weights through the
+   port's ONNX writer and importer, loaded on the card bit for bit with the
+   .npz model; the slice through BatchRunner with them (one gru_stack and
+   one scan_windows a run, segments identical to phase 4's); the simulator
+   on phase 5's corpus with a plan naming the .onnx file, its files
+   identical to phase 5's cuda run. (b) The spectral gate: the slice
+   offline (one scan_windows a run and nothing else; wall and real-time
+   factor beside phase 4's float tier; one torch.profiler split; the
+   offline run's stages timed apart on the host clock) and
+   streaming (40 scan_windows a run), segments equal to each other and to
+   the CPU gate run's; OnlineBatchServer with the gate for 8 ticks at 21
+   streams, decisions bit for bit with the CPU fleet's. (c)
+   eval/denoise_quality.evaluate (2 held-out pairs x 16 s) of the demo
+   weights, the imported model and the gate on the card, each within
+   0.05 dB of the CPU's, above the JAX package's floors (demo 15 dB mean
+   and 10 a pair, gate 3), the imported model's numbers equal to the
+   demo's.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -335,6 +352,12 @@ LL_TIERS = (
 SWEEP_FACTORS, SWEEP_RATIOS = (6.0, 10.0, 14.0, 20.0), (0.3, 0.5)
 SWEEP_BASE = SWEEP_FACTORS.index(10.0) * len(SWEEP_RATIOS) + SWEEP_RATIOS.index(0.5)
 TUNE_GRID = "speech_threshold_factor=3,10,40"
+# Phase 15: the gate's fleet (ticks of the slice's 21 streams), and
+# denoise_quality.evaluate's held-out pairs with the JAX package's floors
+# (demo: mean and each pair; the gate: mean) and the card-against-CPU bar.
+GATE_TICKS = 8
+QUALITY_PAIRS, QUALITY_SECONDS = 2, 16.0
+DEMO_FLOOR_DB, DEMO_PAIR_FLOOR_DB, GATE_FLOOR_DB, QUALITY_TOL_DB = 15.0, 10.0, 3.0, 0.05
 
 
 def log(msg: str) -> None:
@@ -1914,10 +1937,11 @@ def step_times(stream, audio) -> tuple[float, float]:
     return statistics.median(event_ms), statistics.median(host_ms)
 
 
-def profiled_busy(stream, audio) -> tuple[float | None, float]:
-    """One streaming run of ``audio`` under torch.profiler: -> (the device's
-    busy ms, or None where the trace holds no device event; the run's wall
-    ms), logged with the launches a chunk step and the top kernels."""
+def profiled_busy(stream, audio, steps: int | None = STREAM_CHUNKS) -> tuple[float | None, float]:
+    """One run of ``audio`` under torch.profiler: -> (the device's busy ms,
+    or None where the trace holds no device event; the run's wall ms),
+    logged with the launches (a chunk step, over ``steps`` chunk steps)
+    and the top kernels."""
     import torch
 
     from formula_vad_tpu_torch.tools import busy_ms
@@ -1934,9 +1958,9 @@ def profiled_busy(stream, audio) -> tuple[float | None, float]:
         return None, wall
     busy, kernels, copies = busy_ms(events)
     n_kernels = sum(1 for e in events if not e.name.lower().startswith(("memcpy", "memset")))
+    per_step = f", {n_kernels / steps:.0f} a chunk step" if steps else ""
     log(f"  profiled run: wall {wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%; kernels "
-        f"{kernels:.1f} ms in {n_kernels} launches, {n_kernels / STREAM_CHUNKS:.0f} a chunk step; copies "
-        f"{copies:.1f} ms), idle {wall - busy:.1f} ms")
+        f"{kernels:.1f} ms in {n_kernels} launches{per_step}; copies {copies:.1f} ms), idle {wall - busy:.1f} ms")
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
@@ -3013,6 +3037,200 @@ def phase_sweep(net, dev, audio, float_results, float_wall: float, corpus: str, 
             "segments_a_machine": counts}
 
 
+def registry_onnx(net, dev, audio, float_results, corpus: str, batched_dir: str, counters, root: str) -> dict:
+    """Phase 15 (a): the demo weights through the port's ONNX writer and
+    importer on the card: bit for bit the ``.npz`` model's weights; the
+    slice through BatchRunner (one gru_stack and one scan_windows a run,
+    segments identical to phase 4's); the simulator on phase 5's corpus
+    with a plan naming the file, its files identical to phase 5's cuda
+    run's. -> {"net", "launches", "wall_s"}."""
+    from formula_vad_tpu_torch.models.onnx_import import export_nsnet2_onnx
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+
+    path = os.path.join(root, "demo.onnx")
+    with open(path, "wb") as f:
+        f.write(export_nsnet2_onnx(net))
+    imported = load_denoiser(path, device=dev)
+    for (name, a), (_, b) in zip(net.named_parameters(), imported.named_parameters()):
+        if a.device != b.device or not bool((a == b).all()):
+            raise AssertionError(f"the imported {name} differs from the .npz model's")
+    log(f"ONNX: the demo weights written ({os.path.getsize(path) / 1e6:.2f} MB) and imported on the card, every "
+        "parameter bit for bit with the .npz model's")
+    results, walls, launches = timed_runs(BatchRunner(imported), audio, counters)
+    check_launches("the imported model's slice", counters, gru_stack=3, scan_windows=3)
+    if [r.segments for r in results] != [r.segments for r in float_results]:
+        raise AssertionError("the imported model's slice segments differ from phase 4's")
+    wall = statistics.median(walls)
+    log(f"ONNX slice {SLICE_STREAMS} x {SLICE_SECONDS:.0f} s: {sum(len(r.segments) for r in results)} segments "
+        f"identical to phase 4's; wall {wall * 1e3:.1f} ms (runs {[round(w * 1e3, 1) for w in walls]}); launches "
+        f"over 3 runs {launches}")
+    with open(os.path.join(corpus, "plan_cuda.json")) as f:
+        plan = json.load(f)
+    plan["config"] = {"output_dir": "out_onnx_cuda", "vad_config": {"denoiser_model_path": path}}
+    with open(os.path.join(corpus, "plan_onnx_cuda.json"), "w") as f:
+        json.dump(plan, f)
+    out = run_simulators(corpus, {"onnx_cuda": ("cuda", {})})["onnx_cuda"]
+    for name in ["report.txt"] + [f"s{i}-audacity.txt" for i in range(CORPUS_STREAMS)]:
+        if read_text(out, name) != read_text(batched_dir, name):
+            raise AssertionError(f"{name} of the simulator plan naming the .onnx file differs from phase 5's cuda run")
+    log("simulator plan naming the .onnx file (--device cuda): report.txt and segment files identical to phase 5's")
+    return {"net": imported, "launches": launches, "wall_s": wall}
+
+
+def offline_stages(runner, audio, rounds: int = 3) -> dict:
+    """BatchRunner.run's offline stages on the device FSM, as ``run`` calls
+    them, timed apart on the host clock with a synchronisation after each:
+    the pageable upload of the batch, the device work (the model's gains
+    and kernel 2), the fetch of the window outputs, the segment assembly.
+    -> each stage's median ms over ``rounds``."""
+    import torch
+
+    from formula_vad_tpu_torch.parallel.runner import results
+    from formula_vad_tpu_torch.pipeline import offline
+
+    st = runner.st
+    n_valid = np.full(audio.shape[0], audio.shape[-1] // st.chunk_size, np.int32)
+    times = collections.defaultdict(list)
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(rounds):
+        with torch.inference_mode():
+            x = stage("upload", lambda: torch.from_numpy(audio).to(runner.device))
+            valid = torch.from_numpy(n_valid).to(runner.device)
+            win = stage("device", lambda: offline.process_batch_offline(runner.net, st, x, valid, st.fsm_params)[0])
+            win = stage("fetch", lambda: type(win)(*(t.cpu().numpy() for t in win)))
+            stage("assembly", lambda: results(st, win, 0))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def registry_gate(dev, audio, float_wall: float, counters, smi: str) -> dict:
+    """Phase 15 (b): the spectral gate on the card. The slice offline (one
+    scan_windows a run, no GRU or int8 launch; RTF beside phase 4's; one
+    torch.profiler split) and streaming (40 scan_windows a run), their
+    segments equal to each other and to the CPU gate run's (host decoder);
+    OnlineBatchServer for GATE_TICKS ticks at 21 streams, decisions bit for
+    bit with the CPU fleet's. -> {"net", "launches", "launches_stream",
+    "launches_serve", "wall_s", "rtf", "busy_ms", ...}."""
+    import torch
+
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+
+    gate, gate_cpu = load_denoiser("spectral_gate", device=dev), load_denoiser("spectral_gate", device="cpu")
+    audio_sec = SLICE_STREAMS * SLICE_SECONDS
+    results, walls, launches = timed_runs(BatchRunner(gate), audio, counters)
+    check_launches("the gate's slice", counters, scan_windows=3)
+    wall = statistics.median(walls)
+    segments = [r.segments for r in results]
+    t0 = time.perf_counter()
+    cpu = [r.segments for r in BatchRunner(gate_cpu, use_host_fsm=True).run(audio)]
+    cpu_s = time.perf_counter() - t0
+    if segments != cpu:
+        raise AssertionError("the gate's slice segments differ between the card and the CPU")
+    if not sum(map(len, segments)):
+        raise AssertionError("the gate found no segment in the slice")
+    log(f"gate slice {SLICE_STREAMS} x {SLICE_SECONDS:.0f} s: wall {wall * 1e3:.1f} ms (median of 3, runs "
+        f"{[round(w * 1e3, 1) for w in walls]}), real-time factor {audio_sec / wall:.1f}, against the float tier's "
+        f"{float_wall * 1e3:.1f} ms, {audio_sec / float_wall:.1f} (phase 4), on {smi}; {sum(map(len, segments))} "
+        f"segments identical to the CPU run's ({cpu_s:.1f} s on the host); launches over 3 runs {launches}")
+    runner = BatchRunner(gate)
+    busy, prof_wall = profiled_busy(runner, audio, steps=None)
+    split = offline_stages(runner, audio)
+    log(f"gate slice's stages on the host clock (median of 3, ms): "
+        + ", ".join(f"{name} {ms:.2f}" for name, ms in split.items())
+        + f"; sum {sum(split.values()):.2f} against the run's {wall * 1e3:.1f} ms wall ({audio.nbytes / 1e6:.1f} MB uploaded)")
+    stream = BatchRunner(gate, use_offline=False)
+    stream.run(audio)  # warm-up
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    stream_segments = [r.segments for r in stream.run(audio)]
+    torch.cuda.synchronize()
+    stream_wall = time.perf_counter() - t0
+    launches_stream = check_launches("the gate's streaming slice", counters, scan_windows=STREAM_CHUNKS)
+    if stream_segments != segments:
+        raise AssertionError("the gate's streaming segments differ from its offline segments")
+    log(f"gate streaming slice: {stream_wall * 1e3:.1f} ms, real-time factor {audio_sec / stream_wall:.1f}, segments "
+        f"identical to offline; launches {launches_stream}")
+    b = audio.shape[0]
+    chunks = np.ascontiguousarray(audio[..., : GATE_TICKS * 24000].reshape(b, 2, GATE_TICKS, 24000).transpose(2, 0, 1, 3))
+    serve_run(gate, chunks[:2], record=False)  # warm-up
+    reset_counts(counters)
+    fleet = serve_run(gate, chunks)
+    launches_serve = check_launches("the gate's fleet", counters, scan_windows=GATE_TICKS)
+    err = same_serving("the gate's fleet, card against CPU", fleet, serve_run(gate_cpu, chunks, use_host_fsm=True),
+                       exact=False)
+    log(f"gate fleet {b} streams x {GATE_TICKS} ticks: segments, recordings' starts, decisions and indices bit for "
+        f"bit with the CPU fleet (host decoder), float outputs within {err:.3e}; launches {launches_serve}")
+    return {"net": gate, "launches": launches, "launches_stream": launches_stream, "launches_serve": launches_serve,
+            "wall_s": wall, "rtf": audio_sec / wall, "busy_ms": busy, "profiled_wall_ms": prof_wall,
+            "stages_ms": split, "stream_wall_s": stream_wall, "fleet": serve_stats("gate fleet", fleet, smi), "fleet_max_abs_err": err}
+
+
+def registry_quality(dev, models: dict, counters) -> dict:
+    """Phase 15 (c): eval/denoise_quality.evaluate of each model on the
+    card against the same model on the CPU (QUALITY_TOL_DB a number), the
+    JAX package's floors; the imported model's numbers equal the demo's.
+    -> {model: the card's result}."""
+    from formula_vad_tpu_torch.eval import denoise_quality as dq
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+
+    kw = dict(n_pairs=QUALITY_PAIRS, seconds=QUALITY_SECONDS)
+    out, cpu_of = {}, {}
+    for name, (net, spec) in models.items():
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        card = dq.evaluate(net, device=dev, **kw)
+        card_s = time.perf_counter() - t0
+        launched = launches_of(counters)
+        if spec not in cpu_of:
+            cpu_of[spec] = dq.evaluate(load_denoiser(spec, device="cpu"), device="cpu", **kw)
+        cpu = cpu_of[spec]
+        for g, w in zip(card["pairs"] + [card], cpu["pairs"] + [cpu]):
+            for key, v in g.items():
+                if key.endswith("_db") and not abs(v - w[key]) <= QUALITY_TOL_DB:
+                    raise AssertionError(f"SI-SDR of {name} on the card differs from the CPU's: {key} {v} against {w[key]}")
+        mean = card["mean_si_sdr_impr_db"]
+        floor_ok = (mean >= GATE_FLOOR_DB) if spec == "spectral_gate" else (
+            mean >= DEMO_FLOOR_DB and all(r["si_sdr_impr_db"] >= DEMO_PAIR_FLOOR_DB for r in card["pairs"]))
+        if not floor_ok:
+            raise AssertionError(f"SI-SDR of {name} misses the JAX package's floor: {card}")
+        log(f"SI-SDR improvement of {name} ({QUALITY_PAIRS} held-out pairs x {QUALITY_SECONDS:.0f} s): card "
+            f"{[r['si_sdr_impr_db'] for r in card['pairs']]} dB (mean {mean}), CPU "
+            f"{[r['si_sdr_impr_db'] for r in cpu['pairs']]} (mean {cpu['mean_si_sdr_impr_db']}); {card_s:.1f} s on "
+            f"the card; launches {launched}")
+        out[name] = card
+    if out["onnx"] != out["demo"]:
+        raise AssertionError("the imported model's SI-SDR differs from the demo weights'")
+    if not out["demo"]["mean_si_sdr_impr_db"] > out["spectral_gate"]["mean_si_sdr_impr_db"]:
+        raise AssertionError("the demo weights do not beat the gate on SI-SDR")
+    return out
+
+
+def phase_registry(net, dev, audio, float_results, float_wall: float, corpus: str, batched_dir: str, smi: str) -> dict:
+    """Phase 15: the rest of the denoiser registry. -> {"onnx", "gate",
+    "gate_stream", "gate_serve", "quality": each kernel's launches on the
+    path, and the measures}."""
+    t_phase = time.perf_counter()
+    counters = path_counters()
+    with tempfile.TemporaryDirectory() as root:
+        onnx = registry_onnx(net, dev, audio, float_results, corpus, batched_dir, counters, root)
+        gate = registry_gate(dev, audio, float_wall, counters, smi)
+        quality = registry_quality(dev, {"demo": (net, "demo"), "onnx": (onnx["net"], "demo"),
+                                         "spectral_gate": (gate["net"], "spectral_gate")}, counters)
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"onnx": onnx["launches"], "gate": gate["launches"], "gate_stream": gate["launches_stream"],
+                         "gate_serve": gate["launches_serve"]},
+            "gate": {k: v for k, v in gate.items() if k != "net" and not k.startswith("launches")},
+            "quality": quality}
+
+
 def main() -> int:
     try:
         import torch
@@ -3062,6 +3280,7 @@ def main() -> int:
         low = phase_lowlatency(net, dev, audio, smi)
         sweep = phase_sweep(net, dev, audio, float_results, float_wall, corpus, smi)
         log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+        registry = phase_registry(net, dev, audio, float_results, float_wall, corpus, batched_dir, smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -3093,6 +3312,10 @@ def main() -> int:
         k["launches_sweep"] = sweep["launches"][k["name"]]
         if k["name"] == "scan_windows":
             k["sweep_shape"] = sweep["shape"]
+        # Phase 15: the imported model's 3 slice runs, the gate's 3 slice
+        # runs, its streaming run (40 chunk steps) and its fleet's 8 ticks.
+        for path, counts in registry["launches"].items():
+            k[f"launches_{path}"] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -17,8 +17,10 @@ Recordings are written as ``{start_frame}-original.wav`` /
 mode). Hardcoded: 48 kHz stereo, 10 s ring buffers (main.zig:135-142).
 ``--state PATH`` resumes a checkpoint at start-up and writes one on exit.
 The pipeline runs on the card unless ``--device cpu`` is given; without a
-visible GPU ``--device cuda`` (the default) raises. A denoiser spec the
-port cannot load (``*.onnx``, ``spectral_gate``: not ported yet) is a fatal
+visible GPU ``--device cuda`` (the default) raises. ``--denoiser`` takes
+NSNet2 weights (``.npz`` or ``.onnx``), ``demo``, ``random`` or the
+weights-free ``spectral_gate[:quantile,alpha,floor]``; a spec the port
+cannot load (a malformed spec, a missing or unreadable file) is a fatal
 start-up error.
 
 Usage: python -m formula_vad_tpu_torch.apps.daemon -o OUTDIR -n NAME [--denoiser MODEL] [--device cuda|cpu]
@@ -41,9 +43,9 @@ from ..models.registry import load_denoiser
 from ..ops import precision
 from ..pipeline.pipeline import AudioPipeline, Callbacks
 
-# A denoiser spec that load_denoiser refuses: unsupported or not ported
-# yet (ValueError, NotImplementedError), or a weights file it cannot read.
-DENOISER_ERRORS = (ValueError, NotImplementedError, OSError)
+# A denoiser spec that load_denoiser refuses: malformed or unsupported
+# (ValueError), or a weights file it cannot read (OSError).
+DENOISER_ERRORS = (ValueError, OSError)
 
 
 def recording_event(
@@ -256,8 +258,9 @@ def add_common_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument(
         "--denoiser",
         default=None,
-        help="Denoiser spec: path to NSNet2 weights (.npz), 'demo' for the packaged weights (the "
-        "default), or 'random' for random-init (ONNX and 'spectral_gate' are not ported yet)",
+        help="Denoiser spec: path to NSNet2 weights (.onnx or .npz), 'demo' for the packaged weights "
+        "(the default), 'random' for random-init, or 'spectral_gate[:quantile,alpha,floor]' for the "
+        "weights-free classical gate",
     )
     ap.add_argument(
         "--precision", choices=("highest", "high", "default"), default=None,

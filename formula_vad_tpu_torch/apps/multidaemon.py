@@ -35,7 +35,9 @@ Usage:
 correlation and dropped-stream containment), crash-atomically, in
 generations behind a ``LATEST`` pointer; ``--checkpoint-every N`` also
 saves every N commands and acknowledges each save once it is durable.
-The fleet runs on the card unless ``--device cpu`` is given.
+The fleet runs on the card unless ``--device cpu`` is given. ``--denoiser``
+takes the solo daemon's specs: NSNet2 weights (``.npz`` or ``.onnx``),
+``demo``, ``random`` or ``spectral_gate[:quantile,alpha,floor]``.
 """
 
 from __future__ import annotations

@@ -35,7 +35,6 @@ from ..eval import SpeechSegment, formats, init_and_run, report
 from ..io_ import AudioSource, ogg
 from ..io_ import native as io_native
 from ..io_.wav import write_wav
-from ..models.nsnet2 import NSNet2
 from ..models.registry import load_denoiser
 from ..ops import precision
 from ..parallel.runner import BatchRunner
@@ -103,7 +102,7 @@ def _clip_writer(config: SimConfig):
 
 
 def _save_clips(
-    net: NSNet2, inst: Instance, read_span, total_len: int, n_chunks: int, chunk: int, config: SimConfig
+    net: torch.nn.Module, inst: Instance, read_span, total_len: int, n_chunks: int, chunk: int, config: SimConfig
 ) -> None:
     """Save each segment's original and denoised clip (quietest channel).
 
@@ -122,7 +121,7 @@ def _save_clips(
             k0 = max(0, ka - offline.WARMUP_CHUNKS)
             span = torch.from_numpy(np.ascontiguousarray(read_span(k0 * chunk, kb * chunk), np.float32))
             with torch.inference_mode():
-                den = offline.denoise_span(net, span.to(net.fc_in.w.device), ka - k0, kb - k0)
+                den = offline.denoise_span(net, span.to(device_mod.model_device(net)), ka - k0, kb - k0)
             clips.append(("denoised", den.float().cpu().numpy()[:, a - ka * chunk : b - ka * chunk]))
         for kind, data in clips:
             data = np.ascontiguousarray(data, np.float32)

@@ -8,7 +8,10 @@ products run in full float32 — the counterpart of the JAX package's default
 
 from __future__ import annotations
 
+import itertools
+
 import torch
+from torch import nn
 
 DEVICES = ("cuda", "cpu")
 
@@ -23,3 +26,11 @@ def resolve(name: str) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def model_device(net: nn.Module) -> torch.device:
+    """The device a gain model's tensors live on: its first parameter's, or
+    for a model without parameters (the gate) its first buffer's."""
+    for t in itertools.chain(net.parameters(), net.buffers()):
+        return t.device
+    raise ValueError(f"{type(net).__name__} holds no tensor to place it on a device")

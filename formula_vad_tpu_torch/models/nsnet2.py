@@ -1,7 +1,9 @@
 """NSNet2 noise-suppression network as a PyTorch module.
 
 Port of ``formula_vad_tpu/models/nsnet2.py`` (``apply``,
-``apply_streaming``, ``apply_head``, ``zero_state``, ``load_npz``).
+``apply_streaming``, ``apply_head``, ``zero_state``, ``load_npz``,
+``load``: ``.npz`` and ``.onnx`` files, the latter through
+``onnx_import``).
 Architecture (Microsoft DNS-Challenge NSNet2 baseline):
 
     [*, T, 161] log-power -> Dense 161->400 -> GRU 400 -> GRU 400
@@ -206,30 +208,55 @@ def weights_key(net: NSNet2) -> tuple:
     return tuple((p.device, p.data_ptr(), None if p.is_inference() else p._version) for p in net.parameters())
 
 
+def _tensors(net: NSNet2):
+    """(flat key, parameter) for every weight of ``net``."""
+    for name in DENSE_KEYS:
+        yield f"{name}_w", getattr(net, name).w
+        yield f"{name}_b", getattr(net, name).b
+    for name in ("gru1", "gru2"):
+        for key in GRU_KEYS:
+            yield f"{name}_{key}", getattr(getattr(net, name), key)
+
+
 def from_numpy(flat: dict) -> NSNet2:
     """Build the module (on the CPU) from a flat dict of numpy arrays keyed
     as ``formula_vad_tpu.models.nsnet2.save_npz`` writes them; float16
-    arrays are upcast to float32 (the packaged weights are stored f16)."""
-
-    def arr(key):
-        a = np.asarray(flat[key])
-        return torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
-
+    arrays are upcast to float32 (the packaged weights are stored f16). An
+    array of another shape than the network's raises ValueError."""
     lbr = tuple(int(np.asarray(flat.get(f"gru{i}_lbr", 1))) for i in (1, 2))
     net = NSNet2(*lbr)
     with torch.no_grad():
-        for name in DENSE_KEYS:
-            getattr(net, name).w.copy_(arr(f"{name}_w"))
-            getattr(net, name).b.copy_(arr(f"{name}_b"))
-        for name in ("gru1", "gru2"):
-            for key in GRU_KEYS:
-                getattr(getattr(net, name), key).copy_(arr(f"{name}_{key}"))
+        for key, p in _tensors(net):
+            a = np.asarray(flat[key])
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"NSNet2 weight {key} has shape {a.shape}, expected {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(a.astype(np.float32))))
     return net
+
+
+def to_numpy(net: NSNet2) -> dict:
+    """The flat float32 dict of ``net``'s weights (``from_numpy``'s input),
+    with ``gru{1,2}_lbr`` as int32."""
+    flat = {key: p.detach().float().cpu().numpy() for key, p in _tensors(net)}
+    for name in ("gru1", "gru2"):
+        flat[f"{name}_lbr"] = np.int32(getattr(net, name).linear_before_reset)
+    return flat
 
 
 def load_npz(path: str) -> NSNet2:
     with np.load(path) as z:
         return from_numpy({k: z[k] for k in z.files})
+
+
+def load(path: str) -> NSNet2:
+    """NSNet2 weights from an ``.npz`` or ``.onnx`` file (on the CPU)."""
+    if path.endswith(".npz"):
+        return load_npz(path)
+    if path.endswith(".onnx"):
+        from . import onnx_import
+
+        return from_numpy(onnx_import.load_nsnet2_onnx(path))
+    raise ValueError(f"unsupported NSNet2 weight format: {path}")
 
 
 def init_params(generator: torch.Generator) -> NSNet2:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..device import model_device
 from ..pipeline import fsm, fsm_cuda, fsm_host, vad
 from ..pipeline.pipeline import AudioPipeline, Callbacks
 from ..utils import checkpoint
@@ -126,7 +127,7 @@ class OnlineBatchServer:
 
             params = load_denoiser(config.vad_config.denoiser_model_path, device=device)
         self.params = params
-        self.device = next(params.parameters()).device
+        self.device = model_device(params)
         self.config = config
         self.n_streams = n_streams
         cbs = list(callbacks) if callbacks is not None else [None] * n_streams

@@ -28,9 +28,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import VADConfig
-from ..models.nsnet2 import NSNet2
+from ..device import model_device
 from ..pipeline import fsm, fsm_host, offline, vad
 
 
@@ -60,7 +61,7 @@ def results(st: vad.VADStatics, win_out: fsm.WindowOutput, k: int) -> list[Strea
 class BatchRunner:
     def __init__(
         self,
-        net: NSNet2,
+        net: nn.Module,
         vad_config: VADConfig | None = None,
         n_channels: int = 2,
         sample_rate: int = 48000,
@@ -71,7 +72,7 @@ class BatchRunner:
         if use_host_fsm and not use_offline:
             raise ValueError("use_host_fsm decodes the offline path's window inputs: it needs use_offline=True")
         self.net = net
-        self.device = next(net.parameters()).device
+        self.device = model_device(net)
         self.use_host_fsm = use_host_fsm
         self.use_offline = use_offline
         self.st = vad.statics_from_config(vad_config, sample_rate, n_channels)

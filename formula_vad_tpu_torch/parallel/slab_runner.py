@@ -46,10 +46,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import VADConfig
+from ..device import model_device
 from ..io_.prefetch import Reader, SlabPrefetcher
-from ..models.nsnet2 import NSNet2
 from ..pipeline import fsm, fsm_cuda, fsm_host, offline, vad
 from .runner import StreamResult, results
 
@@ -115,7 +116,7 @@ class SlabRunner:
 
     def __init__(
         self,
-        net: NSNet2,
+        net: nn.Module,
         vad_config: VADConfig | None = None,
         n_channels: int = 2,
         sample_rate: int = 48000,
@@ -130,7 +131,7 @@ class SlabRunner:
             raise ValueError(f"slab_chunks must be a positive multiple of {SLAB_ALIGN_CHUNKS}")
         vad_config = vad_config or VADConfig()
         self.net = net
-        self.device = next(net.parameters()).device
+        self.device = model_device(net)
         self.use_host_fsm = use_host_fsm
         self.st = vad.statics_from_config(vad_config, sample_rate, n_channels)
         self.alt_configs = tuple(vad_config.alt_vad_machine_configs or ())

@@ -17,7 +17,10 @@ overlap-add against ``out_tail`` and one upsample from ``last_sample``.
 Under the int8 tier the recurrence's three in-step products run once a
 hop (``models/nsnet2_q8.py``), as in its chunk path. The outputs of ``run``
 and of a chain of ``step`` calls agree to float32 rounding (their products
-see other batch shapes); both return the same final state.
+see other batch shapes); both return the same final state. The mode runs
+NSNet2 only, as the JAX one does: a weights-free gain model such as the
+spectral gate has no state to carry, and ``step`` and ``run`` refuse it
+with a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -84,12 +87,18 @@ def _denoise(net, state: dict, ds: torch.Tensor, downsample_rate: int) -> tuple[
     return new_state, up
 
 
+def _require_nsnet2(net) -> None:
+    if not isinstance(net, nsnet2.NSNet2):
+        raise ValueError(f"the low-latency mode carries NSNet2's GRU state; {type(net).__name__} has none")
+
+
 def step(net, state: dict, hop48: torch.Tensor, downsample_rate: int = 3) -> tuple[dict, torch.Tensor]:
     """One 10 ms hop ``hop48`` [..., 480] of every stream -> (new state,
     denoised [..., 480]), one hop behind the input (the OLA tail), as the
     chunk path."""
     if hop48.shape[-1] != NSNET2_N_HOP * downsample_rate:
         raise ValueError(f"a hop of {hop48.shape[-1]} samples, expected {NSNET2_N_HOP * downsample_rate}")
+    _require_nsnet2(net)
     return _denoise(net, state, resample.downsample(hop48, downsample_rate), downsample_rate)
 
 
@@ -97,6 +106,7 @@ def run(net, audio: torch.Tensor, state: dict | None = None, downsample_rate: in
     """Whole hops of ``audio`` [..., T] (the tail short of a hop is
     dropped), from ``state`` (default: a zero state on the audio's device)
     -> (final state, denoised [..., hops * 480])."""
+    _require_nsnet2(net)
     hop = NSNET2_N_HOP * downsample_rate
     n = audio.shape[-1] // hop
     if state is None:

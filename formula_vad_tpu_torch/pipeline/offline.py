@@ -26,6 +26,7 @@ import functools
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import (
     NSNET2_CHUNK_16K,
@@ -35,7 +36,6 @@ from ..config import (
     NSNET2_N_FRAMES,
     NSNET2_N_HOP,
 )
-from ..models.nsnet2 import NSNet2
 from ..ops import resample, stft, volume
 from . import denoiser as den_mod
 from . import fsm, fsm_cuda, vad
@@ -74,7 +74,7 @@ def _model_input(feats: torch.Tensor, feat_ctx: torch.Tensor, k: int) -> torch.T
     return torch.cat([prev_tail, main], dim=-2)
 
 
-def _gained_spectra(net: NSNet2, audio: torch.Tensor, carry: dict, downsample_rate: int = 3):
+def _gained_spectra(net: nn.Module, audio: torch.Tensor, carry: dict, downsample_rate: int = 3):
     """Decimating STFT, features, the stateless per-chunk model run and the
     clipped gains of a slab [..., C, S]. Returns (re, im, g, feats), each
     [..., C, K*50, 161]."""
@@ -93,7 +93,7 @@ def _gained_spectra(net: NSNet2, audio: torch.Tensor, carry: dict, downsample_ra
     return re, im, g, feats
 
 
-def denoise_offline_16k(net: NSNet2, audio: torch.Tensor, carry: dict, downsample_rate: int = 3):
+def denoise_offline_16k(net: nn.Module, audio: torch.Tensor, carry: dict, downsample_rate: int = 3):
     """Chunk-parallel denoise of one slab [..., C, S], stopping at 16 kHz.
 
     Returns (completed16 [..., C, S / rate], prev16 [..., C] — the 16 kHz
@@ -117,7 +117,7 @@ def denoise_offline_16k(net: NSNet2, audio: torch.Tensor, carry: dict, downsampl
     return completed, carry["last_sample"].to(completed.dtype), new_carry
 
 
-def denoise_offline_carry(net: NSNet2, audio: torch.Tensor, carry: dict, downsample_rate: int = 3):
+def denoise_offline_carry(net: nn.Module, audio: torch.Tensor, carry: dict, downsample_rate: int = 3):
     """Denoise one slab [..., C, S] with explicit boundary state -> (denoised
     [..., C, S], new_carry). Chaining slabs matches one whole-stream run up
     to the matmuls' batch-shape-dependent rounding (tests hold it at 1e-6)."""
@@ -126,7 +126,7 @@ def denoise_offline_carry(net: NSNet2, audio: torch.Tensor, carry: dict, downsam
     return up, new_carry
 
 
-def denoise_offline(net: NSNet2, audio: torch.Tensor, downsample_rate: int = 3) -> torch.Tensor:
+def denoise_offline(net: nn.Module, audio: torch.Tensor, downsample_rate: int = 3) -> torch.Tensor:
     """Denoise whole streams [..., C, T] (T a multiple of the chunk)."""
     carry = init_slab_carry(audio.shape[:-1], downsample_rate, audio.device)
     up, _ = denoise_offline_carry(net, audio, carry, downsample_rate)
@@ -134,7 +134,7 @@ def denoise_offline(net: NSNet2, audio: torch.Tensor, downsample_rate: int = 3) 
 
 
 def denoise_span(
-    net: NSNet2, audio: torch.Tensor, start_chunk: int, end_chunk: int, downsample_rate: int = 3
+    net: nn.Module, audio: torch.Tensor, start_chunk: int, end_chunk: int, downsample_rate: int = 3
 ) -> torch.Tensor:
     """Recompute the denoised audio of chunks [start_chunk, end_chunk).
 
@@ -184,7 +184,7 @@ def _ratios_valid(st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: torch
 
 
 def window_inputs_carry(
-    net: NSNet2, st: vad.VADStatics, audio: torch.Tensor, den_carry: dict, n_valid_chunks: torch.Tensor
+    net: nn.Module, st: vad.VADStatics, audio: torch.Tensor, den_carry: dict, n_valid_chunks: torch.Tensor
 ):
     """The FSM's per-window inputs for a batch of slabs [B, C, T], threading
     the denoiser boundary carry (materialize-16k form: the 16 kHz denoised
@@ -205,7 +205,7 @@ def window_inputs_carry(
 
 
 def window_inputs_batch(
-    net: NSNet2, st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: torch.Tensor | None = None
+    net: nn.Module, st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: torch.Tensor | None = None
 ):
     """Everything but the FSM, for B fresh streams.
 
@@ -223,14 +223,14 @@ def window_inputs_batch(
     return min_vol, ratios, valid
 
 
-def window_inputs(net: NSNet2, st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: int):
+def window_inputs(net: nn.Module, st: vad.VADStatics, audio: torch.Tensor, n_valid_chunks: int):
     """``window_inputs_batch`` for one stream [C, T] -> (min_vol, ratios, valid) [W]."""
     nv = torch.tensor([n_valid_chunks], dtype=torch.int32, device=audio.device)
     return tuple(x[0] for x in window_inputs_batch(net, st, audio[None], nv))
 
 
 def process_batch_offline(
-    net: NSNet2,
+    net: nn.Module,
     st: vad.VADStatics,
     audio: torch.Tensor,
     n_valid_chunks: torch.Tensor | None = None,
@@ -256,7 +256,7 @@ def process_batch_offline(
 
 
 def process_stream_offline(
-    net: NSNet2,
+    net: nn.Module,
     st: vad.VADStatics,
     audio: torch.Tensor,
     n_valid_chunks: int | None = None,

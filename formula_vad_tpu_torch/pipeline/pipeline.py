@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..device import model_device
 from ..io_.audio import AudioBuffer
 from ..utils import checkpoint
 from . import fsm, fsm_cuda, vad
@@ -192,7 +193,7 @@ class AudioPipeline:
 
             net = load_denoiser(config.vad_config.denoiser_model_path, device=device)
         self.net = net
-        self.device = next(net.parameters()).device
+        self.device = model_device(net)
         self.st = statics if statics is not None else vad.statics_from_config(
             config.vad_config, config.sample_rate, config.n_channels
         )

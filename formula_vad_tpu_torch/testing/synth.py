@@ -2,8 +2,9 @@
 
 ``synth_stream`` is a copy of ``formula_vad_tpu/testing/synth.py::
 synth_stream``: the same rng draws in the same order, so one seed gives the
-same audio and labels in both packages (``tests/test_torch_slice.py``
-checks this). ``write_corpus`` lays such streams out as the simulator reads
+same audio, labels and (``components=True``) clean speech in both packages
+(``tests/test_torch_slice.py`` and ``tests/test_torch_denoise_quality.py``
+check this). ``write_corpus`` lays such streams out as the simulator reads
 them (``write_ragged_corpus``: long streams of ragged lengths, made on
 threads). ``fsm_inputs`` and ``fsm_per_row_params`` feed the FSM scans
 directly, on windows that visit every state and event.
@@ -23,10 +24,14 @@ from ..pipeline import fsm
 SR = 48000
 
 
-def synth_stream(rng: np.random.Generator, seconds: float) -> tuple[np.ndarray, list]:
+def synth_stream(rng: np.random.Generator, seconds: float, components: bool = False) -> tuple:
     """One stereo stream [2, seconds * SR] float32 + its (from_sec, to_sec)
     speech labels: engine-like noise (white noise and drifting low
-    harmonics) with speech-band bursts correlated across the channels."""
+    harmonics) with speech-band bursts correlated across the channels.
+
+    With ``components=True`` also the bursts alone (the "clean speech"
+    [2, seconds * SR] float32) as a third value: the (noisy, clean) pair of
+    ``eval/denoise_quality.py``. The rng draws are the same either way."""
     n = int(seconds * SR)
     t = np.arange(n) / SR
     rpm = 90.0 + 40.0 * np.sin(2 * np.pi * 0.05 * t + rng.uniform(0, 6.28))
@@ -34,6 +39,7 @@ def synth_stream(rng: np.random.Generator, seconds: float) -> tuple[np.ndarray, 
     audio = rng.standard_normal((2, n)).astype(np.float32) * 0.015
     for harmonic, amp in ((1, 0.10), (2, 0.06), (3, 0.03)):
         audio += (amp * np.sin(harmonic * phase)).astype(np.float32)
+    clean = np.zeros((2, n), np.float32) if components else None
     labels = []
     pos = rng.uniform(3.0, 8.0)
     while pos + 1.0 < seconds - 2.0:
@@ -50,8 +56,13 @@ def synth_stream(rng: np.random.Generator, seconds: float) -> tuple[np.ndarray, 
         burst *= 0.12 * syllable.astype(np.float32)
         audio[0, sl] += burst
         audio[1, sl] += 0.85 * burst
+        if components:
+            clean[0, sl] += burst
+            clean[1, sl] += 0.85 * burst
         labels.append((round(pos, 3), round(pos + dur, 3)))
         pos += dur + float(rng.uniform(6.0, 15.0))
+    if components:
+        return audio.astype(np.float32), labels, clean
     return audio.astype(np.float32), labels
 
 

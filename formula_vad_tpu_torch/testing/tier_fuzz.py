@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import VADConfig, VADMachineConfig
+from ..device import model_device
 
 SR, FFT = 48000, 1024
 PROBE_AMP = 0.1
@@ -171,7 +172,7 @@ def run_campaign(net, n_cases: int = 40, n_chunks: int = 16,
     zero by construction)."""
     from ..pipeline import offline, vad
 
-    dev = next(net.parameters()).device
+    dev = model_device(net)
     st0 = vad.statics_from_config(
         VADConfig(vad_machine_config=_case_config(np.random.default_rng(0)))
     )

@@ -54,7 +54,7 @@ def measure(net, b: int, iters: int = 60) -> dict:
     """Per-hop latency of chained ``lowlatency.step`` at ``b`` streams x 2
     channels on the net's card -> {"b", "ms_per_hop", "fits_10ms",
     "streams_ceiling"}."""
-    dev = next(net.parameters()).device
+    dev = device_mod.model_device(net)
     gen = torch.Generator(device=dev).manual_seed(b)
     hops = [0.02 * torch.randn((b, N_CH, HOP48), generator=gen, device=dev) for _ in range(2)]
     with torch.inference_mode():

@@ -30,7 +30,10 @@ bf16 rounding flip of h2. The serving fleet (``OnlineBatchServer``) fetches
 each stream's outputs to its row: the plain FSM over the card's fetched
 window inputs gives the card's FSM outputs and carry bit for bit; a reset
 row is a fresh stream's with no read-back; a checkpoint written on the card
-continues on the CPU.
+continues on the CPU. The rest of the denoiser registry: an imported ONNX
+file is the ``.npz`` model bit for bit on the card; the spectral gate's
+gains on the card are within 1e-6 of the CPU's (``10 ** x`` differs by
+ulps), and its slice launches the FSM kernel alone, with the CPU's segments.
 """
 
 import ctypes
@@ -1513,6 +1516,41 @@ def test_alt_machines_on_the_card(net, cuda_device):
     assert fsm_cuda.scan_windows.last_plan.ctas == 3 * 5  # the smem body: one CTA a (stream, config) row
     assert all(r.alt_segments[3] == r.segments for r in want) and any(r.segments for r in want)
     assert len({str(s) for r in want for s in r.alt_segments}) > 3
+
+
+@pytest.mark.cuda
+def test_onnx_import_on_the_card(net, cuda_device, tmp_path):
+    from formula_vad_tpu_torch.models.onnx_import import export_nsnet2_onnx
+
+    path = tmp_path / "demo.onnx"
+    path.write_bytes(export_nsnet2_onnx(net))
+    imported = registry.load_denoiser(str(path), device=cuda_device)
+    for a, b in zip(net.parameters(), imported.parameters()):
+        assert a.device == b.device and torch.equal(a, b)
+    x = torch.from_numpy(np.random.default_rng(5).normal(-3.0, 1.5, (42, 54, 161)).astype(np.float32)).to(cuda_device)
+    with torch.inference_mode():
+        assert torch.equal(imported(x, out_frames=50), net(x, out_frames=50))
+
+
+@pytest.mark.cuda
+def test_gate_on_the_card(cuda_device):
+    gate = registry.load_denoiser("spectral_gate", device=cuda_device)
+    gate_cpu = registry.load_denoiser("spectral_gate", device="cpu")
+    feats = np.random.default_rng(0).normal(-5.0, 1.5, (6, 54, 161)).astype(np.float32)
+    with torch.inference_mode():
+        got = gate(torch.from_numpy(feats).to(cuda_device)).cpu()
+        want = gate_cpu(torch.from_numpy(feats))
+    assert float((got - want).abs().max()) <= 1e-6
+    rng = np.random.default_rng(3)
+    audio = np.stack([synth_stream(rng, 20.0)[0] for _ in range(2)])
+    wrappers = (nsnet2_cuda.gru_stack, fsm_cuda.scan_windows, mq.matmul_q8, gates.gru_gates, gates.gru_gates_p,
+                gates.gru_gates_f)
+    for fn in wrappers:
+        fn.launches = 0
+    segments = [r.segments for r in BatchRunner(gate).run(audio)]
+    assert [fn.launches for fn in wrappers] == [0, 1, 0, 0, 0, 0]
+    assert segments == [r.segments for r in BatchRunner(gate_cpu, use_host_fsm=True).run(audio)]
+    assert sum(map(len, segments)) > 0
 
 
 def test_wrappers_refuse_other_devices():

@@ -306,7 +306,12 @@ def test_solo_daemon_state_resume_and_refusal(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("entry", [daemon_mod, multidaemon_mod], ids=["daemon", "multidaemon"])
-@pytest.mark.parametrize("spec", ["spectral_gate", "weights.onnx", "missing.npz", "bogus"])
+@pytest.mark.parametrize(
+    "spec",
+    # The gate and ONNX files load now: the gate's case is a malformed gate
+    # spec, the ONNX case a missing file.
+    [pytest.param("spectral_gate:0.1", id="spectral_gate"), "weights.onnx", "missing.npz", "bogus"],
+)
 def test_unloadable_denoiser_is_a_fatal_start_up_error(entry, spec, tmp_path, capsys):
     argv = ["-o", str(tmp_path), "-n", "N", "--denoiser", spec, "--device", "cpu"]
     if entry is multidaemon_mod:

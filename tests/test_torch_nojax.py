@@ -14,6 +14,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "formula_vad_tpu_torch"
 REFERENCE = REPO / "formula_vad_tpu"
+# eval/denoise_quality.py is a port, not a copy: the JAX module scans its
+# chunk step with jax.
 COPIES = (
     ["config.py"]
     + [f"eval/{m}.py" for m in ("__init__", "evaluator", "formats", "report", "statistics")]
@@ -37,6 +39,18 @@ from formula_vad_tpu_torch.models.registry import load_denoiser
 from formula_vad_tpu_torch.parallel.runner import BatchRunner
 audio, _ = synth_stream(np.random.default_rng(0), 1.0)
 (res,) = BatchRunner(load_denoiser("demo", device="cpu")).run(audio[None])
+import os, tempfile
+from formula_vad_tpu_torch.models.onnx_import import export_nsnet2_onnx
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "demo.onnx")
+    with open(path, "wb") as f:
+        f.write(export_nsnet2_onnx(load_denoiser("demo", device="cpu")))
+    (imported,) = BatchRunner(load_denoiser(path, device="cpu")).run(audio[None])
+(gated,) = BatchRunner(load_denoiser("spectral_gate", device="cpu")).run(audio[None])
+assert imported.segments == res.segments
+from formula_vad_tpu_torch.eval.denoise_quality import IdentityGains, pipeline_denoise
+_, _, clean = synth_stream(np.random.default_rng(0), 1.0, components=True)
+assert pipeline_denoise(IdentityGains(), clean, device="cpu").shape == (2, 48000)
 from formula_vad_tpu_torch.config import PipelineConfig
 from formula_vad_tpu_torch.pipeline.pipeline import AudioPipeline
 pipe = AudioPipeline(PipelineConfig(), device="cpu")

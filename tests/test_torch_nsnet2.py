@@ -17,6 +17,7 @@ import torch
 
 from formula_vad_tpu.models import nsnet2 as jnsnet2
 from formula_vad_tpu.models import nsnet2_pallas
+from formula_vad_tpu.models import onnx_import as jonnx
 from formula_vad_tpu.models.registry import DEMO_WEIGHTS
 from formula_vad_tpu_torch.models import nsnet2, nsnet2_cuda, registry
 
@@ -140,7 +141,7 @@ def test_lbr0_forward_runs_the_plain_loop_on_any_device(monkeypatch):
     assert torch.equal(again, want)
 
 
-def test_registry_specs():
+def test_registry_specs(tmp_path):
     load = functools.partial(registry.load_denoiser, device="cpu")
     demo = load(None)
     assert torch.equal(demo.gru1.wh, load("demo").gru1.wh)
@@ -148,9 +149,16 @@ def test_registry_specs():
     b = load("random", seed=3)
     assert torch.equal(a.ff2.w, b.ff2.w) and not torch.equal(a.ff2.w, load("random", seed=4).ff2.w)
     assert float(a.ff2.w.abs().max()) <= float(np.sqrt(6.0 / 1200)) + 1e-7
-    for spec in ("model.onnx", "spectral_gate", "spectral_gate:0.2,0.9,0.1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load(spec)
+    # The rest of the registry loads: an ONNX file through the importer (the
+    # demo weights written by the JAX writer, back bit for bit), the gate
+    # with its defaults and with explicit fields.
+    path = tmp_path / "model.onnx"
+    path.write_bytes(jonnx.export_nsnet2_onnx(jnsnet2.load_npz(DEMO_WEIGHTS)))
+    assert all(torch.equal(a, b) for a, b in zip(load(str(path)).parameters(), demo.parameters()))
+    gate = load("spectral_gate")
+    assert (gate.quantile, gate.alpha, gate.floor) == (0.1, 1.5, 0.1)
+    gate = load("spectral_gate:0.2,0.9,0.1")
+    assert (gate.quantile, gate.alpha, gate.floor) == (0.2, 0.9, 0.1)
 
 
 def test_registry_defaults_to_the_card(monkeypatch):
