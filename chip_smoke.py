@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs fifteen phases; any failed check raises and the script exits non-zero.
+runs sixteen phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -214,6 +214,23 @@ runs fifteen phases; any failed check raises and the script exits non-zero.
    0.05 dB of the CPU's, above the JAX package's floors (demo 15 dB mean
    and 10 a pair, gate 3), the imported model's numbers equal to the
    demo's.
+16. Training (train/nsnet2_train.py, apps/train.py). (a) One batch at the
+   CLI's default shape [8, 100, 161] through the differentiable forward on
+   the card and on the CPU, TF32 off: the loss within 1e-5 and every
+   gradient within 1e-4 of its array's largest element (float32 sums in
+   other orders through 100 steps of the recurrence), no kernel launched;
+   the scoring forward called with gradients on raises (autograd cannot
+   see a kernel launch). (b) apps.train.main at --batch 8 and at --batch
+   64 (--frames 100 --synthetic 256 --device-data, 30 steps each): the
+   loss falls, no kernel launches; the median step time on CUDA events and
+   on the host clock, the kernels a step and the card's busy share from
+   torch.profiler over 3 more steps, the peak memory. (c) A run resumed
+   from a checkpoint at step 15 writes the straight run's weights bit for
+   bit. (d) The trained weights written as .onnx, loaded through
+   load_denoiser: their scoring forward against the trainer's forward
+   (GRU_TOL), the slice through BatchRunner (one gru_stack and one
+   scan_windows a run), and an eval-only --eval run from the checkpoint
+   (kernel 1 a chunk) within 0.05 dB of the CPU's evaluate.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -358,6 +375,14 @@ TUNE_GRID = "speech_threshold_factor=3,10,40"
 GATE_TICKS = 8
 QUALITY_PAIRS, QUALITY_SECONDS = 2, 16.0
 DEMO_FLOOR_DB, DEMO_PAIR_FLOOR_DB, GATE_FLOOR_DB, QUALITY_TOL_DB = 15.0, 10.0, 3.0, 0.05
+
+
+# Phase 16: training. Batches of the two runs (the CLI's default and 64),
+# the frames a window and the synthetic pool; steps a run, steps profiled,
+# the step a resumed run restarts from; the card-against-CPU gradient bar.
+TRAIN_BATCHES, TRAIN_FRAMES, TRAIN_POOL = (8, 64), 100, 256
+TRAIN_STEPS, TRAIN_PROFILED, TRAIN_RESUME_AT = 30, 3, 15
+TRAIN_GRAD_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -3231,6 +3256,223 @@ def phase_registry(net, dev, audio, float_results, float_wall: float, corpus: st
             "quality": quality}
 
 
+def train_grads(dev, counters) -> dict:
+    """Phase 16 (a): one batch of the CLI's default shape through the
+    trainer's differentiable forward and backward on the CPU and on the
+    card, the same random weights; no kernel may launch. Then the scoring
+    forward with gradients on must raise. -> the errors and times."""
+    import torch
+
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+    from formula_vad_tpu_torch.train import nsnet2_train
+
+    batch = nsnet2_train.synth_batch(torch.Generator().manual_seed(16), TRAIN_BATCHES[0], TRAIN_FRAMES)
+    got = {}
+    for where in ("cpu", dev):
+        net = nsnet2_train.trainable(load_denoiser("random", device=where))
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        loss = nsnet2_train.spectral_loss(net, *(x.to(where) for x in batch))
+        loss.backward()
+        grads = [p.grad.cpu() for p in net.parameters()]
+        secs = time.perf_counter() - t0
+        check_launches(f"the trainer's forward and backward on {where}", counters)
+        got[str(where)] = (loss.item(), grads, secs)
+    (cpu_loss, cpu, cpu_s), (card_loss, card, card_s) = got["cpu"], got[str(dev)]
+    scales = [float(w.abs().max()) for w in cpu]
+    errs = [float((g - w).abs().max()) / sc for g, w, sc in zip(card, cpu, scales)]
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if min(scales) <= 0 or min(float(g.abs().max()) for g in card) <= 0:
+        raise AssertionError(f"a gradient is zero: largest |g| a parameter {scales}")
+    if loss_err > 1e-5 or max(errs) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"the card's loss or gradients differ from the CPU's: loss {loss_err:.3e}, grads {errs}")
+    log(f"trainer gradients at [{TRAIN_BATCHES[0]}, {TRAIN_FRAMES}, 161], card against CPU (TF32 off): loss "
+        f"{card_loss:.7f} against {cpu_loss:.7f} (rel {loss_err:.2e}); largest |dg| over each array's largest |g| "
+        f"{max(errs):.2e} (bar {TRAIN_GRAD_TOL:.0e}; all 16 nonzero); forward + backward {card_s * 1e3:.1f} ms on "
+        f"the card (first call), {cpu_s * 1e3:.1f} ms on the CPU; no kernel launched")
+    scoring = nsnet2_train.trainable(load_denoiser("random", device=dev))
+    try:
+        scoring(batch[0].to(dev))
+    except RuntimeError as e:
+        if "nsnet2_train.apply" not in str(e):
+            raise
+        log(f"the scoring forward with gradients on refuses: {str(e)[:120]}...")
+    else:
+        raise AssertionError("the scoring forward ran kernel 1 with gradients on")
+    check_launches("the refused scoring forward", counters)
+    return {"loss_rel_err": loss_err, "grad_max_rel_err": max(errs), "card_ms": card_s * 1e3, "cpu_ms": cpu_s * 1e3}
+
+
+def train_run(argv: list[str], counters) -> tuple[dict, dict, float, list[str]]:
+    """One apps.train.main run (on the card, its default) with the launch
+    counters and the peak memory reset before it -> (its last_run, the
+    launches, the peak device memory in MB, the JSON lines it printed)."""
+    import io
+
+    import torch
+
+    from formula_vad_tpu_torch.apps import train as train_app
+
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if train_app.main(argv) != 0:
+            raise AssertionError(f"apps.train {argv} failed")
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    return train_app.main.last_run, launches_of(counters), peak, [ln for ln in out.getvalue().splitlines() if ln]
+
+
+def train_profiled(argv: list[str], counters) -> tuple[dict, dict]:
+    """An apps.train.main run under torch.profiler, the launch counters
+    reset before it -> (over its "train_steps" range, the device's busy
+    share and the kernels a step; the launches)."""
+    import torch
+
+    from formula_vad_tpu_torch.apps import train as train_app
+    from formula_vad_tpu_torch.tools import busy_ms
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    reset_counts(counters)
+    with torch.profiler.profile(activities=activities) as prof:
+        train_app.main(argv)
+    launches = launches_of(counters)
+    steps = train_app.main.last_run["steps"]
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    (loop,) = [e for e in prof.events() if e.name == "train_steps" and e.device_type == cpu]
+    a, b = loop.time_range.start, loop.time_range.end
+    events = [e for e in prof.events() if e.device_type == cuda and e.name != "train_steps"
+              and a <= e.time_range.start <= b]
+    window = (b - a) / 1e3
+    if not events:
+        log(f"  {steps} profiled steps: {window:.1f} ms; the trace holds no device events")
+        return {"steps": steps, "window_ms": window, "busy_ms": None}, launches
+    busy, kernels, copies = busy_ms(events)
+    n_kernels = sum(1 for e in events if not e.name.lower().startswith(("memcpy", "memset")))
+    by_name = collections.Counter()
+    for e in events:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    log(f"  {steps} steps under torch.profiler: {window:.1f} ms ({window / steps:.2f} ms a step), device busy "
+        f"{busy:.1f} ms ({100 * busy / window:.1f}%), {n_kernels} kernels ({n_kernels / steps:.0f} a step, "
+        f"{kernels:.1f} ms), copies {copies:.2f} ms; device time by kernel (ms): "
+        + "; ".join(f"{n[:50]} {t:.2f}" for n, t in by_name.most_common(5)))
+    top_host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
+    log("  host self time by op over the run (ms, calls): "
+        + "; ".join(f"{a.key[:40]} {a.self_cpu_time_total / 1e3:.1f} ({a.count})" for a in top_host))
+    return {"steps": steps, "window_ms": window, "busy_ms": busy, "busy_share": busy / window,
+            "kernels_a_step": n_kernels / steps}, launches
+
+
+def phase_train(dev, audio, smi: str) -> dict:
+    """Phase 16: training. -> {"launches": each kernel's launches in the
+    training runs ("train", all 0), the eval-only run ("eval") and the
+    slice scored with the trained weights ("score"), and the measures}."""
+    import torch
+
+    from formula_vad_tpu_torch.eval import denoise_quality as dq
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+    from formula_vad_tpu_torch.train import nsnet2_train
+
+    t_phase = time.perf_counter()
+    counters = path_counters()
+    grads = train_grads(dev, counters)
+    launches = {"train": dict.fromkeys(counters, 0)}
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        def base(b):
+            return ["--synthetic", str(TRAIN_POOL), "--device-data", "--batch", str(b), "--frames", str(TRAIN_FRAMES)]
+
+        for b in TRAIN_BATCHES:
+            argv = base(b) + ["--steps", str(TRAIN_STEPS), "--out", os.path.join(root, f"w{b}.onnx"),
+                              "--ckpt-dir", os.path.join(root, f"ck{b}"), "--ckpt-every", str(TRAIN_STEPS)]
+            run, got, peak, _ = train_run(argv, counters)
+            for name, n in got.items():
+                launches["train"][name] += n
+            losses = run["losses"]
+            first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+            if not (all(np.isfinite(losses)) and last < first):
+                raise AssertionError(f"the loss did not fall at batch {b}: {losses}")
+            event_ms, host_ms = statistics.median(run["event_ms"][1:]), statistics.median(run["host_ms"][1:])
+            log(f"apps.train --batch {b} --frames {TRAIN_FRAMES} ({TRAIN_STEPS} steps, pool {TRAIN_POOL} on the "
+                f"card) on {smi}: step {event_ms:.2f} ms on CUDA events, {host_ms:.2f} ms on the host clock "
+                f"(medians past the first step; first {run['event_ms'][0]:.1f}); loss {losses[0]:.5f} -> "
+                f"{losses[-1]:.5f} (means of the first and last 5: {first:.5f} -> {last:.5f}); peak memory "
+                f"{peak:.1f} MB; launches {got}")
+            prof, got = train_profiled(base(b) + ["--steps", str(TRAIN_PROFILED), "--out", os.path.join(root, "p.npz")],
+                                       counters)
+            for name, n in got.items():
+                launches["train"][name] += n
+            if prof["busy_ms"] is not None:
+                # The profiler slows the host 2-3x, so its busy share of a
+                # step is a floor; against the unprofiled step it is nearer.
+                prof["busy_share_of_step"] = prof["busy_ms"] / prof["steps"] / event_ms
+                log(f"  device busy a step (profiled) over the unprofiled step: {100 * prof['busy_share_of_step']:.1f}%")
+            runs[b] = {"step_event_ms": event_ms, "step_host_ms": host_ms, "first_step_ms": run["event_ms"][0],
+                       "loss_first5": first, "loss_last5": last, "peak_mb": peak, "profiled": prof}
+        # (c) a run stopped at a checkpoint and resumed against the straight one.
+        b = TRAIN_BATCHES[0]
+        ck, resumed = os.path.join(root, "ck_resume"), os.path.join(root, "resumed.onnx")
+        for steps in (TRAIN_RESUME_AT, TRAIN_STEPS):
+            run, got, _, _ = train_run(base(b) + ["--steps", str(steps), "--out", resumed, "--ckpt-dir", ck,
+                                                   "--ckpt-every", str(TRAIN_RESUME_AT)], counters)
+            for name, n in got.items():
+                launches["train"][name] += n
+        if run["start_step"] != TRAIN_RESUME_AT:
+            raise AssertionError(f"the second run did not resume at step {TRAIN_RESUME_AT}: {run['start_step']}")
+        straight = os.path.join(root, f"w{b}.onnx")
+        a_net, b_net = (load_denoiser(path, device="cpu") for path in (straight, resumed))
+        diffs = [float((p - q).abs().max()) for p, q in zip(a_net.parameters(), b_net.parameters())]
+        if max(diffs) != 0.0:
+            raise AssertionError(f"the resumed run's weights differ from the straight run's: max |d| a parameter {diffs}")
+        log(f"a run resumed at step {TRAIN_RESUME_AT} of {TRAIN_STEPS} writes the straight run's weights bit for bit "
+            f"(.onnx files {'identical' if open(straight, 'rb').read() == open(resumed, 'rb').read() else 'differ'})")
+        # (d) the trained weights on the scoring path.
+        trained, trained_cpu = load_denoiser(straight, device=dev), load_denoiser(straight, device="cpu")
+        feats = torch.from_numpy(np.random.default_rng(16).normal(-3.0, 1.5, (2 * SLICE_STREAMS, 54, 161))
+                                 .astype(np.float32))
+        with torch.no_grad():
+            want = nsnet2_train.apply(trained_cpu, feats)
+        with torch.inference_mode():
+            err = float((trained(feats.to(dev)).cpu() - want).abs().max())
+        if err > GRU_TOL:
+            raise AssertionError(f"the trained weights' scoring forward differs from the trainer's: {err}")
+        runner = BatchRunner(trained)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        results = runner.run(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["score"] = check_launches("the slice with the trained weights", counters, gru_stack=1, scan_windows=1)
+        host = BatchRunner(trained, use_host_fsm=True).run(audio)
+        if [r.segments for r in results] != [r.segments for r in host]:
+            raise AssertionError("the trained weights' slice: device-FSM and host-FSM segments differ")
+        log(f"the trained weights (.onnx through load_denoiser): scoring forward against the trainer's at "
+            f"[{2 * SLICE_STREAMS}, 54] max |dgain| {err:.2e}; the slice in {wall * 1e3:.1f} ms (first run), "
+            f"{sum(len(r.segments) for r in results)} segments, identical with the host decoder; launches "
+            f"{launches['score']}")
+        ev = ["--steps", str(TRAIN_STEPS), "--ckpt-dir", os.path.join(root, f"ck{b}"), "--eval",
+              "--eval-pairs", str(QUALITY_PAIRS), "--eval-seconds", str(QUALITY_SECONDS)]
+        run, got, _, lines = train_run(ev, counters)
+        launches["eval"] = check_launches("the eval-only run", counters,
+                                          gru_stack=QUALITY_PAIRS * int(QUALITY_SECONDS / 0.5))
+        if run["steps"] != 0:
+            raise AssertionError(f"the eval-only run trained {run['steps']} steps")
+        quality = json.loads(lines[-1])["denoise_quality"]
+        cpu = dq.evaluate(trained_cpu, n_pairs=QUALITY_PAIRS, seconds=QUALITY_SECONDS, device="cpu")
+        for g, w in zip(quality["pairs"] + [quality], cpu["pairs"] + [cpu]):
+            for key, v in g.items():
+                if key.endswith("_db") and not abs(v - w[key]) <= QUALITY_TOL_DB:
+                    raise AssertionError(f"--eval on the card differs from the CPU's evaluate: {key} {v} against {w[key]}")
+        log(f"apps.train --eval (eval-only, from the step-{TRAIN_STEPS} checkpoint): {lines[-1]}; the CPU's "
+            f"evaluate: mean {cpu['mean_si_sdr_impr_db']} dB; launches {launches['eval']}")
+    if any(launches["train"].values()):
+        raise AssertionError(f"a kernel launched in a training run: {launches['train']}")
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "grads": grads, "runs": runs, "quality": quality, "score_wall_ms": wall * 1e3}
+
+
 def main() -> int:
     try:
         import torch
@@ -3281,6 +3523,7 @@ def main() -> int:
         sweep = phase_sweep(net, dev, audio, float_results, float_wall, corpus, smi)
         log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
         registry = phase_registry(net, dev, audio, float_results, float_wall, corpus, batched_dir, smi)
+    train = phase_train(dev, audio, smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -3316,6 +3559,10 @@ def main() -> int:
         # runs, its streaming run (40 chunk steps) and its fleet's 8 ticks.
         for path, counts in registry["launches"].items():
             k[f"launches_{path}"] = counts[k["name"]]
+        # Phase 16: the training runs' steps (0 for every kernel), the
+        # eval-only run and the slice scored with the trained weights.
+        for path, counts in train["launches"].items():
+            k[f"launches_train{'' if path == 'train' else '_' + path}"] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -21,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -82,6 +84,22 @@ def _load(name: str, src: Path, cmd: list[str]) -> ctypes.CDLL:
             build_info[name] = (time.perf_counter() - t0, proc.stderr)
         _libs[name] = ctypes.CDLL(str(so))
         return _libs[name]
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``RuntimeError`` where autograd is recording and any of
+    ``tensors`` (a ctypes launch's inputs and weights; None entries are
+    skipped) requires grad. Autograd cannot see a kernel launched through
+    ctypes: the gradient of everything before it would be dropped without
+    a word, while the layers after it trained. Reads host-side flags only,
+    so it costs no device synchronisation."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input or weight of this CUDA kernel launch requires grad, and autograd cannot see the "
+            "kernel, so every gradient before it would be lost; train through "
+            "formula_vad_tpu_torch.train.nsnet2_train.apply (differentiable PyTorch ops), or run the forward "
+            "under torch.no_grad() / torch.inference_mode()"
+        )
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

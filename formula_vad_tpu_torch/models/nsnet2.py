@@ -1,9 +1,10 @@
 """NSNet2 noise-suppression network as a PyTorch module.
 
 Port of ``formula_vad_tpu/models/nsnet2.py`` (``apply``,
-``apply_streaming``, ``apply_head``, ``zero_state``, ``load_npz``,
-``load``: ``.npz`` and ``.onnx`` files, the latter through
-``onnx_import``).
+``apply_streaming``, ``apply_head``, ``zero_state``, ``save_npz``,
+``load_npz``, ``load``: ``.npz`` and ``.onnx`` files, the latter through
+``onnx_import``). The differentiable ``apply`` that training runs is
+``train/nsnet2_train.py::apply``: the kernels here are forward only.
 Architecture (Microsoft DNS-Challenge NSNet2 baseline):
 
     [*, T, 161] log-power -> Dense 161->400 -> GRU 400 -> GRU 400
@@ -241,6 +242,17 @@ def to_numpy(net: NSNet2) -> dict:
     for name in ("gru1", "gru2"):
         flat[f"{name}_lbr"] = np.int32(getattr(net, name).linear_before_reset)
     return flat
+
+
+def save_npz(path: str, net: NSNet2, dtype=None) -> None:
+    """Write ``net``'s weights as the JAX package's ``save_npz`` does: the
+    flat keys, float32 (or ``dtype``, e.g. np.float16 to halve the file),
+    ``gru{1,2}_lbr`` as int32, ``np.savez_compressed``; its ``load_npz``
+    reads the file."""
+    flat = to_numpy(net)
+    if dtype is not None:
+        flat = {k: v if k.endswith("_lbr") else v.astype(dtype) for k, v in flat.items()}
+    np.savez_compressed(path, **flat)
 
 
 def load_npz(path: str) -> NSNet2:

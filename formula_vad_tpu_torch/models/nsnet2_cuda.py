@@ -39,10 +39,14 @@ G3 = 3 * HIDDEN
 
 
 def _gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """z|r|n gate math, linear_before_reset = 1."""
-    z = torch.sigmoid(gi[:, :HIDDEN] + gh[:, :HIDDEN])
-    r = torch.sigmoid(gi[:, HIDDEN : 2 * HIDDEN] + gh[:, HIDDEN : 2 * HIDDEN])
-    n = torch.tanh(gi[:, 2 * HIDDEN :] + r * gh[:, 2 * HIDDEN :])
+    """z|r|n gate math, linear_before_reset = 1. (The trainer differentiates
+    it too: autograd turns a split back into one cat, but each of three
+    slices into a zero fill and a copy.)"""
+    z_i, r_i, n_i = gi.split(HIDDEN, dim=-1)
+    z_h, r_h, n_h = gh.split(HIDDEN, dim=-1)
+    z = torch.sigmoid(z_i + z_h)
+    r = torch.sigmoid(r_i + r_h)
+    n = torch.tanh(n_i + r * n_h)
     return (1.0 - z) * n + z * h
 
 
@@ -249,12 +253,15 @@ def gru_stack(net: NSNet2, gi1: torch.Tensor, state: tuple | None = None):
     returns (sequence, final (h1, h2)).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``gru_stack.launches``) or raises."""
+    (and counts the launch in ``gru_stack.launches``) or raises, also where
+    autograd records and an input or weight requires grad
+    (``_build.refuse_grad``)."""
     if gi1.device.type == "cpu":
         return gru_stack_reference(net, gi1, state=state)
     if gi1.device.type != "cuda":
         raise ValueError(f"gru_stack: unsupported device {gi1.device}")
     biases = (net.gru1.bh, net.gru2.bi, net.gru2.bh)
+    _build.refuse_grad("gru_stack", gi1, *(state or ()), net.gru1.wh, net.gru2.wi, net.gru2.wh, *biases)
     _check_net("gru_stack", net, biases, gi1.device)
     if gi1.dim() != 3:
         raise ValueError(f"gru_stack: gi1 must be [N, T, {G3}], got {tuple(gi1.shape)}")
@@ -285,6 +292,7 @@ def gru_stack_gates(net: NSNet2, gi: tuple, biases: tuple, out_dtype: torch.dtyp
         raise ValueError(f"{what}: needs CUDA tensors, got {dev}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _build.refuse_grad(what, *gi, *(state or ()), net.gru1.wh, net.gru2.wi, net.gru2.wh, *biases)
     _check_net(what, net, biases, dev)
     if len(gi) != 3 or gi[0].dim() != 3:
         raise ValueError(f"{what}: gi must be three [N, T, {HIDDEN}] tensors")

@@ -486,7 +486,10 @@ def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_
     """Run kernel ``kind`` in ``dtype`` on the card and count its launches
     in ``wrapper.launches``: float32 on kernel 1's kernel
     (``nsnet2_cuda.gru_stack_gates``, one launch), bf16 on the bf16 body
-    (``_launch_p``, one count a cooperative launch)."""
+    (``_launch_p``, one count a cooperative launch). Raises where autograd
+    records and gi, the state or a GRU weight requires grad
+    (``_build.refuse_grad``)."""
+    _build.refuse_grad(wrapper.__name__, *gi, *(state or ()), *net.gru1.parameters(), *net.gru2.parameters())
     n, t, _ = gi[0].shape
     if n == 0 or t == 0:
         out = torch.empty((n, t, H), dtype=out_dtype, device=gi[0].device)

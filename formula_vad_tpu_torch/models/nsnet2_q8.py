@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..ops.matmul_q8 import Q8Weight, matmul_q8
 from .nsnet2 import HIDDEN, N_BINS, NSNet2, weights_key
 from .nsnet2_cuda import _gates
@@ -92,7 +93,11 @@ def forward_q8(net: NSNet2, features: torch.Tensor, out_frames: int | None = Non
     """features [..., T, 161] -> gains [..., T_out, 161], as ``NSNet2.forward``;
     with ``state = (h1, h2)`` ([..., 400] each) the recurrence continues it,
     cast to float32, and the call returns (new state in the state's dtype,
-    gains), as ``NSNet2.forward_streaming``."""
+    gains), as ``NSNet2.forward_streaming``. On the card it raises where
+    autograd records and the features, the state or a weight requires grad
+    (the int8 products are kernel launches: ``_build.refuse_grad``)."""
+    if features.device.type == "cuda":
+        _build.refuse_grad("forward_q8", features, *(state or ()), *net.parameters())
     w = _weights(net)
     lead, t = features.shape[:-2], features.shape[-2]
     qx, sx = qa_dyn(features.reshape((-1, t, N_BINS)))

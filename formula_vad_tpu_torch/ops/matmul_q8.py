@@ -276,13 +276,16 @@ def matmul_q8(
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     on the path ``select_path`` picks (counted in ``matmul_q8.launches``,
-    the ``Path`` kept in ``matmul_q8.last_path``) or raises."""
+    the ``Path`` kept in ``matmul_q8.last_path``) or raises, also where
+    autograd records and a float operand requires grad
+    (``_build.refuse_grad``)."""
     if a8.device.type == "cpu":
         return matmul_q8_reference(a8, w, row_scale, order=order, out_dtype=out_dtype)
     if a8.device.type != "cuda":
         raise ValueError(f"matmul_q8: unsupported device {a8.device}")
     if not a8.is_contiguous():
         raise ValueError(f"matmul_q8: a8 must be contiguous, got strides {a8.stride()}")
+    _build.refuse_grad("matmul_q8", row_scale, w.scale, w.bias)
     a, row, lead = _operands(a8, w, row_scale, order, out_dtype)
     dev = a8.device
     r, n = a.shape[0], w.n

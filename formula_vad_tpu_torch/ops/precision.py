@@ -150,16 +150,46 @@ def matmul(a: torch.Tensor, b: torch.Tensor, stage: str | None = None) -> torch.
     Two bf16 operands (bf16 activation storage) are multiplied exactly at
     every level and the float32 sums rounded once to bf16, as
     ``jnp.matmul`` of two bf16 arrays returns bf16. A bf16 operand against a
-    float32 one is promoted to float32 first, as in JAX."""
+    float32 one is promoted to float32 first, as in JAX. Under autograd the
+    gradients of a 'default' or 'high' product are products at its level,
+    as JAX differentiates it."""
     if a.dtype == b.dtype == torch.bfloat16:
         return (a.float() @ b.float()).to(torch.bfloat16)
     a, b = a.float(), b.float()
     level = matmul_precision(stage)
-    if level == "default":
-        return bf16_round(a) @ bf16_round(b)
-    if level == "high":
-        return _bf16_3x(a, b)
-    return a @ b
+    if level == "highest":
+        return a @ b
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _RoundedProduct.apply(a, b, level)
+    return _rounded(a, b, level)
+
+
+def _rounded(a: torch.Tensor, b: torch.Tensor, level: str) -> torch.Tensor:
+    """The float32 product at 'default' or 'high'."""
+    return bf16_round(a) @ bf16_round(b) if level == "default" else _bf16_3x(a, b)
+
+
+class _RoundedProduct(torch.autograd.Function):
+    """A 'default' or 'high' product ``a [..., K] @ b [K, N]`` whose
+    gradients are products at the same level, as JAX transposes a matmul
+    at its precision (autograd through the roundings would instead round
+    each gradient to bf16)."""
+
+    @staticmethod
+    def forward(ctx, a, b, level):
+        ctx.save_for_backward(a, b)
+        ctx.level = level
+        return _rounded(a, b, level)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _rounded(g, b.mT, ctx.level)
+        if ctx.needs_input_grad[1]:
+            gb = _rounded(a.reshape(-1, a.shape[-1]).mT, g.reshape(-1, g.shape[-1]), ctx.level)
+        return ga, gb, None
 
 
 def set_quant(mode: str) -> None:

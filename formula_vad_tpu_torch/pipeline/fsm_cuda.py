@@ -400,6 +400,7 @@ def _scan(shape, params, min_volumes, volume_ratios, valids, carry, win_base, ow
         raise ValueError(f"scan_windows: inputs must be [B, W], got {tuple(min_volumes.shape)}")
     b, w = min_volumes.shape
     dev = min_volumes.device
+    _build.refuse_grad("scan_windows", min_volumes, volume_ratios, *(carry[k] for k in CARRY_KEYS if carry is not None))
     _check("min_volumes", min_volumes, torch.float32, (b, w), dev)
     _check("volume_ratios", volume_ratios, torch.float32, (b, w), dev)
     _check("valids", valids, torch.bool, (b, w), dev)

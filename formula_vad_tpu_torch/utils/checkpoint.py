@@ -12,13 +12,17 @@ bit-identical downstream behaviour.
   ``__structure__`` recording the nesting, each leaf's kind (tensor or
   numpy) and the ``None`` leaves. Written with ``np.savez`` and read with
   ``allow_pickle=False``: no pickle, no package beyond numpy.
-* ``save_train_state`` / ``load_train_state`` belong to training, which is
-  not ported yet.
+* ``save_train_state`` / ``load_train_state`` / ``latest_step`` — a
+  network and its ``torch.optim.Adam`` (per parameter: the weights and
+  Adam's step, exp_avg and exp_avg_sq) as ``step_<n>.npz`` carries, with
+  ``latest.json`` naming the newest, as the JAX package's npz fallback
+  (it tries orbax first; orbax is not used here).
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Any
 
 import numpy as np
@@ -111,15 +115,55 @@ def _unflatten(template: Any, leaves: dict, prefix: str = "") -> Any:
     return leaves[prefix[:-1]]
 
 
-def _train_state_not_ported():
-    return NotImplementedError(
-        "training checkpoints are not ported yet (ROADMAP §1 item 10: training)"
-    )
+def _train_carry(net, optimizer) -> dict:
+    """The training state as a carry: each parameter under its name, and
+    Adam's ``step``, ``exp_avg`` and ``exp_avg_sq`` of each. A parameter
+    the optimizer has not stepped yet gets a zero state (step 0), which
+    ``torch.optim.Adam`` treats as none."""
+    params, adam = {}, {}
+    for name, p in net.named_parameters():
+        st = optimizer.state.get(p, {})
+        params[name] = p.detach()
+        adam[name] = {
+            "step": torch.as_tensor(st.get("step", 0.0), dtype=torch.get_default_dtype()).detach().cpu(),
+            "exp_avg": st["exp_avg"] if "exp_avg" in st else torch.zeros_like(p.detach()),
+            "exp_avg_sq": st["exp_avg_sq"] if "exp_avg_sq" in st else torch.zeros_like(p.detach()),
+        }
+    return {"params": params, "adam": adam}
 
 
-def save_train_state(directory: str, params: Any, opt_state: Any, step: int) -> None:
-    raise _train_state_not_ported()
+def save_train_state(directory: str, net, optimizer, step: int) -> None:
+    """Checkpoint a network and its ``torch.optim.Adam`` at ``step`` as
+    ``step_<step>.npz`` in ``directory`` (``save_carry``: parameters, and
+    per parameter Adam's step, exp_avg and exp_avg_sq), then point
+    ``latest.json`` at it, as the JAX package's npz path does."""
+    os.makedirs(directory, exist_ok=True)
+    save_carry(os.path.join(directory, f"step_{step}.npz"), _train_carry(net, optimizer))
+    with open(os.path.join(directory, "latest.json"), "w") as f:
+        json.dump({"step": step}, f)
 
 
-def load_train_state(directory: str, params_template: Any, opt_template: Any, step: int):
-    raise _train_state_not_ported()
+def latest_step(directory: str) -> int | None:
+    """The step ``latest.json`` in ``directory`` names, or None."""
+    path = os.path.join(directory, "latest.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)["step"]
+
+
+def load_train_state(directory: str, net, optimizer, step: int):
+    """Restore the checkpoint of ``step`` into ``net`` and ``optimizer``
+    (which give the structure, shapes and devices; ``load_carry`` raises
+    ``ValueError`` on any mismatch) -> (net, optimizer). Adam's state is
+    restored for every parameter saved with a nonzero step."""
+    got = load_carry(os.path.join(directory, f"step_{step}.npz"), _train_carry(net, optimizer))
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.copy_(got["params"][name])
+            st = got["adam"][name]
+            if float(st["step"]) > 0:
+                optimizer.state[p] = {"step": st["step"], "exp_avg": st["exp_avg"], "exp_avg_sq": st["exp_avg_sq"]}
+            else:
+                optimizer.state.pop(p, None)
+    return net, optimizer

@@ -34,6 +34,10 @@ continues on the CPU. The rest of the denoiser registry: an imported ONNX
 file is the ``.npz`` model bit for bit on the card; the spectral gate's
 gains on the card are within 1e-6 of the CPU's (``10 ** x`` differs by
 ulps), and its slice launches the FSM kernel alone, with the CPU's segments.
+Training: every kernel route refuses a call that needs a gradient; the
+trainer's differentiable forward launches none, its gradients on the card
+are the CPU's within 1e-4 of each array's largest element, and a resumed
+run on the card equals a straight one bit for bit.
 """
 
 import ctypes
@@ -1551,6 +1555,97 @@ def test_gate_on_the_card(cuda_device):
     assert [fn.launches for fn in wrappers] == [0, 1, 0, 0, 0, 0]
     assert segments == [r.segments for r in BatchRunner(gate_cpu, use_host_fsm=True).run(audio)]
     assert sum(map(len, segments)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(LOWLATENCY_TIERS))
+def test_kernel_routes_refuse_grad(cuda_device, tier):
+    """Autograd cannot see a kernel launched through ctypes: with gradients
+    on, the model's forward on the card raises in every tier where a weight
+    requires grad (else fc_in and both GRUs would get no gradient while the
+    head trained), and each wrapper raises where an input does; under
+    no_grad the same calls run. Training goes through
+    ``train/nsnet2_train.apply``."""
+    from formula_vad_tpu_torch.train import nsnet2_train
+
+    level, io, quant, name, _ = LOWLATENCY_TIERS[tier]
+    trained = nsnet2_train.trainable(registry.load_denoiser("demo", device=cuda_device))
+    feats = torch.from_numpy(np.random.default_rng(0).normal(-3.0, 1.5, (4, 54, 161)).astype(np.float32))
+    feats = feats.to(cuda_device)
+    precision.set_matmul_precision(level)
+    precision.set_io_dtype(io)
+    precision.set_quant(quant)
+    try:
+        before = STREAM_COUNTERS[name].launches
+        with pytest.raises(RuntimeError, match="nsnet2_train.apply"):
+            trained(feats)
+        assert STREAM_COUNTERS[name].launches == before
+        with torch.no_grad():
+            assert torch.isfinite(trained(feats)).all()
+        assert STREAM_COUNTERS[name].launches > before
+    finally:
+        precision.set_matmul_precision("highest")
+        precision.set_io_dtype("f32")
+        precision.set_quant("off")
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_grad_requiring_inputs(net, cuda_device):
+    gi1 = _gi1(4, 6, 0, cuda_device).requires_grad_(True)
+    gi = tuple(gi1[..., k * 400 : (k + 1) * 400].detach().contiguous().requires_grad_(True) for k in range(3))
+    with pytest.raises(RuntimeError, match="^gru_stack: "):
+        nsnet2_cuda.gru_stack(net, gi1)
+    for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(RuntimeError, match=f"^{wrapper.__name__}: "):
+                wrapper(net, *gi, dtype=dtype)
+    w = mq.Q8Weight.pack(torch.ones((16, 8), dtype=torch.int8, device=cuda_device),
+                         torch.ones(8, device=cuda_device))
+    a8 = torch.ones((4, 16), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="^matmul_q8: "):
+        mq.matmul_q8(a8, w, torch.ones(4, device=cuda_device, requires_grad=True), order="row_col")
+    shape, params = fsm.statics_from_config(VADMachineConfig(), SR, FFT)
+    mv, vr, valid = (torch.from_numpy(x).to(cuda_device) for x in fsm_inputs(2, 64, 0))
+    with pytest.raises(RuntimeError, match="^scan_windows: "):
+        fsm_cuda.scan_windows(shape, params, mv.requires_grad_(True), vr, valid)
+    with torch.no_grad():
+        nsnet2_cuda.gru_stack(net, gi1)
+        fsm_cuda.scan_windows(shape, params, mv, vr, valid)
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The differentiable forward on the card launches no kernel; its loss
+    and gradients equal the CPU's within 1e-5 and 1e-4 of each array's
+    largest element (float32 sums in other orders, TF32 off); the trainer
+    CLI on the card resumes bit for bit and writes weights that score."""
+    from formula_vad_tpu_torch.apps import train as train_app
+    from formula_vad_tpu_torch.models import nsnet2
+    from formula_vad_tpu_torch.train import nsnet2_train
+
+    batch = nsnet2_train.synth_batch(torch.Generator().manual_seed(3), 4, 20)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        net = nsnet2_train.trainable(registry.load_denoiser("random", device=dev))
+        counts = [fn.launches for fn in STREAM_COUNTERS.values()]
+        loss = nsnet2_train.spectral_loss(net, *(x.to(dev) for x in batch))
+        loss.backward()
+        assert [fn.launches for fn in STREAM_COUNTERS.values()] == counts
+        grads[str(dev)] = (loss.item(), [p.grad.cpu() for p in net.parameters()])
+    (want_loss, want), (got_loss, got) = grads["cpu"], grads[str(cuda_device)]
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0 and float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    base = ["--synthetic", "16", "--batch", "4", "--frames", "20", "--device-data"]
+    straight, resumed, ck = str(tmp_path / "s.npz"), str(tmp_path / "r.npz"), str(tmp_path / "ck")
+    assert train_app.main(base + ["--steps", "4", "--out", straight]) == 0
+    assert train_app.main(base + ["--steps", "2", "--out", resumed, "--ckpt-dir", ck, "--ckpt-every", "2"]) == 0
+    assert train_app.main(base + ["--steps", "4", "--out", resumed, "--ckpt-dir", ck]) == 0
+    for p, q in zip(nsnet2.load_npz(straight).parameters(), nsnet2.load_npz(resumed).parameters()):
+        assert torch.equal(p, q)
+    trained = registry.load_denoiser(straight, device=cuda_device)
+    with torch.inference_mode():
+        assert torch.isfinite(trained(batch[0].to(cuda_device))).all()
 
 
 def test_wrappers_refuse_other_devices():

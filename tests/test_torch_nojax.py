@@ -24,14 +24,19 @@ COPIES = (
     + [f"utils/{m}.py" for m in ("uuid", "logging")]
 )
 
+# Nothing of JAX, its optimizer and checkpoint libraries, or the JAX package.
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "formula_vad_tpu")
+
 BLOCKED_RUN = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["formula_vad_tpu"] = None  # and so does any import of the JAX package
+sys.modules["optax"] = sys.modules["orbax"] = None  # nor the JAX trainer's optimizer and checkpointer
 import numpy as np
 import formula_vad_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(formula_vad_tpu_torch.__path__, "formula_vad_tpu_torch.")]
 assert "formula_vad_tpu_torch.testing.tier_fuzz" in names, names
+assert {"formula_vad_tpu_torch.train.nsnet2_train", "formula_vad_tpu_torch.apps.train"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 from formula_vad_tpu_torch.testing.synth import synth_stream
@@ -68,8 +73,15 @@ with tempfile.TemporaryDirectory() as d:
     MultiDaemon("M", d, ["x", "y"], "demo", stdout=out, state_dir=d + "/state", device="cpu").run(
         stdin=io.StringIO(json.dumps({"action": "stats"}) + "\n"))
     assert json.loads(out.getvalue())["streams"] == 2, out.getvalue()
+from formula_vad_tpu_torch.apps import train
+with tempfile.TemporaryDirectory() as d:
+    args = ["--synthetic", "2", "--steps", "2", "--batch", "1", "--frames", "4", "--device", "cpu"]
+    assert train.main(args + ["--out", d + "/w.onnx", "--ckpt-dir", d + "/ck", "--ckpt-every", "1"]) == 0
+    assert train.main(args[:3] + ["3"] + args[4:] + ["--ckpt-dir", d + "/ck", "--out", d + "/w.npz"]) == 0
+    assert train.main.last_run["start_step"] == 2 and len(train.main.last_run["losses"]) == 1
+    load_denoiser(d + "/w.onnx", device="cpu")
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
-assert not loaded & {"jax", "formula_vad_tpu"}, loaded
+assert not loaded & {"jax", "formula_vad_tpu", "optax", "orbax"}, loaded
 print("modules", len(names), "segments", len(res.segments))
 """
 
@@ -93,9 +105,10 @@ def test_no_module_names_jax():
     files = sorted(p for p in PACKAGE.rglob("*.py") if "csrc" not in p.relative_to(PACKAGE).parts)
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    assert {PACKAGE / "train" / "nsnet2_train.py", PACKAGE / "apps" / "train.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
-            assert mod.split(".")[0] not in ("jax", "jaxlib", "optax", "formula_vad_tpu"), f"{path}: imports {mod}"
+            assert mod.split(".")[0] not in FORBIDDEN, f"{path}: imports {mod}"
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -104,7 +117,7 @@ def test_chip_smoke_imports_only_the_port():
     mods = [m for m in _imports(REPO / "chip_smoke.py") if m]
     assert any(m.startswith("formula_vad_tpu_torch") for m in mods)
     for mod in mods:
-        assert mod.split(".")[0] not in ("jax", "jaxlib", "optax", "formula_vad_tpu"), mod
+        assert mod.split(".")[0] not in FORBIDDEN, mod
 
 
 def test_imports_and_scores_with_jax_blocked():

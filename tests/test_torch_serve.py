@@ -371,10 +371,11 @@ def test_server_refusals(pair):
         server.push(np.zeros((2, 2, 100), np.float32))
     with pytest.raises(ValueError, match="out of range"):
         server.reset_stream(2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        checkpoint.save_train_state("x", None, None, 0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        checkpoint.load_train_state("x", None, None, 0)
+    # The training half of utils/checkpoint.py is ported (tests/test_torch_train.py):
+    # a directory that holds no checkpoint has no latest step and none to load.
+    assert checkpoint.latest_step("x") is None
+    with pytest.raises(FileNotFoundError):
+        checkpoint.load_train_state("x", net, torch.optim.Adam(net.parameters()), 0)
 
 
 def test_tick_stats_counters(base):
