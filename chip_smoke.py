@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs sixteen phases; any failed check raises and the script exits non-zero.
+runs seventeen phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -107,7 +107,7 @@ runs sixteen phases; any failed check raises and the script exits non-zero.
    The slice through BatchRunner in the float, high (bf16_3x), bf16 and
    bf16_io (bf16 activation storage) tiers, one after the other, each a
    median of 3 after a warm-up, with every kernel's launches counted:
-   exactly 1 gru_stack launch a run under high, 1 kernel-6 launch (bf16,
+   exactly 1 kernel-A launch (gru_gates_3x) a run under high, 1 kernel-6 launch (bf16,
    bf16 out) under bf16_io, 1 scan_windows in each, and nothing else;
    high's segments identical to the float tier's, bf16_io's the same count
    with every boundary within one FSM window. Kernel 6 in bf16 with a bf16
@@ -231,6 +231,38 @@ runs sixteen phases; any failed check raises and the script exits non-zero.
    (GRU_TOL), the slice through BatchRunner (one gru_stack and one
    scan_windows a run), and an eval-only --eval run from the checkpoint
    (kernel 1 a chunk) within 0.05 dB of the CPU's evaluate.
+17. The remaining precision tiers. (a) Kernel A (gru_gates_3x, the bf16_3x
+   recurrence on the tensor cores: csrc/gru_gates_p.cu with a bf16 pass
+   count a product class, 1 at 'default' and 3 at 'high') at (gru_i, gru_h)
+   levels (high, high), (default, high) and (high, default) against its
+   plain version at [1,680, 54], [42, 54], [37, 54] and [4,000, 54] (three
+   launches) and at [42, 1] from a nonzero state, and all-high on N(0, 0.8)
+   gi: max |d| <= A_HIGH_TOL, or phase 8's bf16 bars where a class is
+   'default' (h rounded to bf16 where it enters those products), and over
+   54 steps nearer its plain version (mean |d|) than the plain versions at
+   all-'highest' and at the two classes swapped; each instantiation's plan, single and queued time, plain time and bound,
+   beside kernel 1's float32 time and cuDNN's float32 GRU (TF32 off:
+   another function) in the same process. (b) Kernel B (gru_stack_mixed,
+   kernel 1's float32 body with one class at 'high' or 'default'): the
+   stage audit's two mixes (one class at 'high') at the same shapes, bar
+   B_HIGH_TOL and control, the two with 'default' at [1,680, 54]; times
+   and bounds (a 'highest' class at the float32 rate, a 'high' or
+   'default' one as its bf16 passes at the tensor cores') of all four. (c)
+   Kernel 1 and kernel 5 in bf16 on fixed inputs give the parent tree's
+   bits (PARENT_DIGESTS, for the nvcc release that recorded them; with
+   CHIP_SMOKE_PARENT the parent's package built beside this one); it fails
+   where it can compare with neither. (d)
+   The high slice through BatchRunner: 1 kernel-A launch a run, no
+   gru_stack, segments within one FSM window of the float tier's, its wall
+   beside phase 11's. (e) The int8 slice under bf16 storage: 167 kernel-3
+   launches a run, segments within one window. (f) lbr = 0 weights at
+   'default' and under bf16 storage on the card against the CPU, no kernel
+   launch, over LBR0_SEEDS, twice each (bit for bit): the demo weights
+   within the CPU tests' bars, the biased weights within the max bar and
+   their mean (ROADMAP fault 3's rounding cascade) within LBR0_WITNESS_X
+   times that of the CPU's forward with float64 sums. (g) The stage audit (tools/stage_precision_audit.py's main, in
+   this process so that its launches count): 7 stage rows, kernel B under
+   the gru_i and gru_h rows, kernel A under all-high.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -318,7 +350,7 @@ SLAB_CORPUS_SECONDS = 40.0  # phase 10's simulator corpus: 3 streams, 16 s slabs
 # Phase 11: (tier, matmul level, io dtype, the wrapper of its recurrence).
 TIER_RUNS = (
     ("float", "highest", "f32", "gru_stack"),
-    ("high", "high", "f32", "gru_stack"),
+    ("high", "high", "f32", "gru_gates_3x"),
     ("bf16", "default", "f32", "gru_gates_p"),
     ("bf16_io", "default", "bf16", "gru_gates_f"),
 )
@@ -361,7 +393,7 @@ LL_SCALE = (64, 256, 1024, 4096)
 # (tier, matmul level, io dtype, quant, the wrapper of its recurrence, its launches a step)
 LL_TIERS = (
     ("float", "highest", "f32", "off", "gru_stack", 1),
-    ("high", "high", "f32", "off", "gru_stack", 1),
+    ("high", "high", "f32", "off", "gru_gates_3x", 1),
     ("bf16", "default", "f32", "off", "gru_gates_p", 1),
     ("bf16_io", "default", "bf16", "off", "gru_gates_f", 1),
     ("int8", "highest", "f32", "int8", "matmul_q8", 8),
@@ -369,6 +401,34 @@ LL_TIERS = (
 SWEEP_FACTORS, SWEEP_RATIOS = (6.0, 10.0, 14.0, 20.0), (0.3, 0.5)
 SWEEP_BASE = SWEEP_FACTORS.index(10.0) * len(SWEEP_RATIOS) + SWEEP_RATIOS.index(0.5)
 TUNE_GRID = "speech_threshold_factor=3,10,40"
+# Phase 17: the remaining precision tiers. Kernel A's and kernel B's
+# (gru_i, gru_h) levels, the shapes both are held at beside a hop with a
+# carried state, and the first 16 hex digits of the SHA-256 of the
+# unchanged instantiations' outputs on fixed inputs (``unchanged_outputs``),
+# recorded from the parent tree's build on an H100 80GB HBM3 with the nvcc
+# release PARENT_DIGESTS_NVCC (the call that set them built both trees in
+# one process: CHIP_SMOKE_PARENT names a checkout, whose package is then
+# loaded beside this one and compared directly). Another compiler may
+# schedule the float operations otherwise, so the digests bind that
+# release only: under another, phase 17 (c) fails unless CHIP_SMOKE_PARENT
+# names a parent checkout to build beside this one.
+A_LEVELS = (("high", "high"), ("default", "high"), ("high", "default"))
+B_LEVELS = (("high", "highest"), ("highest", "high"), ("default", "highest"), ("highest", "default"))
+P17_SHAPES = ((GRU_ROWS, GRU_STEPS), (2 * SLICE_STREAMS, GRU_STEPS), (37, GRU_STEPS), (4000, GRU_STEPS))
+PARENT_DIGESTS = {"gru_stack": "143c13b930fcb4e9", "gru_gates_p": "a2fb60ac32cc8cb0"}
+PARENT_DIGESTS_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
+# Kernel A's and kernel B's bars against their plain versions where no
+# class is 'default', from their readings on an H100 (A at all-'high' max
+# 2.9e-6, B at a 'high' mix 1.2e-6, over P17_SHAPES): a 'high' and a
+# 'highest' product differ by only ~2^-16, so the plain versions at other
+# levels lie within 3e-6 to 6e-6 of each other; ``nearer_own_levels``
+# tells them apart.
+A_HIGH_TOL, B_HIGH_TOL = 5e-6, 2e-6
+# Phase 17 (f): the feature seeds that lbr = 0 weights run on, twice each
+# on the card; the biased weights' card-against-CPU mean |d| is held to
+# LBR0_WITNESS_X times the largest that float64 sums of the same products
+# (``f64_sums``, another summation order on the CPU) stand from the CPU.
+LBR0_SEEDS, LBR0_WITNESS_X = (7, 8, 9, 10), 2.0
 # Phase 15: the gate's fleet (ticks of the slice's 21 streams), and
 # denoise_quality.evaluate's held-out pairs with the JAX package's floors
 # (demo: mean and each pair; the gate: mean) and the card-against-CPU bar.
@@ -1659,16 +1719,12 @@ def phase_tiers(runner, audio, smi: str) -> dict:
     "kernel_6_path": kernel 6's entries at the path's shapes}."""
     import torch
 
-    from formula_vad_tpu_torch.models import nsnet2_cuda, nsnet2_gates_cuda
-    from formula_vad_tpu_torch.ops import matmul_q8, precision
-    from formula_vad_tpu_torch.pipeline import fsm_cuda
+    from formula_vad_tpu_torch.ops import precision
     from formula_vad_tpu_torch.testing import tier_fuzz
 
     t_phase = time.perf_counter()
     audio_sec = SLICE_STREAMS * SLICE_SECONDS
-    counters = {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
-                "gru_gates": nsnet2_gates_cuda.gru_gates, "gru_gates_p": nsnet2_gates_cuda.gru_gates_p,
-                "gru_gates_f": nsnet2_gates_cuda.gru_gates_f, "matmul_q8": matmul_q8.matmul_q8}
+    counters = path_counters()
     launches, results, walls = {}, {}, {}
     for tier, level, io, recurrence in TIER_RUNS:
         precision.set_matmul_precision(level)
@@ -1711,7 +1767,8 @@ def phase_tiers(runner, audio, smi: str) -> dict:
         raise AssertionError("the campaign left the tier switches changed")
     n = stats["highest"].n_cases
     # Each case: the probe and the highest run, and one run a tier.
-    want = dict(dict.fromkeys(counters, 0), gru_stack=3 * n, gru_gates_p=n, gru_gates_f=n, scan_windows=4 * n)
+    want = dict(dict.fromkeys(counters, 0), gru_stack=2 * n, gru_gates_3x=n, gru_gates_p=n, gru_gates_f=n,
+                scan_windows=4 * n)
     if campaign != want:
         raise AssertionError(f"the campaign launched {campaign}, not {want}")
     if n != CAMPAIGN_CASES or stats["highest"].n_boundaries < n:
@@ -1728,7 +1785,7 @@ def phase_tiers(runner, audio, smi: str) -> dict:
             or high.deviated_cases != sum(k.deviated_cases for k in known.values()):
         raise AssertionError(f"the high tier deviated beyond its known near-ties: {high}")
     log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
-    return {"slice": launches, "campaign": campaign, "kernel_6_path": path}
+    return {"slice": launches, "campaign": campaign, "kernel_6_path": path, "walls": walls}
 
 
 def kernel_1_at(net, dev, rows: int) -> dict:
@@ -2092,7 +2149,8 @@ def path_counters() -> dict:
 
     return {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
             "gru_gates": nsnet2_gates_cuda.gru_gates, "gru_gates_p": nsnet2_gates_cuda.gru_gates_p,
-            "gru_gates_f": nsnet2_gates_cuda.gru_gates_f, "matmul_q8": matmul_q8.matmul_q8}
+            "gru_gates_f": nsnet2_gates_cuda.gru_gates_f, "matmul_q8": matmul_q8.matmul_q8,
+            "gru_gates_3x": nsnet2_gates_cuda.gru_gates_3x, "gru_stack_mixed": nsnet2_cuda.gru_stack_mixed}
 
 
 def recorders(n: int, slot_of=None):
@@ -3364,6 +3422,490 @@ def train_profiled(argv: list[str], counters) -> tuple[dict, dict]:
             "kernels_a_step": n_kernels / steps}, launches
 
 
+def near_plain(what: str, got, want, levels, tol: float) -> float:
+    """Kernel A or B against its plain version: max |d| <= ``tol``; where a
+    class is 'default', h is rounded to bf16 where it enters its products
+    and another float32 summation order now and then moves it across a bf16
+    rounding step, so phase 8's bf16 bars hold there. -> max |d|."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    d = (got.float() - want.float()).abs()
+    e, m = float(d.max()), float(d.mean())
+    ok = e <= BF16_MAX and m <= BF16_MEAN if "default" in levels else e <= tol
+    bar = f"max <= {BF16_MAX}, mean <= {BF16_MEAN}" if "default" in levels else f"max <= {tol}"
+    log(f"  {what}: max |d| {e:.3e}, mean {m:.3e} ({bar})")
+    if not ok:
+        raise AssertionError(f"{what} disagrees with its plain version: max {e}, mean {m}")
+    return e
+
+
+def nearer_own_levels(what: str, got, want, levels, plain_at) -> dict:
+    """The control beside ``near_plain``: the kernel's output lies nearer
+    (mean |d|) its plain version at its own levels than the plain versions
+    at all-'highest' and at the two classes swapped (``plain_at(levels)``),
+    so a kernel that ignored its levels (kernel 1's code) or swapped the
+    classes fails where both lie within the bar. -> {other levels: mean |d|
+    to them over the mean |d| to its own}."""
+    own = float((got - want).abs().mean())
+    ratios = {}
+    for other in sorted({("highest", "highest"), levels[::-1]} - {levels}):
+        far = float((got - plain_at(other)).abs().mean())
+        ratios[other] = far / own if own else float("inf")
+        if not own < far:
+            raise AssertionError(f"{what}: as near the plain version at {other} ({far:.3e}) as at its own ({own:.3e})")
+    log(f"  {what}: mean |d| to its own plain {own:.3e}; to the plain at other levels "
+        + ", ".join(f"{o} {r:.1f}x" for o, r in ratios.items()))
+    return ratios
+
+
+def kernel_a_rows(net, dev, smi: str) -> dict:
+    """Phase 17 (a): kernel A (``gru_gates_3x``) at each pair of levels
+    against its plain version at P17_SHAPES (N(0, 0.3) GRU biases), and
+    nearer it than the plain versions at other levels, and at [42, 1]
+    continuing a nonzero state; all-high also on N(0, 0.8) gi. Then
+    each instantiation's plan, single and queued time at [1,680, 54] on the
+    demo weights beside kernel 1's float32 time and cuDNN's float32 GRU
+    (TF32 off, another function: the nearest library call) in the same
+    process, and its bound. -> the kernels line's entry."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
+
+    bnet = biased_net(dev)
+    f32 = torch.float32
+
+    def gi_of(n, t, seed, weights):
+        feats = np.random.default_rng(seed).normal(-3.0, 1.5, (n, t, 161)).astype(np.float32)
+        with torch.inference_mode():
+            return gates.gi_gates(weights, weights.fc_in(torch.from_numpy(feats).to(dev)))
+
+    errs, ratios = {}, []
+    for levels in A_LEVELS:
+        err = 0.0
+        for n, t in P17_SHAPES:
+            gi = gi_of(n, t, n, bnet)
+            before = gates.gru_gates_3x.launches
+            with torch.inference_mode():
+                got = gates.gru_gates_3x(bnet, *gi, levels)
+                want = gates.gru_gates_p_reference(gates.gate_weights(bnet, f32), *gi, levels=levels)
+            torch.cuda.synchronize()
+            plan = gates.device_p_plan(n, dev, gates.P3_UNITS)
+            if gates.gru_gates_3x.launches - before != len(plan):
+                raise AssertionError(f"kernel A at {n} rows counted {gates.gru_gates_3x.launches - before} launches")
+            what = f"kernel A {levels} vs plain at [{n}, {t}]"
+            err = max(err, near_plain(f"{what} ({len(plan)} launch(es))", got, want, levels, A_HIGH_TOL))
+            with torch.inference_mode():
+                ratios += nearer_own_levels(what, got, want, levels, lambda other: gates.gru_gates_p_reference(
+                    gates.gate_weights(bnet, f32), *gi, levels=other)).values()
+        rows = LL_ROWS[0]
+        gi = gi_of(rows, 1, 5, bnet)
+        rng = np.random.default_rng(6)
+        state = tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (rows, 400))).astype(np.float32)).to(dev)
+                      for _ in range(2))
+        with torch.inference_mode():
+            got, (h1, h2) = gates.gru_gates_3x(bnet, *gi, levels, state=state)
+            want, (w1, w2) = gates.gru_gates_p_reference(gates.gate_weights(bnet, f32), *gi, state=state, levels=levels)
+        for label, a, b in (("h2", got, want), ("final h1", h1, w1), ("final h2", h2, w2)):
+            err = max(err, near_plain(f"kernel A {levels} from a state at [{rows}, 1], {label}", a, b, levels,
+                                      A_HIGH_TOL))
+        errs[levels] = err
+    rng = np.random.default_rng(100)
+    gi = tuple(torch.from_numpy((rng.standard_normal((8, GRU_STEPS, 400)) * 0.8).astype(np.float32)).to(dev)
+               for _ in range(3))
+    with torch.inference_mode():
+        got = gates.gru_gates_3x(net, *gi, ("high", "high"))
+        want = gates.gru_gates_p_reference(gates.gate_weights(net, f32), *gi, levels=("high", "high"))
+    errs[A_LEVELS[0]] = max(errs[A_LEVELS[0]], near_plain("kernel A all-high on N(0, 0.8) gi [8, 54] (no rounding "
+                                                         "cascade)", got, want, ("high", "high"), A_HIGH_TOL))
+
+    # Times at the scoring shape on the demo weights, kernel 1 and cuDNN beside.
+    feats = torch.from_numpy(
+        np.random.default_rng(0).normal(-3.0, 1.5, (GRU_ROWS, GRU_STEPS, 161)).astype(np.float32)).to(dev)
+    gru = cudnn_gru(net, dev)
+    with torch.inference_mode():
+        x = net.fc_in(feats)
+        gi = gates.gi_gates(net, x)
+        gi1 = (x @ net.gru1.wi + net.gru1.bi).contiguous()
+        k1 = {"ms": cuda_ms(lambda: nsnet2_cuda.gru_stack(net, gi1)),
+              "queued_ms": queued_ms(lambda: nsnet2_cuda.gru_stack(net, gi1))}
+        library_ms = cuda_ms(lambda: gru(x))
+        library_queued = queued_ms(lambda: gru(x))
+        plan = gates.device_p_plan(GRU_ROWS, dev, gates.P3_UNITS)
+        inst = []
+        for levels in A_LEVELS:
+            passes = [gates.PASSES[level] for level in levels]
+            ms = cuda_ms(lambda: gates.gru_gates_3x(net, *gi, levels))
+            queued = queued_ms(lambda: gates.gru_gates_3x(net, *gi, levels))
+            plain_ms = cuda_ms(lambda: gates.gru_gates_p_reference(gates.gate_weights(net, f32), *gi, levels=levels),
+                               reps=1)
+            ops = 2 * GRU_ROWS * GRU_STEPS * 400 * 1200 * (passes[0] + 2 * passes[1])
+            nbytes = 4 * GRU_ROWS * GRU_STEPS * 400 * 4 + gates.units_3x(net).nbytes
+            bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_MS)
+            inst.append({"passes": list(passes), "levels": list(levels), "ms": ms, "queued_ms": queued,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": errs[levels]})
+            log(f"kernel A {levels} at [{GRU_ROWS}, {GRU_STEPS}]: plan {len(plan)} launch, {plan[0].row_groups} row "
+                f"groups x 50 unit groups of 8 units = {plan[0].grid} CTAs, {plan[0].tiles_per_group} tiles a CTA, "
+                f"{plan[0].smem_bytes('A')} bytes of shared memory a CTA; {ms:.3f} ms single, {queued:.3f} queued, "
+                f"plain {plain_ms:.2f} ms; bound {bound_ms:.3f} ms by {bound_by} ({ops / 1e9:.1f} GFLOP of bf16); "
+                f"kernel 1 float32 in this process {k1['ms']:.3f} single, {k1['queued_ms']:.3f} queued; cuDNN float32 "
+                f"GRU (TF32 off, another function) {library_ms:.3f} / {library_queued:.3f}; on {smi}")
+    top = inst[0]
+    return {
+        "name": "gru_gates_3x", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_gates_p.cu",
+        "replaces": "formula_vad_tpu/models/nsnet2_pallas.py:88", "max_abs_err": max(errs.values()),
+        "ms": top["ms"], "queued_ms": top["queued_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "library_ms": library_ms, "library_queued_ms": library_queued,
+        "library": "cuDNN two-layer torch.nn.GRU, float32, TF32 off (another function: float32 products)",
+        "kernel_1_ms": k1["ms"], "kernel_1_queued_ms": k1["queued_ms"], "instantiations": inst,
+        "tol_high": A_HIGH_TOL, "control_min_ratio": min(ratios), "grid": plan[0].grid, "tiles_per_group": plan[0].tiles_per_group, "smem_bytes": plan[0].smem_bytes("A"),
+    }
+
+
+def kernel_b_rows(net, dev, smi: str) -> dict:
+    """Phase 17 (b): kernel B (``gru_stack_mixed``) at each mix with
+    'highest' against ``gru_stack_reference`` at the same levels: at
+    P17_SHAPES (N(0, 0.8) gi1, N(0, 0.3) GRU biases) and at [42, 1] from a
+    nonzero state, and nearer it than the plain versions at other levels;
+    each instantiation's single and queued time at [1,680, 54] on the demo
+    weights beside kernel 1's and cuDNN's float32 GRU, and its bound (a
+    'highest' class at the float32 rate, a 'high' or 'default' one as its
+    bf16 passes at the tensor cores'). -> the kernels line's entry."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2_cuda
+    from formula_vad_tpu_torch.models import nsnet2_gates_cuda as gates
+    from formula_vad_tpu_torch.tools import cuda_ms, cudnn_gru, queued_ms
+
+    bnet = biased_net(dev)
+    errs, ratios = {}, []
+    for levels in B_LEVELS:
+        err = 0.0
+        # The audit's two mixes (one class at 'high') at every shape; those
+        # with 'default' at the scoring shape (the GPU tests take the rest).
+        for n, t in P17_SHAPES if "high" in levels else P17_SHAPES[:1]:
+            gi1 = torch.from_numpy((np.random.default_rng(n).standard_normal((n, t, 1200)) * 0.8).astype(np.float32))
+            gi1 = gi1.to(dev)
+            before = nsnet2_cuda.gru_stack_mixed.launches
+            with torch.inference_mode():
+                got = nsnet2_cuda.gru_stack_mixed(bnet, gi1, levels)
+                want = nsnet2_cuda.gru_stack_reference(bnet, gi1, levels=levels)
+            torch.cuda.synchronize()
+            if nsnet2_cuda.gru_stack_mixed.launches - before != 1:
+                raise AssertionError(f"kernel B {levels} at {n} rows was not counted once")
+            what = f"kernel B {levels} vs plain at [{n}, {t}]"
+            err = max(err, near_plain(what, got, want, levels, B_HIGH_TOL))
+            with torch.inference_mode():
+                ratios += nearer_own_levels(what, got, want, levels, lambda other: nsnet2_cuda.gru_stack_reference(
+                    bnet, gi1, levels=other)).values()
+        if "high" not in levels:
+            errs[levels] = err
+            continue
+        rows = LL_ROWS[0]
+        rng = np.random.default_rng(7)
+        gi1 = torch.from_numpy((rng.standard_normal((rows, 1, 1200)) * 0.8).astype(np.float32)).to(dev)
+        state = tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (rows, 400))).astype(np.float32)).to(dev)
+                      for _ in range(2))
+        with torch.inference_mode():
+            got, (h1, h2) = nsnet2_cuda.gru_stack_mixed(bnet, gi1, levels, state)
+            want, (w1, w2) = nsnet2_cuda.gru_stack_reference(bnet, gi1, state, levels=levels)
+        for label, a, b in (("h2", got, want), ("final h1", h1, w1), ("final h2", h2, w2)):
+            err = max(err, near_plain(f"kernel B {levels} from a state at [{rows}, 1], {label}", a, b, levels,
+                                      B_HIGH_TOL))
+        errs[levels] = err
+
+    feats = torch.from_numpy(
+        np.random.default_rng(0).normal(-3.0, 1.5, (GRU_ROWS, GRU_STEPS, 161)).astype(np.float32)).to(dev)
+    gru = cudnn_gru(net, dev)
+    with torch.inference_mode():
+        x = net.fc_in(feats)
+        gi1 = (x @ net.gru1.wi + net.gru1.bi).contiguous()
+        k1_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack(net, gi1))
+        library_ms = cuda_ms(lambda: gru(x))
+        inst = []
+        for levels in B_LEVELS:
+            ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_mixed(net, gi1, levels))
+            queued = queued_ms(lambda: nsnet2_cuda.gru_stack_mixed(net, gi1, levels))
+            plain_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_reference(net, gi1, levels=levels), reps=1)
+            # A 'highest' product is float32 (67 TFLOP/s); a 'high' one three
+            # bf16 x bf16 passes and a 'default' one a pass, summed in float32,
+            # which the tensor cores run at 989 TFLOP/s.
+            product = 2 * GRU_ROWS * GRU_STEPS * 400 * 1200
+            classes = ((levels[0], product), (levels[1], 2 * product))  # gru_i: h1 Wi2; gru_h: h1 Wh1, h2 Wh2
+            f32_ops = sum(ops for level, ops in classes if level == "highest")
+            bf16_ops = sum(ops * gates.PASSES[level] for level, ops in classes if level != "highest")
+            nbytes = gi1.nbytes + GRU_ROWS * GRU_STEPS * 400 * 4 + 3 * 400 * 1200 * 4
+            ops_ms = f32_ops / F32_OPS_PER_MS + bf16_ops / BF16_OPS_PER_MS
+            bound_ms, bound_by = bound(nbytes, ops_ms, 1.0)  # the operations given as their time
+            inst.append({"levels": list(levels), "ms": ms, "queued_ms": queued, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": errs[levels]})
+            log(f"kernel B {levels} at [{GRU_ROWS}, {GRU_STEPS}] (kernel 1's plan): {ms:.3f} ms single, {queued:.3f} "
+                f"queued, plain {plain_ms:.2f} ms; bound {bound_ms:.3f} ms by {bound_by} ({f32_ops / 1e9:.1f} GFLOP "
+                f"of float32 at 67 TFLOP/s, {bf16_ops / 1e9:.1f} of bf16 passes at 989); kernel 1 in this process "
+                f"{k1_ms:.3f}, cuDNN float32 GRU {library_ms:.3f}; on {smi}")
+    plan = nsnet2_cuda.device_plan(GRU_ROWS, dev)
+    log(f"kernel B's plan at [{GRU_ROWS}, {GRU_STEPS}] (kernel 1's): {plan.tiles} tiles of {plan.row_tile} rows x "
+        f"{plan.unit_tile} units, grid {plan.grid}")
+    top = inst[0]
+    return {
+        "name": "gru_stack_mixed", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_stack.cu",
+        "replaces": "formula_vad_tpu/models/nsnet2_pallas.py:88", "max_abs_err": max(errs.values()),
+        "ms": top["ms"], "queued_ms": top["queued_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "library_ms": library_ms,
+        "library": "cuDNN two-layer torch.nn.GRU, float32, TF32 off (another function: every product float32)",
+        "kernel_1_ms": k1_ms, "instantiations": inst, "tol_high": B_HIGH_TOL, "control_min_ratio": min(ratios),
+        "grid": plan.grid, "tiles": plan.tiles, "row_tile": plan.row_tile, "unit_tile": plan.unit_tile,
+    }
+
+
+def unchanged_outputs(pkg: str, dev) -> dict:
+    """The outputs of kernel 1 (gru_stack) and kernel 5 in bf16
+    (gru_gates_p) of package ``pkg`` on fixed inputs: the demo weights,
+    numpy-drawn gi at [1,680, 54] and a [42, 54] call continuing a nonzero
+    state. -> {name: first 16 hex digits of the SHA-256 of the outputs'
+    bytes}."""
+    import hashlib
+    import importlib
+
+    import torch
+
+    registry = importlib.import_module(f"{pkg}.models.registry")
+    cuda = importlib.import_module(f"{pkg}.models.nsnet2_cuda")
+    gates = importlib.import_module(f"{pkg}.models.nsnet2_gates_cuda")
+    net = registry.load_denoiser("demo", device=dev)
+    rng = np.random.default_rng(17)
+
+    def draw(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 0.8).astype(np.float32)).to(dev)
+
+    gi1, gi = draw(GRU_ROWS, GRU_STEPS, 1200), tuple(draw(GRU_ROWS, GRU_STEPS, 400) for _ in range(3))
+    state = tuple(torch.tanh(draw(42, 400)) for _ in range(2))
+    with torch.inference_mode():
+        k1 = [cuda.gru_stack(net, gi1), *cuda.gru_stack(net, gi1[:42].contiguous(), state)[1]]
+        k5 = [gates.gru_gates_p(net, *gi, dtype=torch.bfloat16)]
+        k5 += gates.gru_gates_p(net, *(g[:42].contiguous() for g in gi), dtype=torch.bfloat16, state=state)[1]
+    torch.cuda.synchronize()
+
+    def digest(ts):
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+    return {"gru_stack": digest(k1), "gru_gates_p": digest(k5)}
+
+
+def check_unchanged(dev) -> dict:
+    """Phase 17 (c): kernel 1 (highest/highest) and kernel 5 (default/
+    default) give the parent tree's bits: against PARENT_DIGESTS, and where
+    CHIP_SMOKE_PARENT names a checkout, against its package loaded beside
+    this one and built from its own sources. It fails where it can compare
+    with neither (another nvcc release and no parent checkout). -> {"digests":
+    this build's, "against": what they were compared with}."""
+    import importlib.util
+
+    from formula_vad_tpu_torch import _build
+
+    got = unchanged_outputs("formula_vad_tpu_torch", dev)
+    want = dict(PARENT_DIGESTS)
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True, check=True)
+    release = nvcc.stdout.strip().splitlines()[-1]
+    if release != PARENT_DIGESTS_NVCC:
+        log(f"unchanged instantiations: PARENT_DIGESTS were recorded with nvcc '{PARENT_DIGESTS_NVCC}', this build "
+            f"uses '{release}'; they bind that release only")
+        want = {}
+    parent = os.environ.get("CHIP_SMOKE_PARENT")
+    if parent:
+        pkg = os.path.join(os.path.abspath(parent), "formula_vad_tpu_torch")
+        spec = importlib.util.spec_from_file_location("parent_port", os.path.join(pkg, "__init__.py"),
+                                                      submodule_search_locations=[pkg])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["parent_port"] = module
+        spec.loader.exec_module(module)
+        beside = unchanged_outputs("parent_port", dev)
+        log(f"unchanged instantiations: the parent's build at {parent} gives {beside}")
+        if want and beside != want:
+            raise AssertionError(f"the parent's digests {beside} differ from PARENT_DIGESTS {want}")
+        want = beside
+    against = f"the parent's build at {parent}" if parent else f"PARENT_DIGESTS (nvcc '{PARENT_DIGESTS_NVCC}')"
+    if not want:
+        raise AssertionError(f"the unchanged instantiations cannot be compared: nvcc '{release}' is not the release "
+                             "of PARENT_DIGESTS, and CHIP_SMOKE_PARENT names no parent checkout to build")
+    log(f"unchanged instantiations: this build {got}, {against} {want}")
+    if got != want:
+        raise AssertionError(f"kernels 1 and 5 no longer give the parent's bits: {got} against {want}")
+    return {"digests": got, "against": against}
+
+
+def f64_sums(a, b, stage: str | None = None, level: str | None = None):
+    """``precision.matmul``'s function at 'default', 'highest' and under
+    bf16 storage with the products summed in float64: another summation
+    order, the witness of phase 17 (f)."""
+    import torch
+
+    from formula_vad_tpu_torch.ops import precision
+
+    if a.dtype == b.dtype == torch.bfloat16:
+        return (a.double() @ b.double()).to(torch.bfloat16)
+    level = precision.matmul_precision(stage) if level is None else level
+    a, b = a.float(), b.float()
+    if level == "default":
+        a, b = precision.bf16_round(a), precision.bf16_round(b)
+    elif level != "highest":
+        raise ValueError(f"f64_sums takes 'default' and 'highest', not {level!r}")
+    return (a.double() @ b.double()).float()
+
+
+def lbr0_tiers(dev, counters) -> dict:
+    """Phase 17 (f): lbr = 0 weights, which no kernel takes, at 'default'
+    and under bf16 storage: the plain loop on the card, run twice a seed
+    (LBR0_SEEDS; the two bit for bit), against the CPU, with no launch. The
+    demo weights within the CPU tests' bars, max and mean. The biased
+    weights within the max bar; their mean is fault 3's rounding cascade (a
+    bf16 rounding step of h taken otherwise cascades through a row's
+    steps), so it is held to LBR0_WITNESS_X times the largest mean |d| that
+    the witness, the CPU's forward with every product summed in float64
+    (``f64_sums``), stands from the CPU on these seeds. -> the launches of
+    the card's runs (all 0)."""
+    import torch
+
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+    from formula_vad_tpu_torch.ops import precision
+
+    cpu = torch.device("cpu")
+    total = dict.fromkeys(counters, 0)
+    for label, make in (("demo", lambda d: load_denoiser("demo", device=d)), ("biased", biased_net)):
+        nets = {d: make(d) for d in (dev, cpu)}
+        for n in nets.values():
+            n.gru1.linear_before_reset = n.gru2.linear_before_reset = 0
+        for level, io, bars in (("default", "f32", (2e-3, 2e-5)), ("highest", "bf16", (4e-3, 2e-5))):
+            card, witness = [], []
+            for seed in LBR0_SEEDS:
+                feats = torch.from_numpy(
+                    np.random.default_rng(seed).normal(-3.0, 1.5, (42, GRU_STEPS, 161)).astype(np.float32))
+                matmul = precision.matmul
+                precision.set_matmul_precision(level)
+                precision.set_io_dtype(io)
+                try:
+                    reset_counts(counters)
+                    with torch.inference_mode():
+                        got = nets[dev](feats.to(dev), out_frames=50).cpu()
+                        again = nets[dev](feats.to(dev), out_frames=50).cpu()
+                        torch.cuda.synchronize()
+                        launched = launches_of(counters)
+                        want = nets[cpu](feats, out_frames=50)
+                        precision.matmul = f64_sums
+                        sums64 = nets[cpu](feats, out_frames=50)
+                finally:
+                    precision.matmul = matmul
+                    precision.set_matmul_precision("highest")
+                    precision.set_io_dtype("f32")
+                total = {k: total[k] + v for k, v in launched.items()}
+                d = (got.float() - want.float()).abs()
+                card.append(float(d.mean()))
+                witness.append(float((sums64.float() - want.float()).abs().mean()))
+                log(f"lbr = 0 {label} weights at {level}, {io} storage, seed {seed} (the plain loop on the card, "
+                    f"{got.dtype}, twice): gains vs the CPU's max |d| {float(d.max()):.3e}, mean {card[-1]:.3e}; "
+                    f"float64 sums vs the CPU's mean {witness[-1]:.3e}, vs the card's "
+                    f"{float((sums64.float() - got.float()).abs().mean()):.3e}; launches {launched}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"lbr = 0 {label} at {level}, {io}, seed {seed}: two card runs differ")
+                mean_ok = card[-1] <= bars[1] if label == "demo" else True
+                if not (float(d.max()) <= bars[0] and mean_ok and not any(launched.values())):
+                    raise AssertionError(f"lbr = 0 {label} at {level}, {io}, seed {seed}: max {float(d.max())}, "
+                                         f"mean {card[-1]}, launches {launched}")
+            if label == "biased":
+                limit = LBR0_WITNESS_X * max(witness)
+                log(f"lbr = 0 biased weights at {level}, {io} storage: card vs CPU mean |d| {max(card):.3e} at most "
+                    f"over seeds {LBR0_SEEDS} (limit {limit:.3e}: {LBR0_WITNESS_X} x the float64 sums' largest, "
+                    f"{max(witness):.3e})")
+                if not max(card) <= limit:
+                    raise AssertionError(f"lbr = 0 biased at {level}, {io}: card vs CPU mean {max(card)} > {limit}")
+    return total
+
+
+def phase_precision(runner, audio, float_results, tier_walls: dict, smi: str) -> tuple[list[dict], dict]:
+    """Phase 17: the remaining precision tiers. (a) kernel A, (b) kernel B
+    against their plain versions with their plans, times and bounds; (c)
+    the unchanged instantiations bit for bit with the parent's; (d) the
+    'high' slice through BatchRunner, kernel A once a run and kernel 1
+    never; (e) the int8 slice under bf16 storage, 167 kernel-3 launches a
+    run; (f) lbr = 0 weights at 'default' and under bf16 storage, card
+    against CPU, no launch; (g) the stage audit's entry point on the card.
+    -> (the kernels line's entries, {path: each kernel's launches})."""
+    import io as io_mod
+
+    import torch
+
+    from formula_vad_tpu_torch.ops import precision
+    from formula_vad_tpu_torch.tools import stage_precision_audit
+
+    t_phase = time.perf_counter()
+    net, dev = runner.net, runner.device
+    audio_sec = SLICE_STREAMS * SLICE_SECONDS
+    rows = [kernel_a_rows(net, dev, smi), kernel_b_rows(net, dev, smi)]
+    log(f"phase 17 (a, b) took {time.perf_counter() - t_phase:.1f} s")
+    digests = check_unchanged(dev)
+    counters = path_counters()
+    launches = {}
+
+    # (d) the high slice: its recurrence on kernel A, once a run.
+    precision.set_matmul_precision("high")
+    try:
+        results, walls, launches["high"] = timed_runs(runner, audio, counters)
+    finally:
+        precision.set_matmul_precision("highest")
+    if launches["high"] != dict(dict.fromkeys(counters, 0), gru_gates_3x=3, scan_windows=3):
+        raise AssertionError(f"the high slice launched {launches['high']} over 3 runs, not 1 kernel A and 1 FSM a run")
+    spans_within_a_window("the high slice (kernel A) against the float tier's", results, float_results)
+    wall = statistics.median(walls)
+    log(f"high slice {SLICE_STREAMS} x {SLICE_SECONDS:.0f} s: wall {wall * 1e3:.1f} ms (median of 3, runs "
+        f"{[round(w * 1e3, 1) for w in walls]}), real-time factor {audio_sec / wall:.1f}; phase 11 in this call: "
+        + ", ".join(f"{t} {w * 1e3:.1f} ms (RTF {audio_sec / w:.1f})" for t, w in tier_walls.items())
+        + f"; launches over 3 runs {launches['high']}; on {smi}")
+
+    # (e) int8 under bf16 storage.
+    precision.set_quant("int8")
+    precision.set_io_dtype("bf16")
+    try:
+        results, walls, launches["int8_bf16"] = timed_runs(runner, audio, counters)
+    finally:
+        precision.set_quant("off")
+        precision.set_io_dtype("f32")
+    if launches["int8_bf16"] != dict(dict.fromkeys(counters, 0), matmul_q8=3 * Q8_LAUNCHES, scan_windows=3):
+        raise AssertionError(f"the int8 + bf16 storage slice launched {launches['int8_bf16']} over 3 runs")
+    spans_within_a_window("the int8 slice under bf16 storage against the float tier's", results, float_results)
+    wall = statistics.median(walls)
+    log(f"int8 slice under bf16 storage: wall {wall * 1e3:.1f} ms (median of 3), real-time factor "
+        f"{audio_sec / wall:.1f}; {Q8_LAUNCHES} kernel-3 launches a run; on {smi}")
+
+    launches["lbr0"] = lbr0_tiers(dev, counters)
+
+    # (g) the stage audit's entry point, in this process so that its launches count.
+    reset_counts(counters)
+    out = io_mod.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = stage_precision_audit.main([])
+    torch.cuda.synchronize()
+    launches["audit"] = launches_of(counters)
+    for line in out.getvalue().splitlines():
+        log(f"  audit | {line}")
+    stages = [line for line in out.getvalue().splitlines() if line.startswith("stage ")]
+    if code != 0 or len(stages) != 7:
+        raise AssertionError(f"the stage audit exited {code} with {len(stages)} stage rows")
+    if launches["audit"]["gru_stack_mixed"] < 2 or launches["audit"]["gru_gates_3x"] < 1:
+        raise AssertionError(f"the audit did not run kernels A and B: {launches['audit']}")
+    log(f"stage audit (python -m formula_vad_tpu_torch.tools.stage_precision_audit, SPA defaults): launches "
+        f"{launches['audit']}")
+    rows[0]["launches"] = launches["high"]["gru_gates_3x"]
+    rows[1]["launches"] = launches["audit"]["gru_stack_mixed"]
+    rows[0]["digests_unchanged"] = digests["digests"]
+    rows[0]["digests_checked_against"] = digests["against"]
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
+
 def phase_train(dev, audio, smi: str) -> dict:
     """Phase 16: training. -> {"launches": each kernel's launches in the
     training runs ("train", all 0), the eval-only run ("eval") and the
@@ -3524,6 +4066,7 @@ def main() -> int:
         log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
         registry = phase_registry(net, dev, audio, float_results, float_wall, corpus, batched_dir, smi)
     train = phase_train(dev, audio, smi)
+    precision_rows, precision_launches = phase_precision(runner, audio, float_results, tiers["walls"], smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -3563,6 +4106,15 @@ def main() -> int:
         # eval-only run and the slice scored with the trained weights.
         for path, counts in train["launches"].items():
             k[f"launches_train{'' if path == 'train' else '_' + path}"] = counts[k["name"]]
+    # Phase 17's kernels: their launches on their own paths (the high slice
+    # for kernel A, the stage audit for kernel B), and on the earlier paths
+    # that run the high tier (phases 11 and 14).
+    for k in precision_rows:
+        k["launches_tiers"] = {t: tiers["slice"][t][k["name"]] for t in ("high", "bf16_io")}
+        k["launches_campaign"] = tiers["campaign"][k["name"]]
+        k["launches_lowlatency"] = low["launches"][k["name"]]
+        k["launches_phase17"] = {path: counts[k["name"]] for path, counts in precision_launches.items()}
+    kernels += precision_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

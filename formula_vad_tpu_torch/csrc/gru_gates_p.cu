@@ -1,5 +1,7 @@
 // The bf16 forms of the per-gate NSNet2 GRU-stack kernels 4, 5 and 6 for
-// Hopper (sm_90a): one body, three instantiations.
+// Hopper (sm_90a): one body, three instantiations. Below it, kernel A:
+// kernel 5's function with three bf16 passes (bf16_3x) for a class of
+// products, on a body of its own (gru_3x_kernel).
 //
 // Replaces the bf16 forms of three TPU kernels of
 // benchmarks/gru_kernel_exp.py, which compute one function with the
@@ -505,6 +507,300 @@ cudaError_t launch(const Launch& a) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A: the bf16_3x form of kernels 1 and 5 (the 'high' tier's
+// recurrence, and its mixes with 'default'), kernel 5's function with a
+// pass count for each product class: gru_h (h1 Wh1 and wp2's h2 rows) and
+// gru_i (wp2's h1 rows, h1 Wi2). One pass is a bf16 product, kernel 5's;
+// three are bf16_3x, as ops/precision.py::_bf16_3x defines it for one
+// product and the TPU runs Precision.HIGH: each operand split into hi =
+// bf16(x) and lo = bf16(x - hi), hi*lo and lo*hi summed in float32 in one
+// set of accumulators, hi*hi in another, the two added (small + large) at
+// the end of the phase; lo*lo is dropped. z2 and r2 sum both halves of
+// K = 800, so a half's pass count applies to its half. PI = PH = 1 is
+// kernel 5's instantiation above, unchanged; this body takes the mixes
+// with at least one three-pass class.
+//
+// Memory plan. Both halves of a 16-unit group's weights would take
+// 230,400 of a block's 232,448 bytes, so a CTA here owns U3 = 8 hidden
+// units (one n8 tile, 50 unit groups): their hi and lo weights are the
+// same 115,200 bytes a CTA as kernel 5's, in mma.sync B-fragment order
+// (each lane's 48 bytes of a K step: z, r, n hi, then z, r, n lo). A wave
+// holds sm_count / 50 row groups (2 on 132 SMs: 100 CTAs) of at most
+// MAX_TILES3 16-row tiles (TILE3_BYTES each: gi 1,536 and h1 512), so a
+// call of 1,680 rows is one launch (2 x 53 tiles) and the host splits more
+// than 1,824 rows into launches of one wave each. h crosses between CTAs
+// split: hi and lo in exchange buffers of their own (x1h, x1l, x2h, x2l,
+// A-fragment order as kernel 5's); the two CTAs of a K step each write
+// their half (8 bytes) of a lane's 16-byte fragment. A three-pass class
+// reads both, a one-pass class hi only. Everything else (the row group's
+// barrier, gi prefetched a step ahead, float32 h1 in shared slots, h2
+// read back from the float32 out, the carried state) is kernel 5's.
+// ---------------------------------------------------------------------------
+
+constexpr int U3 = 8;                  // hidden units per CTA: one n8 tile
+constexpr int UNIT_GROUPS3 = H / U3;   // 50
+constexpr int GI3_SLOTS = 6;           // gi pairs per lane and tile: 3 gates x 2 row halves
+constexpr int H3_SLOTS = 4;            // float h1 per lane and tile
+constexpr int TILE3_BYTES = (GI3_SLOTS * 8 + H3_SLOTS * 4) * 32;  // 2,048
+constexpr int MAX_TILES3 = 57;         // 16-row tiles a CTA holds beside its weights
+static_assert(W_BYTES + MAX_TILES3 * TILE3_BYTES <= SMEM_LIMIT, "kernel A's shared memory plan");
+
+struct Params3 {
+  const float* gz;  // [n_rows, n_steps, H] each
+  const float* gr;
+  const float* gn;
+  const uint4* w;   // [UNIT_GROUPS3][KB][32 lanes][3]: z, r, n hi then z, r, n lo, 2 words each
+  const float* b8;  // [8, H]
+  float* out;       // [n_rows, n_steps, H]
+  uint4* x1h;       // [2][tiles][KS][32]: bf16 hi of h1 in A-fragment order
+  uint4* x1l;       // the lo halves
+  uint4* x2h;       // the same for h2
+  uint4* x2l;
+  unsigned int* barrier;  // [row groups][BARRIER_STRIDE]: zero at launch, left zero at exit
+  const float* h1_0;      // [n_rows, H] each: the carried state h[-1], or null for h = 0
+  const float* h2_0;
+  float* h1_T;            // [n_rows, H]: the final h1 (with a state)
+  int n_rows, n_steps, tiles, tiles_per_group;
+};
+
+// One block of 25 K steps of a class at P passes: acc[0], acc[1] (z, r)
+// and acc[NG] (the n gate) += hi x hi; with P = 3, sm[..] += hi x lo +
+// lo x hi. hi, lo: this lane's uint4 of the block's first K step; w: its
+// slot of the block's weights. A fragments load five K steps ahead.
+template <int P, int NG>
+__device__ __forceinline__ void mma_block3(const uint4* hi, const uint4* lo, const uint4* w, float (&acc)[4][4],
+                                           float (&sm)[4][4]) {
+  constexpr int G = 5;
+  uint4 ah[2][G], al[2][G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    ah[0][j] = __ldcg(hi + j * 32);
+    if constexpr (P == 3) al[0][j] = __ldcg(lo + j * 32);
+  }
+#pragma unroll
+  for (int grp = 0; grp < KS / G; ++grp) {
+    const int cur = grp & 1;
+    if (grp + 1 < KS / G) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        ah[cur ^ 1][j] = __ldcg(hi + ((grp + 1) * G + j) * 32);
+        if constexpr (P == 3) al[cur ^ 1][j] = __ldcg(lo + ((grp + 1) * G + j) * 32);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const uint4* wj = w + (grp * G + j) * 32 * 3;
+      const uint4 b0 = wj[0], b1 = wj[1];
+      const uint4 a = ah[cur][j];
+      mma_bf16(acc[0], a, b0.x, b0.y);
+      mma_bf16(acc[1], a, b0.z, b0.w);
+      mma_bf16(acc[NG], a, b1.x, b1.y);
+      if constexpr (P == 3) {
+        const uint4 b2 = wj[2];
+        const uint4 l = al[cur][j];
+        mma_bf16(sm[0], a, b1.z, b1.w);
+        mma_bf16(sm[0], l, b0.x, b0.y);
+        mma_bf16(sm[1], a, b2.x, b2.y);
+        mma_bf16(sm[1], l, b0.z, b0.w);
+        mma_bf16(sm[NG], a, b2.z, b2.w);
+        mma_bf16(sm[NG], l, b1.x, b1.y);
+      }
+    }
+  }
+}
+
+// This CTA's half of a lane's fragment uint4 of one tile and K step: the
+// four h values v (rows g, g, g + 8, g + 8 of units col, col + 1) as bf16
+// hi and lo.
+__device__ __forceinline__ void store_half3(uint4* xh, uint4* xl, size_t at, int half, const float (&v)[4]) {
+  float l[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) l[q] = v[q] - __bfloat162float(__float2bfloat16_rn(v[q]));
+  reinterpret_cast<uint2*>(xh + at)[half] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  reinterpret_cast<uint2*>(xl + at)[half] = make_uint2(pack_bf16(l[0], l[1]), pack_bf16(l[2], l[3]));
+}
+
+// Step t's gi of one tile -> its slots, slot gate * 2 + half holding the
+// lane's units col, col + 1 of row g + 8 half; rows past n_rows zero.
+__device__ __forceinline__ void prefetch_gi3(const Params3& p, float2* slots, int tile, int t, int col, int g) {
+  const float* gi[3] = {p.gz, p.gr, p.gn};
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = tile * MMA_ROWS + g + 8 * half;
+      const bool valid = row < p.n_rows;
+      const float* src = gi[gate] + (valid ? ((size_t)row * p.n_steps + t) * H + col : 0);
+      cp_async_ca<8>(slots + (gate * 2 + half) * 32, src, valid);
+    }
+}
+
+template <int PI, int PH, bool CARRIED>
+__global__ void __launch_bounds__(THREADS, 1) gru_3x_kernel(Params3 p) {
+  extern __shared__ uint4 smem[];
+  uint4* ws = smem;                                                          // [KB][32][3]
+  float2* gis = reinterpret_cast<float2*>(smem + W_U4);                      // [tiles_per_group][GI3_SLOTS][32]
+  float* h1s = reinterpret_cast<float*>(gis + p.tiles_per_group * GI3_SLOTS * 32);  // [..][H3_SLOTS][32]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int ug = blockIdx.x % UNIT_GROUPS3, rg = blockIdx.x / UNIT_GROUPS3;
+  const int tile0 = rg * p.tiles_per_group;
+  const int n_tiles = min(p.tiles_per_group, p.tiles - tile0);  // >= 1: the launcher checks the plan
+  const int col = ug * U3 + (lane & 3) * 2;  // the lane's two units
+  const size_t own = (size_t)(ug >> 1) * 32 + lane;  // the lane's fragment uint4 of a tile's K step ug / 2
+  const int half = ug & 1;                           // ... of which this CTA writes words (x, y) or (z, w)
+  const size_t half_u4 = (size_t)p.tiles * KS * 32;  // one ping-pong half
+  const size_t frag_u4 = (size_t)KS * 32;            // one tile's K steps
+
+  const uint4* wsrc = p.w + (size_t)ug * W_U4;
+  for (int i = threadIdx.x; i < W_U4; i += THREADS) cp_async16(ws + i, wsrc + i);
+  for (int i = warp; i < n_tiles; i += WARPS) {
+    float* hs = h1s + i * H3_SLOTS * 32 + lane;
+    if constexpr (CARRIED) {  // h[-1]: the shared slots, and step 0's fragments (ping-pong half 1)
+      const int tile = tile0 + i;
+      float v1[4], v2[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = tile * MMA_ROWS + g + 8 * (q >> 1);
+        const bool valid = row < p.n_rows;
+        v1[q] = valid ? p.h1_0[(size_t)row * H + col + (q & 1)] : 0.0f;
+        v2[q] = valid ? p.h2_0[(size_t)row * H + col + (q & 1)] : 0.0f;
+        hs[q * 32] = v1[q];
+      }
+      store_half3(p.x1h + half_u4, p.x1l + half_u4, tile * frag_u4 + own, half, v1);
+      store_half3(p.x2h + half_u4, p.x2l + half_u4, tile * frag_u4 + own, half, v2);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hs[q * 32] = 0.0f;
+    }
+    prefetch_gi3(p, gis + i * GI3_SLOTS * 32 + lane, tile0 + i, 0, col, g);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const uint4* w1 = ws + lane * 3;                   // wp1
+  const uint4* w2a = ws + (KS * 32 + lane) * 3;      // wp2, h1 rows
+  const uint4* w2b = ws + (2 * KS * 32 + lane) * 3;  // wp2, h2 rows
+  auto bias = [&](int k) { return __ldg(reinterpret_cast<const float2*>(p.b8 + k * H + col)); };
+
+  unsigned int target = 0;
+  if constexpr (CARRIED) {  // every unit group's fragments of h[-1] are written
+    target += UNIT_GROUPS3;
+    grid_barrier(p.barrier + rg * BARRIER_STRIDE, target);
+  }
+  for (int t = 0; t < p.n_steps; ++t) {
+    const bool has_prev = t > 0 || CARRIED;  // h[t-1] is not h = 0
+    const size_t prev = ((t + 1) & 1) * half_u4 + lane, cur = (t & 1) * half_u4;
+
+    // ---- phase 1: h1[t] = gates(gi[t], h1[t-1] wp1), class gru_h.
+    for (int i = warp; i < n_tiles; i += WARPS) {
+      const int tile = tile0 + i;
+      float acc[4][4] = {}, sm[4][4] = {};
+      if (has_prev) mma_block3<PH, 2>(p.x1h + prev + tile * frag_u4, p.x1l + prev + tile * frag_u4, w1, acc, sm);
+      if (i == warp) cp_async_wait_all();  // this thread's gi copies of step t
+      const float2* gs = gis + i * GI3_SLOTS * 32 + lane;
+      float* hs = h1s + i * H3_SLOTS * 32 + lane;
+      const float2 bn = bias(0);
+      float hn[4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float2 xz = gs[hf * 32], xr = gs[(2 + hf) * 32], xn = gs[(4 + hf) * 32];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = hf * 2 + e;
+          const float z = sigmoid(get(xz, e) + (sm[0][q] + acc[0][q]));
+          const float r = sigmoid(get(xr, e) + (sm[1][q] + acc[1][q]));
+          const float n = tanhf(get(xn, e) + r * ((sm[2][q] + acc[2][q]) + get(bn, e)));
+          const float h = (1.0f - z) * n + z * hs[q * 32];
+          hs[q * 32] = h;
+          hn[q] = h;
+        }
+      }
+      store_half3(p.x1h + cur, p.x1l + cur, tile * frag_u4 + own, half, hn);
+    }
+    target += UNIT_GROUPS3;
+    grid_barrier(p.barrier + rg * BARRIER_STRIDE, target);
+
+    // ---- phase 2: h2[t] = gates([h1[t] | h2[t-1]] wp2): the h1 half class
+    // gru_i, the h2 half gru_h. Each tile's gi of step t+1 lands meanwhile.
+    for (int i = warp; i < n_tiles; i += WARPS) {
+      const int tile = tile0 + i;
+      if (t + 1 < p.n_steps) prefetch_gi3(p, gis + i * GI3_SLOTS * 32 + lane, tile, t + 1, col, g);
+      cp_async_commit();
+      // f32 h2[t-1]: out (this thread wrote it), or at t = 0 the carried state.
+      float2 hold[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = tile * MMA_ROWS + g + 8 * hf;
+        if (!CARRIED || t > 0)
+          hold[hf] = t > 0 && row < p.n_rows
+                         ? __ldcg(reinterpret_cast<const float2*>(p.out + ((size_t)row * p.n_steps + t - 1) * H + col))
+                         : make_float2(0.0f, 0.0f);
+        else
+          hold[hf] = row < p.n_rows ? *reinterpret_cast<const float2*>(p.h2_0 + (size_t)row * H + col)
+                                    : make_float2(0.0f, 0.0f);
+      }
+      float acc[4][4] = {}, sm[4][4] = {};
+      mma_block3<PI, 2>(p.x1h + cur + lane + tile * frag_u4, p.x1l + cur + lane + tile * frag_u4, w2a, acc, sm);
+      if (has_prev) mma_block3<PH, 3>(p.x2h + prev + tile * frag_u4, p.x2l + prev + tile * frag_u4, w2b, acc, sm);
+      const float2 bz = bias(1), br = bias(2), bi = bias(3), bh = bias(4);
+      float hn[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = q & 1;
+        const float z = sigmoid((sm[0][q] + acc[0][q]) + get(bz, e));
+        const float r = sigmoid((sm[1][q] + acc[1][q]) + get(br, e));
+        const float n = tanhf(((sm[2][q] + acc[2][q]) + get(bi, e)) + r * ((sm[3][q] + acc[3][q]) + get(bh, e)));
+        hn[q] = (1.0f - z) * n + z * get(hold[q >> 1], e);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = tile * MMA_ROWS + g + 8 * hf;
+        if (row < p.n_rows) store_pair(p.out + ((size_t)row * p.n_steps + t) * H + col, hn[hf * 2], hn[hf * 2 + 1]);
+      }
+      store_half3(p.x2h + cur, p.x2l + cur, tile * frag_u4 + own, half, hn);
+    }
+  }
+  if constexpr (CARRIED) {  // the final h1 from the thread's slots; h2 is out's last step
+    for (int i = warp; i < n_tiles; i += WARPS)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = (tile0 + i) * MMA_ROWS + g + 8 * (q >> 1);
+        if (row < p.n_rows) p.h1_T[(size_t)row * H + col + (q & 1)] = h1s[i * H3_SLOTS * 32 + q * 32 + lane];
+      }
+  }
+  // The last of the row group's CTAs to check out leaves its counters at 0.
+  if (threadIdx.x == 0) {
+    unsigned int* counters = p.barrier + rg * BARRIER_STRIDE;
+    if (atomicAdd(counters + 1, 1u) == UNIT_GROUPS3 - 1) {
+      atomicExch(counters, 0u);
+      atomicExch(counters + 1, 0u);
+    }
+  }
+}
+
+template <int PI, int PH>
+cudaError_t launch3(Params3 p, int row_groups, cudaStream_t stream) {
+  void (*kernel)(Params3) = p.h1_0 ? gru_3x_kernel<PI, PH, true> : gru_3x_kernel<PI, PH, false>;
+  const int smem = W_BYTES + p.tiles_per_group * TILE3_BYTES;
+  const int grid = UNIT_GROUPS3 * row_groups;
+  int dev = 0, coop = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  if (blocks < 1 || grid > blocks * sms) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -559,6 +855,46 @@ int fvad_gru_gates_p(int kind, int w_bf16, int gi_bf16, int out_bf16, const void
   else
     err = out_bf16 ? launch<bf16, bf16, true>(a) : launch<bf16, float, true>(a);
   return (int)err;
+}
+
+// Dynamic shared memory of a kernel-A launch whose CTAs hold tiles_per_group tiles.
+int fvad_gru_gates_3x_smem_bytes(int tiles_per_group) { return W_BYTES + tiles_per_group * TILE3_BYTES; }
+
+// Kernel A: kernel 5's function with passes_i bf16 passes for the gru_i
+// products (wp2's h1 rows) and passes_h for the gru_h ones (wp1, wp2's h2
+// rows), each 1 or 3, not both 1 (that is kernel 5: fvad_gru_gates_p). gz,
+// gr, gn [n_rows, n_steps, H] float32; w the per-unit-group packing
+// [50][75][32][12] of the hi and lo halves (models/nsnet2_gates_cuda.py::
+// pack_unit_groups with 8 units); b8 [8, H] float32; out [n_rows, n_steps,
+// H] float32; x1h, x1l, x2h, x2l each [2][tiles][25][32] uint4 of scratch;
+// barrier: row_groups x 32 unsigned ints, zero at launch and left zero;
+// h1_0, h2_0 [n_rows, H] float32 the carried state or null, and with a
+// state h1_T [n_rows, H] for the final h1 (the final h2 is out's last
+// step). All contiguous on the current device, 16-byte aligned. The plan
+// (tiles = ceil(n_rows / 16), row_groups x tiles_per_group covering them,
+// grid 50 x row_groups) comes from the host. Pass counts other than the
+// three mixes, a plan that does not cover the tiles exactly, a CTA of more
+// than MAX_TILES3 tiles, a refused shared-memory size, or a grid the
+// device cannot hold at once are refused before any launch. Launches
+// cooperatively on `stream`; returns the cudaError_t.
+int fvad_gru_gates_3x(int passes_i, int passes_h, const float* gz, const float* gr, const float* gn, const void* w,
+                      const float* b8, float* out, void* x1h, void* x1l, void* x2h, void* x2l, unsigned int* barrier,
+                      const float* h1_0, const float* h2_0, float* h1_T, int n_rows, int n_steps, int tiles,
+                      int row_groups, int tiles_per_group, void* stream) {
+  const bool carried = h1_0 != nullptr;
+  if ((h2_0 != nullptr) != carried || (h1_T != nullptr) != carried || n_rows < 1 || n_steps < 1 ||
+      tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 || tiles_per_group > MAX_TILES3 ||
+      row_groups < 1 || (long long)row_groups * tiles_per_group < tiles ||
+      (long long)(row_groups - 1) * tiles_per_group >= tiles)
+    return (int)cudaErrorInvalidValue;
+  const Params3 p{gz, gr, gn, static_cast<const uint4*>(w), b8, out, static_cast<uint4*>(x1h),
+                  static_cast<uint4*>(x1l), static_cast<uint4*>(x2h), static_cast<uint4*>(x2l), barrier, h1_0,
+                  h2_0, h1_T, n_rows, n_steps, tiles, tiles_per_group};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (passes_i == 3 && passes_h == 3) return (int)launch3<3, 3>(p, row_groups, st);
+  if (passes_i == 1 && passes_h == 3) return (int)launch3<1, 3>(p, row_groups, st);
+  if (passes_i == 3 && passes_h == 1) return (int)launch3<3, 1>(p, row_groups, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -55,6 +55,23 @@
 // float32 in a ping-pong scratch like h1's (phase 2 of step t reads h2[t-1]
 // and writes the other half; the barrier of step t+1 separates those reads
 // from the next write) and is rounded once on its way to out.
+//
+// Per-class levels (kernel 1's mixes with 'highest' under a stage override,
+// float32 out only): the recurrence's products fall in two classes, gru_h
+// (h1 Wh1, h2 Wh2) and gru_i (h1 Wi2), each at a level LI, LH of its own,
+// template parameters, so the highest/highest instantiation is the code
+// above. HIGHEST: float32 weights, one FMA a multiply-add. DEFAULT: the
+// weights rounded to bf16 on the host (held in float32), h rounded to
+// bf16 where it is read from shared memory, one FMA: a product of two bf16
+// values is exact in float32, so this is ops/precision.py's 'default'.
+// HIGH (bf16_3x): each packed weight word holds bf16(w) in its high half
+// and bf16(w - bf16(w)) in its low half (the host splits the float32
+// values), h is split the same way where it is read, and each
+// multiply-add is three FMAs: hi*lo and lo*hi into a second set of
+// accumulators, hi*hi into the first; the two are summed at the end of
+// the phase, small + large, as _bf16_3x sums its three products. The
+// plain version is models/nsnet2_cuda.py::gru_stack_reference at the same
+// levels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +104,9 @@ constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * sizeof(float);  // 173,568
 static_assert(THREADS % (KC / 4) == 0 && (KC * WCOLS / 4) % THREADS == 0 && KC % 8 == 0, "staging layout");
 
 using bf16 = __nv_bfloat16;
+
+// A product class's level (template parameters LI, LH).
+constexpr int HIGHEST = 0, HIGH = 1, DEFAULT = 2;
 
 template <typename OUT>
 struct Params {
@@ -126,6 +146,7 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 __device__ __forceinline__ float get(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
@@ -151,8 +172,9 @@ __device__ __forceinline__ void stage_chunk(float* st, const Operand& op, int c,
 // acc_g[i][u] += sum_k hs[ty + TR*i][k] * ws[k][g][tx*UM + u] over one
 // chunk, for the first NR of the thread's RM rows. The h and weight
 // fragments of step k+1 load from shared memory while step k's FMAs run
-// (two register sets each).
-template <int NR>
+// (two register sets each). ROUND_H: h rounded to bf16 as it is read (a
+// DEFAULT product; its weights are rounded on the host).
+template <int NR, bool ROUND_H = false>
 __device__ __forceinline__ void mac_chunk(const float* st, int ty, int tx, float (&az)[RM][UM],
                                           float (&ar)[RM][UM], float (&an)[RM][UM]) {
   const float* hs = st + ty * HP;
@@ -179,7 +201,7 @@ __device__ __forceinline__ void mac_chunk(const float* st, int ty, int tx, float
       }
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
-        const float h = get(hv[(j >> 2) & 1][i], j & 3);
+        const float h = ROUND_H ? bf16r(get(hv[(j >> 2) & 1][i], j & 3)) : get(hv[(j >> 2) & 1][i], j & 3);
 #pragma unroll
         for (int u = 0; u < UM; ++u) {
           az[i][u] = fmaf(h, get(w[j & 1][0], u), az[i][u]);
@@ -191,8 +213,66 @@ __device__ __forceinline__ void mac_chunk(const float* st, int ty, int tx, float
   }
 }
 
+// mac_chunk's sums for a HIGH product: each weight word holds bf16 hi and
+// lo halves (high 16 bits, low 16 bits), h is split where it is read, and
+// a multiply-add is hi*lo and lo*hi into s_g, hi*hi into acc_g.
+template <int NR>
+__device__ __forceinline__ void mac_chunk_3x(const float* st, int ty, int tx, float (&az)[RM][UM],
+                                             float (&ar)[RM][UM], float (&an)[RM][UM], float (&sz)[RM][UM],
+                                             float (&sr)[RM][UM], float (&sn)[RM][UM]) {
+  const float* hs = st + ty * HP;
+  const uint4* ws = reinterpret_cast<const uint4*>(st + ROW_TILE_MAX * HP + tx * UM);
+#pragma unroll 1
+  for (int k0 = 0; k0 < KC; k0 += 4) {
+    float4 hv[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) hv[i] = *reinterpret_cast<const float4*>(hs + i * TR * HP + k0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float wh[3][UM], wl[3][UM];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const uint4 w = ws[((k0 + j) * WCOLS + g * UNIT_TILE) / 4];
+        const unsigned words[UM] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int u = 0; u < UM; ++u) {
+          wh[g][u] = __uint_as_float(words[u] & 0xffff0000u);
+          wl[g][u] = __uint_as_float(words[u] << 16);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float h = get(hv[i], j);
+        const float hh = bf16r(h), hl = bf16r(h - hh);
+#pragma unroll
+        for (int u = 0; u < UM; ++u) {
+          sz[i][u] = fmaf(hl, wh[0][u], fmaf(hh, wl[0][u], sz[i][u]));
+          sr[i][u] = fmaf(hl, wh[1][u], fmaf(hh, wl[1][u], sr[i][u]));
+          sn[i][u] = fmaf(hl, wh[2][u], fmaf(hh, wl[2][u], sn[i][u]));
+          az[i][u] = fmaf(hh, wh[0][u], az[i][u]);
+          ar[i][u] = fmaf(hh, wh[1][u], ar[i][u]);
+          an[i][u] = fmaf(hh, wh[2][u], an[i][u]);
+        }
+      }
+    }
+  }
+}
+
+// One chunk's sums at a product class's level.
+template <int NR, int LEVEL>
+__device__ __forceinline__ void mac_level(const float* st, int ty, int tx, float (&az)[RM][UM], float (&ar)[RM][UM],
+                                          float (&an)[RM][UM], float (&sz)[RM][UM], float (&sr)[RM][UM],
+                                          float (&sn)[RM][UM]) {
+  if constexpr (LEVEL == HIGHEST)
+    mac_chunk<NR, false>(st, ty, tx, az, ar, an);
+  else if constexpr (LEVEL == DEFAULT)
+    mac_chunk<NR, true>(st, ty, tx, az, ar, an);
+  else
+    mac_chunk_3x<NR>(st, ty, tx, az, ar, an, sz, sr, sn);
+}
+
 // One phase of one tile: LAYER2 = false computes h1[t], true computes h2[t].
-template <bool LAYER2, typename OUT>
+template <bool LAYER2, typename OUT, int LI, int LH>
 __device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
   constexpr bool H2_IN_OUT = std::is_same<OUT, float>::value;  // else in the h2 scratch
   const int tx = threadIdx.x % TU, ty = threadIdx.x / TU;
@@ -244,15 +324,30 @@ __device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
   for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int u = 0; u < UM; ++u) az[i][u] = ar[i][u] = an[i][u] = in[i][u] = 0.0f;
+  // A HIGH class's hi*lo + lo*hi sums (never touched otherwise).
+  constexpr bool SPLIT = LI == HIGH || LH == HIGH;
+  float sz[RM][UM], sr[RM][UM], sn[RM][UM];
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int u = 0; u < UM; ++u) sz[i][u] = sr[i][u] = sn[i][u] = 0.0f;
+  }
   // Layer 2 sums the n gate of h1 Wi2 in `an`, moves it to `in` and then
   // sums that of h2 Wh2 in `an`: one accumulator set serves both products.
+  // A HIGH gru_i class's small sums of n join it there.
   auto swap_n = [&]() {
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int u = 0; u < UM; ++u) {
-        in[i][u] = an[i][u];
+        if constexpr (LI == HIGH) {
+          in[i][u] = sn[i][u] + an[i][u];
+        } else {
+          in[i][u] = an[i][u];
+        }
         an[i][u] = 0.0f;
+        if constexpr (SPLIT) sn[i][u] = 0.0f;
       }
   };
 
@@ -271,15 +366,37 @@ __device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
     if (c == swap_at) swap_n();
     if (active) {
       const float* st = smem + (c % STAGES) * STAGE_FLOATS;
-      if (full)
-        mac_chunk<RM>(st, ty, tx, az, ar, an);
-      else
-        mac_chunk<RM - 1>(st, ty, tx, az, ar, an);
+      if constexpr (LI == HIGHEST && LH == HIGHEST) {
+        if (full)
+          mac_chunk<RM>(st, ty, tx, az, ar, an);
+        else
+          mac_chunk<RM - 1>(st, ty, tx, az, ar, an);
+      } else if (LAYER2 && c < CHUNKS) {  // h1 Wi2: class gru_i
+        if (full)
+          mac_level<RM, LI>(st, ty, tx, az, ar, an, sz, sr, sn);
+        else
+          mac_level<RM - 1, LI>(st, ty, tx, az, ar, an, sz, sr, sn);
+      } else {  // h1 Wh1, h2 Wh2: class gru_h
+        if (full)
+          mac_level<RM, LH>(st, ty, tx, az, ar, an, sz, sr, sn);
+        else
+          mac_level<RM - 1, LH>(st, ty, tx, az, ar, an, sz, sr, sn);
+      }
     }
   }
   if (total == swap_at) swap_n();
   cp_async_wait<0>();
   if (!active) return;
+  if constexpr (SPLIT) {  // small + large, as _bf16_3x sums them
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int u = 0; u < UM; ++u) {
+        az[i][u] = sz[i][u] + az[i][u];
+        ar[i][u] = sr[i][u] + ar[i][u];
+        an[i][u] = sn[i][u] + an[i][u];
+      }
+  }
 
   // Gate math: all global loads of the thread's rows first, so that their
   // latencies overlap, then the gates and the stores.
@@ -341,31 +458,31 @@ __device__ void tile_phase(const Params<OUT>& p, float* smem, int t, int tile) {
   }
 }
 
-template <typename OUT>
+template <typename OUT, int LI = HIGHEST, int LH = HIGHEST>
 __global__ void __launch_bounds__(THREADS, 1) gru_stack_kernel(Params<OUT> p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   unsigned int target = 0;
   for (int t = 0; t < p.n_steps; ++t) {
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) tile_phase<false>(p, smem, t, tile);
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) tile_phase<false, OUT, LI, LH>(p, smem, t, tile);
     target += gridDim.x;
     grid_barrier(p.barrier, target);
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) tile_phase<true>(p, smem, t, tile);
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) tile_phase<true, OUT, LI, LH>(p, smem, t, tile);
   }
 }
 
-template <typename OUT>
+template <typename OUT, int LI = HIGHEST, int LH = HIGHEST>
 cudaError_t blocks_per_sm(int* blocks) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(gru_stack_kernel<OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  const cudaError_t err = cudaFuncSetAttribute(gru_stack_kernel<OUT, LI, LH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gru_stack_kernel<OUT>, THREADS, SMEM_BYTES);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gru_stack_kernel<OUT, LI, LH>, THREADS, SMEM_BYTES);
 }
 
 // Refuses a plan that does not cover the rows exactly, or a grid the
 // device cannot hold at once (the grid barrier would deadlock), before any
 // launch; then launches cooperatively.
-template <typename OUT>
+template <typename OUT, int LI = HIGHEST, int LH = HIGHEST>
 cudaError_t launch(Params<OUT> p, int row_groups, int grid, cudaStream_t stream) {
   if (p.n_rows < 1 || p.n_steps < 1 || p.row_tile < 1 || p.row_tile > ROW_TILE_MAX || p.unit_groups != UNIT_GROUPS ||
       row_groups < 1 || (long long)row_groups * p.row_tile < p.n_rows ||
@@ -378,13 +495,13 @@ cudaError_t launch(Params<OUT> p, int row_groups, int grid, cudaStream_t stream)
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = blocks_per_sm<OUT>(&blocks);
+  if (err == cudaSuccess) err = blocks_per_sm<OUT, LI, LH>(&blocks);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (grid > blocks * sms) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)gru_stack_kernel<OUT>, dim3(grid), dim3(THREADS), args, SMEM_BYTES,
-                                    stream);
+  err = cudaLaunchCooperativeKernel((const void*)gru_stack_kernel<OUT, LI, LH>, dim3(grid), dim3(THREADS), args,
+                                    SMEM_BYTES, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -403,34 +520,43 @@ int fvad_gru_stack_blocks_per_sm(int* blocks) { return (int)blocks_per_sm<float>
 // gi_stride floats after the last (kernel 1: gi1, gi1 + H, gi1 + 2H, stride
 // 3H; the per-gate forms: three [n_rows, n_steps, H] arrays, stride H); wh1,
 // wi2, wh2 packed by unit group [UNIT_GROUPS, H, 3 * UNIT_TILE]
-// (models/nsnet2_cuda.py::pack); bh1, bi2, bh2 [3H]; out [n_rows, n_steps,
+// (models/nsnet2_cuda.py::pack; at a class's level, pack_at: wh1 and wh2
+// at level_h, wi2 at level_i); bh1, bi2, bh2 [3H]; out [n_rows, n_steps,
 // H], bf16 when out_bf16, else float32; h1 scratch [2, n_rows, H]; h2
 // scratch [2, n_rows, H] when out_bf16, else unused; barrier: one zeroed
 // unsigned int; h1_0, h2_0 [n_rows, H] the carried state, or both null for
-// h = 0. The final h1 ends in h1 scratch slot (n_steps - 1) & 1, the final
+// h = 0. level_i, level_h: the product classes' levels (0 highest, 1
+// high, 2 default); with float32 out one of them must be 0, with a bf16 out
+// both. The final h1 ends in h1 scratch slot (n_steps - 1) & 1, the final
 // h2 in out's last step or, with a bf16 out, in h2 scratch slot
-// (n_steps - 1) & 1. All float32 but a bf16 out, contiguous and 16-byte
-// aligned, on the current device. The plan (row_tile, row_groups, unit_groups, grid)
-// comes from the host. A plan that does not cover the rows exactly, or a
-// grid the device cannot hold at once (the grid barrier would deadlock), is
-// refused before any launch. Launches cooperatively on `stream`; returns
-// the launch's cudaError_t.
+// (n_steps - 1) & 1. All float32 but a bf16 out and the weight words of a
+// HIGH class, contiguous and 16-byte aligned, on the current device. The
+// plan (row_tile, row_groups, unit_groups, grid) comes from the host. A
+// plan that does not cover the rows exactly, or a grid the device cannot
+// hold at once (the grid barrier would deadlock), is refused before any
+// launch. Launches cooperatively on `stream`; returns the launch's
+// cudaError_t.
 int fvad_gru_stack(const float* gi_z, const float* gi_r, const float* gi_n, const float* wh1, const float* bh1,
                    const float* wi2, const float* bi2, const float* wh2, const float* bh2, void* out, float* h1,
                    float* h2, unsigned int* barrier, const float* h1_0, const float* h2_0, int gi_stride,
-                   int out_bf16, int n_rows, int n_steps, int row_tile, int row_groups, int unit_groups, int grid,
-                   void* stream) {
+                   int out_bf16, int level_i, int level_h, int n_rows, int n_steps, int row_tile, int row_groups,
+                   int unit_groups, int grid, void* stream) {
   if (gi_stride < H || gi_stride % 4 || (h1_0 == nullptr) != (h2_0 == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (out_bf16) {
-    if (!h2) return (int)cudaErrorInvalidValue;
+    if (!h2 || level_i != HIGHEST || level_h != HIGHEST) return (int)cudaErrorInvalidValue;
     return (int)launch(Params<bf16>{gi_z, gi_r, gi_n, wh1, wi2, wh2, bh1, bi2, bh2, static_cast<bf16*>(out), h1, h2,
                                     barrier, h1_0, h2_0, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
                        row_groups, grid, st);
   }
-  return (int)launch(Params<float>{gi_z, gi_r, gi_n, wh1, wi2, wh2, bh1, bi2, bh2, static_cast<float*>(out), h1,
-                                   nullptr, barrier, h1_0, h2_0, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0},
-                     row_groups, grid, st);
+  const Params<float> p{gi_z, gi_r, gi_n, wh1, wi2, wh2, bh1, bi2, bh2, static_cast<float*>(out), h1,
+                        nullptr, barrier, h1_0, h2_0, gi_stride, n_rows, n_steps, row_tile, unit_groups, 0};
+  if (level_i == HIGHEST && level_h == HIGHEST) return (int)launch(p, row_groups, grid, st);
+  if (level_h == HIGHEST && level_i == HIGH) return (int)launch<float, HIGH, HIGHEST>(p, row_groups, grid, st);
+  if (level_h == HIGHEST && level_i == DEFAULT) return (int)launch<float, DEFAULT, HIGHEST>(p, row_groups, grid, st);
+  if (level_i == HIGHEST && level_h == HIGH) return (int)launch<float, HIGHEST, HIGH>(p, row_groups, grid, st);
+  if (level_i == HIGHEST && level_h == DEFAULT) return (int)launch<float, HIGHEST, DEFAULT>(p, row_groups, grid, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -15,24 +15,25 @@ Weights keep the JAX package's layout ([in, out] kernels, ONNX z|r|n gate
 order), so every product is ``x @ w + b`` as there, at the precision of its
 stage (``ops/precision.py``: fc_in, gru_i, gru_h, ff). The input Dense, the
 layer-1 input projection and the FF head are products over the whole
-sequence, as the JAX package computes them outside its kernel too. The
-recurrence of both layers runs in one kernel wrapper (a CUDA kernel for
+sequence, as the JAX package computes them outside its kernel too. The recurrence of both layers runs in one kernel wrapper (a CUDA kernel for
 CUDA tensors, its plain PyTorch version for CPU tensors), chosen by the
-tier (gru_i and gru_h at one level):
+levels of its two product classes (``precision.gru_levels``: ``gru_i``,
+h1 Wi2; ``gru_h``, h1 Wh1 and h2 Wh2) and the storage dtype:
 
-* 'highest': ``nsnet2_cuda.gru_stack`` (kernel 1), float32.
-* 'high' (bf16_3x products): kernel 1 too, in float32. A deliberate
-  deviation: the JAX package's TPU runs the in-scan products as bf16_3x,
-  but a bf16_3x recurrence on the tensor cores would need kernel 5's body
-  to hold both bf16 halves of its weights, 2 x 115,200 bytes of shared
-  memory a CTA, which leaves 2,048 of the block's 232,448 bytes: less than
-  one row tile's gi and h slots. A float32 recurrence is at least as
-  exact, and XLA:CPU computes 'high' in float32 too.
-* 'default' (the bf16 tier): ``nsnet2_gates_cuda.gru_gates_p`` (kernel 5)
-  in bf16, over per-gate input projections with the biases folded, as the
-  JAX package's split3 scan rounds there.
+* both 'highest': ``nsnet2_cuda.gru_stack`` (kernel 1), float32.
+* one 'highest', the other 'high' or 'default' (a stage override):
+  ``nsnet2_cuda.gru_stack_mixed``, kernel 1's float32 body with each
+  class's products at its level.
+* both 'default' (the bf16 tier): ``nsnet2_gates_cuda.gru_gates_p``
+  (kernel 5) in bf16, over per-gate input projections with the biases
+  folded, as the JAX package's split3 scan rounds there.
+* both in {'default', 'high'}, one at least 'high' (the bf16_3x tier and
+  its mixes): ``nsnet2_gates_cuda.gru_gates_3x`` (kernel A), kernel 5's
+  function on the tensor cores with one bf16 pass for a 'default' class
+  and three (bf16_3x) for a 'high' one, as the JAX package's TPU runs
+  ``Precision.HIGH`` in its scan.
 * bf16 activation storage (``precision.set_io_dtype("bf16")``, at any
-  level: every product then multiplies bf16 operands exactly): features,
+  levels: every product then multiplies bf16 operands exactly): features,
   weights and the fc_in output in bf16, as the JAX package casts them; the
   per-gate projections; the recurrence through
   ``nsnet2_gates_cuda.gru_gates_f`` (kernel 6) in bf16 with a bf16 out;
@@ -46,18 +47,16 @@ from h = 0. ``forward_streaming`` (the low-latency mode's model step,
 ``pipeline/lowlatency.py``) continues a carried state ``(h1, h2)`` through
 the same routes, each recurrence wrapper taking the state; the JAX
 package's TPU-only options of ``apply_streaming`` (``rider``,
-``defer_head``, the wavefront schedule) are not ported. Under the int8 tier (``ops/precision.set_quant("int8")`` or
-``FVAD_QUANT=int8``) a network whose GRUs both have linear_before_reset = 1
-runs ``nsnet2_q8.forward_q8`` instead, as the reference's
-``apply_streaming`` routes to ``apply_streaming_q8``; lbr = 0 weights keep
-the float path. There, on any device, their recurrence runs the plain
-per-step loop ``nsnet2_cuda.gru_stack_reference``: the kernel takes lbr = 1
-only, and the JAX package too scans lbr = 0 weights outside its kernel.
-
-Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-queue rather than run under another tier's name: gru_i and gru_h at
-different levels, the bf16 tiers of lbr = 0 weights, and the int8 tier with
-bf16 storage.
+``defer_head``, the wavefront schedule) are not ported. Under the int8
+tier (``ops/precision.set_quant("int8")`` or ``FVAD_QUANT=int8``) a
+network whose GRUs both have linear_before_reset = 1 runs
+``nsnet2_q8.forward_q8`` instead, at either storage dtype, as the
+reference's ``apply_streaming`` routes to ``apply_streaming_q8``; lbr = 0
+weights keep the float path. There, on any device, their recurrence runs
+the plain per-step loop ``nsnet2_cuda.gru_stack_reference`` at the
+classes' levels and, under bf16 storage, in bf16: no TPU kernel computes
+lbr = 0 (the JAX package's Pallas kernel refuses it, and its scan runs
+outside any kernel).
 """
 
 from __future__ import annotations
@@ -149,25 +148,10 @@ class NSNet2(nn.Module):
         lbr = bool(self.gru1.linear_before_reset and self.gru2.linear_before_reset)
         io = precision.io_dtype()
         if precision.quant_int8() and lbr:
-            if io is not None:
-                raise NotImplementedError(
-                    "the int8 tier with bf16 activation storage is not ported yet "
-                    "(ROADMAP: port queue, precision and io-dtype tiers)"
-                )
             from .nsnet2_q8 import forward_q8
 
             return forward_q8(self, features, out_frames, state)
-        level = precision.matmul_precision("gru_h")
-        if precision.matmul_precision("gru_i") != level:
-            raise NotImplementedError(
-                "different matmul precisions for the GRU's gru_i and gru_h stages are not ported yet "
-                "(ROADMAP: port queue, precision and io-dtype tiers)"
-            )
-        if not lbr and (level == "default" or io is not None):
-            raise NotImplementedError(
-                "the bf16 tiers of linear_before_reset=0 GRUs are not ported yet "
-                "(ROADMAP: port queue, precision and io-dtype tiers)"
-            )
+        levels = precision.gru_levels()
         lead, t = features.shape[:-2], features.shape[-2]
         x = self.fc_in(precision.io_cast(features.reshape((-1, t, N_BINS))))
         # The recurrence wrappers take the state flat, float32 and contiguous;
@@ -175,19 +159,32 @@ class NSNet2(nn.Module):
         h0 = None if state is None else tuple(h.reshape(-1, HIDDEN).float().contiguous() for h in state)
         if h0 is not None and io is not None:
             h0 = tuple(precision.bf16_round(h) for h in h0)
-        if io is not None:
+        if not lbr:  # the plain loop in the storage dtype, as the JAX scan runs
+            from .nsnet2_cuda import gru_stack_reference
+
+            gi1 = precision.matmul(x, precision.io_cast(self.gru1.wi), "gru_i") + precision.io_cast(self.gru1.bi)
+            h0 = None if h0 is None else tuple(precision.io_cast(h) for h in h0)
+            ys = gru_stack_reference(self, gi1.contiguous(), state=h0, levels=levels)  # [N, T, H]
+        elif io is not None:
             from .nsnet2_gates_cuda import gi_gates, gru_gates_f
 
             ys = gru_gates_f(self, *gi_gates(self, x), dtype=torch.bfloat16, out_dtype=torch.bfloat16, state=h0)
-        elif level == "default":
+        elif levels == ("default", "default"):
             from .nsnet2_gates_cuda import gi_gates, gru_gates_p
 
             ys = gru_gates_p(self, *gi_gates(self, x), dtype=torch.bfloat16, state=h0)  # [N, T, H]
-        else:
-            from .nsnet2_cuda import gru_stack, gru_stack_reference
+        elif "highest" not in levels:
+            from .nsnet2_gates_cuda import gi_gates, gru_gates_3x
 
-            gi1 = precision.matmul(x, self.gru1.wi, "gru_i") + self.gru1.bi  # [N, T, 3H]
-            ys = (gru_stack if lbr else gru_stack_reference)(self, gi1.contiguous(), state=h0)  # [N, T, H]
+            ys = gru_gates_3x(self, *gi_gates(self, x), levels=levels, state=h0)
+        else:
+            from .nsnet2_cuda import gru_stack, gru_stack_mixed
+
+            gi1 = (precision.matmul(x, self.gru1.wi, "gru_i") + self.gru1.bi).contiguous()  # [N, T, 3H]
+            if levels == ("highest", "highest"):
+                ys = gru_stack(self, gi1, state=h0)
+            else:
+                ys = gru_stack_mixed(self, gi1, levels, state=h0)
         if state is not None:
             ys, h_t = ys
             if io is not None:

@@ -15,8 +15,19 @@ the launch is the stateless one, bit for bit. Per step and row:
 CUDA tensors go to the kernel in ``csrc/gru_stack.cu``, one cooperative
 launch per call over tiles of rows x hidden units whose sizes and grid the
 host computes (``launch_plan``, a pure function the CPU tests check); CPU
-tensors go to ``gru_stack_reference``, a per-step loop of ``torch.matmul``
-and gate math that defines what the kernel computes.
+tensors go to ``gru_stack_reference``, a per-step loop of
+``precision.matmul`` and gate math that defines what the kernel computes.
+
+The products fall in two classes (``precision.gru_levels``): ``gru_h``
+(h1 Wh1, h2 Wh2) and ``gru_i`` (h1 Wi2). ``gru_stack`` runs both at
+'highest'. ``gru_stack_mixed`` runs the mixes in which one class is
+'highest' and the other 'high' or 'default' (a stage override of
+``gru_i`` or ``gru_h``, as the stage audit sets them) on the same kernel,
+instantiated per pair of levels: its weights packed at their class's level
+(``pack_at``). The plain loop also serves linear_before_reset = 0 weights,
+which no kernel takes, at any levels and, under bf16 activation storage,
+in bf16 (every operand and op output rounded to bf16, as the JAX package
+runs its scan on bf16 arrays).
 
 The same kernel runs the float32 forms of the per-gate kernels of
 ``nsnet2_gates_cuda`` (``gru_stack_gates``): their function is this one,
@@ -33,6 +44,7 @@ import functools
 import torch
 
 from .. import _build
+from ..ops import precision
 from .nsnet2 import HIDDEN, NSNet2, weights_key
 
 G3 = 3 * HIDDEN
@@ -50,26 +62,38 @@ def _gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return (1.0 - z) * n + z * h
 
 
-def _cell(gru, h: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
-    """One GRU step with the input projection ``gi`` precomputed."""
-    if gru.linear_before_reset:
-        return _gates(gi, h @ gru.wh + gru.bh, h)
-    wh, bh = gru.wh, gru.bh
-    z = torch.sigmoid(gi[:, :HIDDEN] + h @ wh[:, :HIDDEN] + bh[:HIDDEN])
-    r = torch.sigmoid(gi[:, HIDDEN : 2 * HIDDEN] + h @ wh[:, HIDDEN : 2 * HIDDEN] + bh[HIDDEN : 2 * HIDDEN])
-    n = torch.tanh(gi[:, 2 * HIDDEN :] + (r * h) @ wh[:, 2 * HIDDEN :] + bh[2 * HIDDEN :])
+def gru_cell(wh, bh, lbr: int, h: torch.Tensor, gi: torch.Tensor, level: str) -> torch.Tensor:
+    """One GRU step with the input projection ``gi`` precomputed (the JAX
+    package's ``gru_cell_pre``, both forms of the n gate), its products at
+    ``level`` (``precision.matmul``). The plain loop below steps it, and so
+    does the trainer's differentiable forward through that loop."""
+    if lbr:
+        return _gates(gi, precision.matmul(h, wh, level=level) + bh, h)
+    z_i, r_i, n_i = gi.split(HIDDEN, dim=-1)
+    wh_z, wh_r, wh_n = wh.split(HIDDEN, dim=-1)
+    bh_z, bh_r, bh_n = bh.split(HIDDEN, dim=-1)
+    z = torch.sigmoid(z_i + precision.matmul(h, wh_z, level=level) + bh_z)
+    r = torch.sigmoid(r_i + precision.matmul(h, wh_r, level=level) + bh_r)
+    n = torch.tanh(n_i + precision.matmul(r * h, wh_n, level=level) + bh_n)
     return (1.0 - z) * n + z * h
 
 
-def gru_stack_reference(net: NSNet2, gi1: torch.Tensor, state: tuple | None = None):
+def gru_stack_reference(net: NSNet2, gi1: torch.Tensor, state: tuple | None = None, levels: tuple | None = None):
     """Plain PyTorch version: gi1 [N, T, 1200] -> h2 sequence [N, T, 400];
-    with ``state=(h1, h2)`` -> (sequence, final (h1, h2))."""
+    with ``state=(h1, h2)`` -> (sequence, final (h1, h2)). ``levels``
+    (gru_i, gru_h), default ``precision.gru_levels()``: h1 Wi2 runs at the
+    first, h1 Wh1 and h2 Wh2 at the second. It runs in gi1's dtype: with a
+    bf16 gi1 (bf16 storage) the weights, the state and every op's output
+    are bf16. Autograd records it (the trainer's forward)."""
+    level_i, level_h = levels or precision.gru_levels()
+    g1, g2 = net.gru1, net.gru2
+    wh1, bh1, wi2, bi2, wh2, bh2 = (w.to(gi1.dtype) for w in (g1.wh, g1.bh, g2.wi, g2.bi, g2.wh, g2.bh))
     n, t, _ = gi1.shape
     h1, h2 = state if state is not None else (gi1.new_zeros((n, HIDDEN)), gi1.new_zeros((n, HIDDEN)))
     ys = []
     for step in range(t):
-        h1 = _cell(net.gru1, h1, gi1[:, step])
-        h2 = _cell(net.gru2, h2, h1 @ net.gru2.wi + net.gru2.bi)
+        h1 = gru_cell(wh1, bh1, g1.linear_before_reset, h1, gi1[:, step], level_h)
+        h2 = gru_cell(wh2, bh2, g2.linear_before_reset, h2, precision.matmul(h1, wi2, level=level_i) + bi2, level_h)
         ys.append(h2)
     out = torch.stack(ys, dim=1) if ys else gi1.new_zeros((n, 0, HIDDEN))
     return out if state is None else (out, (h1, h2))
@@ -138,23 +162,49 @@ def pack(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(groups, HIDDEN, 3 * UNIT_TILE).contiguous()
 
 
-def packed_weights(net: NSNet2) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``pack`` of wh1, wi2 and wh2, cached on the module and redone when
-    its weights move, are replaced or are written in place
-    (``nsnet2.weights_key``)."""
+# A product class's level as the kernel's template parameter.
+LEVEL_CODES = {"highest": 0, "high": 1, "default": 2}
+
+
+def pack_at(w: torch.Tensor, level: str) -> torch.Tensor:
+    """``pack(w)`` in the form a class at ``level`` reads: float32 at
+    'highest'; at 'default' its bf16 rounding, held in float32; at 'high'
+    one 32-bit word an element, bf16(w) in the high 16 bits and
+    bf16(w - bf16(w)) in the low 16 (int32)."""
+    if level == "highest":
+        return pack(w)
+    if level == "default":
+        return pack(precision.bf16_round(w))
+    if level != "high":
+        raise ValueError(f"pack_at: level must be one of {tuple(LEVEL_CODES)}, got {level!r}")
+    hi = w.float().to(torch.bfloat16)
+    lo = (w.float() - hi.float()).to(torch.bfloat16)
+    # Little-endian: the first int16 of a pair is the word's low half.
+    words = torch.stack([lo.view(torch.int16), hi.view(torch.int16)], dim=-1).view(torch.int32).squeeze(-1)
+    return pack(words)
+
+
+def packed_weights(net: NSNet2, levels: tuple = ("highest", "highest")) -> tuple[torch.Tensor, ...]:
+    """wh1, wi2 and wh2 packed for the kernel at ``levels`` (gru_i, gru_h):
+    wi2 at the first, wh1 and wh2 at the second (``pack_at``); cached on
+    the module per pair and redone when its weights move, are replaced or
+    are written in place (``nsnet2.weights_key``)."""
     key = weights_key(net)
-    hit = net.__dict__.get("_gru_stack_cache")
-    if hit is None or hit[0] != key:
+    cache = net.__dict__.get("_gru_stack_cache")
+    if cache is None or cache[0] != key:
+        cache = net._gru_stack_cache = (key, {})
+    if levels not in cache[1]:
+        level_i, level_h = levels
         with torch.no_grad():
-            hit = (key, tuple(pack(w) for w in (net.gru1.wh, net.gru2.wi, net.gru2.wh)))
-        net._gru_stack_cache = hit
-    return hit[1]
+            cache[1][levels] = (pack_at(net.gru1.wh, level_h), pack_at(net.gru2.wi, level_i),
+                                pack_at(net.gru2.wh, level_h))
+    return cache[1][levels]
 
 
 @functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_stack")
-    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.fvad_gru_stack.restype = ctypes.c_int
     lib.fvad_gru_stack_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fvad_gru_stack_blocks_per_sm.restype = ctypes.c_int
@@ -211,20 +261,22 @@ def _check_state(what: str, state: tuple | None, n: int, device: torch.device) -
 
 
 def _launch(gi: tuple[int, int, int], gi_stride: int, shape: tuple[int, int], dev: torch.device,
-            net: NSNet2, biases: tuple, out_dtype: torch.dtype, state: tuple | None = None):
+            net: NSNet2, biases: tuple, out_dtype: torch.dtype, state: tuple | None = None,
+            levels: tuple = ("highest", "highest")):
     """One launch of the kernel on checked operands: ``gi`` the addresses
     of the z, r and n columns of row 0, step 0, each (row, step)
-    ``gi_stride`` floats after the last -> (h2 [N, T, 400] in ``out_dtype``
-    (float32, or bf16 with h2 kept float32 inside), the final (h1, h2) in
-    float32 where a ``state`` was carried in, else None). Counts nothing:
-    each caller counts its own launches."""
+    ``gi_stride`` floats after the last, the products at ``levels``
+    (gru_i, gru_h) -> (h2 [N, T, 400] in ``out_dtype`` (float32, or bf16
+    with h2 kept float32 inside), the final (h1, h2) in float32 where a
+    ``state`` was carried in, else None). Counts nothing: each caller
+    counts its own launches."""
     n, t = shape
     out = torch.empty((n, t, HIDDEN), dtype=out_dtype, device=dev)
     if n == 0 or t == 0:
         return out, state
     lib = _lib()
     plan = device_plan(n, dev)
-    wh1, wi2, wh2 = packed_weights(net)
+    wh1, wi2, wh2 = packed_weights(net, levels)
     bh1, bi2, bh2 = biases
     bf16_out = out_dtype == torch.bfloat16
     # h1 of steps t-1 and t, then (bf16 out only) h2 of steps t-1 and t.
@@ -236,7 +288,8 @@ def _launch(gi: tuple[int, int, int], gi_stride: int, shape: tuple[int, int], de
             *gi, wh1.data_ptr(), bh1.data_ptr(), wi2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(), bh2.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), scratch[2].data_ptr() if bf16_out else None, barrier.data_ptr(),
             *((None, None) if state is None else (state[0].data_ptr(), state[1].data_ptr())),
-            gi_stride, int(bf16_out), n, t, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid, stream,
+            gi_stride, int(bf16_out), *(LEVEL_CODES[level] for level in levels), n, t, plan.row_tile,
+            plan.row_groups, plan.unit_groups, plan.grid, stream,
         )
     _build.check(lib, err, "gru_stack launch")
     if state is None:
@@ -252,30 +305,51 @@ def gru_stack(net: NSNet2, gi1: torch.Tensor, state: tuple | None = None):
     ([N, 400] float32 each, contiguous) the steps continue it and the call
     returns (sequence, final (h1, h2)).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``gru_stack.launches``) or raises, also where
-    autograd records and an input or weight requires grad
-    (``_build.refuse_grad``)."""
+    A CPU tensor runs the plain version (at 'highest'); a CUDA tensor
+    launches the kernel (and counts the launch in ``gru_stack.launches``)
+    or raises, also where autograd records and an input or weight requires
+    grad (``_build.refuse_grad``)."""
+    return _run_stack(gru_stack, net, gi1, state, ("highest", "highest"))
+
+
+def gru_stack_mixed(net: NSNet2, gi1: torch.Tensor, levels: tuple, state: tuple | None = None):
+    """``gru_stack`` with its product classes at ``levels`` = (gru_i,
+    gru_h), one of them 'highest' and the other 'high' or 'default' (the
+    mixes of a stage override): h1 Wi2 at the first, h1 Wh1 and h2 Wh2 at
+    the second. A CPU tensor runs ``gru_stack_reference`` at those levels;
+    a CUDA tensor launches the kernel's instantiation for them (counted in
+    ``gru_stack_mixed.launches``) or raises."""
+    levels = tuple(levels)
+    if len(levels) != 2 or "highest" not in levels or levels == ("highest", "highest") or any(
+            level not in LEVEL_CODES for level in levels):
+        raise ValueError(f"gru_stack_mixed: levels must pair 'highest' with 'high' or 'default', got {levels}")
+    return _run_stack(gru_stack_mixed, net, gi1, state, levels)
+
+
+def _run_stack(wrapper, net: NSNet2, gi1: torch.Tensor, state: tuple | None, levels: tuple):
+    what = wrapper.__name__
     if gi1.device.type == "cpu":
-        return gru_stack_reference(net, gi1, state=state)
+        return gru_stack_reference(net, gi1, state=state, levels=levels)
     if gi1.device.type != "cuda":
-        raise ValueError(f"gru_stack: unsupported device {gi1.device}")
+        raise ValueError(f"{what}: unsupported device {gi1.device}")
     biases = (net.gru1.bh, net.gru2.bi, net.gru2.bh)
-    _build.refuse_grad("gru_stack", gi1, *(state or ()), net.gru1.wh, net.gru2.wi, net.gru2.wh, *biases)
-    _check_net("gru_stack", net, biases, gi1.device)
+    _build.refuse_grad(what, gi1, *(state or ()), net.gru1.wh, net.gru2.wi, net.gru2.wh, *biases)
+    _check_net(what, net, biases, gi1.device)
     if gi1.dim() != 3:
-        raise ValueError(f"gru_stack: gi1 must be [N, T, {G3}], got {tuple(gi1.shape)}")
+        raise ValueError(f"{what}: gi1 must be [N, T, {G3}], got {tuple(gi1.shape)}")
     n, t, _ = gi1.shape
-    _check_operand("gru_stack", "gi1", gi1, (n, t, G3), gi1.device)
-    _check_state("gru_stack", state, n, gi1.device)
+    _check_operand(what, "gi1", gi1, (n, t, G3), gi1.device)
+    _check_state(what, state, n, gi1.device)
     g = gi1.data_ptr()
-    out, final = _launch((g, g + 4 * HIDDEN, g + 8 * HIDDEN), G3, (n, t), gi1.device, net, biases, torch.float32, state)
+    out, final = _launch((g, g + 4 * HIDDEN, g + 8 * HIDDEN), G3, (n, t), gi1.device, net, biases, torch.float32, state,
+                         levels)
     if n and t:
-        gru_stack.launches += 1
+        wrapper.launches += 1
     return out if state is None else (out, final)
 
 
 gru_stack.launches = 0
+gru_stack_mixed.launches = 0
 
 
 def gru_stack_gates(net: NSNet2, gi: tuple, biases: tuple, out_dtype: torch.dtype, state: tuple | None = None):

@@ -51,6 +51,15 @@ rounding point of their kernel. Weights are packed once per network and
 dtype (``gate_weights``, cached on the module); the bf16 body reads
 ``wp1`` and ``wp2``'s non-zero blocks, which are exactly ``w9``, per unit
 group in ``mma.sync`` fragment order (``pack_unit_groups``).
+
+``gru_gates_3x`` (kernel A) is kernel 5's function at a level a product
+class, (gru_i, gru_h) each 'default' (one bf16 pass) or 'high' (bf16_3x,
+three): the 'high' tier's recurrence and its mixes with 'default'. Its
+body, in the same source, owns 8 hidden units a CTA so that the bf16 hi
+and lo halves of their weights fit in shared memory
+(``pack_unit_groups_3x``, ``p_launch_plan(..., P3_UNITS)``); its plain
+version is ``gru_gates_p_reference`` on the float32 weights at those
+levels.
 """
 
 from __future__ import annotations
@@ -81,6 +90,14 @@ P_ROWS = 16
 P_MAX_TILES = 28
 P_W_BYTES = 3 * H * 3 * P_UNITS * 2  # 3,600 bf16 a unit: 115,200 bytes a group
 P_TILE_BYTES = {4: 1536 + 1024, 5: 3072 + 1024, 6: 1536 + 2 * 1024}
+# Kernel A (``gru_gates_3x``, the same source): a CTA owns P3_UNITS units,
+# whose hi and lo weights take P_W_BYTES too, and at most P3_MAX_TILES
+# tiles of P3_TILE_BYTES (float32 gi 1,536 and h1 512).
+P3_UNITS = 8
+P3_MAX_TILES = 57
+P3_TILE_BYTES = 1536 + 512
+# Kernel A's bf16 passes a product class at each level: 1 = bf16, 3 = bf16_3x.
+PASSES = {"default": 1, "high": 3}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +131,23 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32).reshape(n // 8, k // 16, 32, 2)
 
 
+def _group_columns(wp1: torch.Tensor, wp2: torch.Tensor, units: int) -> torch.Tensor:
+    """[H // units, 3H, 3 units]: for each group of ``units`` hidden units,
+    the K rows of wp1, wp2's h1 rows and its h2 rows, and its z, r and n
+    columns (n_i in the h1 rows, n_h in the h2 rows: wp2's zero blocks left
+    out)."""
+    unit = torch.arange(H // units, device=wp1.device)[:, None] * units + torch.arange(units, device=wp1.device)
+
+    def cols(bases):  # -> [groups, 3 units]: the group's units of each gate's columns
+        return torch.cat([b + unit for b in bases], dim=1)
+
+    return torch.cat([
+        wp1[:, cols((0, H, 2 * H))],
+        wp2[:H, cols((0, H, 2 * H))],
+        wp2[H:, cols((0, H, 3 * H))],
+    ]).permute(1, 0, 2)
+
+
 def pack_unit_groups(wp1: torch.Tensor, wp2: torch.Tensor) -> torch.Tensor:
     """The bf16 weights of kernels 4-6 for ``csrc/gru_gates_p.cu``: int32
     [25, 75, 32, 12], one 115,200-byte block per group of 16 hidden units,
@@ -126,18 +160,25 @@ def pack_unit_groups(wp1: torch.Tensor, wp2: torch.Tensor) -> torch.Tensor:
     K step as three 16-byte loads."""
     if wp1.dtype != torch.bfloat16 or tuple(wp1.shape) != (H, 3 * H) or tuple(wp2.shape) != (2 * H, 4 * H):
         raise ValueError(f"pack_unit_groups: need bf16 wp1 [{H}, {3 * H}] and wp2 [{2 * H}, {4 * H}]")
-    units = torch.arange(P_UNIT_GROUPS, device=wp1.device)[:, None] * P_UNITS + torch.arange(P_UNITS, device=wp1.device)
-
-    def cols(bases):  # -> [25, 48]: the group's units of each gate's columns
-        return torch.cat([b + units for b in bases], dim=1)
-
-    w = torch.cat([
-        wp1[:, cols((0, H, 2 * H))],
-        wp2[:H, cols((0, H, 2 * H))],
-        wp2[H:, cols((0, H, 3 * H))],
-    ]).permute(1, 0, 2)  # [25, 3H, 48]
+    w = _group_columns(wp1, wp2, P_UNITS)  # [25, 3H, 48]
     frags = torch.stack([pack_fragments(group) for group in w])  # [25, 6, 75, 32, 2]
     return frags.permute(0, 2, 3, 1, 4).reshape(P_UNIT_GROUPS, 3 * H // 16, 32, 12).contiguous()
+
+
+def pack_unit_groups_3x(wp1: torch.Tensor, wp2: torch.Tensor) -> torch.Tensor:
+    """Kernel A's weights: int32 [50, 75, 32, 12], one 115,200-byte block
+    per group of 8 hidden units. From float32 wp1 and wp2, each weight is
+    split into hi = bf16(w) and lo = bf16(w - hi) on the host; K blocks as
+    in ``pack_unit_groups``, and each lane's 12 words hold its
+    ``pack_fragments`` words of the group's z, r and n tiles of hi, then
+    of lo."""
+    if wp1.dtype != torch.float32 or tuple(wp1.shape) != (H, 3 * H) or tuple(wp2.shape) != (2 * H, 4 * H):
+        raise ValueError(f"pack_unit_groups_3x: need float32 wp1 [{H}, {3 * H}] and wp2 [{2 * H}, {4 * H}]")
+    w = _group_columns(wp1, wp2, P3_UNITS)  # [50, 3H, 24]
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16)
+    frags = torch.stack([torch.cat([pack_fragments(a), pack_fragments(b)]) for a, b in zip(hi, lo)])  # [50, 6, 75, 32, 2]
+    return frags.permute(0, 2, 3, 1, 4).reshape(H // P3_UNITS, 3 * H // 16, 32, 12).contiguous()
 
 
 def fold_biases(net: NSNet2) -> torch.Tensor:
@@ -269,21 +310,32 @@ def gru_gates_reference(gw: GateWeights, gi_z, gi_r, gi_n, state: tuple | None =
     return _run_w9(gw, gi_z, gi_r, gi_n, state)
 
 
-def gru_gates_p_reference(gw: GateWeights, gi_z, gi_r, gi_n, state: tuple | None = None):
-    """Plain version of kernel 5: gi stays float32; one product per layer,
-    ``h1 @ wp1`` and ``[h1 | h2] @ wp2`` -> h2 [N, T, H] float32 (and the
-    final state, with ``state``)."""
-    q = _rounder(gw.dtype)
+def gru_gates_p_reference(gw: GateWeights, gi_z, gi_r, gi_n, state: tuple | None = None,
+                          levels: tuple | None = None):
+    """Plain version of kernels 5 and A: gi stays float32; one product per
+    layer, ``h1 @ wp1`` and ``[h1 | h2] @ wp2`` -> h2 [N, T, H] float32 (and
+    the final state, with ``state``). Each product runs at its class's
+    level (``precision.matmul``), ``levels`` = (gru_i: wp2's h1 rows,
+    gru_h: wp1 and wp2's h2 rows); by default both at the weights' dtype,
+    'highest' in float32 and 'default' (bf16 operands) in bf16. Kernel A's
+    levels, 'high' among them, need float32 weights, whose bf16 halves the
+    products split."""
+    if levels is None:
+        levels = ("highest",) * 2 if gw.dtype == torch.float32 else ("default",) * 2
+    level_i, level_h = levels
     wp1, wp2, b = gw.wp1.float(), gw.wp2.float(), gw.b8
     h1, h2 = _initial(gi_z, state)
     ys = []
     for t in range(gi_z.shape[1]):
-        g1 = q(h1) @ wp1
+        g1 = precision.matmul(h1, wp1, level=level_h)
         z1 = torch.sigmoid(gi_z[:, t] + g1[:, :H])
         r1 = torch.sigmoid(gi_r[:, t] + g1[:, H : 2 * H])
         n1 = torch.tanh(gi_n[:, t] + r1 * (g1[:, 2 * H :] + b[0]))
         h1 = (1.0 - z1) * n1 + z1 * h1
-        g2 = q(torch.cat([h1, h2], dim=1)) @ wp2
+        if level_i == level_h:
+            g2 = precision.matmul(torch.cat([h1, h2], dim=1), wp2, level=level_h)
+        else:
+            g2 = precision.matmul(h1, wp2[:H], level=level_i) + precision.matmul(h2, wp2[H:], level=level_h)
         z2 = torch.sigmoid(g2[:, :H] + b[1])
         r2 = torch.sigmoid(g2[:, H : 2 * H] + b[2])
         n2 = torch.tanh((g2[:, 2 * H : 3 * H] + b[3]) + r2 * (g2[:, 3 * H :] + b[4]))
@@ -319,24 +371,25 @@ class PLaunch:
     tiles: int
     row_groups: int
     tiles_per_group: int
+    units: int = P_UNITS
 
     @property
     def grid(self) -> int:
-        return P_UNIT_GROUPS * self.row_groups
+        return H // self.units * self.row_groups
 
-    def smem_bytes(self, kind: int) -> int:
-        """Dynamic shared memory of a CTA of kernel ``kind`` (4, 5 or 6)."""
-        return P_W_BYTES + self.tiles_per_group * P_TILE_BYTES[kind]
+    def smem_bytes(self, kind) -> int:
+        """Dynamic shared memory of a CTA of kernel ``kind`` (4, 5, 6, or "A")."""
+        return P_W_BYTES + self.tiles_per_group * (P3_TILE_BYTES if kind == "A" else P_TILE_BYTES[kind])
 
     def cta_span(self, block: int) -> tuple[range, range]:
         """The rows (of the whole call) and the hidden units of CTA ``block``."""
-        rg, ug = divmod(block, P_UNIT_GROUPS)
+        rg, ug = divmod(block, H // self.units)
         first = rg * self.tiles_per_group * P_ROWS
         rows = range(self.row0 + first, self.row0 + min(first + self.tiles_per_group * P_ROWS, self.n_rows))
-        return rows, range(ug * P_UNITS, (ug + 1) * P_UNITS)
+        return rows, range(ug * self.units, (ug + 1) * self.units)
 
 
-def p_launch_plan(n_rows: int, sm_count: int) -> tuple[PLaunch, ...]:
+def p_launch_plan(n_rows: int, sm_count: int, units: int = P_UNITS) -> tuple[PLaunch, ...]:
     """The bf16 body's launches for ``n_rows`` rows on a card of ``sm_count``
     SMs, the same for kernels 4, 5 and 6 (one CTA a SM: its weights take
     half the SM's shared memory, and P_MAX_TILES tiles of kernel 5, the
@@ -345,19 +398,24 @@ def p_launch_plan(n_rows: int, sm_count: int) -> tuple[PLaunch, ...]:
     16-row tiles. The tiles are spread evenly over as few launches as that
     allows, and over the row groups of each (1,680 rows on 132 SMs: one
     launch, 5 row groups of 21 tiles, 125 CTAs). Rows are independent, so a
-    row's bits do not depend on the plan."""
-    if n_rows < 1 or sm_count < P_UNIT_GROUPS:
-        raise ValueError(f"p_launch_plan: need n_rows >= 1 and sm_count >= {P_UNIT_GROUPS}, got {n_rows}, {sm_count}")
-    slots = sm_count // P_UNIT_GROUPS
+    row's bits do not depend on the plan. ``units`` = P3_UNITS plans
+    kernel A: 50 unit groups, at most P3_MAX_TILES tiles a CTA (1,680 rows
+    on 132 SMs: one launch, 2 row groups of 53 tiles, 100 CTAs)."""
+    if units not in (P_UNITS, P3_UNITS):
+        raise ValueError(f"p_launch_plan: units must be {P_UNITS} or {P3_UNITS}, got {units}")
+    groups, max_tiles = (P_UNIT_GROUPS, P_MAX_TILES) if units == P_UNITS else (H // P3_UNITS, P3_MAX_TILES)
+    if n_rows < 1 or sm_count < groups:
+        raise ValueError(f"p_launch_plan: need n_rows >= 1 and sm_count >= {groups}, got {n_rows}, {sm_count}")
+    slots = sm_count // groups
     tiles = -(-n_rows // P_ROWS)
-    n_launches = -(-tiles // (slots * P_MAX_TILES))
+    n_launches = -(-tiles // (slots * max_tiles))
     base, extra = divmod(tiles, n_launches)
     launches, tile0 = [], 0
     for i in range(n_launches):
         here = base + (i < extra)
         per = -(-here // min(slots, here))
         row0 = tile0 * P_ROWS
-        launches.append(PLaunch(row0, min(here * P_ROWS, n_rows - row0), here, -(-here // per), per))
+        launches.append(PLaunch(row0, min(here * P_ROWS, n_rows - row0), here, -(-here // per), per, units))
         tile0 += here
     return tuple(launches)
 
@@ -369,6 +427,10 @@ def _lib() -> ctypes.CDLL:
     lib.fvad_gru_gates_p.restype = ctypes.c_int
     lib.fvad_gru_gates_p_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.fvad_gru_gates_p_smem_bytes.restype = ctypes.c_int
+    lib.fvad_gru_gates_3x.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fvad_gru_gates_3x.restype = ctypes.c_int
+    lib.fvad_gru_gates_3x_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fvad_gru_gates_3x_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -377,9 +439,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def device_p_plan(n_rows: int, dev: torch.device) -> tuple[PLaunch, ...]:
+def device_p_plan(n_rows: int, dev: torch.device, units: int = P_UNITS) -> tuple[PLaunch, ...]:
     """``p_launch_plan`` for the card ``dev``."""
-    return p_launch_plan(n_rows, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))
+    return p_launch_plan(n_rows, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()), units)
 
 
 def _check(what: str, name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -481,6 +543,51 @@ def _launch_p(wrapper, kind: int, gw: GateWeights, gi: tuple, out_dtype: torch.d
     return out, (final[0], final[1] if kind == 6 else out[:, -1].contiguous())
 
 
+def units_3x(net: NSNet2) -> torch.Tensor:
+    """``pack_unit_groups_3x`` of the network's float32 wp1 and wp2, cached
+    on the module (``_cached``)."""
+
+    def build():
+        gw = gate_weights(net, torch.float32)
+        return pack_unit_groups_3x(gw.wp1, gw.wp2)
+
+    return _cached(net, "units_3x", build)
+
+
+def _launch_3x(wrapper, net: NSNet2, gi: tuple, passes: tuple, state: tuple | None = None):
+    """Kernel A (``csrc/gru_gates_p.cu``, ``fvad_gru_gates_3x``): one
+    cooperative launch per ``PLaunch`` of the card's 8-unit plan, each on
+    its rows' slices with its own exchange buffers (hi and lo of h1 and h2),
+    on the stream's barrier counters. Each launch is counted in
+    ``wrapper.launches``. -> out, and with ``state`` (out, final (h1, h2)):
+    h1 written by the kernel, h2 out's last step."""
+    n, t, _ = gi[0].shape
+    dev = gi[0].device
+    units, b8 = units_3x(net), gate_weights(net, torch.float32).b8
+    _check_weights(wrapper.__name__, dev, units=units, b8=b8)
+    out = torch.empty((n, t, H), dtype=torch.float32, device=dev)
+    h1_t = None if state is None else torch.empty((n, H), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        barrier = _p_barrier(dev, stream)
+        for launch in device_p_plan(n, dev, P3_UNITS):
+            # x1h, x1l, x2h, x2l, each [2 ping-pong][tiles][25 K steps][32 lanes] x 16 bytes.
+            x = torch.empty((4, 2, launch.tiles, H // 16, 32, 4), dtype=torch.int32, device=dev)
+            rows = slice(launch.row0, launch.row0 + launch.n_rows)
+            carried = (None,) * 3
+            if state is not None:
+                carried = (state[0][rows].data_ptr(), state[1][rows].data_ptr(), h1_t[rows].data_ptr())
+            err = lib.fvad_gru_gates_3x(
+                *passes, *(g[rows].data_ptr() for g in gi), units.data_ptr(), b8.data_ptr(), out[rows].data_ptr(),
+                *(x[k].data_ptr() for k in range(4)), barrier.data_ptr(), *carried,
+                launch.n_rows, t, launch.tiles, launch.row_groups, launch.tiles_per_group, stream,
+            )
+            _build.check(lib, err, f"{wrapper.__name__} launch")
+            wrapper.launches += 1
+    return out if state is None else (out, (h1_t, out[:, -1].contiguous()))
+
+
 def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype,
             state: tuple | None = None):
     """Run kernel ``kind`` in ``dtype`` on the card and count its launches
@@ -554,6 +661,32 @@ def gru_gates_f(
     return _launch(gru_gates_f, 6, net, gi, dtype, out_dtype, state)
 
 
+def gru_gates_3x(net: NSNet2, gi_z, gi_r, gi_n, levels: tuple, state: tuple | None = None):
+    """Kernel A: kernel 5's function with float32 gi [N, T, H] -> h2 [N, T,
+    H] float32 (with ``state`` -> (h2, final (h1, h2))), its products at
+    ``levels`` = (gru_i: wp2's h1 rows, gru_h: wp1 and wp2's h2 rows), each
+    'default' (one bf16 pass) or 'high' (bf16_3x, three), not both
+    'default' (that is ``gru_gates_p`` in bf16).
+
+    A CPU tensor runs the plain version, ``gru_gates_p_reference`` on the
+    float32 weights at those levels; a CUDA tensor launches the kernel or
+    raises. ``gru_gates_3x.launches`` counts launches: one a ``PLaunch`` of
+    the 8-unit plan (more than one above 1,824 rows on 132 SMs)."""
+    levels = tuple(levels)
+    if len(levels) != 2 or levels == ("default", "default") or any(level not in PASSES for level in levels):
+        raise ValueError(f"gru_gates_3x: levels must pair 'default' and 'high', not both 'default', got {levels}")
+    gi = _operands("gru_gates_3x", net, (gi_z, gi_r, gi_n), torch.float32, torch.float32, state)
+    if gi[0].device.type == "cpu":
+        return gru_gates_p_reference(gate_weights(net, torch.float32), *gi, state=state, levels=levels)
+    _build.refuse_grad("gru_gates_3x", *gi, *(state or ()), *net.gru1.parameters(), *net.gru2.parameters())
+    n, t, _ = gi[0].shape
+    if n == 0 or t == 0:
+        out = torch.empty((n, t, H), dtype=torch.float32, device=gi[0].device)
+        return out if state is None else (out, state)
+    return _launch_3x(gru_gates_3x, net, gi, tuple(PASSES[level] for level in levels), state)
+
+
 gru_gates.launches = 0
 gru_gates_p.launches = 0
 gru_gates_f.launches = 0
+gru_gates_3x.launches = 0

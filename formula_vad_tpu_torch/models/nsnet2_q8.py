@@ -1,6 +1,10 @@
 """Int8 NSNet2: port of ``formula_vad_tpu/models/nsnet2_q8.py::
-apply_streaming_q8`` (both GRUs with linear_before_reset = 1, float32
-storage), from h = 0 or from a carried GRU state.
+apply_streaming_q8`` (both GRUs with linear_before_reset = 1), from h = 0
+or from a carried GRU state. Under bf16 activation storage
+(``precision.set_io_dtype("bf16")``) the layer-1 input projection, the
+GRU outputs and the gains are stored in bf16, as the reference stores its
+scan's inputs and outputs and its gains in the io dtype; the recurrence's
+h stays float32, as its carry does, and so does the returned state.
 
 The scheme is the reference's, op for op (symmetric, no zero point):
 
@@ -29,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..ops import precision
 from ..ops.matmul_q8 import Q8Weight, matmul_q8
 from .nsnet2 import HIDDEN, N_BINS, NSNet2, weights_key
 from .nsnet2_cuda import _gates
@@ -99,20 +104,21 @@ def forward_q8(net: NSNet2, features: torch.Tensor, out_frames: int | None = Non
     if features.device.type == "cuda":
         _build.refuse_grad("forward_q8", features, *(state or ()), *net.parameters())
     w = _weights(net)
+    store = precision.io_cast  # the storage dtype of gi1, the GRU outputs and the gains
     lead, t = features.shape[:-2], features.shape[-2]
     qx, sx = qa_dyn(features.reshape((-1, t, N_BINS)))
     x = matmul_q8(qx, w["fc_in"], sx, order="row_col")  # [N, T, 400]
     qx1, sx1 = qa_dyn(x)
-    gi1 = matmul_q8(qx1, w["wi1"], sx1 * 127.0, order="row_col")  # [N, T, 1200]
+    gi1 = store(matmul_q8(qx1, w["wi1"], sx1 * 127.0, order="row_col"))  # [N, T, 1200]
     if state is None:
         h1 = h2 = x.new_zeros((x.shape[0], HIDDEN))
     else:
         h1, h2 = (h.reshape(-1, HIDDEN).float() for h in state)
     ys = []
     for step in range(t):
-        h1 = _gates(gi1[:, step], matmul_q8(qa_static(h1), w["wh1"]), h1)
+        h1 = _gates(gi1[:, step].float(), matmul_q8(qa_static(h1), w["wh1"]), h1)
         h2 = _gates(matmul_q8(qa_static(h1), w["wi2"]), matmul_q8(qa_static(h2), w["wh2"]), h2)
-        ys.append(h2)
+        ys.append(store(h2))
     y = torch.stack(ys, dim=1)
     if out_frames is not None and out_frames < t:
         y = y[:, t - out_frames :]
@@ -120,7 +126,7 @@ def forward_q8(net: NSNet2, features: torch.Tensor, out_frames: int | None = Non
     qa2, sa2 = qa_dyn(a)
     a = torch.relu(matmul_q8(qa2, w["ff2"], sa2, order="row_col"))
     qa3, sa3 = qa_dyn(a)
-    gains = torch.sigmoid(matmul_q8(qa3, w["out"], sa3, order="row_col"))
+    gains = store(torch.sigmoid(matmul_q8(qa3, w["out"], sa3, order="row_col")))
     gains = gains.reshape(lead + gains.shape[-2:])
     if state is None:
         return gains

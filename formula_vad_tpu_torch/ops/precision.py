@@ -9,16 +9,21 @@ named stage of the scoring path (``STAGES``, with per-stage overrides):
 * ``"high"``: bf16_3x, as the JAX package's TPU runs ``Precision.HIGH``:
   each operand split into a bf16 high half and the bf16 rounding of the
   rest, and the three products hi x hi, hi x lo and lo x hi summed in
-  float32 (``matmul``): ~16 bits a product. Under it the NSNet2 recurrence
-  runs through kernel 1 (``models/nsnet2_cuda.gru_stack``) in float32,
-  which is at least as exact (``models/nsnet2.py``).
+  float32 (``matmul``): ~16 bits a product.
 * ``"default"``: single-pass bf16, as the JAX package's TPU runs it: both
   operands rounded to bfloat16, the exact products summed in float32
-  (``matmul``). Under it the NSNet2 recurrence runs through the bf16 form
-  of ``models/nsnet2_gates_cuda.gru_gates_p``. A throughput tier, not a
-  parity mode: rare one-window boundary shifts are possible.
+  (``matmul``). A throughput tier, not a parity mode: rare one-window
+  boundary shifts are possible.
 
-Levels are names here, not JAX enums.
+Levels are names here, not JAX enums. The NSNet2 recurrence's products
+fall in two classes (``gru_levels``): ``gru_h`` (h1 Wh1, h2 Wh2) and
+``gru_i`` (h1 Wi2, layer 2's input projection inside the recurrence).
+``models/nsnet2.py`` routes it by the two levels: both in {'default',
+'high'} to the tensor-core body (``nsnet2_gates_cuda.gru_gates_p`` at
+'default'/'default', ``gru_gates_3x`` otherwise: one bf16 pass a
+'default' product, three a 'high' one); either 'highest' to kernel 1's
+float32 body (``nsnet2_cuda.gru_stack``, or ``gru_stack_mixed`` where
+the other class is not 'highest').
 
 Orthogonally, ``set_io_dtype("bf16")`` (env ``FVAD_IO_DTYPE``) stores the
 denoiser path's big activations (spectra, features, GRU projections and
@@ -35,8 +40,8 @@ parity mode.
 an int8 x int8 -> int32 contraction with a float dequant epilogue
 (``models/nsnet2_q8.py``, kernel ``ops/matmul_q8.py``). A throughput tier,
 not a parity mode: gains carry ~2 decimal digits, so decisions can shift.
-Together with bf16 storage it is not ported: the model raises rather than
-run either tier under the other's name.
+Under bf16 storage it stores the layer-1 input projection, the GRU outputs
+and the gains in bf16, as the JAX package's ``apply_streaming_q8`` does.
 """
 
 from __future__ import annotations
@@ -81,6 +86,12 @@ def matmul_precision(stage: str | None = None) -> str:
     if stage is not None and stage in _stage_overrides:
         return _stage_overrides[stage]
     return _current
+
+
+def gru_levels() -> tuple[str, str]:
+    """The levels of the NSNet2 recurrence's two product classes:
+    (``gru_i``: h1 Wi2, ``gru_h``: h1 Wh1 and h2 Wh2)."""
+    return matmul_precision("gru_i"), matmul_precision("gru_h")
 
 
 def set_stage_precision(stage: str, level: str | None) -> None:
@@ -139,8 +150,8 @@ def _bf16_3x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, stage: str | None = None) -> torch.Tensor:
-    """``a @ b`` at the stage's precision, TF32 off. At 'default' both
+def matmul(a: torch.Tensor, b: torch.Tensor, stage: str | None = None, level: str | None = None) -> torch.Tensor:
+    """``a @ b`` at the stage's precision (or at ``level``), TF32 off. At 'default' both
     operands are rounded to bf16 and multiplied in float32: a product of two
     bf16 values is exact in float32, so the result is float32 sums of the
     exact products, the TPU's single-pass bf16 with float32 accumulation.
@@ -156,7 +167,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, stage: str | None = None) -> torch.
     if a.dtype == b.dtype == torch.bfloat16:
         return (a.float() @ b.float()).to(torch.bfloat16)
     a, b = a.float(), b.float()
-    level = matmul_precision(stage)
+    level = matmul_precision(stage) if level is None else _level(level)
     if level == "highest":
         return a @ b
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):

@@ -29,8 +29,8 @@ import copy
 import numpy as np
 import torch
 
-from ..models.nsnet2 import HIDDEN, N_BINS, NSNet2
-from ..models.nsnet2_cuda import _gates
+from ..models.nsnet2 import N_BINS, NSNet2
+from ..models.nsnet2_cuda import gru_stack_reference
 from ..ops import precision
 
 COMPRESSION = 0.3  # spectral compression exponent (DNS-Challenge loss)
@@ -54,54 +54,22 @@ def trainable(net: NSNet2) -> NSNet2:
     return net
 
 
-def _gru_weights(gru, cast) -> tuple:
-    return cast(gru.wi), cast(gru.wh), cast(gru.bi), cast(gru.bh), gru.linear_before_reset
-
-
-def gru_cell_pre(w: tuple, h: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
-    """One GRU step with the input projection ``gi = x @ wi + bi``
-    precomputed; ``w = (wi, wh, bi, bh, linear_before_reset)``. Port of the
-    JAX ``gru_cell_pre`` for both forms of the n gate."""
-    _, wh, _, bh, lbr = w
-    if lbr:
-        return _gates(gi, precision.matmul(h, wh, "gru_h") + bh, h)
-    z_i, r_i, n_i = gi.split(HIDDEN, dim=-1)
-    wh_z, wh_r, wh_n = wh.split(HIDDEN, dim=-1)
-    bh_z, bh_r, bh_n = bh.split(HIDDEN, dim=-1)
-    z = torch.sigmoid(z_i + precision.matmul(h, wh_z, "gru_h") + bh_z)
-    r = torch.sigmoid(r_i + precision.matmul(h, wh_r, "gru_h") + bh_r)
-    n = torch.tanh(n_i + precision.matmul(r * h, wh_n, "gru_h") + bh_n)
-    return (1.0 - z) * n + z * h
-
-
-def gru_cell(w: tuple, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """One GRU step on the layer input ``x`` (port of the JAX ``gru_cell``)."""
-    wi, _, bi, _, _ = w
-    return gru_cell_pre(w, h, precision.matmul(x, wi, "gru_i") + bi)
-
-
 def apply(net: NSNet2, features: torch.Tensor) -> torch.Tensor:
     """features [..., T, 161] -> gains [..., T, 161], from h = 0: the port of
     the JAX ``nsnet2.apply`` that its trainer differentiates, in PyTorch ops
     that autograd records. fc_in, then layer 1's input projection over the
-    whole sequence (stage gru_i), then the layer-by-layer time loop of
-    ``gru_cell_pre`` / ``gru_cell``, then the head. Under bf16 activation
-    storage the features, the weights and the state are cast to bf16 as
-    the JAX package casts them (the casts pass the gradient back)."""
+    whole sequence (stage gru_i), then the layer-by-layer time loop of the
+    scoring path's plain version (``nsnet2_cuda.gru_stack_reference``, the
+    port of the JAX ``gru_cell_pre`` / ``gru_cell`` loop at the gru_i and
+    gru_h levels), then the head. Under bf16 activation storage the
+    features, the weights and the state are cast to bf16 as the JAX package
+    casts them (the casts pass the gradient back)."""
     check_tier()
     cast = precision.io_cast
     lead, t = features.shape[:-2], features.shape[-2]
     x = net.fc_in(cast(features.reshape((-1, t, N_BINS))))
-    w1, w2 = _gru_weights(net.gru1, cast), _gru_weights(net.gru2, cast)
-    gi1 = precision.matmul(x, w1[0], "gru_i") + w1[2]  # [N, T, 1200]
-    h1 = h2 = cast(x.new_zeros((x.shape[0], HIDDEN)))
-    ys = []
-    for step in range(t):
-        h1 = gru_cell_pre(w1, h1, gi1[:, step])
-        h2 = gru_cell(w2, h2, h1)
-        ys.append(h2)
-    y = torch.stack(ys, dim=1) if ys else x.new_zeros((x.shape[0], 0, HIDDEN))
-    gains = net.head(y)
+    gi1 = precision.matmul(x, cast(net.gru1.wi), "gru_i") + cast(net.gru1.bi)  # [N, T, 1200]
+    gains = net.head(gru_stack_reference(net, gi1))
     return gains.reshape(lead + gains.shape[-2:])
 
 

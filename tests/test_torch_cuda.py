@@ -1,4 +1,4 @@
-"""The port's CUDA kernels on a GPU (every test here but the last two skips
+"""The port's CUDA kernels on a GPU (every test here but the last three skips
 without one). This file imports no jax, so it also runs on a machine
 without it:
 
@@ -17,7 +17,14 @@ equal to its plain version; the slice's segments on the GPU equal to the CPU
 run's. Under the int8 tier the GPU and CPU runs give the same segment count
 with every boundary within one FSM window: a one-ulp difference before
 quantization can move a value into the next int8 step; so under the bf16 and
-bf16-storage tiers, while 'high' (bf16_3x) keeps the CPU run's segments.
+bf16-storage tiers, while 'high' (bf16_3x, kernel A) keeps the CPU run's
+segments. Kernel A (``gates.gru_gates_3x``: the bf16_3x recurrence and its
+mixes with 'default' on the tensor cores) and kernel B
+(``nsnet2_cuda.gru_stack_mixed``: kernel 1's float32 body with one class
+at 'high' or 'default') are within 5e-6 and 2e-6 of their plain versions
+where no class is 'default' (kernel 5's bf16 bars where one is), carrying
+a state too, and nearer them than the plain versions at other levels; the int8 tier under bf16 storage and lbr = 0 weights in the
+bf16 tiers agree with the CPU.
 Each tier launches its recurrence kernel and the FSM and nothing else, and
 a 10-case tier-fuzz campaign on the card finds no deviation at 'high'.
 The streaming path (``BatchRunner(use_offline=False)``) launches one GRU
@@ -134,7 +141,9 @@ def test_gru_kernel_back_to_back_calls(net, cuda_device):
 def test_gru_kernel_refuses_a_grid_that_cannot_be_resident(net, cuda_device):
     """A plan whose grid exceeds what the card holds at once would hang at
     the first grid barrier: the C entry point refuses it before launching,
-    as it refuses a plan that does not cover the rows."""
+    as it refuses a plan that does not cover the rows, half a carried
+    state, and a pair of class levels it has no instantiation for (no
+    class at 'highest', or a level with a bf16 out)."""
     import ctypes
 
     plan = nsnet2_cuda.device_plan(4000, cuda_device)
@@ -150,15 +159,24 @@ def test_gru_kernel_refuses_a_grid_that_cannot_be_resident(net, cuda_device):
     for row_tile, row_groups, grid in ((plan.row_tile, plan.row_groups, plan.tiles), (100, 39, 100), (200, 20, 100)):
         err = lib.fvad_gru_stack(
             g, g + 1600, g + 3200, *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), None,
-            barrier.data_ptr(), None, None, 1200, 0, 4000, 2, row_tile, row_groups, plan.unit_groups, grid, stream,
+            barrier.data_ptr(), None, None, 1200, 0, 0, 0, 4000, 2, row_tile, row_groups, plan.unit_groups, grid,
+            stream,
         )
         assert err != 0, (row_tile, row_groups, grid)
     # Half a carried state (h1 without h2) is refused too, on a plan it takes.
     err = lib.fvad_gru_stack(
         g, g + 1600, g + 3200, *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), None, barrier.data_ptr(),
-        h1[0].data_ptr(), None, 1200, 0, 4000, 2, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid, stream,
+        h1[0].data_ptr(), None, 1200, 0, 0, 0, 4000, 2, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid,
+        stream,
     )
     assert err != 0
+    for out_bf16, level_i, level_h in ((0, 1, 1), (0, 2, 1), (0, 3, 0), (1, 1, 0)):
+        err = lib.fvad_gru_stack(
+            g, g + 1600, g + 3200, *(x.data_ptr() for x in w), out.data_ptr(), h1.data_ptr(), h1.data_ptr(),
+            barrier.data_ptr(), None, None, 1200, out_bf16, level_i, level_h, 4000, 2, plan.row_tile, plan.row_groups,
+            plan.unit_groups, plan.grid, stream,
+        )
+        assert err != 0, (out_bf16, level_i, level_h)
     assert plan.tiles > plan.grid == sms * nsnet2_cuda._card(cuda_device.index or 0)[1]
     torch.cuda.synchronize()
 
@@ -758,12 +776,13 @@ def test_bf16_tier_slice_on_gpu_matches_cpu(net, cuda_device):
 # forward: its recurrence kernel and the FSM, nothing else.
 TIERS = {
     "float": (("highest", "f32"), {"gru_stack": 1}),
-    "high": (("high", "f32"), {"gru_stack": 1}),
+    "high": (("high", "f32"), {"gru_gates_3x": 1}),
     "bf16": (("default", "f32"), {"gru_gates_p": 1}),
     "bf16_io": (("default", "bf16"), {"gru_gates_f": 1}),
 }
 COUNTERS = {"gru_stack": nsnet2_cuda.gru_stack, "gru_gates": gates.gru_gates, "gru_gates_p": gates.gru_gates_p,
-            "gru_gates_f": gates.gru_gates_f, "matmul_q8": mq.matmul_q8, "scan_windows": fsm_cuda.scan_windows}
+            "gru_gates_f": gates.gru_gates_f, "matmul_q8": mq.matmul_q8, "scan_windows": fsm_cuda.scan_windows,
+            "gru_gates_3x": gates.gru_gates_3x, "gru_stack_mixed": nsnet2_cuda.gru_stack_mixed}
 
 
 def _set_tier(level, io):
@@ -965,7 +984,8 @@ def test_fsm_still_checks_an_outside_carry(cuda_device):
 
 STREAM_COUNTERS = {"gru_stack": nsnet2_cuda.gru_stack, "scan_windows": fsm_cuda.scan_windows,
                    "gru_gates": gates.gru_gates, "gru_gates_p": gates.gru_gates_p, "gru_gates_f": gates.gru_gates_f,
-                   "matmul_q8": mq.matmul_q8}
+                   "matmul_q8": mq.matmul_q8, "gru_gates_3x": gates.gru_gates_3x,
+                   "gru_stack_mixed": nsnet2_cuda.gru_stack_mixed}
 
 
 def _stream_batch(seed=8, seconds=20.0):
@@ -1402,7 +1422,7 @@ def test_bf16_kernels_carry_a_state(net, cuda_device, kind, rows, steps):
 
 LOWLATENCY_TIERS = {  # tier: (matmul level, io dtype, quant, the recurrence's wrapper, its launches a step)
     "float": ("highest", "f32", "off", "gru_stack", 1),
-    "high": ("high", "f32", "off", "gru_stack", 1),
+    "high": ("high", "f32", "off", "gru_gates_3x", 1),
     "bf16": ("default", "f32", "off", "gru_gates_p", 1),
     "bf16_io": ("default", "bf16", "off", "gru_gates_f", 1),
     "int8": ("highest", "f32", "int8", "matmul_q8", 8),
@@ -1648,6 +1668,264 @@ def test_training_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         assert torch.isfinite(trained(batch[0].to(cuda_device))).all()
 
 
+KERNEL_A_LEVELS = [("high", "high"), ("default", "high"), ("high", "default")]  # (gru_i, gru_h)
+KERNEL_B_LEVELS = [("high", "highest"), ("default", "highest"), ("highest", "high"), ("highest", "default")]
+
+
+# Kernel A's and kernel B's bars where no class is 'default', from their
+# readings on the card (H100: A at all-'high' max 2.9e-6, B at a 'high' mix
+# 1.2e-6): a 'high' and a 'highest' product differ by only ~2^-16, so the
+# plain versions at other levels lie within 3e-6 to 6e-6 of each other
+# and ``_nearer_than_other_levels`` tells them apart.
+KERNEL_A_HIGH_TOL, KERNEL_B_HIGH_TOL = 5e-6, 2e-6
+
+
+def _near(got, want, levels, bar):
+    """Kernel A's and kernel B's bar against their plain versions: ``bar``;
+    where a class is 'default', h is rounded to bf16 where it enters its
+    products, and another float32 summation order now and then moves an h
+    value across a bf16 rounding step, so kernel 5's bf16 bars hold there
+    (max 6e-3, mean 3e-5)."""
+    d = (got - want).abs()
+    if "default" in levels:
+        assert float(d.max()) <= BF16_MAX and float(d.mean()) <= BF16_MEAN, (float(d.max()), float(d.mean()))
+    else:
+        assert float(d.max()) <= bar, (float(d.max()), float(d.mean()))
+
+
+def _nearer_than_other_levels(got, want, levels, plain_at):
+    """The control: the kernel's output lies nearer (mean |d|) its plain
+    version at its own levels than the plain versions at all-'highest' and
+    at the two classes swapped, so a kernel that ignored its levels (kernel
+    1's code) or swapped the classes fails."""
+    own = float((got - want).abs().mean())
+    for other in sorted({("highest", "highest"), levels[::-1]} - {levels}):
+        assert own < float((got - plain_at(other)).abs().mean()), (levels, other, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", KERNEL_A_LEVELS)
+@pytest.mark.parametrize("rows, steps", [(1, 1), (37, 54), (1680, 54), (4000, 54)])
+def test_kernel_a_matches_plain(net, cuda_device, levels, rows, steps):
+    """Kernel A (``gru_gates_3x``) against its plain version on the
+    per-gate gi of the fc_in output and N(0, 0.3) GRU biases (``_near``);
+    one count a launch of its 8-unit plan (three at 4,000 rows)."""
+    net = _biased(net)
+    gi = _gi3(net, rows, steps, rows * steps, cuda_device)
+    before = gates.gru_gates_3x.launches
+    with torch.inference_mode():
+        got = gates.gru_gates_3x(net, *gi, levels=levels)
+        want = gates.gru_gates_p_reference(gates.gate_weights(net, torch.float32), *gi, levels=levels)
+    torch.cuda.synchronize()
+    assert gates.gru_gates_3x.launches == before + len(gates.device_p_plan(rows, cuda_device, gates.P3_UNITS))
+    assert got.dtype == torch.float32 and got.shape == (rows, steps, 400)
+    _near(got, want, levels, KERNEL_A_HIGH_TOL)
+    if steps > 1:
+        with torch.inference_mode():
+            _nearer_than_other_levels(got, want, levels, lambda other: gates.gru_gates_p_reference(
+                gates.gate_weights(net, torch.float32), *gi, levels=other))
+
+
+@pytest.mark.cuda
+def test_kernel_a_on_random_gi(net, cuda_device):
+    """Kernel A at three passes a class on N(0, 0.8) gi (numpy seed 100,
+    8 rows x 54 steps) within 5e-6 of its plain version: bf16_3x carries h
+    to ~16 bits, so the bf16 bodies' rounding cascade (ROADMAP fault 3)
+    does not appear."""
+    rng = np.random.default_rng(100)
+    gi = tuple(torch.from_numpy((rng.standard_normal((8, 54, 400)) * 0.8).astype(np.float32)).to(cuda_device)
+               for _ in range(3))
+    with torch.inference_mode():
+        got = gates.gru_gates_3x(net, *gi, levels=("high", "high"))
+        want = gates.gru_gates_p_reference(gates.gate_weights(net, torch.float32), *gi, levels=("high", "high"))
+    torch.cuda.synchronize()
+    _near(got, want, ("high", "high"), KERNEL_A_HIGH_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", KERNEL_A_LEVELS)
+def test_kernel_a_rows_are_independent(net, cuda_device, levels):
+    """A repeated call and rows 0-16 of a 1,680-row call against a 17-row
+    call bit for bit; the barrier counters left at 0."""
+    gi = _gi3(_biased(net), 1680, 54, 8, cuda_device)
+    with torch.inference_mode():
+        whole = gates.gru_gates_3x(net, *gi, levels=levels)
+        again = gates.gru_gates_3x(net, *gi, levels=levels)
+        part = gates.gru_gates_3x(net, *(g[:17].contiguous() for g in gi), levels=levels)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, again) and torch.equal(part, whole[:17])
+    assert not bool(gates._p_barrier(whole.device, torch.cuda.current_stream(whole.device).cuda_stream).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", KERNEL_A_LEVELS)
+@pytest.mark.parametrize("rows,steps", [(42, 1), (42, 54)])
+def test_kernel_a_carries_a_state(net, cuda_device, levels, rows, steps):
+    """Kernel A continuing a nonzero state against its plain version, the
+    sequence and the final state (``_near``); from a zero state the
+    stateless call bit for bit; split at step 27 and chained, one call bit
+    for bit."""
+    net = _biased(net)
+    gi = _gi3(net, rows, steps, rows + steps, cuda_device)
+    state = _state(rows, steps, cuda_device)
+    with torch.inference_mode():
+        got, (h1, h2) = gates.gru_gates_3x(net, *gi, levels=levels, state=state)
+        want, (w1, w2) = gates.gru_gates_p_reference(gates.gate_weights(net, torch.float32), *gi, state=state,
+                                                     levels=levels)
+        stateless = gates.gru_gates_3x(net, *gi, levels=levels)
+        zero, _ = gates.gru_gates_3x(net, *gi, levels=levels, state=tuple(torch.zeros_like(h) for h in state))
+        torch.cuda.synchronize()
+        for a, b in ((got, want), (h1, w1), (h2, w2)):
+            _near(a, b, levels, KERNEL_A_HIGH_TOL)
+        assert torch.equal(h2, got[:, -1]) and torch.equal(zero, stateless)
+        if steps > 27:
+            first, mid = gates.gru_gates_3x(net, *(g[:, :27].contiguous() for g in gi), levels=levels, state=state)
+            second, (g1, g2) = gates.gru_gates_3x(net, *(g[:, 27:].contiguous() for g in gi), levels=levels, state=mid)
+            assert torch.equal(torch.cat([first, second], 1), got) and torch.equal(g1, h1) and torch.equal(g2, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", KERNEL_B_LEVELS)
+@pytest.mark.parametrize("rows, steps", [(1, 1), (37, 54), (1680, 54)])
+def test_kernel_b_matches_plain(net, cuda_device, levels, rows, steps):
+    """Kernel B (``gru_stack_mixed``: kernel 1's float32 body with one
+    class at 'high' or 'default') against ``gru_stack_reference`` at the
+    same levels, on N(0, 0.8) gi1 and N(0, 0.3) GRU biases (``_near``),
+    one launch."""
+    net = _biased(net)
+    gi1 = _gi1(rows, steps, rows + steps, cuda_device)
+    before = (nsnet2_cuda.gru_stack_mixed.launches, nsnet2_cuda.gru_stack.launches)
+    with torch.inference_mode():
+        got = nsnet2_cuda.gru_stack_mixed(net, gi1, levels)
+        want = nsnet2_cuda.gru_stack_reference(net, gi1, levels=levels)
+    torch.cuda.synchronize()
+    assert (nsnet2_cuda.gru_stack_mixed.launches, nsnet2_cuda.gru_stack.launches) == (before[0] + 1, before[1])
+    _near(got, want, levels, KERNEL_B_HIGH_TOL)
+    if steps > 1:
+        with torch.inference_mode():
+            _nearer_than_other_levels(got, want, levels,
+                                      lambda other: nsnet2_cuda.gru_stack_reference(net, gi1, levels=other))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", KERNEL_B_LEVELS)
+def test_kernel_b_carries_a_state(net, cuda_device, levels):
+    """Kernel B continuing a nonzero state at [42, 54] against its plain
+    version (``_near``); from a zero state the stateless call bit for bit."""
+    gi1 = _gi1(42, 54, 5, cuda_device)
+    state = _state(42, 6, cuda_device)
+    with torch.inference_mode():
+        got, (h1, h2) = nsnet2_cuda.gru_stack_mixed(net, gi1, levels, state)
+        want, (w1, w2) = nsnet2_cuda.gru_stack_reference(net, gi1, state, levels=levels)
+        stateless = nsnet2_cuda.gru_stack_mixed(net, gi1, levels)
+        zero, _ = nsnet2_cuda.gru_stack_mixed(net, gi1, levels, tuple(torch.zeros_like(h) for h in state))
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (h1, w1), (h2, w2)):
+        _near(a, b, levels, KERNEL_B_HIGH_TOL)
+    assert torch.equal(zero, stateless)
+
+
+def _route(levels):
+    """The wrapper that runs the recurrence at (gru_i, gru_h) levels, f32 storage."""
+    if levels == ("highest", "highest"):
+        return "gru_stack"
+    if levels == ("default", "default"):
+        return "gru_gates_p"
+    return "gru_stack_mixed" if "highest" in levels else "gru_gates_3x"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level_i", ["highest", "high", "default"])
+@pytest.mark.parametrize("level_h", ["highest", "high", "default"])
+def test_stage_levels_route_on_the_card(net, cuda_device, level_i, level_h):
+    """Under gru_i and gru_h stage overrides the forward launches its
+    route's kernel once and nothing else, with gains within the route
+    kernel's bar of the CPU's (5e-6 on kernel A, 2e-6 on kernels 1 and B;
+    2e-3 where a class is 'default': a bf16 rounding step of h)."""
+    feats = torch.from_numpy(np.random.default_rng(2).normal(-3.0, 1.5, (6, 54, 161)).astype(np.float32))
+    cpu_net = registry.load_denoiser("demo", device="cpu")
+    precision.set_stage_overrides({"gru_i": level_i, "gru_h": level_h})
+    try:
+        with torch.inference_mode():
+            before = {k: fn.launches for k, fn in COUNTERS.items()}
+            got = net(feats.to(cuda_device))
+            torch.cuda.synchronize()
+            launched = {k: fn.launches - before[k] for k, fn in COUNTERS.items()}
+            want = cpu_net(feats)
+    finally:
+        precision.set_stage_overrides(None)
+    assert launched == dict(dict.fromkeys(COUNTERS, 0), **{_route((level_i, level_h)): 1})
+    bar = 2e-3 if "default" in (level_i, level_h) else {"gru_gates_3x": KERNEL_A_HIGH_TOL}.get(
+        _route((level_i, level_h)), KERNEL_B_HIGH_TOL)
+    assert float((got.cpu() - want).abs().max()) <= bar, float((got.cpu() - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_int8_with_bf16_storage_on_the_card(net, cuda_device):
+    """The int8 tier under bf16 storage: 167 kernel-3 launches a run and no
+    recurrence kernel, bf16 gains; the slice's segments against the CPU
+    run's: the same count, every boundary within one FSM window."""
+    rng = np.random.default_rng(3)
+    audio = np.stack([synth_stream(rng, 20.0)[0] for _ in range(3)])
+    precision.set_quant("int8")
+    precision.set_io_dtype("bf16")
+    try:
+        before = {k: fn.launches for k, fn in COUNTERS.items()}
+        gpu = BatchRunner(net, VADConfig()).run(audio)
+        launched = {k: fn.launches - before[k] for k, fn in COUNTERS.items()}
+        cpu = BatchRunner(registry.load_denoiser("demo", device="cpu"), VADConfig()).run(audio)
+        with torch.inference_mode():
+            gains = net(torch.zeros((2, 54, 161), device=cuda_device))
+    finally:
+        precision.set_quant("off")
+        precision.set_io_dtype("f32")
+    assert launched == dict(dict.fromkeys(COUNTERS, 0), matmul_q8=167, scan_windows=1)
+    assert gains.dtype == torch.bfloat16
+    assert sum(len(r.segments) for r in gpu) > 0
+    for g, c in zip(gpu, cpu):
+        assert len(g.segments) == len(c.segments)
+        for a, b in zip(g.segments, c.segments):
+            assert abs(a["sample_from"] - b["sample_from"]) <= FFT and abs(a["sample_to"] - b["sample_to"]) <= FFT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", [("default", "f32"), ("highest", "bf16"), ("high", "f32")])
+def test_lbr0_tiers_on_the_card(cuda_device, tier):
+    """lbr = 0 weights, which no kernel takes, at 'default', under bf16
+    storage and at 'high': the plain loop on the card launches no kernel
+    of the recurrence, and its gains are the CPU's within the CPU tests'
+    bars (max 2e-3 and mean 2e-5 at 'default'; 4e-3 and 2e-5 under bf16
+    storage; 1e-4 at 'high')."""
+    feats = torch.from_numpy(np.random.default_rng(4).normal(-3.0, 1.5, (4, 20, 161)).astype(np.float32))
+    nets = [registry.load_denoiser("demo", device=d) for d in (cuda_device, "cpu")]
+    for n in nets:
+        n.gru2.linear_before_reset = 0
+    _set_tier(*tier)
+    try:
+        with torch.inference_mode():
+            before = {k: fn.launches for k, fn in COUNTERS.items()}
+            got = nets[0](feats.to(cuda_device))
+            torch.cuda.synchronize()
+            launched = {k: fn.launches - before[k] for k, fn in COUNTERS.items()}
+            want = nets[1](feats)
+    finally:
+        _set_tier("highest", "f32")
+    assert launched == dict.fromkeys(COUNTERS, 0)
+    assert got.dtype == want.dtype == (torch.bfloat16 if tier[1] == "bf16" else torch.float32)
+    d = (got.cpu().float() - want.float()).abs()
+    bar = {"default": (2e-3, 2e-5), "highest": (4e-3, 2e-5), "high": (GRU_TOL, GRU_TOL)}[tier[0]]
+    assert float(d.max()) <= bar[0] and float(d.mean()) <= bar[1], (float(d.max()), float(d.mean()))
+
+
+
+@pytest.mark.cuda
+def test_kernel_a_shared_bytes_match_the_source(cuda_device):
+    """The host's kernel-A plan sizes shared memory with the source's sum."""
+    lib = gates._lib()
+    for per in (1, 53, gates.P3_MAX_TILES):
+        assert lib.fvad_gru_gates_3x_smem_bytes(per) == gates.PLaunch(0, 16, 1, 1, per, gates.P3_UNITS).smem_bytes("A")
+
+
 def test_wrappers_refuse_other_devices():
     """No wrapper silently runs a tensor that is on neither the CPU nor a
     GPU (here: the meta device)."""
@@ -1658,6 +1936,10 @@ def test_wrappers_refuse_other_devices():
     for wrapper in (gates.gru_gates, gates.gru_gates_p, gates.gru_gates_f):
         with pytest.raises(ValueError, match="unsupported device"):
             wrapper(net, gi, gi, gi)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gates.gru_gates_3x(net, gi, gi, gi, levels=("high", "high"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        nsnet2_cuda.gru_stack_mixed(net, torch.empty((2, 3, 1200), device="meta"), ("high", "highest"))
     shape, params = fsm.statics_from_config(VADMachineConfig(), SR, FFT)
     x = torch.empty((2, 5), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -1671,3 +1953,31 @@ def test_resolve_refuses_cuda_without_a_gpu(monkeypatch):
     assert device_mod.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device_mod.resolve("tpu")
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 1680, 1824, 1825, 4000])
+def test_kernel_a_plan_covers_the_rows(rows):
+    """Kernel A's plan (pure, no GPU) on 132 SMs: launches of one wave, 2
+    row groups x 50 unit groups of 8 units at most, at most 57 tiles a CTA
+    beside its 115,200 bytes of weights, within a block's 232,448 bytes;
+    every row and unit covered once. 1,680 rows are one launch of 2 x 53
+    tiles, 100 CTAs; more than 1,824 rows take several. The old
+    instantiations keep their plan: kernel 5 at 1,680 rows is one launch of
+    5 row groups x 21 tiles, 201,216 bytes a CTA."""
+    plan = gates.p_launch_plan(rows, 132, gates.P3_UNITS)
+    covered = []
+    for launch in plan:
+        assert launch.units == 8 and launch.grid == 50 * launch.row_groups <= 132
+        assert launch.tiles_per_group <= gates.P3_MAX_TILES and launch.tiles == -(-launch.n_rows // 16)
+        assert launch.smem_bytes("A") == 115200 + 2048 * launch.tiles_per_group <= 232448
+        for block in range(launch.grid):
+            r, u = launch.cta_span(block)
+            assert len(u) == 8 and u.start == 8 * (block % 50)
+            if block % 50 == 0:
+                covered += list(r)
+    assert covered == list(range(rows))
+    assert len(plan) == -(-(-(-rows // 16)) // (2 * gates.P3_MAX_TILES))
+    if rows == 1680:
+        assert [(p.row_groups, p.tiles_per_group, p.grid) for p in plan] == [(2, 53, 100)]
+        k5 = gates.p_launch_plan(rows, 132)
+        assert [(p.row_groups, p.tiles_per_group, p.grid, p.smem_bytes(5)) for p in k5] == [(5, 21, 125, 201216)]

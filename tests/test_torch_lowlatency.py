@@ -250,7 +250,7 @@ def _jax_int8_split(jp, feats, split: int):
 # tier: (matmul level, io dtype, quant, the plain version its recurrence runs,
 # the weights, the JAX tier over the features split in two calls, gains max and mean bars)
 TIERS = {
-    "high": ("high", "f32", "off", (nsnet2_cuda, "gru_stack_reference"), "random",
+    "high": ("high", "f32", "off", (nsnet2_gates_cuda, "gru_gates_p_reference"), "random",
              lambda jp, f, split: _jax_high_forward(jp, f), 2e-6, 3e-7),
     "bf16": ("default", "f32", "off", (nsnet2_gates_cuda, "gru_gates_p_reference"), "demo",
              lambda jp, f, split: _jax_bf16_forward(jp, f), 2e-3, 2e-5),

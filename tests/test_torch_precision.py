@@ -19,9 +19,10 @@ one FSM window (1,024 samples).
 'high' (bf16_3x) is held to three JAX products of the bf16 halves with
 ``preferred_element_type=float32`` (bar: 2e-8 relative to the operands'
 scale, the float32 summation order, 20x below its distance from the float32
-product), and its forward, whose recurrence runs in float32 (kernel 1), to
-such products and the TPU kernel 1 in interpret mode (bar: gains max 2e-6,
-mean 3e-7; the recurrence's float32 summation order over the steps). bf16
+product), and its forward, whose recurrence runs bf16_3x products (kernel
+A's plain version), to a ``lax.scan`` of such products over
+``jnsnet2._gates_lbr`` (``_jax_scan_forward``; bar: gains max 2e-6, mean
+3e-7; the recurrence's float32 summation order over the steps). bf16
 storage: its forward to bf16-rounded JAX pieces and the TPU kernel 6 in
 interpret mode with a bf16 out (bar: gains max 4e-3, one bf16 step of a
 gain in [0.5, 1), mean 2e-5; both 10x below its distance from the float
@@ -43,7 +44,6 @@ import torch
 from benchmarks import gru_kernel_exp as jexp
 from formula_vad_tpu.config import VADConfig as JVADConfig
 from formula_vad_tpu.models import nsnet2 as jnsnet2
-from formula_vad_tpu.models import nsnet2_pallas as jpallas
 from formula_vad_tpu.models.registry import DEMO_WEIGHTS
 from formula_vad_tpu.ops import precision as jprecision
 from formula_vad_tpu.parallel.runner import BatchRunner as JBatchRunner
@@ -306,18 +306,71 @@ def random_pair(tmp_path_factory):
     return jp, nsnet2.load_npz(path), feats
 
 
+_LEVEL_INDEX = {"highest": 0, "high": 1, "default": 2}
+# A float32 product at each level from JAX pieces that round on the CPU:
+# ``jnp.matmul`` at 'highest', ``_jax_bf16_3x`` at 'high', bf16 operands
+# with float32 sums at 'default' (in ``_LEVEL_INDEX`` order).
+_JAX_PRODUCTS = (
+    lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST),
+    lambda a, b: _jax_bf16_3x(a, b),
+    lambda a, b: _jdot(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16)),
+)
+
+
+@jax.jit
+def _jax_scan(jp, feats, codes):
+    """The forward from JAX pieces, each stage's products at its level
+    (``codes``: the ``_LEVEL_INDEX`` of fc_in, gru_i, gru_h and ff, an
+    argument, so that one program serves every level): fc_in, the layer-1
+    input projection (gru_i) and the head as products at their stage's
+    level; the recurrence a ``lax.scan`` over ``jnsnet2._gates_lbr`` (lbr =
+    1) or the lbr = 0 gate math of ``gru_cell_pre``, with h1 Wh1 and h2 Wh2
+    at gru_h and h1 Wi2 at gru_i, as the JAX package's TPU runs each product
+    at its stage's level. -> (gains, h2 sequence)."""
+    h = jnsnet2.HIDDEN
+
+    def product(stage):
+        return lambda a, b: jax.lax.switch(codes[stage], _JAX_PRODUCTS, a, b)
+
+    p_fc, p_i, p_h, p_ff = map(product, range(4))
+
+    def cell(g, hp, gi):
+        if g.linear_before_reset:
+            return jnsnet2._gates_lbr(gi, p_h(hp, g.wh) + g.bh, hp)
+        z = jax.nn.sigmoid(gi[..., :h] + p_h(hp, g.wh[:, :h]) + g.bh[:h])
+        r = jax.nn.sigmoid(gi[..., h : 2 * h] + p_h(hp, g.wh[:, h : 2 * h]) + g.bh[h : 2 * h])
+        n = jnp.tanh(gi[..., 2 * h :] + p_h(r * hp, g.wh[:, 2 * h :]) + g.bh[2 * h :])
+        return (1.0 - z) * n + z * hp
+
+    g1, g2 = jp.gru1, jp.gru2
+    gi1 = p_i(p_fc(feats, jp.fc_in_w) + jp.fc_in_b, g1.wi) + g1.bi
+
+    def step(carry, gi_t):
+        h1, h2 = carry
+        h1 = cell(g1, h1, gi_t)
+        h2 = cell(g2, h2, p_i(h1, g2.wi) + g2.bi)
+        return (h1, h2), h2
+
+    zero = jnp.zeros(gi1.shape[:-2] + (h,), jnp.float32)
+    _, ys = jax.lax.scan(step, (zero, zero), jnp.moveaxis(gi1, -2, 0))
+    y = jnp.moveaxis(ys, 0, -2)
+    a = jax.nn.relu(p_ff(y, jp.ff1_w) + jp.ff1_b)
+    a = jax.nn.relu(p_ff(a, jp.ff2_w) + jp.ff2_b)
+    return jax.nn.sigmoid(p_ff(a, jp.out_w) + jp.out_b), y
+
+
+def _jax_scan_forward(jp, feats, fc_in="highest", gru_i="highest", gru_h="highest", ff="highest"):
+    """``_jax_scan`` at the stages' levels -> numpy (gains, h2 sequence)."""
+    codes = jnp.asarray([_LEVEL_INDEX[level] for level in (fc_in, gru_i, gru_h, ff)], jnp.int32)
+    gains, y = _jax_scan(jp, jnp.asarray(feats), codes)
+    return np.asarray(gains, np.float64), np.asarray(y, np.float64)
+
+
 def _jax_high_forward(jp, feats):
-    """The 'high' tier's forward from JAX pieces: fc_in, gi1 and the head as
-    bf16_3x products, the recurrence through the TPU kernel 1 in float32
-    (interpret mode)."""
-    x = _jax_bf16_3x(feats, jp.fc_in_w) + jp.fc_in_b
-    gi1 = _jax_bf16_3x(x, jp.gru1.wi) + jp.gru1.bi
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jpallas, "ROW_TILE", 8)
-        y = jpallas.gru_stack_pallas(jp, gi1, interpret=True)
-    y = jax.nn.relu(_jax_bf16_3x(y, jp.ff1_w) + jp.ff1_b)
-    y = jax.nn.relu(_jax_bf16_3x(y, jp.ff2_w) + jp.ff2_b)
-    return jax.nn.sigmoid(_jax_bf16_3x(y, jp.out_w) + jp.out_b)
+    """The 'high' tier's forward from JAX pieces (``_jax_scan_forward``):
+    every product bf16_3x, the recurrence's too, as the JAX package's TPU
+    runs its scan and kernel 1 at ``Precision.HIGH``."""
+    return _jax_scan_forward(jp, feats, "high", "high", "high", "high")[0]
 
 
 def _counting(monkeypatch, module, names: tuple, forbidden: tuple) -> dict:
@@ -338,14 +391,16 @@ def _counting(monkeypatch, module, names: tuple, forbidden: tuple) -> dict:
 
 
 def test_forward_at_high_matches_jax_bf16_3x(random_pair, monkeypatch):
+    """The 'high' tier's forward, its recurrence on kernel A's plain
+    version (bf16_3x products), against ``_jax_high_forward``."""
     jp, net, feats = random_pair
-    want = np.asarray(_jax_high_forward(jp, jnp.asarray(feats)), np.float64)
-    calls = _counting(monkeypatch, nsnet2_cuda, ("gru_stack_reference",),
-                      ((nsnet2_gates_cuda, "gru_gates_p_reference"), (nsnet2_gates_cuda, "gru_gates_f_reference")))
+    want = _jax_high_forward(jp, feats)
+    calls = _counting(monkeypatch, nsnet2_gates_cuda, ("gru_gates_p_reference",),
+                      ((nsnet2_cuda, "gru_stack_reference"), (nsnet2_gates_cuda, "gru_gates_f_reference")))
     precision.set_matmul_precision("high")
     with torch.inference_mode():
         got = net(torch.from_numpy(feats))
-    assert calls == {"gru_stack_reference": 1}
+    assert calls == {"gru_gates_p_reference": 1}
     assert got.dtype == torch.float32
     d = np.abs(got.numpy() - want)
     assert d.max() <= 2e-6 and d.mean() <= 3e-7, (d.max(), d.mean())
@@ -419,31 +474,6 @@ def test_kernel_6_runs_in_bf16_with_a_bf16_out(random_pair, monkeypatch):
     with torch.inference_mode():
         net(torch.from_numpy(feats))
     assert seen == [(torch.float32, torch.bfloat16, torch.bfloat16)]
-
-
-def test_mixed_gru_stages_raise():
-    net = registry.load_denoiser("demo", device="cpu")
-    precision.set_stage_precision("gru_h", "default")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net(torch.zeros((1, 3, 161)))
-
-
-@pytest.mark.parametrize("tier", [("default", "f32"), ("default", "bf16"), ("highest", "bf16")])
-def test_bf16_tiers_of_lbr0_weights_raise(tier):
-    net = registry.load_denoiser("demo", device="cpu")
-    net.gru2.linear_before_reset = 0
-    precision.set_matmul_precision(tier[0])
-    precision.set_io_dtype(tier[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net(torch.zeros((1, 3, 161)))
-
-
-def test_int8_with_bf16_storage_raises():
-    net = registry.load_denoiser("demo", device="cpu")
-    precision.set_quant("int8")
-    precision.set_io_dtype("bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net(torch.zeros((1, 3, 161)))
 
 
 def _simulate(root, plan: str, *flags: str) -> list:

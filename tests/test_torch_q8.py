@@ -240,18 +240,26 @@ def reload_precision(monkeypatch):
         ({"FVAD_QUANT": "int4"}, ValueError, "FVAD_QUANT"),
         ({"FVAD_PRECISION": "fastest"}, ValueError, "FVAD_PRECISION"),
         ({"FVAD_IO_DTYPE": "f16"}, ValueError, "FVAD_IO_DTYPE"),
-        ({"FVAD_QUANT": "int8", "FVAD_PRECISION": "default", "FVAD_IO_DTYPE": "bf16"}, NotImplementedError, "ROADMAP"),
-        ({"FVAD_QUANT": "int8", "FVAD_PRECISION": "high", "FVAD_IO_DTYPE": "bf16"}, NotImplementedError, "ROADMAP"),
-        ({"FVAD_QUANT": "int8", "FVAD_IO_DTYPE": "bf16"}, NotImplementedError, "ROADMAP"),
     ],
 )
 def test_env_guards(reload_precision, env, error, match):
-    """A value outside a switch's choices raises at import; the int8 tier
-    with bf16 activation storage, which is not ported, raises at the
-    forward, at every matmul level."""
+    """A value outside a switch's choices raises at import."""
     with pytest.raises(error, match=match):
         reload_precision(**env)
         registry.load_denoiser("demo", device="cpu")(torch.zeros((1, 3, 161)))
+
+
+@pytest.mark.parametrize("level", [None, "default", "high"])
+def test_env_runs_int8_with_bf16_storage(reload_precision, monkeypatch, level):
+    """FVAD_QUANT=int8 with FVAD_IO_DTYPE=bf16, at every matmul level: the
+    forward runs the int8 model (3T + 5 int8 products) and stores its gains
+    in bf16, as the JAX package's ``apply_streaming_q8`` does."""
+    env = {"FVAD_QUANT": "int8", "FVAD_IO_DTYPE": "bf16", **({"FVAD_PRECISION": level} if level else {})}
+    reload_precision(**env)
+    calls = _count_matmuls(monkeypatch)
+    with torch.inference_mode():
+        gains = registry.load_denoiser("demo", device="cpu")(torch.zeros((1, 3, 161)))
+    assert calls[0] == 3 * 3 + 5 and gains.dtype == torch.bfloat16 and bool(torch.isfinite(gains.float()).all())
 
 
 def test_env_selects_int8(reload_precision):

@@ -25,7 +25,7 @@ import torch
 from formula_vad_tpu.models import nsnet2 as jnsnet2
 from formula_vad_tpu.pipeline import offline as joffline
 from formula_vad_tpu.testing import tier_fuzz as jtier_fuzz
-from formula_vad_tpu_torch.models import nsnet2, registry
+from formula_vad_tpu_torch.models import nsnet2, nsnet2_gates_cuda, registry
 from formula_vad_tpu_torch.ops import precision
 from formula_vad_tpu_torch.pipeline import offline
 from formula_vad_tpu_torch.testing import tier_fuzz
@@ -162,13 +162,17 @@ def test_format_table_matches_jax(port_run):
     print(tier_fuzz.format_table(stats))
 
 
-def test_campaign_restores_the_float_tier():
-    """A tier that raises (here the bf16 tier of linear_before_reset = 0
-    weights, which is not ported) leaves the global switches at
-    ``highest`` and float32 storage."""
+def test_campaign_restores_the_float_tier(monkeypatch):
+    """A tier that raises (here the bf16 tier, whose recurrence's plain
+    version is made to fail) leaves the global switches at ``highest`` and
+    float32 storage."""
     net = registry.load_denoiser("random", device="cpu")
-    net.gru1.linear_before_reset = 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+
+    def fail(*args, **kw):
+        raise RuntimeError("the bf16 recurrence failed")
+
+    monkeypatch.setattr(nsnet2_gates_cuda, "gru_gates_p_reference", fail)
+    with pytest.raises(RuntimeError, match="bf16 recurrence"):
         tier_fuzz.run_campaign(net, n_cases=1, n_chunks=N_CHUNKS, tiers=tier_fuzz.TIERS[1:])
     assert precision.matmul_precision() == "highest" and precision.io_dtype() is None
 
