@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs seventeen phases; any failed check raises and the script exits non-zero.
+runs eighteen phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -263,6 +263,21 @@ runs seventeen phases; any failed check raises and the script exits non-zero.
    times that of the CPU's forward with float64 sums. (g) The stage audit (tools/stage_precision_audit.py's main, in
    this process so that its launches count): 7 stage rows, kernel B under
    the gru_i and gru_h rows, kernel A under all-high.
+18. The data mesh on the card (parallel/mesh.py), its shards repeating
+   cuda:0. (a) BatchRunner on the slice over 2 and 4 shards (padded to 22
+   and 24 streams): segments identical to phase 4's, one gru_stack and one
+   scan_windows launch a shard a run, every shard's model, inputs and FSM
+   outputs on its shard's device, the wall beside phase 4's. (b) SlabRunner
+   on phase 10's race corpus over 2 shards: segments identical to phase
+   10's, no synchronising call from the first dispatch to the fetches,
+   one fetch a shard after the last slab. (c) OnlineBatchServer on phase
+   13's 256-stream fleet over 2 shards x microbatch 2 against the
+   unsharded fleet: segments, recordings, decisions and indices bit for
+   bit, float outputs within SERVE_ROWS_TOL; tick p50 beside phase 13's.
+   (d) Two processes on the card, joined by gloo
+   (formula_vad_tpu_torch.testing.distributed, LOCAL_DEVICES=2: a mesh of
+   4) on the slice: segments equal to each other's and (a)'s, kernels 1
+   and 2 launched twice in each; their wall beside (a)'s.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -281,7 +296,6 @@ import collections
 import contextlib
 import json
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -388,6 +402,10 @@ SERVE_ROWS_TOL = 1e-5
 # the sweep's 4 x 2 grid of alternative machines, the base config (10, 0.5)
 # among them, and the tuner's grid on phase 5's corpus.
 LL_HOP, LL_STEPS, LL_TOL = 480, 200, 1e-5
+# Phase 18: the shard counts of the slice's mesh runs, and how long the
+# two-process run may take (both processes start, build nothing, score).
+MESH_SHARDS = (2, 4)
+MESH_PROCESS_TIMEOUT = 300
 LL_ROWS = (2 * SLICE_STREAMS, 8192)
 LL_SCALE = (64, 256, 1024, 4096)
 # (tier, matmul level, io dtype, quant, the wrapper of its recurrence, its launches a step)
@@ -708,10 +726,12 @@ def phase_fsm(st, dev) -> dict:
 
 
 def slice_audio() -> np.ndarray:
-    from formula_vad_tpu_torch.testing.synth import synth_stream
+    """The slice, from the one definition that phase 18(d)'s workers score too."""
+    from formula_vad_tpu_torch.testing import distributed
 
-    rng = np.random.default_rng(1)
-    return np.stack([synth_stream(rng, SLICE_SECONDS)[0] for _ in range(SLICE_STREAMS)])
+    if (distributed.SLICE_STREAMS, distributed.SLICE_SECONDS) != (SLICE_STREAMS, SLICE_SECONDS):
+        raise AssertionError("the worker's slice is not the one this script sizes its phases by")
+    return distributed.slice_batch()[0]
 
 
 def reset_counts(counters) -> None:
@@ -1433,8 +1453,10 @@ def slab_kernels(net, dev) -> dict:
     return out
 
 
-def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, dict]:
-    """Phase 10; -> (launches a kernel on the slab path, slab-shape entries)."""
+def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, dict, list]:
+    """Phase 10; -> (launches a kernel on the slab path, slab-shape entries,
+    the float tier's segments). The race corpus stays in ``root`` for
+    phase 18."""
     import torch
 
     from formula_vad_tpu_torch.io_ import AudioSource
@@ -1607,7 +1629,6 @@ def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, d
     finally:
         for src in srcs:
             src.close()
-        shutil.rmtree(race, ignore_errors=True)
 
     corpus = os.path.join(root, "sim")
     os.makedirs(corpus)
@@ -1626,7 +1647,7 @@ def phase_slab(net, dev, smi: str, float_rtf: float, root: str) -> tuple[dict, d
     # tier's path, the sum of their counts over the three runs (0).
     return {"gru_stack": tiers["float"]["gru_stack"], "scan_windows": tiers["float"]["scan_windows"],
             "gru_gates_p": tiers["bf16"]["gru_gates_p"], "matmul_q8": tiers["int8"]["matmul_q8"],
-            **{name: sum(t[name] for t in tiers.values()) for name in ("gru_gates", "gru_gates_f")}}, kernels
+            **{name: sum(t[name] for t in tiers.values()) for name in ("gru_gates", "gru_gates_f")}}, kernels, segs
 
 
 def gates_on_path(net, dev, rows: int, kind: int) -> dict:
@@ -4015,6 +4036,200 @@ def phase_train(dev, audio, smi: str) -> dict:
     return {"launches": launches, "grads": grads, "runs": runs, "quality": quality, "score_wall_ms": wall * 1e3}
 
 
+def mesh_slice(net, dev, audio, float_results, float_wall: float, counters, smi: str) -> dict:
+    """Phase 18 (a); -> {"launches": by mesh, "walls": by mesh}."""
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+    from formula_vad_tpu_torch.pipeline import offline
+
+    process = offline.process_batch_offline
+    seen = []
+
+    def capture(net_, st, x, valid, params):
+        win_out, carry = process(net_, st, x, valid, params)
+        seen.append({next(net_.parameters()).device, x.device, valid.device, *(t.device for t in win_out)})
+        return win_out, carry
+
+    out = {"launches": {}, "walls": {}}
+    want = [r.segments for r in float_results]
+    for k in MESH_SHARDS:
+        mesh = mesh_lib.data_mesh([dev] * k)
+        runner = BatchRunner(net, mesh=mesh)
+        seen.clear()
+        offline.process_batch_offline = capture
+        try:
+            results, walls, launches = timed_runs(runner, audio, counters)
+        finally:
+            offline.process_batch_offline = process
+        if launches != dict(dict.fromkeys(counters, 0), gru_stack=3 * k, scan_windows=3 * k):
+            raise AssertionError(f"the slice over {k} shards launched {launches} in 3 runs, not one of kernels 1 and 2 a shard")
+        if len(seen) != 4 * k or any(devs != {mesh.devices[j % k]} for j, devs in enumerate(seen)):
+            raise AssertionError(f"a shard's tensors left its device over {k} shards: {seen}")
+        if [r.segments for r in results] != want:
+            raise AssertionError(f"the slice's segments over {k} shards differ from phase 4's")
+        wall = statistics.median(walls)
+        out["launches"][f"batch_{k}"], out["walls"][f"batch_{k}"] = launches, wall
+        log(f"mesh of {k} on {mesh.devices[0]} ({mesh_lib.pad_batch(SLICE_STREAMS, mesh)} streams with the padding): "
+            f"segments identical to phase 4's; launches over 3 runs {launches}; every shard's model, inputs and FSM "
+            f"outputs on its device; wall {wall * 1e3:.1f} ms (median of 3, {[round(w * 1e3, 1) for w in walls]}) against "
+            f"phase 4's {float_wall * 1e3:.1f} ms unsharded; on {smi}")
+    return out
+
+
+def mesh_slab(net, dev, root: str, slab_segments: list, counters, smi: str) -> dict:
+    """Phase 18 (b); -> the sharded slab run's launches and wall."""
+    import torch
+
+    from formula_vad_tpu_torch.io_ import AudioSource
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+    from formula_vad_tpu_torch.parallel.slab_runner import SlabRunner
+
+    srcs = [AudioSource.open_stream(os.path.join(root, "race", f"s{i}.wav")) for i in range(SLAB_STREAMS)]
+    try:
+        def read_raw16(src):
+            def read(start, n):
+                src.seek_to_sample(start)
+                return src.read_raw16(n)
+            return read
+
+        def run(lengths=SLAB_LENGTHS):
+            results = runner.run_readers([read_raw16(src) for src in srcs], lengths, raw16=True)
+            torch.cuda.synchronize()
+            return results
+
+        runner = SlabRunner(net, slab_chunks=SLAB_CHUNKS, mesh=mesh_lib.data_mesh([dev] * 2))
+        run([min(n, 2 * SLAB_CHUNKS * 24000) for n in SLAB_LENGTHS])  # the warm-up
+        dispatch, fetch = runner._dispatch, runner._fetch
+        dispatched, fetched_after = [0], []
+
+        def strict_dispatch(*args):
+            out = dispatch(*args)
+            dispatched[0] += 1
+            torch.cuda.set_sync_debug_mode("error")  # any synchronising call from here raises
+            return out
+
+        def relaxed_fetch(slab_outs):
+            torch.cuda.set_sync_debug_mode("default")
+            fetched_after.append(dispatched[0])
+            return fetch(slab_outs)
+
+        runner._dispatch, runner._fetch = strict_dispatch, relaxed_fetch
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        try:
+            results = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wall = time.perf_counter() - t0
+    finally:
+        for src in srcs:
+            src.close()
+    launches = launches_of(counters)
+    if launches != dict(dict.fromkeys(counters, 0), gru_stack=2 * SLAB_COUNT, scan_windows=2 * SLAB_COUNT):
+        raise AssertionError(f"the slab run over 2 shards launched {launches}, not one of kernels 1 and 2 a shard a slab")
+    if fetched_after != [2 * SLAB_COUNT] * 2:
+        raise AssertionError(f"the sharded slab run fetched after {fetched_after} dispatches, not once a shard at the end")
+    if [r.segments for r in results] != slab_segments:
+        raise AssertionError("the slab run's segments over 2 shards differ from phase 10's")
+    log(f"slab run over 2 shards: segments identical to phase 10's, launches {launches}, no synchronising call from "
+        f"the first dispatch to the fetches, one fetch a shard after all {2 * SLAB_COUNT} dispatches; wall "
+        f"{wall * 1e3:.1f} ms; on {smi}")
+    return {"launches": launches, "wall_s": wall}
+
+
+def mesh_serve(net, dev, audio, big_p50: float, counters, smi: str) -> dict:
+    """Phase 18 (c): phase 13's 256-stream fleet over 2 shards x microbatch 2."""
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+
+    b, n = SERVE_BIG_STREAMS, SERVE_BIG_TICKS
+    src = np.stack([audio[j % SLICE_STREAMS, :, 2 * (j // SLICE_STREAMS) * 24000:][:, : 2 * n * 24000]
+                    for j in range(b)])
+    chunks = np.ascontiguousarray(src[..., : n * 24000].reshape(b, 2, n, 24000).transpose(2, 0, 1, 3))
+    sharded_kw = dict(mesh=mesh_lib.data_mesh([dev] * 2), use_mesh=True, microbatch=2)
+    serve_run(net, chunks[:1], record=False)  # warm-ups at this fleet's shapes
+    serve_run(net, chunks[:1], record=False, **sharded_kw)
+    base = serve_run(net, chunks)
+    reset_counts(counters)
+    sharded = serve_run(net, chunks, **sharded_kw)
+    launches = check_launches(f"the {b}-stream fleet over 2 shards x microbatch 2", counters,
+                              gru_stack=4 * n, scan_windows=4 * n)
+    err = same_serving(f"the {b}-stream fleet over 2 shards x microbatch 2 against the unsharded fleet", sharded, base,
+                       exact=False)
+    stats = serve_stats(f"{b} streams over 2 shards x microbatch 2", sharded, smi)
+    log(f"  {b} streams over 2 shards x microbatch 2: segments, recordings, decisions and indices bit for bit with the "
+        f"unsharded fleet, float outputs within {err:.3e}; launches {launches}; tick p50 {stats['tick_p50_ms']:.3f} ms "
+        f"against the unsharded fleet's {base['stats']['p50_ms']:.3f} here and phase 13's {big_p50:.3f}")
+    return dict(stats, launches=launches, max_abs_err=err, base_tick_p50_ms=base["stats"]["p50_ms"],
+                phase13_tick_p50_ms=big_p50)
+
+
+def mesh_processes(float_results, one_process_wall: float, smi: str) -> dict:
+    """Phase 18 (d): two processes on the card, each of 2 shards."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, outs = [], []
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for rank in range(2):
+            outs.append(os.path.join(d, f"w{rank}.json"))
+            env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES="2", PROCESS_ID=str(rank),
+                       LOCAL_DEVICES="2", PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            cmd = [sys.executable, "-m", "formula_vad_tpu_torch.testing.distributed", outs[-1], "--device", "cuda",
+                   "--corpus", "slice"]
+            procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=MESH_PROCESS_TIMEOUT)[0].decode(errors="replace"))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        elapsed = time.perf_counter() - t0
+        for proc, text in zip(procs, logs):
+            if proc.returncode != 0:
+                raise AssertionError(f"a mesh worker exited {proc.returncode}:\n{text[-4000:]}")
+        payloads = []
+        for path in outs:
+            with open(path) as f:
+                payloads.append(json.load(f))
+    want = json.loads(json.dumps([r.segments for r in float_results]))
+    for pl in payloads:
+        if pl["mesh_size"] != 4 or pl["n_processes"] != 2:
+            raise AssertionError(f"worker {pl['rank']} saw a mesh of {pl['mesh_size']} over {pl['n_processes']} processes")
+        if pl["segments"] != want:
+            raise AssertionError(f"worker {pl['rank']}'s segments differ from the one-process run's")
+        if pl["launches"] != {"gru_stack": 2, "scan_windows": 2}:
+            raise AssertionError(f"worker {pl['rank']} launched {pl['launches']}, not kernels 1 and 2 once a shard")
+    walls = [pl["wall_s"] for pl in payloads]
+    log(f"two processes x 2 shards on {payloads[0]['devices']}: segments identical to each other's and to the "
+        f"one-process run's, kernels 1 and 2 twice in each; wall {max(walls) * 1e3:.1f} ms (ranks "
+        f"{[round(w * 1e3, 1) for w in walls]}) against one process over 4 shards {one_process_wall * 1e3:.1f} ms; "
+        f"{elapsed:.1f} s with the processes' start; on {smi}")
+    return {"launches": [pl["launches"] for pl in payloads], "walls_s": walls}
+
+
+def phase_mesh(net, dev, audio, float_results, float_wall: float, root: str, slab_segments: list, big_p50: float,
+               smi: str) -> dict:
+    """Phase 18; -> {"launches": each kernel's launches by sub-phase, and the readings}."""
+    t_phase = time.perf_counter()
+    counters = path_counters()
+    batch = mesh_slice(net, dev, audio, float_results, float_wall, counters, smi)
+    slab = mesh_slab(net, dev, root, slab_segments, counters, smi)
+    serve = mesh_serve(net, dev, audio, big_p50, counters, smi)
+    procs = mesh_processes(float_results, batch["walls"][f"batch_{MESH_SHARDS[-1]}"], smi)
+    launches = {name: {**{key: counts[name] for key, counts in batch["launches"].items()}, "slab_2": slab["launches"][name],
+                       "serve_2x2": serve["launches"][name],
+                       "processes_2x2": [counts.get(name, 0) for counts in procs["launches"]]}
+                for name in counters}
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "batch_walls_s": batch["walls"], "slab": slab, "serve": serve, "processes": procs}
+
+
 def main() -> int:
     try:
         import torch
@@ -4045,7 +4260,7 @@ def main() -> int:
     kernels.append(phase_fsm(runner.st, dev))
     audio = slice_audio()
     launches, float_results, float_wall = phase_slice(runner, audio, smi)
-    with tempfile.TemporaryDirectory() as corpus:
+    with tempfile.TemporaryDirectory() as corpus, tempfile.TemporaryDirectory() as root:
         write_corpus(corpus, CORPUS_STREAMS, 20.0, seed=2,
                      plans={**dict.fromkeys(("cuda", "cpu", "int8_cuda", "int8_cpu", "bf16_cuda", "bf16_cpu"), {}),
                             **dict.fromkeys(("stream_cuda", "stream_cpu"), {"batch_streams": False})})
@@ -4055,8 +4270,8 @@ def main() -> int:
         gate_rows, path_a = phase_gates(dev, kernels[0]["ms"])
         kernels += gate_rows
         path_b = phase_bf16_slice(runner, audio, float_results, float_wall, corpus, smi)
-        with tempfile.TemporaryDirectory() as root:
-            slab_launches, slab_shapes = phase_slab(net, dev, smi, SLICE_STREAMS * SLICE_SECONDS / float_wall, root)
+        slab_launches, slab_shapes, slab_segments = phase_slab(net, dev, smi, SLICE_STREAMS * SLICE_SECONDS / float_wall,
+                                                               root)
         tiers = phase_tiers(runner, audio, smi)
         stream = phase_stream(runner, audio, float_results, float_wall, corpus, batched_dir, smi)
         serve = phase_serve(net, audio, float_results, stream["float_segments"], corpus, smi)
@@ -4065,8 +4280,10 @@ def main() -> int:
         sweep = phase_sweep(net, dev, audio, float_results, float_wall, corpus, smi)
         log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
         registry = phase_registry(net, dev, audio, float_results, float_wall, corpus, batched_dir, smi)
-    train = phase_train(dev, audio, smi)
-    precision_rows, precision_launches = phase_precision(runner, audio, float_results, tiers["walls"], smi)
+        train = phase_train(dev, audio, smi)
+        precision_rows, precision_launches = phase_precision(runner, audio, float_results, tiers["walls"], smi)
+        mesh = phase_mesh(net, dev, audio, float_results, float_wall, root, slab_segments,
+                          serve["big"]["fleet"]["tick_p50_ms"], smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -4115,6 +4332,11 @@ def main() -> int:
         k["launches_lowlatency"] = low["launches"][k["name"]]
         k["launches_phase17"] = {path: counts[k["name"]] for path, counts in precision_launches.items()}
     kernels += precision_rows
+    # Phase 18: the mesh's runs (the slice over 2 and 4 shards, 3 runs each;
+    # the slab run and the 256-stream fleet over 2 shards; each process of
+    # the two-process run).
+    for k in kernels:
+        k["launches_mesh"] = mesh["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

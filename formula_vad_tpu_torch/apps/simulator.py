@@ -5,7 +5,9 @@ Reads a plan JSON (``{"instances": [{name, audio_path, ref_path}],
 "config": {...}}``), scores every recording in one batched device pass
 (``parallel.runner.BatchRunner``) or, for ``use_slabs`` plans and batches
 above ``SLAB_AUTO_BYTES`` of float32 audio, slab by slab at constant device
-memory (``parallel.slab_runner.SlabRunner``); a ``"batch_streams": false``
+memory (``parallel.slab_runner.SlabRunner``), both sharding the streams over
+every visible card (``parallel/mesh.py``; ``--device cpu`` keeps the one
+CPU); a ``"batch_streams": false``
 plan runs the streams one after the other through the host streaming
 pipeline (``pipeline.pipeline.AudioPipeline``), whose recorders save the
 clips. It compares against the Audacity reference

@@ -1,5 +1,5 @@
 """Online multi-stream serving: one batched device step for B live streams
-(port of ``formula_vad_tpu/parallel/online.py``, one GPU).
+(port of ``formula_vad_tpu/parallel/online.py``).
 
 The reference serves exactly one radio stream per daemon process. This
 server holds B carried VAD states on the card and runs ONE batched
@@ -21,8 +21,12 @@ host. ``use_host_fsm=True`` selects the port's native host decoder
 the same and share the packed carry layout of ``pipeline/fsm.py``, so the
 default changes no result and a checkpoint loads under either backend.
 
-Not ported: serving over a device mesh (``mesh`` / ``use_mesh=True``,
-ROADMAP §1 item 11, multi-GPU). Alternative machine configs are refused:
+With ``use_mesh=True`` (or a ``mesh``, ``parallel/mesh.py``) each
+microbatch shard is split over the mesh's devices, each part with its own
+carry on its device and the model's copy there, and a tick dispatches every
+device's step before it fetches any. The mesh must lie in this process: the
+B ``AudioPipeline``s are one process's host objects, and neither package
+has a daemon across processes. Alternative machine configs are refused:
 the server runs one machine a stream, as the JAX server does.
 """
 
@@ -41,6 +45,7 @@ from ..device import model_device
 from ..pipeline import fsm, fsm_cuda, fsm_host, vad
 from ..pipeline.pipeline import AudioPipeline, Callbacks
 from ..utils import checkpoint
+from . import mesh as mesh_lib
 
 # The ChunkOutput fields a tick fetches to the host ("windows" is the
 # FSM's seven outputs, absent in host-FSM mode).
@@ -115,11 +120,11 @@ class OnlineBatchServer:
         Rows are independent: segments, decisions, indices and original
         recordings equal microbatch=1's bit for bit; the float outputs
         (denoised audio, window volumes) may round otherwise where a GEMM
-        takes another kernel at the shard's row count."""
-        if mesh is not None or use_mesh:
-            raise NotImplementedError(
-                "serving over a device mesh is not ported yet (ROADMAP §1 item 11: multi-GPU)"
-            )
+        takes another kernel at the shard's row count.
+
+        ``mesh`` (or ``use_mesh=True``: every visible card, or the model's
+        CPU) splits each microbatch shard over the mesh's devices, which
+        must divide it; the same holds of the results as of microbatches."""
         if config.vad_config.alt_vad_machine_configs:
             raise ValueError("the server runs one machine a stream, as the JAX server: no alt_vad_machine_configs")
         if params is None:
@@ -128,6 +133,11 @@ class OnlineBatchServer:
             params = load_denoiser(config.vad_config.denoiser_model_path, device=device)
         self.params = params
         self.device = model_device(params)
+        self.mesh = mesh_lib.default_mesh(mesh, use_mesh, self.device)
+        if self.mesh.n_processes > 1:
+            raise ValueError(
+                "the server's mesh must lie in one process: its AudioPipelines are this process's host objects"
+            )
         self.config = config
         self.n_streams = n_streams
         cbs = list(callbacks) if callbacks is not None else [None] * n_streams
@@ -141,7 +151,18 @@ class OnlineBatchServer:
         self.pipelines = [self._pipeline(cb) for cb in cbs]
         self.chunk_size = self.st.chunk_size
         self.microbatch = microbatch
-        self._shard = n_streams // microbatch
+        n_dev = len(self.mesh.devices)
+        if (n_streams // microbatch) % n_dev:
+            raise ValueError(
+                f"microbatch shard {n_streams // microbatch} must be divisible by the mesh's {n_dev} devices "
+                "(pad with always-invalid streams)"
+            )
+        # The tick's device shards: microbatch shard s's part d is shard
+        # s * n_dev + d, of ``_shard`` rows, on the mesh's device d.
+        self._shard = n_streams // (microbatch * n_dev)
+        self._devices = [self.mesh.devices[k % n_dev] for k in range(microbatch * n_dev)]
+        self._nets = mesh_lib.replicate(params, self.mesh)
+        self._on_card = self.mesh.devices[0].type == "cuda"
         self.use_host_fsm = bool(use_host_fsm)
         self.collect_denoised = collect_denoised
         # Host-tracked window-fill phases (fill' = (fill + chunk) mod fft for
@@ -153,23 +174,26 @@ class OnlineBatchServer:
         # Tick-latency observability (runtime-only; not checkpointed).
         self._tick_times: collections.deque = collections.deque(maxlen=512)
         self._ticks_total = 0
-        # One carry per microbatch shard. Its FSM part is None until the
-        # shard's first scan (a fresh scan), then the scan's own carry,
-        # which the next tick continues unchecked (``chained``) unless it
-        # was loaded from a checkpoint.
-        self._carries = [vad.init_carry(self.st, (self._shard,), self.device) for _ in range(microbatch)]
-        self._chained = [False] * microbatch
+        # One carry per device shard, on its device. Its FSM part is None
+        # until the shard's first scan (a fresh scan), then the scan's own
+        # carry, which the next tick continues unchecked (``chained``)
+        # unless it was loaded from a checkpoint.
+        self._carries = [vad.init_carry(self.st, (self._shard,), d) for d in self._devices]
+        self._chained = [False] * len(self._devices)
         self._host_fsm_carry = (
             fsm_host.fresh_host_carry(self.st.fsm_shape, self.st.fsm_params, n_streams)
             if self.use_host_fsm else None
         )
         # Pinned host buffers a shard's outputs are copied into, and the
         # tick's inputs are staged in (card only).
-        self._pinned: list[dict | None] = [None] * microbatch
+        self._pinned: list[dict | None] = [None] * len(self._devices)
         self._staging: dict[str, torch.Tensor] = {}
-        # A fresh stream's carry row, made once: a reset copies nothing to the card.
-        self._fresh_row = vad.init_carry(self.st, (1,), self.device)
-        self._fresh_row["fsm"] = fsm_cuda.seeded_fresh_carry(self.st.fsm_shape, self.st.fsm_params, 1, self.device)
+        # A fresh stream's carry row a device, made once: a reset copies
+        # nothing to the card.
+        self._fresh_rows = {}
+        for d in dict.fromkeys(self.mesh.devices):
+            row = self._fresh_rows[d] = vad.init_carry(self.st, (1,), d)
+            row["fsm"] = fsm_cuda.seeded_fresh_carry(self.st.fsm_shape, self.st.fsm_params, 1, d)
 
     def _pipeline(self, callbacks) -> AudioPipeline:
         return AudioPipeline(self.config, self.params, callbacks, statics=self.st, server_managed=True)
@@ -190,12 +214,13 @@ class OnlineBatchServer:
         if not 0 <= i < self.n_streams:
             raise ValueError(f"stream index {i} out of range [0, {self.n_streams})")
         s, r = divmod(i, self._shard)
-        mask = torch.arange(self._shard, device=self.device) == r
+        fresh = self._fresh_rows[self._devices[s]]
+        mask = torch.arange(self._shard, device=self._devices[s]) == r
         carry = self._carries[s]
-        new = _where_row(mask, self._fresh_row, {k: v for k, v in carry.items() if k != "fsm"})
+        new = _where_row(mask, fresh, {k: v for k, v in carry.items() if k != "fsm"})
         new["fsm"] = carry["fsm"]
         if carry["fsm"] is not None:  # None: the shard's first scan starts every row fresh
-            new["fsm"] = _where_row(mask, self._fresh_row["fsm"], carry["fsm"])
+            new["fsm"] = _where_row(mask, fresh["fsm"], carry["fsm"])
         self._carries[s] = new
         if self._host_fsm_carry is not None:
             one = fsm_host.fresh_host_carry(self.st.fsm_shape, self.st.fsm_params, 1)
@@ -206,12 +231,12 @@ class OnlineBatchServer:
         self.pipelines[i] = self._pipeline(cb)
 
     def _run_step(self, chunks: np.ndarray, valid_np: np.ndarray) -> dict:
-        """Dispatch one tick as ``microbatch`` sequential shard steps,
-        taking the shared-fill framing when every valid stream's fill phase
-        agrees. Every shard is dispatched before any is read: shard k's
-        outputs are copied to pinned host buffers behind its step and
-        waited for by its CUDA event alone, so its host work runs while the
-        card computes the shards after it. Returns the tick's outputs as
+        """Dispatch one tick as a step a device shard (``microbatch`` of
+        them a mesh device), taking the shared-fill framing when every
+        valid stream's fill phase agrees. Every shard is dispatched before
+        any is read: shard k's outputs are copied to pinned host buffers
+        behind its step and waited for by its CUDA event alone, so its host
+        work runs while the card computes the shards after it. Returns the tick's outputs as
         host arrays [B, ...], the FSM's seven outputs under "windows" (in
         host-FSM mode decoded here, shard by shard)."""
         t0 = time.perf_counter()
@@ -219,28 +244,30 @@ class OnlineBatchServer:
         shared = self._use_shared_fill and (live.size == 0 or bool((live == live[0]).all()))
         start = (self.st.fft_size - int(live[0]) if live.size else self.st.fft_size) if shared else None
         all_valid = bool(valid_np.all())
-        x_all, cv_all = self._upload_source(chunks, None if all_valid else valid_np)
+        x_all, v = self._upload_source(chunks, None if all_valid else valid_np)
+        cv_all = None if v is None else {d: v.to(d, non_blocking=True) for d in dict.fromkeys(self.mesh.devices)}
         sh = self._shard
         pending = []
-        for s in range(self.microbatch):
+        for s, dev in enumerate(self._devices):
             rows = slice(s * sh, (s + 1) * sh)
-            x = x_all[rows].to(self.device, non_blocking=True)
-            if x.dtype == torch.int16:
-                # Raw PCM16 shipped at half the upload bytes; i / 32768 is
-                # exact in float32, so bit for bit the host's dequantization.
-                x = x.float() / 32768.0
-            cv = True if cv_all is None else cv_all[rows]
-            with torch.inference_mode():
-                self._carries[s], out = vad.chunk_step(
-                    self.params, self.st, self._carries[s], x, chunk_valid=cv,
-                    run_fsm=not self.use_host_fsm, collect_denoised=self.collect_denoised,
-                    shared_start=start, chained=self._chained[s],
-                )
-            self._chained[s] = True
-            pending.append(self._start_fetch(s, out))
+            with mesh_lib.on(dev):
+                x = x_all[rows].to(dev, non_blocking=True)
+                if x.dtype == torch.int16:
+                    # Raw PCM16 shipped at half the upload bytes; i / 32768 is
+                    # exact in float32, so bit for bit the host's dequantization.
+                    x = x.float() / 32768.0
+                cv = True if cv_all is None else cv_all[dev][rows]
+                with torch.inference_mode():
+                    self._carries[s], out = vad.chunk_step(
+                        self._nets[dev], self.st, self._carries[s], x, chunk_valid=cv,
+                        run_fsm=not self.use_host_fsm, collect_denoised=self.collect_denoised,
+                        shared_start=start, chained=self._chained[s],
+                    )
+                self._chained[s] = True
+                pending.append(self._start_fetch(s, out))
         self._fills[valid_np] = (self._fills[valid_np] + self.chunk_size) % self.st.fft_size
         host = [self._finish_fetch(s, *p) for s, p in enumerate(pending)]
-        result = host[0] if self.microbatch == 1 else _join(host)
+        result = host[0] if len(host) == 1 else _join(host)
         # Everything is on the host here: a true tick latency (dispatch,
         # compute, fetch and host-FSM decode).
         self._tick_times.append(time.perf_counter() - t0)
@@ -248,18 +275,18 @@ class OnlineBatchServer:
         return result
 
     def _upload_source(self, chunks: np.ndarray, valid_np: Optional[np.ndarray]):
-        """The tick's chunks as a host tensor each shard uploads its rows
-        from, and the valid mask (None: all valid) on the device. On the
-        card both pass through pinned buffers, reused every tick (the last
-        tick waited for its shards, and so for their uploads), so every
-        upload is asynchronous: a copy from pageable memory would wait for
-        the shards before it and run the shards in series. The mask goes up
-        once a tick."""
-        if self.device.type != "cuda":
+        """The tick's chunks and valid mask (None: all valid) as host
+        tensors each shard uploads its rows from. On the card both pass
+        through pinned buffers, reused every tick (the last tick waited for
+        its shards, and so for their uploads), so every upload is
+        asynchronous: a copy from pageable memory would wait for the shards
+        before it and run the shards in series. The mask goes up once a
+        tick a device."""
+        if not self._on_card:
             v = None if valid_np is None else torch.from_numpy(valid_np.copy())
             return torch.from_numpy(np.ascontiguousarray(chunks)), v
         x = self._staged(f"chunks {chunks.dtype}", chunks)
-        v = None if valid_np is None else self._staged("valid", valid_np).to(self.device, non_blocking=True)
+        v = None if valid_np is None else self._staged("valid", valid_np)
         return x, v
 
     def _staged(self, name: str, src: np.ndarray) -> torch.Tensor:
@@ -280,7 +307,7 @@ class OnlineBatchServer:
         fields = {f: getattr(out, f) for f in _FETCHED}
         if out.windows is not None:
             fields.update(out.windows._asdict())
-        if self.device.type != "cuda":
+        if not self._on_card:
             return fields, None
         bufs = self._pinned[s]
         if bufs is None or any(bufs[k].shape != v.shape or bufs[k].dtype != v.dtype for k, v in fields.items()):
@@ -448,11 +475,11 @@ class OnlineBatchServer:
         template = self._full_carries()
         full = checkpoint.load_carry(os.path.join(directory, "carries.npz"), template)
         sh = self._shard
-        for s in range(self.microbatch):
+        for s, dev in enumerate(self._devices):
             part = _rows({k: v for k, v in full.items() if k != "fsm"}, slice(s * sh, (s + 1) * sh))
             self._carries[s] = None
-            carry = _to_device(part, self.device)
-            carry["fsm"] = None if self.use_host_fsm else _to_device(_rows(full["fsm"], slice(s * sh, (s + 1) * sh)), self.device)
+            carry = _to_device(part, dev)
+            carry["fsm"] = None if self.use_host_fsm else _to_device(_rows(full["fsm"], slice(s * sh, (s + 1) * sh)), dev)
             self._carries[s] = carry
             self._chained[s] = False
         if self.use_host_fsm:

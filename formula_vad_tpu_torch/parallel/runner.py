@@ -1,7 +1,15 @@
-"""Batched multi-stream VAD runner on one device (port of
-``formula_vad_tpu/parallel/runner.py::BatchRunner``, single device, no mesh).
+"""Batched multi-stream VAD runner over a data mesh (port of
+``formula_vad_tpu/parallel/runner.py::BatchRunner``).
 
-All streams form the leading batch axis; ragged lengths are right-padded
+All streams form the leading batch axis, sharded over the mesh
+(``parallel/mesh.py``): the batch is padded with all-invalid streams to a
+multiple of the mesh's size, each shard's rows go to its device and run the
+path below on that device's copy of the model, every shard is dispatched
+before any is fetched, and the outputs are fetched once a shard and
+gathered across processes, so every process returns all B results. The
+default mesh is every visible card when the model is on a card (one card:
+one shard, the unsharded path) and the model's CPU when it is on the CPU.
+Ragged lengths are right-padded
 to a common chunk count and masked, so padding windows freeze the FSM.
 With ``use_offline=True`` (the default) one chunk-parallel front-end pass
 feeds one FSM scan, the device kernel (``use_host_fsm=False``, the
@@ -33,6 +41,7 @@ from torch import nn
 from ..config import VADConfig
 from ..device import model_device
 from ..pipeline import fsm, fsm_host, offline, vad
+from . import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -65,6 +74,8 @@ class BatchRunner:
         vad_config: VADConfig | None = None,
         n_channels: int = 2,
         sample_rate: int = 48000,
+        mesh: mesh_lib.DataMesh | None = None,
+        use_mesh: bool = True,
         use_host_fsm: bool = False,
         use_offline: bool = True,
     ):
@@ -73,6 +84,8 @@ class BatchRunner:
             raise ValueError("use_host_fsm decodes the offline path's window inputs: it needs use_offline=True")
         self.net = net
         self.device = model_device(net)
+        self.mesh = mesh_lib.default_mesh(mesh, use_mesh, self.device)
+        self.nets = mesh_lib.replicate(net, self.mesh)
         self.use_host_fsm = use_host_fsm
         self.use_offline = use_offline
         self.st = vad.statics_from_config(vad_config, sample_rate, n_channels)
@@ -83,6 +96,11 @@ class BatchRunner:
         """audio_batch [B, C, T] float32 (padded to a common T); lengths are
         the true per-stream sample counts (default: all T). Only whole
         chunks are scored."""
+        if self.use_host_fsm and self.mesh.n_processes > 1:
+            raise ValueError(
+                "use_host_fsm requires a single process: multi-process outputs are sharded across hosts "
+                "(leave use_host_fsm unset to get the device-FSM path)"
+            )
         b, _, t = audio_batch.shape
         chunk = self.st.chunk_size
         n_chunks = t // chunk
@@ -91,24 +109,49 @@ class BatchRunner:
         if lengths is None:
             lengths = [t] * b
         n_valid = np.asarray([n // chunk for n in lengths], np.int32)
-        valid_chunks = torch.from_numpy(n_valid).to(self.device)
-        audio = torch.from_numpy(np.ascontiguousarray(audio_batch[:, :, : n_chunks * chunk], np.float32))
-        audio = audio.to(self.device)
-        st = self.st
-        k = len(self.alt_configs)
-        params = st.fsm_params if self.machines is None else self.machines
+        audio = audio_batch[:, :, : n_chunks * chunk]
+        b_pad = mesh_lib.pad_batch(b, self.mesh)
         with torch.inference_mode():
+            pending = [
+                self._dispatch(dev, _rows(audio, rows, b), _rows(n_valid, rows, b))
+                for dev, rows in mesh_lib.local_shards(self.mesh, b_pad)
+            ]
+            outs = mesh_lib.gather_rows([[x.cpu().numpy() for x in out] for out in pending], self.mesh)
+        k = len(self.alt_configs)
+        if self.use_host_fsm:
+            params = self.st.fsm_params if self.machines is None else self.machines
+            _, expand, row_params = fsm.machine_rows(params, b)
+            win_out, _ = fsm_host.scan_windows_host(self.st.fsm_shape, row_params, *(expand(x[:b]) for x in outs))
+            if k:
+                win_out = type(win_out)(*(x.reshape(b, k + 1, -1) for x in win_out))
+        else:
+            win_out = fsm.WindowOutput(*(x[:b] for x in outs))
+        return results(self.st, win_out, k)
+
+    def _dispatch(self, dev: torch.device, audio: np.ndarray, n_valid: np.ndarray):
+        """Queue one shard's path on ``dev``: -> its FSM outputs ([rows,
+        (n_chunks,) (1 + k,) W], on the device), or with the host decoder
+        its window inputs."""
+        net, st = self.nets[dev], self.st
+        params = st.fsm_params if self.machines is None else self.machines
+        with mesh_lib.on(dev):
+            valid_chunks = torch.from_numpy(n_valid).to(dev)
+            x = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
             if not self.use_offline:
-                chunk_valids = np.arange(n_chunks)[None, :] < n_valid[:, None]
-                _, outs = vad.process_stream(self.net, st, audio, chunk_valids=chunk_valids, fsm_params=params)
-                win_out = type(outs.windows)(*(x.cpu().numpy() for x in outs.windows))  # [B, chunks, (1 + k,) W]
-            elif self.use_host_fsm:
-                _, expand, row_params = fsm.machine_rows(params, b)
-                inputs = (expand(x.cpu().numpy()) for x in offline.window_inputs_batch(self.net, st, audio, valid_chunks))
-                win_out, _ = fsm_host.scan_windows_host(st.fsm_shape, row_params, *inputs)
-                if k:
-                    win_out = type(win_out)(*(x.reshape(b, k + 1, -1) for x in win_out))
-            else:
-                win_out, _ = offline.process_batch_offline(self.net, st, audio, valid_chunks, params)
-                win_out = type(win_out)(*(x.cpu().numpy() for x in win_out))
-        return results(st, win_out, k)
+                chunk_valids = np.arange(x.shape[-1] // st.chunk_size)[None, :] < n_valid[:, None]
+                _, outs = vad.process_stream(net, st, x, chunk_valids=chunk_valids, fsm_params=params)
+                return outs.windows
+            if self.use_host_fsm:
+                return offline.window_inputs_batch(net, st, x, valid_chunks)
+            win_out, _ = offline.process_batch_offline(net, st, x, valid_chunks, params)
+            return win_out
+
+
+def _rows(x: np.ndarray, rows: slice, b: int) -> np.ndarray:
+    """``x[rows]`` of a batch of ``b`` rows, the rows at and past ``b``
+    (the mesh's padding) zeros: a stream with no valid chunk."""
+    part = x[rows.start : min(rows.stop, b)]
+    pad = rows.stop - rows.start - len(part)
+    if pad:
+        part = np.concatenate([part, np.zeros((pad,) + x.shape[1:], x.dtype)])
+    return part

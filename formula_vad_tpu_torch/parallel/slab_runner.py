@@ -1,5 +1,5 @@
-"""Slab-wise batched VAD for streams of any length on one device (port of
-``formula_vad_tpu/parallel/slab_runner.py::SlabRunner``, one GPU, no mesh).
+"""Slab-wise batched VAD for streams of any length over a data mesh (port
+of ``formula_vad_tpu/parallel/slab_runner.py::SlabRunner``).
 
 The one-shot runner (``parallel.runner.BatchRunner``) holds whole streams on
 the device: a 21-stream, 90-minute race is ~58 GB of float32. This runner
@@ -31,13 +31,19 @@ slab. Between the first slab's dispatch and the final fetch the host waits
 only on those buffers' copy events, never on the compute stream: every
 slab's FSM outputs stay on the card until one fetch at the end.
 
-Not ported, and why:
+The streams are sharded over the mesh as ``BatchRunner``'s are
+(``parallel/mesh.py``; padded with all-invalid streams). Each of this
+process's shards has its own staging (pinned buffers and copy stream on its
+device) and its own denoiser and FSM carries, chained on its device; every
+shard's slab is dispatched before the next slab is read, each shard's
+outputs are fetched once at the end and gathered across processes. Each
+process's prefetcher reads only its own rows, where the JAX prefetcher
+reads all padded rows on every host: a change of schedule, not of
+function.
 
-* ``pipeline_fe`` "on", "deep" and "flat" (cross-slab overlap of the front
-  end) are measured dead ends of the JAX package whose outputs equal "off"
-  (ROADMAP: measured dead ends); this is the "off" form.
-* ``mesh`` and ``use_mesh`` wait on the multi-GPU port (ROADMAP: port
-  queue, multi-GPU).
+Not ported: ``pipeline_fe`` "on", "deep" and "flat" (cross-slab overlap of
+the front end) are measured dead ends of the JAX package whose outputs
+equal "off" (ROADMAP: measured dead ends); this is the "off" form.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from ..config import VADConfig
 from ..device import model_device
 from ..io_.prefetch import Reader, SlabPrefetcher
 from ..pipeline import fsm, fsm_cuda, fsm_host, offline, vad
+from . import mesh as mesh_lib
 from .runner import StreamResult, results
 
 SLAB_ALIGN_CHUNKS = 32  # 16 s: lcm(chunk=24000, fft=1024) / 24000
@@ -111,6 +118,23 @@ class _Staging:
             self.read[s % STAGING_BUFFERS] = torch.cuda.current_stream(self.device).record_event()
 
 
+class _Shard:
+    """One of this process's shards of a slab run: its rows of the
+    process's slabs, its device and model copy, its staging, carries and
+    outputs."""
+
+    def __init__(self, runner: "SlabRunner", device: torch.device, rows: slice, dtype: np.dtype):
+        st = runner.st
+        n = rows.stop - rows.start
+        self.device, self.rows, self.net = device, rows, runner.nets[device]
+        self.n_rows, self.expand, self.params = runner._rows(n)
+        self.staging = _Staging((n, st.n_channels, runner.slab_samples), dtype, (n, runner.slab_chunks), device)
+        self.den_carry = offline.init_slab_carry((n, st.n_channels), st.downsample_rate, device)
+        self.outs = []  # each slab's FSM outputs
+        self.fsm_carry = self.win_base = None  # the device FSM's
+        self.host_carry = self.pinned = self.pending = None  # the host decoder's
+
+
 class SlabRunner:
     """Constant-memory batched VAD over streams of any length."""
 
@@ -121,6 +145,8 @@ class SlabRunner:
         n_channels: int = 2,
         sample_rate: int = 48000,
         slab_chunks: int = 128,  # 64 s
+        mesh: mesh_lib.DataMesh | None = None,
+        use_mesh: bool = True,
         use_host_fsm: bool = False,
         # Decode threads (default min(8, B, cpu_count)) and pipeline depth:
         # host RAM holds ~(depth + 2) slabs beside the pinned buffers.
@@ -132,6 +158,8 @@ class SlabRunner:
         vad_config = vad_config or VADConfig()
         self.net = net
         self.device = model_device(net)
+        self.mesh = mesh_lib.default_mesh(mesh, use_mesh, self.device)
+        self.nets = mesh_lib.replicate(net, self.mesh)
         self.use_host_fsm = use_host_fsm
         self.st = vad.statics_from_config(vad_config, sample_rate, n_channels)
         self.alt_configs = tuple(vad_config.alt_vad_machine_configs or ())
@@ -163,6 +191,11 @@ class SlabRunner:
         Returns:
           one StreamResult a stream.
         """
+        if self.use_host_fsm and self.mesh.n_processes > 1:
+            raise ValueError(
+                "use_host_fsm requires a single process: multi-process outputs are sharded across hosts "
+                "(leave use_host_fsm unset to get the device-FSM path)"
+            )
         b = len(readers)
         st = self.st
         valid_chunks = np.asarray([n // st.chunk_size for n in lengths], np.int64)
@@ -171,20 +204,24 @@ class SlabRunner:
             return [StreamResult([], [[] for _ in self.alt_configs]) for _ in range(b)]
         n_slabs = -(-max_chunks // self.slab_chunks)
         dtype = np.int16 if raw16 else np.float32
+        b_pad = mesh_lib.pad_batch(b, self.mesh)
+        placed = mesh_lib.local_shards(self.mesh, b_pad)
+        lo, hi = placed[0][1].start, placed[-1][1].stop
+        shards = [_Shard(self, dev, slice(r.start - lo, r.stop - lo), dtype) for dev, r in placed]
         prefetcher = SlabPrefetcher(
-            readers, valid_chunks, n_slabs=n_slabs, slab_chunks=self.slab_chunks, chunk_size=st.chunk_size,
-            n_channels=st.n_channels, b_pad=b, workers=self.prefetch_workers, depth=self.prefetch_depth, dtype=dtype,
+            readers[lo:hi], valid_chunks[lo:hi], n_slabs=n_slabs, slab_chunks=self.slab_chunks,
+            chunk_size=st.chunk_size, n_channels=st.n_channels, b_pad=hi - lo, workers=self.prefetch_workers,
+            depth=self.prefetch_depth, dtype=dtype,
         )
-        staging = _Staging((b, st.n_channels, self.slab_samples), dtype, (b, self.slab_chunks), self.device)
         try:
             with torch.inference_mode():
                 loop = self._host_fsm_loop if self.use_host_fsm else self._device_fsm_loop
-                outs = loop(prefetcher, staging, n_slabs, b)
+                outs = loop(prefetcher, shards, n_slabs)
         finally:
             prefetcher.close()
+        outs = mesh_lib.gather_rows(outs, self.mesh)  # [rows, n_slabs * W] each
         k = len(self.alt_configs)
-        if k:
-            outs = fsm.WindowOutput(*(x.reshape(b, k + 1, -1) for x in outs))
+        outs = fsm.WindowOutput(*(x.reshape(b_pad, k + 1, -1)[:b] if k else x[:b] for x in outs))
         return results(st, outs, k)
 
     def _rows(self, b: int):
@@ -192,81 +229,85 @@ class SlabRunner:
         stream, or 1 + K (stream, config) rows with alternative machines."""
         return fsm.machine_rows(self.st.fsm_params if self.machines is None else self.machines, b)
 
-    def _front_end(self, audio: torch.Tensor, cv: torch.Tensor, den_carry: dict):
+    def _front_end(self, net: nn.Module, audio: torch.Tensor, cv: torch.Tensor, den_carry: dict):
         """One slab's window inputs -> (den_carry, min_vol, ratios, valid) [B, W]."""
         if audio.dtype == torch.int16:
             audio = audio.float() / 32768.0  # exact: a 16-bit integer over a power of two
-        return offline.window_inputs_carry(self.net, self.st, audio, den_carry, cv.sum(1))
+        return offline.window_inputs_carry(net, self.st, audio, den_carry, cv.sum(1))
 
-    def _dispatch(self, staging: _Staging, s: int, slab: np.ndarray, cv: np.ndarray, den_carry: dict):
-        """Stage slab ``s`` and queue its front end."""
-        audio, cv = staging.put(s, slab, cv)
-        out = self._front_end(audio, cv, den_carry)
-        staging.done(s)
+    def _dispatch(self, shard: _Shard, s: int, slab: np.ndarray, cv: np.ndarray):
+        """Stage the shard's rows of slab ``s`` and queue their front end."""
+        audio, cv = shard.staging.put(s, slab[shard.rows], cv[shard.rows])
+        out = self._front_end(shard.net, audio, cv, shard.den_carry)
+        shard.staging.done(s)
         return out
 
-    def _device_fsm_loop(self, prefetcher, staging, n_slabs: int, b: int) -> fsm.WindowOutput:
-        """The FSM on the card, its carry chained from slab to slab; every
-        slab's outputs stay on the card until one fetch at the end."""
+    def _device_fsm_loop(self, prefetcher, shards: list[_Shard], n_slabs: int) -> list[fsm.WindowOutput]:
+        """The FSM on each shard's card, its carry chained from slab to slab;
+        every slab's outputs stay on the card until one fetch a shard at
+        the end. -> each shard's seven outputs."""
         st = self.st
-        rows, expand, params = self._rows(b)
-        den_carry = offline.init_slab_carry((b, st.n_channels), st.downsample_rate, self.device)
-        fsm_carry = None
-        win_base = torch.zeros((rows,), dtype=torch.int32, device=self.device)
-        slab_outs = []
+        for sh in shards:
+            sh.win_base = torch.zeros((sh.n_rows,), dtype=torch.int32, device=sh.device)
         for s in range(n_slabs):
-            den_carry, *inputs = self._dispatch(staging, s, *prefetcher.get(), den_carry)
-            mv, rt, va = (expand(x) for x in inputs)
-            if fsm_carry is None:
-                out, fsm_carry = fsm_cuda.scan_windows(st.fsm_shape, params, mv, rt, va, win_base=win_base)
-            else:
-                out, fsm_carry = fsm_cuda._scan_chained(st.fsm_shape, params, mv, rt, va, fsm_carry, win_base)
-            win_base = win_base + self.windows_per_slab
-            slab_outs.append(out)
-        return self._fetch(slab_outs)
+            slab, cv = prefetcher.get()
+            for sh in shards:
+                with mesh_lib.on(sh.device):
+                    sh.den_carry, *inputs = self._dispatch(sh, s, slab, cv)
+                    mv, rt, va = (sh.expand(x) for x in inputs)
+                    if sh.fsm_carry is None:
+                        out, sh.fsm_carry = fsm_cuda.scan_windows(st.fsm_shape, sh.params, mv, rt, va, win_base=sh.win_base)
+                    else:
+                        out, sh.fsm_carry = fsm_cuda._scan_chained(
+                            st.fsm_shape, sh.params, mv, rt, va, sh.fsm_carry, sh.win_base
+                        )
+                    sh.win_base = sh.win_base + self.windows_per_slab
+                    sh.outs.append(out)
+        return [self._fetch(sh.outs) for sh in shards]
 
     def _fetch(self, slab_outs: list) -> fsm.WindowOutput:
-        """Every slab's outputs, joined along the windows on the card and
-        fetched once -> numpy [B, n_slabs * W]."""
+        """A shard's outputs of every slab, joined along the windows on the
+        card and fetched once -> numpy [rows, n_slabs * W]."""
         return fsm.WindowOutput(*(torch.cat(xs, dim=1).cpu().numpy() for xs in zip(*slab_outs)))
 
-    def _host_fsm_loop(self, prefetcher, staging, n_slabs: int, b: int) -> fsm.WindowOutput:
-        """The FSM in the native host decoder: slab s's window inputs go to
-        pinned host buffers while slab s-1's are decoded, its carry (Kahan
-        state included) chained exactly."""
+    def _host_fsm_loop(self, prefetcher, shards: list[_Shard], n_slabs: int) -> list[list[np.ndarray]]:
+        """The FSM in the native host decoder: a shard's window inputs of
+        slab s go to its pinned host buffers while its slab s-1 is decoded,
+        its carry (Kahan state included) chained exactly. -> each shard's
+        seven outputs."""
         st = self.st
-        on_card = self.device.type != "cpu"
-        rows, expand, params = self._rows(b)
-        den_carry = offline.init_slab_carry((b, st.n_channels), st.downsample_rate, self.device)
-        host_carry = fsm_host.fresh_host_carry(st.fsm_shape, params, rows)
         w = self.windows_per_slab
-        if on_card:
-            pinned = [
-                [torch.empty((b, w), dtype=dt, pin_memory=True) for dt in (torch.float32, torch.float32, torch.bool)]
-                for _ in range(2)
-            ]
-        slab_outs = []
+        for sh in shards:
+            sh.host_carry = fsm_host.fresh_host_carry(st.fsm_shape, sh.params, sh.n_rows)
+            n = sh.rows.stop - sh.rows.start
+            if sh.device.type != "cpu":
+                sh.pinned = [
+                    [torch.empty((n, w), dtype=dt, pin_memory=True) for dt in (torch.float32, torch.float32, torch.bool)]
+                    for _ in range(2)
+                ]
 
-        def decode(s, inputs, copied):
-            nonlocal host_carry
+        def decode(sh, s, inputs, copied):
             if copied is not None:
                 copied.synchronize()
-            win_base = np.full((rows,), s * w, np.int32)
-            out, host_carry = fsm_host.scan_windows_host(
-                st.fsm_shape, params, *(expand(x.numpy()) for x in inputs), carry=host_carry, win_base=win_base
+            win_base = np.full((sh.n_rows,), s * w, np.int32)
+            out, sh.host_carry = fsm_host.scan_windows_host(
+                st.fsm_shape, sh.params, *(sh.expand(x.numpy()) for x in inputs), carry=sh.host_carry, win_base=win_base
             )
-            slab_outs.append(out)
+            sh.outs.append(out)
 
-        pending = None
         for s in range(n_slabs):
-            den_carry, *inputs = self._dispatch(staging, s, *prefetcher.get(), den_carry)
-            copied = None
-            if on_card:
-                for dst, src in zip(pinned[s % 2], inputs):
-                    dst.copy_(src, non_blocking=True)
-                inputs, copied = pinned[s % 2], torch.cuda.current_stream(self.device).record_event()
-            if pending is not None:
-                decode(*pending)  # slab s-1, while the card computes slab s
-            pending = (s, inputs, copied)
-        decode(*pending)
-        return fsm.WindowOutput(*(np.concatenate(xs, axis=1) for xs in zip(*slab_outs)))
+            slab, cv = prefetcher.get()
+            for sh in shards:
+                with mesh_lib.on(sh.device):
+                    sh.den_carry, *inputs = self._dispatch(sh, s, slab, cv)
+                    copied = None
+                    if sh.device.type != "cpu":
+                        for dst, src in zip(sh.pinned[s % 2], inputs):
+                            dst.copy_(src, non_blocking=True)
+                        inputs, copied = sh.pinned[s % 2], torch.cuda.current_stream(sh.device).record_event()
+                if sh.pending is not None:
+                    decode(sh, *sh.pending)  # slab s-1, while the card computes slab s
+                sh.pending = (s, inputs, copied)
+        for sh in shards:
+            decode(sh, *sh.pending)
+        return [[np.concatenate(xs, axis=1) for xs in zip(*sh.outs)] for sh in shards]

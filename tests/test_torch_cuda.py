@@ -44,7 +44,10 @@ ulps), and its slice launches the FSM kernel alone, with the CPU's segments.
 Training: every kernel route refuses a call that needs a gradient; the
 trainer's differentiable forward launches none, its gradients on the card
 are the CPU's within 1e-4 of each array's largest element, and a resumed
-run on the card equals a straight one bit for bit.
+run on the card equals a straight one bit for bit. The data mesh over
+shards of the card: one launch of kernels 1 and 2 a shard, the segments
+of the unsharded runs, and no synchronising call inside the sharded slab
+loop or a sharded serving tick.
 """
 
 import ctypes
@@ -1258,6 +1261,108 @@ def test_server_shards_dispatch_with_no_sync(net, cuda_device):
         for f in g:
             assert g[f].tobytes() == w[f].tobytes(), (k, f)
     assert server.segments == floats.segments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3])
+def test_mesh_batch_runner_on_the_card(net, cuda_device, k):
+    """The slice's runner over k shards of the card (3 streams padded to
+    4 and 3): one GRU-kernel and one FSM launch a shard, segments equal
+    the unsharded run's, offline and streaming."""
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+
+    audio, lengths = _slab_batch(n_slabs=1, seed=8)
+    mesh = mesh_lib.data_mesh([cuda_device] * k)
+    assert mesh.devices == (torch.device("cuda", torch.cuda.current_device()),) * k
+    for offline in (True, False):
+        want = BatchRunner(net, VADConfig(), use_offline=offline).run(audio, lengths)
+        before = (nsnet2_cuda.gru_stack.launches, fsm_cuda.scan_windows.launches)
+        got = BatchRunner(net, VADConfig(), mesh=mesh, use_offline=offline).run(audio, lengths)
+        steps = 1 if offline else audio.shape[-1] // 24000
+        assert (nsnet2_cuda.gru_stack.launches - before[0], fsm_cuda.scan_windows.launches - before[1]) == (k * steps,) * 2
+        assert [r.segments for r in got] == [r.segments for r in want]
+    assert sum(len(r.segments) for r in got) > 0
+
+
+@pytest.mark.cuda
+def test_mesh_slab_loop_makes_no_sync_after_its_first_dispatch(net, cuda_device):
+    """The slab loop over 2 shards of the card, each with its own staging
+    and carries: no synchronising call between the first dispatch and the
+    fetches, one fetch a shard after every dispatch, segments equal the
+    unsharded run's."""
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+
+    audio, lengths = _slab_batch(seed=6)
+    want = SlabRunner(net, VADConfig(), slab_chunks=SLAB_CHUNKS).run(audio, lengths)
+    runner = SlabRunner(net, VADConfig(), slab_chunks=SLAB_CHUNKS, mesh=mesh_lib.data_mesh([cuda_device] * 2))
+    runner.run(audio, lengths)  # builds and caches what a run needs once
+    dispatch, fetch = runner._dispatch, runner._fetch
+    dispatched, fetched_after = [0], []
+
+    def strict_dispatch(*args):
+        out = dispatch(*args)
+        dispatched[0] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def relaxed_fetch(slab_outs):
+        torch.cuda.set_sync_debug_mode("default")
+        fetched_after.append(dispatched[0])
+        return fetch(slab_outs)
+
+    runner._dispatch, runner._fetch = strict_dispatch, relaxed_fetch
+    try:
+        got = runner.run(audio, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fetched_after == [dispatched[0]] * 2 and dispatched[0] == 2 * 3
+    assert [r.segments for r in got] == [r.segments for r in want]
+    assert sum(len(r.segments) for r in got) > 0
+
+
+@pytest.mark.cuda
+def test_mesh_server_dispatches_with_no_sync(net, cuda_device):
+    """A fleet of 8 over 2 shards x microbatch 2 of the card: after two
+    ticks a push dispatches every device shard without synchronising
+    until it waits on the first shard's event, a ragged mask included; its
+    segments, decisions and indices equal the unsharded fleet's and its
+    floats are within 1e-5 (ROADMAP §3 fault 7)."""
+    from formula_vad_tpu_torch.config import PipelineConfig
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+    from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
+
+    chunks = _serve_chunks(8, 4.0, seed=9)
+    valid = np.ones(chunks.shape[:2], bool)
+    valid[3, 5] = False
+    server = OnlineBatchServer(PipelineConfig(), 8, params=net, mesh=mesh_lib.data_mesh([cuda_device] * 2), microbatch=2)
+    plain = OnlineBatchServer(PipelineConfig(), 8, params=net)
+    got, want = _serve(server, chunks[:0]), _serve(plain, chunks[:0])
+    finish = server._finish_fetch
+
+    def relaxed(*args):
+        torch.cuda.set_sync_debug_mode("default")
+        return finish(*args)
+
+    server._finish_fetch = relaxed
+    before = (nsnet2_cuda.gru_stack.launches, fsm_cuda.scan_windows.launches)
+    for k in range(len(chunks)):
+        if k >= 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            server.push(chunks[k], valid[k])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    after = (nsnet2_cuda.gru_stack.launches, fsm_cuda.scan_windows.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (4 * len(chunks),) * 2
+    for k in range(len(chunks)):
+        plain.push(chunks[k], valid[k])
+    for g, w in zip(got, want):
+        for f, a in g.items():
+            if a.dtype.kind == "f":
+                assert np.abs(a.astype(np.float64) - w[f]).max(initial=0.0) <= 1e-5, f
+            else:
+                assert a.tobytes() == w[f].tobytes(), f
+    assert server.segments == plain.segments
 
 
 @pytest.mark.cuda

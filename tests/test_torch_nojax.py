@@ -37,6 +37,7 @@ import formula_vad_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(formula_vad_tpu_torch.__path__, "formula_vad_tpu_torch.")]
 assert "formula_vad_tpu_torch.testing.tier_fuzz" in names, names
 assert {"formula_vad_tpu_torch.train.nsnet2_train", "formula_vad_tpu_torch.apps.train"} <= set(names), names
+assert {"formula_vad_tpu_torch.parallel.mesh", "formula_vad_tpu_torch.testing.distributed"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 from formula_vad_tpu_torch.testing.synth import synth_stream
@@ -80,6 +81,17 @@ with tempfile.TemporaryDirectory() as d:
     assert train.main(args[:3] + ["3"] + args[4:] + ["--ckpt-dir", d + "/ck", "--out", d + "/w.npz"]) == 0
     assert train.main.last_run["start_step"] == 2 and len(train.main.last_run["losses"]) == 1
     load_denoiser(d + "/w.onnx", device="cpu")
+from formula_vad_tpu_torch.parallel import mesh
+(sharded,) = BatchRunner(load_denoiser("demo", device="cpu"), mesh=mesh.data_mesh(["cpu"] * 2)).run(audio[None])
+assert sharded.segments == res.segments
+import socket
+from formula_vad_tpu_torch.testing import distributed
+with socket.socket() as s, tempfile.TemporaryDirectory() as d:
+    s.bind(("127.0.0.1", 0))
+    os.environ.update(COORDINATOR_ADDRESS="127.0.0.1:%d" % s.getsockname()[1], NUM_PROCESSES="1", PROCESS_ID="0")
+    s.close()
+    assert distributed.main([d + "/w.json", "--device", "cpu"]) == 0
+    assert json.load(open(d + "/w.json"))["mesh_size"] == 2
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert not loaded & {"jax", "formula_vad_tpu", "optax", "orbax"}, loaded
 print("modules", len(names), "segments", len(res.segments))
@@ -106,6 +118,7 @@ def test_no_module_names_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     assert {PACKAGE / "train" / "nsnet2_train.py", PACKAGE / "apps" / "train.py"} <= set(files)
+    assert {PACKAGE / "parallel" / "mesh.py", PACKAGE / "testing" / "distributed.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in FORBIDDEN, f"{path}: imports {mod}"

@@ -37,6 +37,7 @@ from formula_vad_tpu.models import nsnet2 as jnsnet2
 from formula_vad_tpu.parallel.online import OnlineBatchServer as JOnlineBatchServer
 from formula_vad_tpu_torch.config import PipelineConfig, VADConfig, VADMachineConfig
 from formula_vad_tpu_torch.models import nsnet2
+from formula_vad_tpu_torch.parallel import mesh as mesh_lib
 from formula_vad_tpu_torch.parallel.online import OnlineBatchServer
 from formula_vad_tpu_torch.pipeline import fsm, fsm_cuda, fsm_host, vad
 from formula_vad_tpu_torch.pipeline.pipeline import AudioPipeline, Callbacks
@@ -360,10 +361,12 @@ def test_checkpoint_resumes_the_uninterrupted_run(pair, fleet, base, tmp_path, s
 
 def test_server_refusals(pair):
     net = pair[1]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        OnlineBatchServer(_cfg(), 2, params=net, use_mesh=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        OnlineBatchServer(_cfg(), 2, params=net, mesh=object(), device="cpu")
+    # Serving over a mesh is ported (tests/test_torch_mesh.py); the server
+    # refuses a shard its mesh's devices do not divide, and a mesh across processes.
+    with pytest.raises(ValueError, match="divisible by the mesh's 2 devices"):
+        OnlineBatchServer(_cfg(), 2, params=net, mesh=mesh_lib.data_mesh(["cpu"] * 2), microbatch=2, device="cpu")
+    with pytest.raises(ValueError, match="one process"):
+        OnlineBatchServer(_cfg(), 2, params=net, mesh=mesh_lib.DataMesh((torch.device("cpu"),), 2), device="cpu")
     with pytest.raises(ValueError, match="microbatch"):
         OnlineBatchServer(_cfg(), 3, params=net, microbatch=2, device="cpu")
     server = OnlineBatchServer(_cfg(), 2, params=net, device="cpu")
