@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (all nvcc runs at once) and
-runs eighteen phases; any failed check raises and the script exits non-zero.
+runs nineteen phases; any failed check raises and the script exits non-zero.
 
 1. Device report: nvidia-smi name and power limit, torch/CUDA versions,
    kernel build times and ptxas resource lines.
@@ -278,6 +278,23 @@ runs eighteen phases; any failed check raises and the script exits non-zero.
    (formula_vad_tpu_torch.testing.distributed, LOCAL_DEVICES=2: a mesh of
    4) on the slice: segments equal to each other's and (a)'s, kernels 1
    and 2 launched twice in each; their wall beside (a)'s.
+19. The trainer's ("data", "model") grid (train/nsnet2_train.py's
+   Megatron layout, apps/train.py --tp), its devices repeating cuda:0.
+   (a) From the same weights, on phase 16's pool and batch draws at
+   [8, 100] and [64, 100], GRID_STEPS (20) steps of the unsharded train
+   step and of the sharded one on the (1, 2), (2, 1), (2, 2) and (1, 4)
+   grids: the first step's gradients within 1e-4 of each array's largest
+   element, the losses at rtol 1e-4 and falling, no kernel launched; each
+   one's median step on CUDA events and the host clock, peak memory, and
+   from one step under torch.profiler (the card's activity only) the
+   device's busy share and kernels a step, beside phase 16's step.
+   (b) apps.train --tp 2 on a 2 x 2 grid (its grid_devices patched): a
+   run resumed from a checkpoint writes the straight run's weights bit for
+   bit, and the checkpoint loads into an unsharded run with identical
+   parameters. (c) That run's --eval within QUALITY_TOL_DB of the CPU's
+   evaluate (kernel 1 a chunk), and the weights through load_denoiser on
+   the slice: one launch of kernels 1 and 2, segments identical with the
+   host decoder.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -461,6 +478,14 @@ DEMO_FLOOR_DB, DEMO_PAIR_FLOOR_DB, GATE_FLOOR_DB, QUALITY_TOL_DB = 15.0, 10.0, 3
 TRAIN_BATCHES, TRAIN_FRAMES, TRAIN_POOL = (8, 64), 100, 256
 TRAIN_STEPS, TRAIN_PROFILED, TRAIN_RESUME_AT = 30, 3, 15
 TRAIN_GRAD_TOL = 1e-4
+# Phase 19: the trainer's grid. Grids (data rows, model columns) of cuda:0
+# repeated; steps a run (on phase 16's pool and batch draws, at each of
+# TRAIN_BATCHES; a run then takes one step under torch.profiler); the loss
+# bar against the unsharded step; the resume run's steps and its
+# checkpoint step.
+GRID_SHAPES = ((1, 2), (2, 1), (2, 2), (1, 4))
+GRID_STEPS, GRID_LOSS_RTOL = 20, 1e-4
+GRID_RESUME_STEPS, GRID_RESUME_AT = 4, 2
 
 
 def log(msg: str) -> None:
@@ -4230,6 +4255,223 @@ def phase_mesh(net, dev, audio, float_results, float_wall: float, root: str, sla
     return {"launches": launches, "batch_walls_s": batch["walls"], "slab": slab, "serve": serve, "processes": procs}
 
 
+def grid_steps(step, batches, counters, grads) -> dict:
+    """``step`` over ``batches`` (on the card) with the launch counters and
+    the peak memory reset before; ``grads()`` read after the first step.
+    -> losses, step times on CUDA events and the host clock, peak MB,
+    launches, the first step's gradients."""
+    import torch
+
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, host, events, first = [], [], [], None
+    for b in batches:
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        losses.append(step(b))
+        ev[1].record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(ev)
+        if first is None:
+            first = {name: g.detach().cpu() for name, g in grads().items()}
+    torch.cuda.synchronize()
+    return {"losses": torch.stack(losses).tolist(), "event_ms": [a.elapsed_time(b) for a, b in events],
+            "host_ms": host, "peak_mb": torch.cuda.max_memory_allocated() / 1e6, "launches": launches_of(counters),
+            "grads": first}
+
+
+def grid_profiled(step, batch) -> dict:
+    """One step under torch.profiler tracing the card's activity only (a
+    sharded step runs ~33,000 host ops, whose tracing would cost more than
+    the step): the device's busy share of the step's span on the host
+    clock, and the kernels it ran."""
+    import torch
+
+    from formula_vad_tpu_torch.tools import busy_ms
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return {"window_ms": window, "busy_ms": None, "busy_share": None, "kernels_a_step": None}
+    busy, _, _ = busy_ms(events)
+    n_kernels = sum(1 for e in events if not e.name.lower().startswith(("memcpy", "memset")))
+    return {"window_ms": window, "busy_ms": busy, "busy_share": busy / window, "kernels_a_step": n_kernels}
+
+
+def grid_equivalence(dev, counters, phase16_runs: dict, smi: str) -> dict:
+    """Phase 19 (a): the unsharded step and each grid's on the same
+    batches from the same weights; -> the readings by batch and grid."""
+    import torch
+
+    from formula_vad_tpu_torch.models import nsnet2
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+    from formula_vad_tpu_torch.train import nsnet2_train
+
+    # Phase 16's runs: apps.train's pool (--synthetic, seed 0) and its draws.
+    pool = [x.to(dev) for x in nsnet2_train.synth_batch(torch.Generator().manual_seed(0), TRAIN_POOL, TRAIN_FRAMES)]
+    out = {"launches": dict.fromkeys(counters, 0)}
+    for b in TRAIN_BATCHES:
+        n = GRID_STEPS
+        idx = [torch.from_numpy(np.random.default_rng((0, i)).integers(0, TRAIN_POOL, b)).to(dev) for i in range(n + 1)]
+        batches = [tuple(c.index_select(0, i) for c in pool) for i in idx]
+
+        def fresh():
+            return nsnet2_train.trainable(nsnet2.init_params(torch.Generator().manual_seed(0)).to(dev))
+
+        net = fresh()
+        opt = torch.optim.Adam(net.parameters(), lr=1e-4)
+        step = nsnet2_train.make_train_step(opt, net)
+        names = [name for name, _ in net.named_parameters()]
+        t0 = time.perf_counter()
+        base = grid_steps(step, batches[:n], counters, lambda: {name: p.grad for name, p in net.named_parameters()})
+        base["profiled"] = grid_profiled(step, batches[n])
+        base["seconds"] = time.perf_counter() - t0
+        runs = {"unsharded": base}
+        for rows, cols in GRID_SHAPES:
+            t0 = time.perf_counter()
+            grid = mesh_lib.data_model_mesh(cols, [dev] * (rows * cols))
+            sharded = nsnet2_train.shard_params(fresh(), grid)
+            opt = torch.optim.Adam(sharded.parameters(), lr=1e-4)
+            step = nsnet2_train.make_train_step(opt, sharded, grid)
+            run = grid_steps(step, batches[:n], counters, sharded.gathered_grads)
+            what = f"the ({rows}, {cols}) grid at batch {b}"
+            scales = [float(base["grads"][name].abs().max()) for name in names]
+            errs = [float((run["grads"][name] - base["grads"][name]).abs().max()) / sc
+                    for name, sc in zip(names, scales)]
+            if min(scales) <= 0 or max(errs) > TRAIN_GRAD_TOL:
+                raise AssertionError(f"{what}: the first step's gradients differ from the unsharded step's: {errs}")
+            loss_err = max(abs(g - w) / abs(w) for g, w in zip(run["losses"], base["losses"]))
+            if loss_err > GRID_LOSS_RTOL:
+                raise AssertionError(f"{what}: losses {run['losses']} against unsharded {base['losses']}")
+            losses, k = run["losses"], min(5, n // 2)
+            if not (all(np.isfinite(losses)) and statistics.mean(losses[-k:]) < statistics.mean(losses[:k])):
+                raise AssertionError(f"{what}: the loss did not fall: {losses}")
+            run["profiled"] = grid_profiled(step, batches[n])
+            run.update(grad_max_rel_err=max(errs), loss_max_rel_err=loss_err, seconds=time.perf_counter() - t0)
+            runs[f"{rows}x{cols}"] = run
+        for key, run in runs.items():
+            if any(run["launches"].values()):
+                raise AssertionError(f"{key} at batch {b}: a kernel launched in a step: {run['launches']}")
+            for name, count in run["launches"].items():
+                out["launches"][name] += count
+            run["step_event_ms"] = statistics.median(run["event_ms"][1:])
+            run["step_host_ms"] = statistics.median(run["host_ms"][1:])
+            prof = run["profiled"]
+            busy = ("not measured (no device events)" if prof["busy_ms"] is None else
+                    f"busy {100 * prof['busy_share']:.1f}% of a profiled step, {prof['kernels_a_step']:.0f} kernels a step")
+            extra = "" if key == "unsharded" else (
+                f"; {run['step_event_ms'] / runs['unsharded']['step_event_ms']:.2f}x the unsharded step; first-step "
+                f"gradients within {run['grad_max_rel_err']:.2e} of each array's largest (bar {TRAIN_GRAD_TOL:.0e}), "
+                f"losses within {run['loss_max_rel_err']:.2e} (rtol {GRID_LOSS_RTOL:.0e}), no kernel launched")
+            log(f"train grid {key} at [{b}, {TRAIN_FRAMES}] on {smi}: step {run['step_event_ms']:.2f} ms on CUDA events, "
+                f"{run['step_host_ms']:.2f} ms on the host clock (medians of steps 2-{n}); {busy}; peak "
+                f"memory {run['peak_mb']:.1f} MB; loss {run['losses'][0]:.5f} -> {run['losses'][-1]:.5f}{extra} "
+                f"({run['seconds']:.1f} s with its checks)")
+            del run["grads"]
+        log(f"  phase 16's unsharded apps.train step at batch {b}: {phase16_runs[b]['step_event_ms']:.2f} ms on CUDA "
+            f"events, {phase16_runs[b]['step_host_ms']:.2f} ms on the host clock")
+        out[b] = runs
+    return out
+
+
+def grid_resume_and_score(dev, audio, counters, smi: str) -> dict:
+    """Phase 19 (b) and (c): apps.train --tp 2 on a 2 x 2 grid of the card
+    (``grid_devices`` patched: the CLI takes every visible card), resumed
+    from a checkpoint against a straight run; the checkpoint in an
+    unsharded --eval run; the weights on the scoring path. -> launches."""
+    import io
+
+    import torch
+
+    from formula_vad_tpu_torch.apps import train as train_app
+    from formula_vad_tpu_torch.eval import denoise_quality as dq
+    from formula_vad_tpu_torch.models.registry import load_denoiser
+    from formula_vad_tpu_torch.parallel.runner import BatchRunner
+
+    t_start = time.perf_counter()
+    launches = {}
+    base = ["--synthetic", str(TRAIN_POOL), "--device-data", "--batch", str(TRAIN_BATCHES[0]), "--frames",
+            str(TRAIN_FRAMES), "--tp", "2"]
+    with tempfile.TemporaryDirectory() as root:
+        straight, resumed, ck = (os.path.join(root, name) for name in ("straight.npz", "resumed.npz", "ck"))
+        grid_devices = train_app.grid_devices
+        train_app.grid_devices = lambda d: [d] * 4
+        try:
+            reset_counts(counters)
+            for argv in (["--steps", str(GRID_RESUME_STEPS), "--out", straight],
+                         ["--steps", str(GRID_RESUME_AT), "--out", resumed, "--ckpt-dir", ck, "--ckpt-every", str(GRID_RESUME_AT)],
+                         ["--steps", str(GRID_RESUME_STEPS), "--out", resumed, "--ckpt-dir", ck, "--ckpt-every", str(GRID_RESUME_AT)]):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    if train_app.main(base + argv) != 0:
+                        raise AssertionError(f"apps.train {argv} failed")
+                if train_app.main.last_run["grid"] != {"data": 2, "model": 2}:
+                    raise AssertionError(f"apps.train --tp 2 over 4 devices ran on {train_app.main.last_run['grid']}")
+            launches["train"] = check_launches("apps.train on the 2 x 2 grid", counters)
+        finally:
+            train_app.grid_devices = grid_devices
+        if train_app.main.last_run["start_step"] != GRID_RESUME_AT:
+            raise AssertionError(f"the (2, 2) run did not resume at step {GRID_RESUME_AT}")
+        a_net, b_net = (load_denoiser(path, device="cpu") for path in (straight, resumed))
+        if any(not torch.equal(p, q) for p, q in zip(a_net.parameters(), b_net.parameters())):
+            raise AssertionError("the resumed (2, 2) run's weights differ from the straight run's")
+        # The (2, 2) checkpoint in an unsharded run (one card: no grid), eval-only.
+        unsharded = os.path.join(root, "unsharded.npz")
+        ev = ["--steps", str(GRID_RESUME_STEPS), "--ckpt-dir", ck, "--out", unsharded, "--eval",
+              "--eval-pairs", str(QUALITY_PAIRS), "--eval-seconds", str(QUALITY_SECONDS)]
+        run, got, _, lines = train_run(ev, counters)
+        launches["eval"] = check_launches("the eval-only run from the (2, 2) checkpoint", counters,
+                                          gru_stack=QUALITY_PAIRS * int(QUALITY_SECONDS / 0.5))
+        if run["grid"] is not None or run["steps"] != 0:
+            raise AssertionError(f"the eval-only run trained or took a grid: {run}")
+        c_net = load_denoiser(unsharded, device="cpu")
+        if any(not torch.equal(p, q) for p, q in zip(c_net.parameters(), b_net.parameters())):
+            raise AssertionError("the (2, 2) checkpoint loaded unsharded differs from the run's weights")
+        log(f"apps.train --tp 2 on a 2 x 2 grid of the card ({GRID_RESUME_STEPS} steps at [{TRAIN_BATCHES[0]}, "
+            f"{TRAIN_FRAMES}]): a run resumed at step {GRID_RESUME_AT} writes the straight run's weights bit for bit; "
+            f"its checkpoint loads into an unsharded run with identical parameters; no kernel launched")
+        quality = json.loads(lines[-1])["denoise_quality"]
+        cpu = dq.evaluate(b_net, n_pairs=QUALITY_PAIRS, seconds=QUALITY_SECONDS, device="cpu")
+        for g, w in zip(quality["pairs"] + [quality], cpu["pairs"] + [cpu]):
+            for key, v in g.items():
+                if key.endswith("_db") and not abs(v - w[key]) <= QUALITY_TOL_DB:
+                    raise AssertionError(f"--eval of the (2, 2) weights differs from the CPU's evaluate: {key} {v} against {w[key]}")
+        log(f"apps.train --eval of the (2, 2) checkpoint: {lines[-1]}; the CPU's evaluate: mean "
+            f"{cpu['mean_si_sdr_impr_db']} dB; launches {launches['eval']}")
+        trained = load_denoiser(resumed, device=dev)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        results = BatchRunner(trained).run(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["score"] = check_launches("the slice with the (2, 2) weights", counters, gru_stack=1, scan_windows=1)
+        host = BatchRunner(trained, use_host_fsm=True).run(audio)
+        if [r.segments for r in results] != [r.segments for r in host]:
+            raise AssertionError("the (2, 2) weights' slice: device-FSM and host-FSM segments differ")
+        log(f"the (2, 2)-trained weights through load_denoiser: the slice in {wall * 1e3:.1f} ms (first run) on {smi}, "
+            f"{sum(len(r.segments) for r in results)} segments, identical with the host decoder; launches {launches['score']} "
+            f"((b) and (c) took {time.perf_counter() - t_start:.1f} s)")
+    return {"launches": launches, "quality": quality, "score_wall_ms": wall * 1e3}
+
+
+def phase_train_grid(dev, audio, phase16_runs: dict, smi: str) -> dict:
+    """Phase 19: the trainer's ("data", "model") grid on the card."""
+    t_phase = time.perf_counter()
+    counters = path_counters()
+    runs = grid_equivalence(dev, counters, phase16_runs, smi)
+    rest = grid_resume_and_score(dev, audio, counters, smi)
+    steps = runs.pop("launches")
+    rest["launches"]["train"] = {name: n + steps[name] for name, n in rest["launches"]["train"].items()}
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, **rest}
+
+
 def main() -> int:
     try:
         import torch
@@ -4284,6 +4526,7 @@ def main() -> int:
         precision_rows, precision_launches = phase_precision(runner, audio, float_results, tiers["walls"], smi)
         mesh = phase_mesh(net, dev, audio, float_results, float_wall, root, slab_segments,
                           serve["big"]["fleet"]["tick_p50_ms"], smi)
+        train_grid = phase_train_grid(dev, audio, train["runs"], smi)
     # Kernels 4 and 6 run on the experiment tool's path only; kernel 5's
     # main path is the bf16 tier (it runs on the tool's path too).
     launches.update(gru_gates=path_a["gru_gates"], gru_gates_f=path_a["gru_gates_f"], gru_gates_p=path_b["gru_gates_p"])
@@ -4335,8 +4578,11 @@ def main() -> int:
     # Phase 18: the mesh's runs (the slice over 2 and 4 shards, 3 runs each;
     # the slab run and the 256-stream fleet over 2 shards; each process of
     # the two-process run).
+    # Phase 19: the trainer's grid: its training runs (0), the slice scored
+    # with the (2, 2)-trained weights and the eval-only run from its checkpoint.
     for k in kernels:
         k["launches_mesh"] = mesh["launches"][k["name"]]
+        k["launches_train_mesh"] = {path: counts[k["name"]] for path, counts in train_grid["launches"].items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -2,7 +2,8 @@
 
 Trains the denoiser on (noisy, clean) WAV pairs with the DNS-Challenge
 compressed-spectral loss (``train/nsnet2_train.py``): autograd and
-``torch.optim.Adam`` on one device, with checkpoint/resume.
+``torch.optim.Adam``, on one device or over a ("data", "model") grid of
+this process's devices, with checkpoint/resume.
 
 Data layout: --data DIR containing ``<name>.noisy.wav`` / ``<name>.clean.wav``
 pairs (any sample rate divisible by 16 kHz; decimated like the pipeline).
@@ -12,14 +13,22 @@ mode; no fixtures ship with this repo).
 Training runs on the card unless ``--device cpu`` is given; without a
 visible GPU ``--device cuda`` (the default) raises. Data preparation runs
 on the host; only the staged batches (or, with ``--device-data``, the
-whole pool once) go to the card. ``--tp`` > 1 (the JAX trainer's tensor
-parallelism) is not ported: ROADMAP §1 item 11. ``FVAD_QUANT=int8`` is
-refused (no gradient); ``FVAD_PRECISION`` and ``FVAD_IO_DTYPE`` act as in
-the JAX trainer.
+whole pool once) go to the card. ``FVAD_QUANT=int8`` is refused (no
+gradient); ``FVAD_PRECISION`` and ``FVAD_IO_DTYPE`` act as in the JAX
+trainer.
+
+The grid follows the JAX CLI's rule: when more than one device is visible
+or ``--tp`` > 1, the devices (``grid_devices``: every visible card, or on
+``--device cpu`` the one CPU device) form ``parallel/mesh.py::
+data_model_mesh(--tp)``, rows of ``--tp`` model columns. The parameters are
+laid out Megatron-style over each row's columns and the batch, rounded up
+to the number of rows, is split over the rows; ``--tp`` that does not
+divide the devices raises the JAX ``ValueError``. Checkpoints and the
+weights written are unsharded: a run resumes at another ``--tp``.
 
 Usage:
   python -m formula_vad_tpu_torch.apps.train --steps 1000 --out weights.npz \\
-      [--data DIR | --synthetic 64] [--ckpt-dir ckpts] [--eval] [--device cuda|cpu]
+      [--data DIR | --synthetic 64] [--ckpt-dir ckpts] [--tp 1] [--eval] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from ..config import NSNET2_N_FFT, NSNET2_N_HOP
 from ..io_.wav import read_wav
 from ..models import nsnet2
 from ..ops import resample, stft
+from ..parallel import mesh as mesh_lib
 from ..pipeline import denoiser as den_mod
 from ..train import nsnet2_train
 from ..utils import checkpoint
@@ -97,6 +107,15 @@ def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return x.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else x
 
 
+def grid_devices(dev: torch.device) -> list[torch.device]:
+    """The devices a training grid spans, as the JAX CLI takes
+    ``jax.devices()``: every visible card when training on the card, the
+    one CPU device on the CPU."""
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Train the NSNet2 denoiser.")
     ap.add_argument("--data", default=None, help="Directory of *.noisy.wav/*.clean.wav pairs")
@@ -105,7 +124,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--frames", type=int, default=100, help="Frames per example window")
     ap.add_argument("--lr", type=float, default=1e-4)
-    ap.add_argument("--tp", type=int, default=1, help="Tensor-parallel axis size (only 1: one device)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="Tensor-parallel (\"model\") axis of the training grid: each row of TP devices holds "
+                    "the parameters Megatron-style, the rows split the batch (a grid whenever more than one "
+                    "device is visible or TP > 1)")
     ap.add_argument(
         "--out", default=None,
         help="Output weights: .npz (the JAX package's format) or .onnx (ONNX-Runtime-ready, loadable by "
@@ -132,17 +154,22 @@ def main(argv=None) -> int:
                     help="Where to train (default: the card; raises without one)")
     args = ap.parse_args(argv)
     configure()
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism is not ported yet (ROADMAP §1 item 11: multi-GPU, "
-            "parallel/mesh.py onto torch.distributed)"
-        )
     dev = device_mod.resolve(args.device)
     nsnet2_train.check_tier()
+    devices = grid_devices(dev)
+    m = mesh_lib.data_model_mesh(args.tp, devices) if len(devices) > 1 or args.tp > 1 else None
+    if m is not None:
+        dp = m.shape["data"]
+        if args.batch % dp:
+            args.batch = mesh_lib.pad_batch(args.batch, m)
+            log.info("rounded batch up to %d (data axis %d)", args.batch, dp)
+        dev = m.grid[0][0]
 
     net = nsnet2_train.trainable(nsnet2.init_params(torch.Generator().manual_seed(args.seed)).to(dev))
+    if m is not None:
+        net = nsnet2_train.shard_params(net, m)
     opt = torch.optim.Adam(net.parameters(), lr=args.lr)
-    step_fn = nsnet2_train.make_train_step(opt, net)
+    step_fn = nsnet2_train.make_train_step(opt, net, m)
 
     start_step = 0
     if args.ckpt_dir:
@@ -171,22 +198,33 @@ def main(argv=None) -> int:
         return np.random.default_rng((args.seed, i)).integers(0, pool[0].shape[0], args.batch)
 
     steps = range(start_step, args.steps)
+    # On a grid each data row's examples go to its first device, which
+    # computes the row's loss (its other columns get the features in the step).
+    homes = [row[0] for row in m.grid] if m is not None else [dev]
+    per = args.batch // len(homes)
     if args.device_data and len(steps):
-        # One-time staging of the pool and of every step's indices; each step
-        # gathers its batch on the device.
-        pool = tuple(x.to(dev) for x in pool)
-        order = torch.from_numpy(np.stack([batch_idx(i) for i in steps])).to(dev)
-        log.info("staged %d windows (%.0f MB) in device memory", pool[0].shape[0],
-                 sum(x.numel() * x.element_size() for x in pool) / 1e6)
+        # One-time staging of the pool and of every step's indices, on each
+        # distinct device that takes a row's batch; each step gathers its
+        # batch there.
+        staged = {d: tuple(x.to(d) for x in pool) for d in dict.fromkeys(homes)}
+        order = torch.from_numpy(np.stack([batch_idx(i) for i in steps]))
+        orders = [order[:, r * per:(r + 1) * per].contiguous().to(d) for r, d in enumerate(homes)]
+        log.info("staged %d windows (%.0f MB) in device memory on %d device(s)", pool[0].shape[0],
+                 sum(x.numel() * x.element_size() for x in pool) / 1e6, len(staged))
 
-        def get_batch(i):
-            return tuple(c.index_select(0, order[i - start_step]) for c in pool)
+        def row_batches(i):
+            return [tuple(c.index_select(0, o[i - start_step]) for c in staged[d]) for d, o in zip(homes, orders)]
 
     else:
 
-        def get_batch(i):
+        def row_batches(i):
             idx = torch.from_numpy(batch_idx(i))
-            return tuple(_upload(c.index_select(0, idx), dev) for c in pool)
+            return [tuple(_upload(c.index_select(0, idx[r * per:(r + 1) * per]), d) for c in pool)
+                    for r, d in enumerate(homes)]
+
+    def get_batch(i):
+        rows = row_batches(i)
+        return rows if m is not None else rows[0]
 
     # Per step: the host clock from the batch's fetch to the step's return,
     # and on the card CUDA events around it; read once, after the loop. The
@@ -215,7 +253,11 @@ def main(argv=None) -> int:
         "losses": torch.stack(losses).tolist() if losses else [],
         "host_ms": host_ms,
         "event_ms": [a.elapsed_time(b) for a, b in events],
+        "grid": dict(m.shape) if m is not None else None,
+        "batch": args.batch,
     }
+    if m is not None:
+        net = net.gather()  # unsharded, on the grid's first device
     for p in net.parameters():
         p.requires_grad_(False)
 

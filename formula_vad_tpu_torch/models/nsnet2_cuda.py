@@ -51,11 +51,13 @@ G3 = 3 * HIDDEN
 
 
 def _gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """z|r|n gate math, linear_before_reset = 1. (The trainer differentiates
-    it too: autograd turns a split back into one cat, but each of three
-    slices into a zero fill and a copy.)"""
-    z_i, r_i, n_i = gi.split(HIDDEN, dim=-1)
-    z_h, r_h, n_h = gh.split(HIDDEN, dim=-1)
+    """z|r|n gate math, linear_before_reset = 1, over h's units: gi, gh
+    [..., 3u], h [..., u] (u = 400, or a training grid's unit shard). (The
+    trainer differentiates it too: autograd turns a split back into one
+    cat, but each of three slices into a zero fill and a copy.)"""
+    u = h.shape[-1]
+    z_i, r_i, n_i = gi.split(u, dim=-1)
+    z_h, r_h, n_h = gh.split(u, dim=-1)
     z = torch.sigmoid(z_i + z_h)
     r = torch.sigmoid(r_i + r_h)
     n = torch.tanh(n_i + r * n_h)

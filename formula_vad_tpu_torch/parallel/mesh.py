@@ -27,8 +27,12 @@ JAX tests' 8 virtual CPU devices). Every device carries its index
 ``pipeline/offline.py::_window_chunks``), and a bare key filled while
 another card is current would hand back that card's tensor.
 
-The training grid (``data_model_mesh``) is ported as a grid only: the
-trainer's sharding of its parameters is not.
+The trainer's ("data", "model") grid (``data_model_mesh``,
+``DataModelMesh``) lies in one process, as the JAX CLI trains in one:
+``train/nsnet2_train.py`` shards NSNet2's parameters over its columns and
+the batch over its rows, and its collectives are tensor copies between
+the grid's devices that autograd records. A grid that spans processes is
+refused (``DataModelMesh.check_one_process``).
 """
 
 from __future__ import annotations
@@ -119,6 +123,10 @@ class DataMesh:
         """The JAX mesh's ``"data"`` axis: shards over all processes."""
         return len(self.devices) * self.n_processes
 
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": self.size}
+
 
 def data_mesh(devices: Optional[Sequence] = None) -> DataMesh:
     """The data mesh over ``devices`` of this process (default: every
@@ -163,6 +171,17 @@ class DataModelMesh:
     def shape(self) -> dict[str, int]:
         return {"data": len(self.grid) * self.n_processes, "model": len(self.grid[0])}
 
+    def check_one_process(self) -> None:
+        """Refuse a grid that spans processes (``ValueError``): the trainer
+        runs the grid in one process, as the JAX CLI trains in one (it never
+        calls ``maybe_init_distributed``), so its collectives are copies
+        between this process's devices."""
+        if self.n_processes > 1:
+            raise ValueError(
+                f"a training grid over {self.n_processes} processes: the trainer's grid lies in one process, as "
+                "the JAX CLI trains in one (it never joins a process group); give this process all the devices"
+            )
+
 
 def data_model_mesh(n_model: int = 1, devices: Optional[Sequence] = None) -> DataModelMesh:
     """This process's devices (default: every visible card) as a grid of
@@ -175,9 +194,9 @@ def data_model_mesh(n_model: int = 1, devices: Optional[Sequence] = None) -> Dat
     return DataModelMesh(grid, devs.n_processes, devs.rank)
 
 
-def pad_batch(n: int, mesh: DataMesh) -> int:
+def pad_batch(n: int, mesh: DataMesh | DataModelMesh) -> int:
     """Round a batch size up to a multiple of the data axis."""
-    d = mesh.size
+    d = mesh.shape["data"]
     return ((n + d - 1) // d) * d
 
 

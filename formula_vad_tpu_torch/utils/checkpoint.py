@@ -16,7 +16,10 @@ bit-identical downstream behaviour.
   network and its ``torch.optim.Adam`` (per parameter: the weights and
   Adam's step, exp_avg and exp_avg_sq) as ``step_<n>.npz`` carries, with
   ``latest.json`` naming the newest, as the JAX package's npz fallback
-  (it tries orbax first; orbax is not used here).
+  (it tries orbax first; orbax is not used here). A network laid out over
+  a training grid (``train/nsnet2_train.py::ShardedNSNet2``) is saved
+  gathered and loaded through its shards, in the same format: a
+  checkpoint resumes at any model-axis size, 1 included.
 """
 
 from __future__ import annotations
@@ -115,19 +118,29 @@ def _unflatten(template: Any, leaves: dict, prefix: str = "") -> Any:
     return leaves[prefix[:-1]]
 
 
+def _named_state(net, optimizer) -> tuple[dict, dict]:
+    """(name -> parameter, name -> Adam's state) in the unsharded layout: a
+    sharded network gathers its own (``gathered_state``)."""
+    if hasattr(net, "gathered_state"):
+        return net.gathered_state(optimizer)
+    named = list(net.named_parameters())
+    return {name: p.detach() for name, p in named}, {name: optimizer.state.get(p, {}) for name, p in named}
+
+
 def _train_carry(net, optimizer) -> dict:
     """The training state as a carry: each parameter under its name, and
     Adam's ``step``, ``exp_avg`` and ``exp_avg_sq`` of each. A parameter
     the optimizer has not stepped yet gets a zero state (step 0), which
     ``torch.optim.Adam`` treats as none."""
+    named, states = _named_state(net, optimizer)
     params, adam = {}, {}
-    for name, p in net.named_parameters():
-        st = optimizer.state.get(p, {})
-        params[name] = p.detach()
+    for name, p in named.items():
+        st = states[name]
+        params[name] = p
         adam[name] = {
             "step": torch.as_tensor(st.get("step", 0.0), dtype=torch.get_default_dtype()).detach().cpu(),
-            "exp_avg": st["exp_avg"] if "exp_avg" in st else torch.zeros_like(p.detach()),
-            "exp_avg_sq": st["exp_avg_sq"] if "exp_avg_sq" in st else torch.zeros_like(p.detach()),
+            "exp_avg": st["exp_avg"] if "exp_avg" in st else torch.zeros_like(p),
+            "exp_avg_sq": st["exp_avg_sq"] if "exp_avg_sq" in st else torch.zeros_like(p),
         }
     return {"params": params, "adam": adam}
 
@@ -156,8 +169,13 @@ def load_train_state(directory: str, net, optimizer, step: int):
     """Restore the checkpoint of ``step`` into ``net`` and ``optimizer``
     (which give the structure, shapes and devices; ``load_carry`` raises
     ``ValueError`` on any mismatch) -> (net, optimizer). Adam's state is
-    restored for every parameter saved with a nonzero step."""
+    restored for every parameter saved with a nonzero step. A sharded
+    network takes the unsharded checkpoint through its shards."""
     got = load_carry(os.path.join(directory, f"step_{step}.npz"), _train_carry(net, optimizer))
+    if hasattr(net, "load_state"):
+        adam = {name: st if float(st["step"]) > 0 else {} for name, st in got["adam"].items()}
+        net.load_state(optimizer, got["params"], adam)
+        return net, optimizer
     with torch.no_grad():
         for name, p in net.named_parameters():
             p.copy_(got["params"][name])

@@ -47,7 +47,8 @@ are the CPU's within 1e-4 of each array's largest element, and a resumed
 run on the card equals a straight one bit for bit. The data mesh over
 shards of the card: one launch of kernels 1 and 2 a shard, the segments
 of the unsharded runs, and no synchronising call inside the sharded slab
-loop or a sharded serving tick.
+loop or a sharded serving tick. The trainer's grid on the card: a 2 x 2
+step's loss and gradients equal the CPU grid's, with no kernel launched.
 """
 
 import ctypes
@@ -1771,6 +1772,32 @@ def test_training_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     trained = registry.load_denoiser(straight, device=cuda_device)
     with torch.inference_mode():
         assert torch.isfinite(trained(batch[0].to(cuda_device))).all()
+
+
+@pytest.mark.cuda
+def test_train_mesh_step_on_the_card_matches_the_cpu(cuda_device):
+    """A step on a 2 x 2 training grid of the card (cuda:0 four times)
+    against the same step on a 2 x 2 grid of the CPU: the loss within 1e-5,
+    each gathered gradient within 1e-4 of that array's largest element
+    (float32 sums in other orders, TF32 off); no kernel launches in the
+    sharded step."""
+    from formula_vad_tpu_torch.parallel import mesh as mesh_lib
+    from formula_vad_tpu_torch.train import nsnet2_train
+
+    batch = nsnet2_train.synth_batch(torch.Generator().manual_seed(4), 4, 20)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        grid = mesh_lib.data_model_mesh(2, [dev] * 4)
+        sharded = nsnet2_train.shard_params(nsnet2_train.trainable(registry.load_denoiser("random", device="cpu")), grid)
+        opt = torch.optim.Adam(sharded.parameters(), lr=1e-4)
+        counts = [fn.launches for fn in STREAM_COUNTERS.values()]
+        loss = nsnet2_train.make_train_step(opt, sharded, grid)(batch)
+        assert [fn.launches for fn in STREAM_COUNTERS.values()] == counts
+        got[str(dev)] = (loss.item(), {k: g.cpu() for k, g in sharded.gathered_grads().items()})
+    (want_loss, want), (got_loss, grads) = got["cpu"], got[str(cuda_device)]
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    for name, w in want.items():
+        assert float(w.abs().max()) > 0 and float((grads[name] - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
 
 
 KERNEL_A_LEVELS = [("high", "high"), ("default", "high"), ("high", "default")]  # (gru_i, gru_h)

@@ -81,7 +81,17 @@ with tempfile.TemporaryDirectory() as d:
     assert train.main(args[:3] + ["3"] + args[4:] + ["--ckpt-dir", d + "/ck", "--out", d + "/w.npz"]) == 0
     assert train.main.last_run["start_step"] == 2 and len(train.main.last_run["losses"]) == 1
     load_denoiser(d + "/w.onnx", device="cpu")
+    train.grid_devices = lambda dev: [dev] * 4  # the trainer's grid: --tp 2 on 2 x 2 CPU devices
+    assert train.main(args + ["--tp", "2", "--out", d + "/g.npz"]) == 0
+    assert train.main.last_run["grid"] == {"data": 2, "model": 2} and train.main.last_run["batch"] == 2
+import torch
 from formula_vad_tpu_torch.parallel import mesh
+from formula_vad_tpu_torch.train import nsnet2_train
+sharded = nsnet2_train.shard_params(nsnet2_train.trainable(load_denoiser("demo", device="cpu")),
+                                    mesh.data_model_mesh(2, ["cpu"] * 4))
+opt = torch.optim.Adam(sharded.parameters())
+step = nsnet2_train.make_train_step(opt, sharded, sharded.mesh)
+assert torch.isfinite(step(nsnet2_train.synth_batch(torch.Generator().manual_seed(0), 2, 4)))
 (sharded,) = BatchRunner(load_denoiser("demo", device="cpu"), mesh=mesh.data_mesh(["cpu"] * 2)).run(audio[None])
 assert sharded.segments == res.segments
 import socket

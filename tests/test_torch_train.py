@@ -639,7 +639,7 @@ def test_cli_draws_the_jax_clis_batches(tmp_path, monkeypatch):
             return params, opt_state, jnp.float32(0.0)
         return step
 
-    def port_step(opt, net):
+    def port_step(opt, net, mesh=None):
         def step(batch):
             seen["port"].append([x.numpy() for x in batch])
             return torch.zeros(())
@@ -659,7 +659,8 @@ def test_cli_draws_the_jax_clis_batches(tmp_path, monkeypatch):
 
 
 def test_cli_refusals():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # --tp 2 on the one CPU device: the JAX data_model_mesh's refusal.
+    with pytest.raises(ValueError, match="1 devices not divisible by model axis 2"):
         train_app.main(BASE + ["--steps", "1", "--tp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
