@@ -235,14 +235,17 @@ runs nineteen phases; any failed check raises and the script exits non-zero.
    recurrence on the tensor cores: csrc/gru_gates_p.cu with a bf16 pass
    count a product class, 1 at 'default' and 3 at 'high') at (gru_i, gru_h)
    levels (high, high), (default, high) and (high, default) against its
-   plain version at [1,680, 54], [42, 54], [37, 54] and [4,000, 54] (three
-   launches) and at [42, 1] from a nonzero state, and all-high on N(0, 0.8)
-   gi: max |d| <= A_HIGH_TOL, or phase 8's bf16 bars where a class is
+   plain version at [1,680, 54], [42, 54], [37, 54] and [4,000, 54] (one
+   launch each) and at [42, 1] from a nonzero state, and all-high on N(0,
+   0.8) gi: max |d| <= A_HIGH_TOL, or phase 8's bf16 bars where a class is
    'default' (h rounded to bf16 where it enters those products), and over
    54 steps nearer its plain version (mean |d|) than the plain versions at
-   all-'highest' and at the two classes swapped; each instantiation's plan, single and queued time, plain time and bound,
-   beside kernel 1's float32 time and cuDNN's float32 GRU (TF32 off:
-   another function) in the same process. (b) Kernel B (gru_stack_mixed,
+   all-'highest' and at the two classes swapped; each instantiation's plan
+   (clusters of 5 CTAs), exchange L2 bytes, single and queued time, plain
+   time and bound at [1,680, 54], beside kernel 1's float32 time and
+   cuDNN's float32 GRU (TF32 off: another function) in the same process,
+   and its single and queued times, bounds and L2 bytes at [42, 54], [42, 1]
+   from a state and [4,000, 54]. (b) Kernel B (gru_stack_mixed,
    kernel 1's float32 body with one class at 'high' or 'default'): the
    stage audit's two mixes (one class at 'high') at the same shapes, bar
    B_HIGH_TOL and control, the two with 'default' at [1,680, 54]; times
@@ -3511,10 +3514,14 @@ def kernel_a_rows(net, dev, smi: str) -> dict:
     against its plain version at P17_SHAPES (N(0, 0.3) GRU biases), and
     nearer it than the plain versions at other levels, and at [42, 1]
     continuing a nonzero state; all-high also on N(0, 0.8) gi. Then
-    each instantiation's plan, single and queued time at [1,680, 54] on the
-    demo weights beside kernel 1's float32 time and cuDNN's float32 GRU
-    (TF32 off, another function: the nearest library call) in the same
-    process, and its bound. -> the kernels line's entry."""
+    each instantiation's plan, cluster size, single and queued time at
+    [1,680, 54] on the demo weights beside kernel 1's float32 time and
+    cuDNN's float32 GRU (TF32 off, another function: the nearest library
+    call) in the same process, and its bound; and its single and queued
+    times and bounds at [42, 54] (a chunk step), [42, 1] from a state (a
+    low-latency step) and [4,000, 54]. The plan's count of the exchange's
+    L2 bytes (``plan_exchange_bytes_3x``, not a measurement) is logged
+    only. -> the kernels line's entry."""
     import torch
 
     from formula_vad_tpu_torch.models import nsnet2_cuda
@@ -3572,6 +3579,22 @@ def kernel_a_rows(net, dev, smi: str) -> dict:
     feats = torch.from_numpy(
         np.random.default_rng(0).normal(-3.0, 1.5, (GRU_ROWS, GRU_STEPS, 161)).astype(np.float32)).to(dev)
     gru = cudnn_gru(net, dev)
+
+    def a_bound(n, t, passes, carried):
+        """Bytes: gi in, out, a state's two rows in and the final h1 out, the
+        weights once; operations: each step's products at their passes,
+        none with h = 0 (step 0 of a stateless call)."""
+        ops = 2 * n * 400 * 1200 * (t * passes[0] + 2 * (t if carried else t - 1) * passes[1])
+        nbytes = 4 * n * t * 400 * 4 + (3 * n * 400 * 4 if carried else 0) + gates.units_3x(net).nbytes
+        return bound(nbytes, ops, BF16_OPS_PER_MS)
+
+    def a_plan(n):
+        (launch,) = gates.device_p_plan(n, dev, gates.P3_UNITS)
+        return (f"{launch.row_groups} row group(s) of up to {launch.tiles_per_group} tiles x 50 unit groups of 8 "
+                f"units = {launch.grid} CTAs in clusters of {gates.P3_CLUSTER} "
+                f"({'pairs' if launch.tiles_per_group > gates.P3_WARPS else 'single tiles'} a warp), "
+                f"{launch.smem_bytes('A')} bytes of shared memory a CTA")
+
     with torch.inference_mode():
         x = net.fc_in(feats)
         gi = gates.gi_gates(net, x)
@@ -3588,17 +3611,37 @@ def kernel_a_rows(net, dev, smi: str) -> dict:
             queued = queued_ms(lambda: gates.gru_gates_3x(net, *gi, levels))
             plain_ms = cuda_ms(lambda: gates.gru_gates_p_reference(gates.gate_weights(net, f32), *gi, levels=levels),
                                reps=1)
-            ops = 2 * GRU_ROWS * GRU_STEPS * 400 * 1200 * (passes[0] + 2 * passes[1])
-            nbytes = 4 * GRU_ROWS * GRU_STEPS * 400 * 4 + gates.units_3x(net).nbytes
-            bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_MS)
+            bound_ms, bound_by = a_bound(GRU_ROWS, GRU_STEPS, passes, False)
+            l2 = gates.plan_exchange_bytes_3x(GRU_ROWS, GRU_STEPS, levels)
             inst.append({"passes": list(passes), "levels": list(levels), "ms": ms, "queued_ms": queued,
                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": errs[levels]})
-            log(f"kernel A {levels} at [{GRU_ROWS}, {GRU_STEPS}]: plan {len(plan)} launch, {plan[0].row_groups} row "
-                f"groups x 50 unit groups of 8 units = {plan[0].grid} CTAs, {plan[0].tiles_per_group} tiles a CTA, "
-                f"{plan[0].smem_bytes('A')} bytes of shared memory a CTA; {ms:.3f} ms single, {queued:.3f} queued, "
-                f"plain {plain_ms:.2f} ms; bound {bound_ms:.3f} ms by {bound_by} ({ops / 1e9:.1f} GFLOP of bf16); "
+            log(f"kernel A {levels} at [{GRU_ROWS}, {GRU_STEPS}]: plan {len(plan)} launch, {a_plan(GRU_ROWS)}; "
+                f"the plan's count of exchange L2 reads (not measured) {l2 / 1e9:.3f} GB a call (one read a CTA: "
+                f"{gates.plan_exchange_bytes_3x(GRU_ROWS, GRU_STEPS, levels, cluster=1) / 1e9:.3f}); {ms:.3f} ms "
+                f"single, {queued:.3f} queued, plain {plain_ms:.2f} ms; bound {bound_ms:.3f} ms by {bound_by}; "
                 f"kernel 1 float32 in this process {k1['ms']:.3f} single, {k1['queued_ms']:.3f} queued; cuDNN float32 "
                 f"GRU (TF32 off, another function) {library_ms:.3f} / {library_queued:.3f}; on {smi}")
+        # The other shapes kernel A runs at: a 'high' chunk step, a 'high'
+        # low-latency step from a state, and more rows than one launch held
+        # before its shared memory stopped growing with them.
+        shapes = []
+        rng = np.random.default_rng(7)
+        for n, t, carried in ((2 * SLICE_STREAMS, GRU_STEPS, False), (LL_ROWS[0], 1, True), (4000, GRU_STEPS, False)):
+            x = net.fc_in(torch.from_numpy(rng.normal(-3.0, 1.5, (n, t, 161)).astype(np.float32)).to(dev))
+            gi_n = gates.gi_gates(net, x)
+            state = tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (n, 400))).astype(np.float32)).to(dev)
+                          for _ in range(2)) if carried else None
+            for levels in A_LEVELS:
+                passes = [gates.PASSES[level] for level in levels]
+                ms = cuda_ms(lambda: gates.gru_gates_3x(net, *gi_n, levels, state=state))
+                queued = queued_ms(lambda: gates.gru_gates_3x(net, *gi_n, levels, state=state))
+                bound_ms, bound_by = a_bound(n, t, passes, carried)
+                l2 = gates.plan_exchange_bytes_3x(n, t, levels, carried)
+                shapes.append({"shape": [n, t], "carried": carried, "levels": list(levels), "ms": ms,
+                               "queued_ms": queued, "bound_ms": bound_ms, "bound_by": bound_by})
+                log(f"kernel A {levels} at [{n}, {t}]{' from a state' if carried else ''}: {a_plan(n)}; the plan's "
+                    f"count of exchange L2 reads (not measured) {l2 / 1e6:.3f} MB a call; {ms:.3f} ms single, "
+                    f"{queued:.3f} queued; bound {bound_ms * 1e3:.2f} us by {bound_by}; on {smi}")
     top = inst[0]
     return {
         "name": "gru_gates_3x", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_gates_p.cu",
@@ -3607,7 +3650,9 @@ def kernel_a_rows(net, dev, smi: str) -> dict:
         "bound_by": top["bound_by"], "library_ms": library_ms, "library_queued_ms": library_queued,
         "library": "cuDNN two-layer torch.nn.GRU, float32, TF32 off (another function: float32 products)",
         "kernel_1_ms": k1["ms"], "kernel_1_queued_ms": k1["queued_ms"], "instantiations": inst,
-        "tol_high": A_HIGH_TOL, "control_min_ratio": min(ratios), "grid": plan[0].grid, "tiles_per_group": plan[0].tiles_per_group, "smem_bytes": plan[0].smem_bytes("A"),
+        "tol_high": A_HIGH_TOL, "control_min_ratio": min(ratios), "grid": plan[0].grid,
+        "tiles_per_group": plan[0].tiles_per_group, "smem_bytes": plan[0].smem_bytes("A"), "cluster": gates.P3_CLUSTER,
+        "shapes": shapes,
     }
 
 

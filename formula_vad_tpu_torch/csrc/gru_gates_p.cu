@@ -3,6 +3,23 @@
 // kernel 5's function with three bf16 passes (bf16_3x) for a class of
 // products, on a body of its own (gru_3x_kernel).
 //
+// Kernel A in brief (its section below has the details). A CTA owns 8
+// hidden units (their hi and lo weights, 115,200 bytes, resident in shared
+// memory) and a row group's 16-row tiles; every step each CTA needs the
+// bf16 hi (and, for a three-pass class, lo) A fragments of all 400 units of
+// h for every one of its tiles. Those cross between CTAs through exchange
+// buffers in L2. The 50 CTAs of a row group form clusters of 5, and each
+// K step of each tile's fragments is fetched from L2 once per cluster, by
+// one member's bulk copy multicast into the shared memory of all 5, where
+// 9 MMA warps read it from a ring of 6 stages of 18 KB that two copy warps
+// fill: with the weights, 225,936 of the 232,448 bytes a block may have.
+// At 1,680 rows x 54 steps and three passes a class the plan counts 4.30
+// GB of L2 reads a call where one read per CTA took 21.50 GB (the
+// section's table; counts from the plan, not measurements).
+// Each row's products run in the order they ran when every CTA read h from
+// L2 (hi x hi, then hi x lo and lo x hi, K steps in order, the h1 half of
+// K = 800 first), so the outputs are bit for bit those of that design.
+//
 // Replaces the bf16 forms of three TPU kernels of
 // benchmarks/gru_kernel_exp.py, which compute one function with the
 // rounding points in different places:
@@ -521,30 +538,108 @@ cudaError_t launch(const Launch& a) {
 // kernel 5's instantiation above, unchanged; this body takes the mixes
 // with at least one three-pass class.
 //
-// Memory plan. Both halves of a 16-unit group's weights would take
-// 230,400 of a block's 232,448 bytes, so a CTA here owns U3 = 8 hidden
-// units (one n8 tile, 50 unit groups): their hi and lo weights are the
-// same 115,200 bytes a CTA as kernel 5's, in mma.sync B-fragment order
-// (each lane's 48 bytes of a K step: z, r, n hi, then z, r, n lo). A wave
-// holds sm_count / 50 row groups (2 on 132 SMs: 100 CTAs) of at most
-// MAX_TILES3 16-row tiles (TILE3_BYTES each: gi 1,536 and h1 512), so a
-// call of 1,680 rows is one launch (2 x 53 tiles) and the host splits more
-// than 1,824 rows into launches of one wave each. h crosses between CTAs
-// split: hi and lo in exchange buffers of their own (x1h, x1l, x2h, x2l,
-// A-fragment order as kernel 5's); the two CTAs of a K step each write
-// their half (8 bytes) of a lane's 16-byte fragment. A three-pass class
-// reads both, a one-pass class hi only. Everything else (the row group's
-// barrier, gi prefetched a step ahead, float32 h1 in shared slots, h2
-// read back from the float32 out, the carried state) is kernel 5's.
+// Plan. Both halves of a 16-unit group's weights would take 230,400 of a
+// block's 232,448 bytes, so a CTA here owns U3 = 8 hidden units (one n8
+// tile, 50 unit groups): their hi and lo weights are the same 115,200
+// bytes a CTA as kernel 5's, in mma.sync B-fragment order (each lane's 48
+// bytes of a K step: z, r, n hi, then z, r, n lo). A row group needs all
+// 50 unit groups, so a wave holds sm_count / 50 row groups (2 on 132 SMs:
+// 100 CTAs; a third would take 150, so 32 SMs stay idle). Nothing a CTA
+// keeps in shared memory grows with its rows (gi is read from global
+// memory at a tile's start, the float32 h1 lives in the h1 operand), so
+// one launch takes any row count: 1,680 rows are 2 row groups of 54 and
+// 51 tiles.
+//
+// What bounds it: at 1,680 rows x 54 steps the products are 774 GFLOP of
+// bf16 at (3, 3) passes, 0.78 ms at 989 TFLOP/s. Every step each CTA needs
+// h's hi (and lo) fragments for all its tiles and all 400 units: 75 K
+// steps x 512 bytes x 2 halves a tile. Read by every CTA from L2 that was
+// 21.50 GB a call at 1,680 rows, and the first design's time followed
+// those bytes (~5.4 TB/s). Here the 50 CTAs of a row group form clusters
+// of CLUSTER3 = 5 consecutive unit groups, and each K step of a tile's
+// fragments leaves L2 once per cluster:
+//
+//   exchange L2 reads a call, 1,680 x 54, counted from the plan
+//                                          (3, 3)    (1, 3)    (3, 1)
+//   one read a CTA (the first design)      21.50 GB  17.88     14.38
+//   one read a cluster of 5 (this one)      4.30 GB   3.58      2.88
+//
+// Multicast divides the L2 reads, not what a CTA takes in: each still
+// receives every fragment it reads into its shared memory, ~4.07 MB a step
+// at 1,680 rows and (3, 3), as many bytes as it loaded from L2 before.
+//
+// The exchange buffers xh and xl ([2 ping-pong][50 K steps][pairs of
+// tiles][2 tiles][32 lanes] uint4: bf16 hi and lo of h in mma.sync
+// A-fragment order) hold h1 in K steps 0-24 and h2 in 25-49, so phase 2 of
+// step t reads h1[t] | h2[t-1] from one half: h1 of step s lives in
+// ping-pong half s & 1, h2 of step s in half (s + 1) & 1. For one K step
+// the tiles of a row group lie side by side. The two CTAs of a K step each
+// write their half (8 bytes) of a lane's 16-byte fragment, with plain
+// stores, as before.
+//
+// Work. Nine MMA warps take the CTA's tiles in items, a pair of tiles
+// where the CTA holds more than 9 (a warp then loads each weight fragment
+// once for two tiles' MMAs), else one, and walk them in rounds of 9 items,
+// all warps on the same K step of their round's items (a row group's 27
+// pairs at 1,680 rows fill 3 rounds, where 8 warps took 4). A stage of the
+// ring is one such K step: the round's tiles' hi fragments (up to 9 KB),
+// then their lo (at 9 KB). Two copy warps fill the SLOTS3 = 6 slots, each
+// walking the stages in order. The reporter waits for the slot's empty
+// barrier (the 9 MMA warps read its last stage; a warp without an item in
+// a short round waits for the stage and arrives all the same, so that no
+// warp runs a phase ahead of the ring), reports that to the slot's
+// cluster-empty barrier in the member of rank slot % 5, and arms the
+// slot's full barrier with the stage's bytes. The issuer, in that member,
+// waits for all 5 members' reports and issues cp.async.bulk ...
+// .multicast::cluster of the hi (and lo) bytes into the same slot of all 5
+// members, completing on each one's full barrier. (One warp in both roles
+// made the 5 members' copy warps move in lockstep, a remote round trip a
+// stage.) The MMA warps only wait for full barriers and arrive on their
+// own CTA's empty ones, after fence.proxy.async.shared::cta orders their
+// reads of a slot before a bulk copy rewrites it. The copy warps take a
+// stage only when its h is complete: those of phase 2 of step t and phase
+// 1 of step t+1 after the row group's barrier of step t, and
+// fence.proxy.async on both sides of that barrier orders the stores of h
+// with the copies that read it. Shared memory a CTA:
+//
+//   weights, hi and lo of 8 units x 1,200 K rows x 3 gates   115,200
+//   ring: 6 stages x (9 KB hi + 9 KB lo)                     110,592
+//   mbarriers: 6 slots x (full, empty, cluster-empty) x 8         144
+//   total (a block may have 232,448)                         225,936
+//
+// Per step: phase 1 computes h1[t] (K = 400, class gru_h), then the row
+// group's barrier (grid_barrier.cuh on the row group's counter, 50
+// arrivals; a second counter lets the last CTA out zero both), then phase
+// 2 computes h2[t] (K = 800: h1[t] at gru_i, h2[t-1] at gru_h). Why one
+// barrier a step is enough is kernel 5's argument, above. The grid is one
+// cooperative launch with the cluster attribute; the launcher refuses a
+// grid whose clusters cannot all be resident at once
+// (cudaOccupancyMaxActiveClusters), as a barrier over CTAs that are not
+// would deadlock. A carried state is seeded before the first step (each
+// CTA writes its units' fragments of h1[-1] and h2[-1], then one barrier
+// more), an instantiation of its own (CARRIED); the float32 h1[-1] is
+// read from h1_0 at step 0.
+//
+// The bits. Each accumulator of a row takes the MMAs it took when every
+// CTA read its A fragments from L2 (hi x hi into acc; hi x lo, then lo x
+// hi, into sm; K steps in order; the h1 half before the h2 half), on the
+// same fragments, and the gate math is the same code: only where the A
+// fragments come from changed, so the outputs are bit for bit the same.
 // ---------------------------------------------------------------------------
 
 constexpr int U3 = 8;                  // hidden units per CTA: one n8 tile
 constexpr int UNIT_GROUPS3 = H / U3;   // 50
-constexpr int GI3_SLOTS = 6;           // gi pairs per lane and tile: 3 gates x 2 row halves
-constexpr int H3_SLOTS = 4;            // float h1 per lane and tile
-constexpr int TILE3_BYTES = (GI3_SLOTS * 8 + H3_SLOTS * 4) * 32;  // 2,048
-constexpr int MAX_TILES3 = 57;         // 16-row tiles a CTA holds beside its weights
-static_assert(W_BYTES + MAX_TILES3 * TILE3_BYTES <= SMEM_LIMIT, "kernel A's shared memory plan");
+constexpr int KS2 = 2 * KS;            // K steps of an exchange row: h1, then h2
+constexpr int CLUSTER3 = 5;            // CTAs of a row group that share each fetch of h
+constexpr unsigned short MASK3 = (1u << CLUSTER3) - 1;
+constexpr int MMA3 = 9;                 // MMA warps: 27 pairs of tiles in 3 rounds (1,680 rows)
+constexpr int THREADS3 = MMA3 * 32 + 64;  // and the reporting and the issuing copy warp
+constexpr int SLOTS3 = 6;               // stages in the ring
+constexpr int STAGE3_U4 = 1152;         // a stage: hi of up to 9 pairs of tiles (9 KB), then lo
+constexpr int LO3_U4 = 576;
+constexpr int SMEM3 = W_BYTES + SLOTS3 * (STAGE3_U4 * 16 + 3 * 8);
+static_assert(SMEM3 == 225936 && SMEM3 <= SMEM_LIMIT, "kernel A's shared memory plan");
+static_assert(UNIT_GROUPS3 % CLUSTER3 == 0, "kernel A's clusters");
 
 struct Params3 {
   const float* gz;  // [n_rows, n_steps, H] each
@@ -553,60 +648,227 @@ struct Params3 {
   const uint4* w;   // [UNIT_GROUPS3][KB][32 lanes][3]: z, r, n hi then z, r, n lo, 2 words each
   const float* b8;  // [8, H]
   float* out;       // [n_rows, n_steps, H]
-  uint4* x1h;       // [2][tiles][KS][32]: bf16 hi of h1 in A-fragment order
-  uint4* x1l;       // the lo halves
-  uint4* x2h;       // the same for h2
-  uint4* x2l;
+  uint4* xh;        // [2][KS2][pairs][2][32]: bf16 hi of h1 | h2 in A-fragment order
+  uint4* xl;        // the lo halves
+  float* h1;        // [n_rows, H]: float32 h1, the final h1 at exit
   unsigned int* barrier;  // [row groups][BARRIER_STRIDE]: zero at launch, left zero at exit
   const float* h1_0;      // [n_rows, H] each: the carried state h[-1], or null for h = 0
   const float* h2_0;
-  float* h1_T;            // [n_rows, H]: the final h1 (with a state)
   int n_rows, n_steps, tiles, tiles_per_group;
 };
 
-// One block of 25 K steps of a class at P passes: acc[0], acc[1] (z, r)
-// and acc[NG] (the n gate) += hi x hi; with P = 3, sm[..] += hi x lo +
-// lo x hi. hi, lo: this lane's uint4 of the block's first K step; w: its
-// slot of the block's weights. A fragments load five K steps ahead.
-template <int P, int NG>
-__device__ __forceinline__ void mma_block3(const uint4* hi, const uint4* lo, const uint4* w, float (&acc)[4][4],
-                                           float (&sm)[4][4]) {
-  constexpr int G = 5;
-  uint4 ah[2][G], al[2][G];
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-    ah[0][j] = __ldcg(hi + j * 32);
-    if constexpr (P == 3) al[0][j] = __ldcg(lo + j * 32);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// The local arrival of a full barrier, armed with the bytes its stage brings.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// An arrival on the barrier at the same offset in the cluster member of rank `rank`.
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+// `bytes` from global src into the same offset `dst` of every member in
+// MASK3, each completing on its barrier at offset `bar`.
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], "
+      "%4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(MASK3)
+      : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Orders this thread's generic-proxy accesses of global memory with the
+// async proxy's (the bulk copies read the exchange the stores wrote).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async;\n" ::: "memory"); }
+// The same for this thread's accesses of its CTA's shared memory (its reads
+// of a ring slot, before a bulk copy writes the slot again).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// uint4 offset of (ping-pong half, K step, tile) in xh or xl.
+__device__ __forceinline__ size_t xoff(int half, int k, int pairs, int tile) {
+  return ((((size_t)half * KS2 + k) * pairs + (tile >> 1)) * 2 + (tile & 1)) * 32;
+}
+
+// A CTA's tiles as the MMA warps walk them: items (pairs of tiles above
+// MMA3 tiles, else single tiles) in rounds of MMA3, item MMA3 r + w warp w's.
+struct Items3 {
+  int tile0, n_tiles, n_items, pairs;
+  bool paired;
+  __device__ __forceinline__ int rounds() const { return (n_items + MMA3 - 1) / MMA3; }
+  __device__ __forceinline__ int size(int r) const { return min(MMA3, n_items - r * MMA3); }
+  __device__ __forceinline__ int first(int i) const { return tile0 + (paired ? 2 * i : i); }
+  __device__ __forceinline__ bool two(int i) const { return paired && 2 * i + 1 < n_tiles; }
+  // The pairs a stage of round r holds, from pair base(r) on.
+  __device__ __forceinline__ int base(int r) const { return (tile0 >> 1) + (paired ? r * MMA3 : 0); }
+  __device__ __forceinline__ int count(int r) const {
+    return paired ? size(r) : ((tile0 + n_tiles - 1) >> 1) - (tile0 >> 1) + 1;
   }
-#pragma unroll
-  for (int grp = 0; grp < KS / G; ++grp) {
-    const int cur = grp & 1;
-    if (grp + 1 < KS / G) {
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        ah[cur ^ 1][j] = __ldcg(hi + ((grp + 1) * G + j) * 32);
-        if constexpr (P == 3) al[cur ^ 1][j] = __ldcg(lo + ((grp + 1) * G + j) * 32);
-      }
+};
+
+// An MMA warp's place in the ring: the next stage's slot and its full
+// barrier's parity.
+struct Reader3 {
+  const uint4* ring;  // this lane's uint4 in slot 0 (generic)
+  uint32_t bars;      // full[0]; empty[s] is SLOTS3 barriers past full[s]
+  int slot;
+  uint32_t parity;
+
+  __device__ __forceinline__ void advance() {
+    if (++slot == SLOTS3) {
+      slot = 0;
+      parity ^= 1;
     }
+  }
+  // Waits for the next stage; -> this lane's uint4 of the stage's hi at `at`.
+  __device__ __forceinline__ const uint4* acquire(int at) const {
+    mbar_wait(bars + slot * 8, parity);
+    return ring + slot * STAGE3_U4 + at;
+  }
+  // After the warp has read the stage: its arrival on the empty barrier.
+  __device__ __forceinline__ void release() {
+    fence_proxy_async_shared();
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(bars + (SLOTS3 + slot) * 8);
+    advance();
+  }
+  // A warp without an item in a round still waits for and releases each of
+  // its stages: a barrier's parity tells only its current phase from the
+  // last, so no warp may run a phase ahead of the ring.
+  __device__ __forceinline__ void skip(int n) {
+    for (int k = 0; k < n; ++k) {
+      acquire(0);
+      release();
+    }
+  }
+};
+
+// Lane 0 of a copy warp, which walks the stages in order in one of two
+// roles. The reporter waits for this CTA's MMA warps to read a slot's last
+// stage, reports that to the slot's cluster-empty barrier in the member of
+// rank slot % CLUSTER3, and arms the slot's full barrier with the next
+// stage's bytes. The issuer, in the member that fills the slot, waits for
+// every member's report and issues the bulk copies. Apart, neither waits
+// on the other: the reporters run ahead on their own MMA warps' progress.
+struct Writer3 {
+  uint32_t slots, bars;  // shared addresses: slot 0, full[0]
+  uint32_t rank;
+  bool reporter;
+  int slot, use;
+
+  // One stage: `bytes` of hi from hi (and as much lo from lo, unless null).
+  __device__ __forceinline__ void stage(const uint4* hi, const uint4* lo, uint32_t bytes) {
+    const uint32_t full = bars + slot * 8, empty = full + SLOTS3 * 8, cluster_empty = empty + SLOTS3 * 8;
+    const uint32_t issuer = slot % CLUSTER3;
+    if (reporter) {
+      if (use > 0) {
+        mbar_wait(empty, (use - 1) & 1);
+        mbar_arrive_at(cluster_empty, issuer);
+      }
+      mbar_expect_tx(full, lo ? 2 * bytes : bytes);
+    } else if (issuer == rank) {
+      if (use > 0) mbar_wait(cluster_empty, (use - 1) & 1);
+      const uint32_t dst = slots + slot * STAGE3_U4 * 16;
+      bulk_multicast(dst, hi, bytes, full);
+      if (lo) bulk_multicast(dst + LO3_U4 * 16, lo, bytes, full);
+    }
+    if (++slot == SLOTS3) {
+      slot = 0;
+      ++use;
+    }
+  }
+};
+
+// A copy warp's stages of one phase: round by round, K steps 0 .. k1 of
+// ping-pong half `half`, the K steps below KS at P_LOW passes and the rest
+// at P_HIGH.
+template <int P_LOW, int P_HIGH>
+__device__ __forceinline__ void write_phase(Writer3& writer, const uint4* xh, const uint4* xl, const Items3& items,
+                                            int half, int k1) {
+  for (int r = 0; r < items.rounds(); ++r) {
+    const uint32_t bytes = items.count(r) * 1024;
+    for (int k = 0; k < k1; ++k) {
+      const size_t at = xoff(half, k, items.pairs, 2 * items.base(r));
+      writer.stage(xh + at, (k < KS ? P_LOW : P_HIGH) == 3 ? xl + at : nullptr, bytes);
+    }
+  }
+}
+
+// One block of 25 K steps of a class at P passes, for an item's one or two
+// tiles from the ring (`at`: the item's offset in a stage): acc[tt][0],
+// acc[tt][1] (z, r) and acc[tt][NG] (the n gate) += hi x hi; with P = 3,
+// sm[tt][..] += hi x lo, then lo x hi, each accumulator's MMAs in the order
+// of the first design, which read the A fragments from L2. w: this lane's
+// slot of the block's first K step's weights.
+template <int P, int NG>
+__device__ __forceinline__ void ring_block(Reader3& reader, int at, const uint4* w, bool two, float (&acc)[2][4][4],
+                                           float (&sm)[2][4][4]) {
+#pragma unroll 1
+  for (int j = 0; j < KS; ++j) {
+    const uint4* a = reader.acquire(at);
+    uint4 ah[2], al[2];
+    ah[0] = a[0];
+    ah[1] = two ? a[32] : ah[0];
+    if constexpr (P == 3) {
+      al[0] = a[LO3_U4];
+      al[1] = two ? a[LO3_U4 + 32] : al[0];
+    }
+    const uint4* wj = w + j * 32 * 3;
+    const uint4 b0 = wj[0], b1 = wj[1];
+    const uint4 b2 = P == 3 ? wj[2] : b1;
 #pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const uint4* wj = w + (grp * G + j) * 32 * 3;
-      const uint4 b0 = wj[0], b1 = wj[1];
-      const uint4 a = ah[cur][j];
-      mma_bf16(acc[0], a, b0.x, b0.y);
-      mma_bf16(acc[1], a, b0.z, b0.w);
-      mma_bf16(acc[NG], a, b1.x, b1.y);
+    for (int tt = 0; tt < 2; ++tt) {
+      if (tt == 1 && !two) break;
+      mma_bf16(acc[tt][0], ah[tt], b0.x, b0.y);
+      mma_bf16(acc[tt][1], ah[tt], b0.z, b0.w);
+      mma_bf16(acc[tt][NG], ah[tt], b1.x, b1.y);
       if constexpr (P == 3) {
-        const uint4 b2 = wj[2];
-        const uint4 l = al[cur][j];
-        mma_bf16(sm[0], a, b1.z, b1.w);
-        mma_bf16(sm[0], l, b0.x, b0.y);
-        mma_bf16(sm[1], a, b2.x, b2.y);
-        mma_bf16(sm[1], l, b0.z, b0.w);
-        mma_bf16(sm[NG], a, b2.z, b2.w);
-        mma_bf16(sm[NG], l, b1.x, b1.y);
+        mma_bf16(sm[tt][0], ah[tt], b1.z, b1.w);
+        mma_bf16(sm[tt][0], al[tt], b0.x, b0.y);
+        mma_bf16(sm[tt][1], ah[tt], b2.x, b2.y);
+        mma_bf16(sm[tt][1], al[tt], b0.z, b0.w);
+        mma_bf16(sm[tt][NG], ah[tt], b2.z, b2.w);
+        mma_bf16(sm[tt][NG], al[tt], b1.x, b1.y);
       }
     }
+    // Released after the MMAs, which wait for the loads, so the fence in
+    // release() has nothing left to wait for.
+    reader.release();
   }
 }
 
@@ -621,43 +883,40 @@ __device__ __forceinline__ void store_half3(uint4* xh, uint4* xl, size_t at, int
   reinterpret_cast<uint2*>(xl + at)[half] = make_uint2(pack_bf16(l[0], l[1]), pack_bf16(l[2], l[3]));
 }
 
-// Step t's gi of one tile -> its slots, slot gate * 2 + half holding the
-// lane's units col, col + 1 of row g + 8 half; rows past n_rows zero.
-__device__ __forceinline__ void prefetch_gi3(const Params3& p, float2* slots, int tile, int t, int col, int g) {
-  const float* gi[3] = {p.gz, p.gr, p.gn};
-#pragma unroll
-  for (int gate = 0; gate < 3; ++gate)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = tile * MMA_ROWS + g + 8 * half;
-      const bool valid = row < p.n_rows;
-      const float* src = gi[gate] + (valid ? ((size_t)row * p.n_steps + t) * H + col : 0);
-      cp_async_ca<8>(slots + (gate * 2 + half) * 32, src, valid);
-    }
+__device__ __forceinline__ float2 load_pair(const float* p, bool valid) {
+  return valid ? *reinterpret_cast<const float2*>(p) : make_float2(0.0f, 0.0f);
 }
 
 template <int PI, int PH, bool CARRIED>
-__global__ void __launch_bounds__(THREADS, 1) gru_3x_kernel(Params3 p) {
+__global__ void __launch_bounds__(THREADS3, 1) gru_3x_kernel(Params3 p) {
   extern __shared__ uint4 smem[];
-  uint4* ws = smem;                                                          // [KB][32][3]
-  float2* gis = reinterpret_cast<float2*>(smem + W_U4);                      // [tiles_per_group][GI3_SLOTS][32]
-  float* h1s = reinterpret_cast<float*>(gis + p.tiles_per_group * GI3_SLOTS * 32);  // [..][H3_SLOTS][32]
+  uint4* ws = smem;                                // [KB][32][3]
+  uint4* ring = smem + W_U4;                       // [SLOTS3][STAGE3_U4]
+  const uint32_t bars = smem_u32(ring + SLOTS3 * STAGE3_U4);  // full, empty, cluster-empty: SLOTS3 each
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
   const int ug = blockIdx.x % UNIT_GROUPS3, rg = blockIdx.x / UNIT_GROUPS3;
-  const int tile0 = rg * p.tiles_per_group;
-  const int n_tiles = min(p.tiles_per_group, p.tiles - tile0);  // >= 1: the launcher checks the plan
+  Items3 items;
+  items.tile0 = rg * p.tiles_per_group;
+  items.n_tiles = min(p.tiles_per_group, p.tiles - items.tile0);  // >= 1: the launcher checks the plan
+  items.paired = items.n_tiles > MMA3;  // then tile0 is even: the launcher checks the plan
+  items.n_items = items.paired ? (items.n_tiles + 1) / 2 : items.n_tiles;
+  items.pairs = (p.tiles + 1) / 2;
   const int col = ug * U3 + (lane & 3) * 2;  // the lane's two units
-  const size_t own = (size_t)(ug >> 1) * 32 + lane;  // the lane's fragment uint4 of a tile's K step ug / 2
-  const int half = ug & 1;                           // ... of which this CTA writes words (x, y) or (z, w)
-  const size_t half_u4 = (size_t)p.tiles * KS * 32;  // one ping-pong half
-  const size_t frag_u4 = (size_t)KS * 32;            // one tile's K steps
+  const int kx = ug >> 1, half = ug & 1;     // the K step of h this CTA's units form, and its half of a lane's uint4
 
   const uint4* wsrc = p.w + (size_t)ug * W_U4;
-  for (int i = threadIdx.x; i < W_U4; i += THREADS) cp_async16(ws + i, wsrc + i);
-  for (int i = warp; i < n_tiles; i += WARPS) {
-    float* hs = h1s + i * H3_SLOTS * 32 + lane;
-    if constexpr (CARRIED) {  // h[-1]: the shared slots, and step 0's fragments (ping-pong half 1)
-      const int tile = tile0 + i;
+  for (int i = threadIdx.x; i < W_U4; i += THREADS3) cp_async16(ws + i, wsrc + i);
+  cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SLOTS3; ++s) {
+      mbar_init(bars + s * 8, 1);
+      mbar_init(bars + (SLOTS3 + s) * 8, MMA3);
+      mbar_init(bars + (2 * SLOTS3 + s) * 8, CLUSTER3);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (CARRIED && warp < MMA3) {  // h[-1]: step 0's fragments, h1 in ping-pong half 1 and h2 in half 0
+    for (int tile = items.tile0 + warp; tile < items.tile0 + items.n_tiles; tile += MMA3) {
       float v1[4], v2[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -665,24 +924,27 @@ __global__ void __launch_bounds__(THREADS, 1) gru_3x_kernel(Params3 p) {
         const bool valid = row < p.n_rows;
         v1[q] = valid ? p.h1_0[(size_t)row * H + col + (q & 1)] : 0.0f;
         v2[q] = valid ? p.h2_0[(size_t)row * H + col + (q & 1)] : 0.0f;
-        hs[q * 32] = v1[q];
       }
-      store_half3(p.x1h + half_u4, p.x1l + half_u4, tile * frag_u4 + own, half, v1);
-      store_half3(p.x2h + half_u4, p.x2l + half_u4, tile * frag_u4 + own, half, v2);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) hs[q * 32] = 0.0f;
+      store_half3(p.xh, p.xl, xoff(1, kx, items.pairs, tile) + lane, half, v1);
+      store_half3(p.xh, p.xl, xoff(0, KS + kx, items.pairs, tile) + lane, half, v2);
     }
-    prefetch_gi3(p, gis + i * GI3_SLOTS * 32 + lane, tile0 + i, 0, col, g);
+    fence_proxy_async();
   }
-  cp_async_commit();
   cp_async_wait_all();
-  __syncthreads();
+  cluster_sync();  // every member's weights and barriers are ready
 
+  Reader3 reader{ring + lane, bars, 0, 0u};
+  Writer3 writer{smem_u32(ring), bars, cluster_rank(), warp == MMA3, 0, 0};
+  const bool copier = warp >= MMA3 && lane == 0;
   const uint4* w1 = ws + lane * 3;                   // wp1
   const uint4* w2a = ws + (KS * 32 + lane) * 3;      // wp2, h1 rows
   const uint4* w2b = ws + (2 * KS * 32 + lane) * 3;  // wp2, h2 rows
   auto bias = [&](int k) { return __ldg(reinterpret_cast<const float2*>(p.b8 + k * H + col)); };
+  // Item i's offset in a stage of its round r.
+  auto item_at = [&](int i, int r) {
+    const int first = items.first(i);
+    return ((first >> 1) - items.base(r)) * 64 + (first & 1) * 32;
+  };
 
   unsigned int target = 0;
   if constexpr (CARRIED) {  // every unit group's fragments of h[-1] are written
@@ -691,85 +953,129 @@ __global__ void __launch_bounds__(THREADS, 1) gru_3x_kernel(Params3 p) {
   }
   for (int t = 0; t < p.n_steps; ++t) {
     const bool has_prev = t > 0 || CARRIED;  // h[t-1] is not h = 0
-    const size_t prev = ((t + 1) & 1) * half_u4 + lane, cur = (t & 1) * half_u4;
 
     // ---- phase 1: h1[t] = gates(gi[t], h1[t-1] wp1), class gru_h.
-    for (int i = warp; i < n_tiles; i += WARPS) {
-      const int tile = tile0 + i;
-      float acc[4][4] = {}, sm[4][4] = {};
-      if (has_prev) mma_block3<PH, 2>(p.x1h + prev + tile * frag_u4, p.x1l + prev + tile * frag_u4, w1, acc, sm);
-      if (i == warp) cp_async_wait_all();  // this thread's gi copies of step t
-      const float2* gs = gis + i * GI3_SLOTS * 32 + lane;
-      float* hs = h1s + i * H3_SLOTS * 32 + lane;
-      const float2 bn = bias(0);
-      float hn[4];
+    if (copier) {
+      if (has_prev) {
+        fence_proxy_async();
+        write_phase<PH, PH>(writer, p.xh, p.xl, items, (t + 1) & 1, KS);
+      }
+    } else if (warp < MMA3) {
+      for (int r = 0; r < items.rounds(); ++r) {
+        const int i = r * MMA3 + warp;
+        if (i >= items.n_items) {  // no item this round
+          if (has_prev) reader.skip(KS);
+          continue;
+        }
+        const int first = items.first(i);
+        const bool two = items.two(i);
+        float2 gi[2][3][2], hp[2][2];  // [tile][gate][row half], [tile][row half]: the lane's units col, col + 1
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float2 xz = gs[hf * 32], xr = gs[(2 + hf) * 32], xn = gs[(4 + hf) * 32];
+        for (int tt = 0; tt < 2; ++tt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int q = hf * 2 + e;
-          const float z = sigmoid(get(xz, e) + (sm[0][q] + acc[0][q]));
-          const float r = sigmoid(get(xr, e) + (sm[1][q] + acc[1][q]));
-          const float n = tanhf(get(xn, e) + r * ((sm[2][q] + acc[2][q]) + get(bn, e)));
-          const float h = (1.0f - z) * n + z * hs[q * 32];
-          hs[q * 32] = h;
-          hn[q] = h;
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = (first + tt) * MMA_ROWS + g + 8 * hf;
+            const bool valid = (tt == 0 || two) && row < p.n_rows;
+            const size_t at = ((size_t)row * p.n_steps + t) * H + col;
+            gi[tt][0][hf] = valid ? __ldg(reinterpret_cast<const float2*>(p.gz + at)) : make_float2(0.0f, 0.0f);
+            gi[tt][1][hf] = valid ? __ldg(reinterpret_cast<const float2*>(p.gr + at)) : make_float2(0.0f, 0.0f);
+            gi[tt][2][hf] = valid ? __ldg(reinterpret_cast<const float2*>(p.gn + at)) : make_float2(0.0f, 0.0f);
+            hp[tt][hf] = t > 0 ? load_pair(p.h1 + (size_t)row * H + col, valid)
+                               : load_pair(CARRIED ? p.h1_0 + (size_t)row * H + col : nullptr, CARRIED && valid);
+          }
+        float acc[2][4][4] = {}, sm[2][4][4] = {};
+        if (has_prev) ring_block<PH, 2>(reader, item_at(i, r), w1, two, acc, sm);
+        const float2 bn = bias(0);
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt) {
+          if (tt == 1 && !two) break;
+          float hn[4];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int q = hf * 2 + e;
+              const float z = sigmoid(get(gi[tt][0][hf], e) + (sm[tt][0][q] + acc[tt][0][q]));
+              const float r1 = sigmoid(get(gi[tt][1][hf], e) + (sm[tt][1][q] + acc[tt][1][q]));
+              const float n = tanhf(get(gi[tt][2][hf], e) + r1 * ((sm[tt][2][q] + acc[tt][2][q]) + get(bn, e)));
+              hn[q] = (1.0f - z) * n + z * get(hp[tt][hf], e);
+            }
+          const int tile = first + tt;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = tile * MMA_ROWS + g + 8 * hf;
+            if (row < p.n_rows) store_pair(p.h1 + (size_t)row * H + col, hn[hf * 2], hn[hf * 2 + 1]);
+          }
+          store_half3(p.xh, p.xl, xoff(t & 1, kx, items.pairs, tile) + lane, half, hn);
         }
       }
-      store_half3(p.x1h + cur, p.x1l + cur, tile * frag_u4 + own, half, hn);
+      fence_proxy_async();
     }
     target += UNIT_GROUPS3;
     grid_barrier(p.barrier + rg * BARRIER_STRIDE, target);
 
     // ---- phase 2: h2[t] = gates([h1[t] | h2[t-1]] wp2): the h1 half class
-    // gru_i, the h2 half gru_h. Each tile's gi of step t+1 lands meanwhile.
-    for (int i = warp; i < n_tiles; i += WARPS) {
-      const int tile = tile0 + i;
-      if (t + 1 < p.n_steps) prefetch_gi3(p, gis + i * GI3_SLOTS * 32 + lane, tile, t + 1, col, g);
-      cp_async_commit();
-      // f32 h2[t-1]: out (this thread wrote it), or at t = 0 the carried state.
-      float2 hold[2];
+    // gru_i, the h2 half gru_h. The copy warps go on into phase 1 of step
+    // t+1, whose h1[t] is complete too.
+    if (copier) {
+      fence_proxy_async();
+      write_phase<PI, PH>(writer, p.xh, p.xl, items, t & 1, has_prev ? KS2 : KS);
+    } else if (warp < MMA3) {
+      for (int r = 0; r < items.rounds(); ++r) {
+        const int i = r * MMA3 + warp;
+        if (i >= items.n_items) {
+          reader.skip(has_prev ? KS2 : KS);
+          continue;
+        }
+        const int first = items.first(i);
+        const bool two = items.two(i);
+        // f32 h2[t-1]: out (this thread wrote it), or at t = 0 the carried state.
+        float2 hold[2][2];
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = tile * MMA_ROWS + g + 8 * hf;
-        if (!CARRIED || t > 0)
-          hold[hf] = t > 0 && row < p.n_rows
-                         ? __ldcg(reinterpret_cast<const float2*>(p.out + ((size_t)row * p.n_steps + t - 1) * H + col))
-                         : make_float2(0.0f, 0.0f);
-        else
-          hold[hf] = row < p.n_rows ? *reinterpret_cast<const float2*>(p.h2_0 + (size_t)row * H + col)
-                                    : make_float2(0.0f, 0.0f);
-      }
-      float acc[4][4] = {}, sm[4][4] = {};
-      mma_block3<PI, 2>(p.x1h + cur + lane + tile * frag_u4, p.x1l + cur + lane + tile * frag_u4, w2a, acc, sm);
-      if (has_prev) mma_block3<PH, 3>(p.x2h + prev + tile * frag_u4, p.x2l + prev + tile * frag_u4, w2b, acc, sm);
-      const float2 bz = bias(1), br = bias(2), bi = bias(3), bh = bias(4);
-      float hn[4];
+        for (int tt = 0; tt < 2; ++tt)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int e = q & 1;
-        const float z = sigmoid((sm[0][q] + acc[0][q]) + get(bz, e));
-        const float r = sigmoid((sm[1][q] + acc[1][q]) + get(br, e));
-        const float n = tanhf(((sm[2][q] + acc[2][q]) + get(bi, e)) + r * ((sm[3][q] + acc[3][q]) + get(bh, e)));
-        hn[q] = (1.0f - z) * n + z * get(hold[q >> 1], e);
-      }
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = (first + tt) * MMA_ROWS + g + 8 * hf;
+            const bool valid = (tt == 0 || two) && row < p.n_rows;
+            if (!CARRIED || t > 0)
+              hold[tt][hf] = t > 0 && valid ? __ldcg(reinterpret_cast<const float2*>(
+                                                  p.out + ((size_t)row * p.n_steps + t - 1) * H + col))
+                                            : make_float2(0.0f, 0.0f);
+            else
+              hold[tt][hf] = load_pair(p.h2_0 + (size_t)row * H + col, valid);
+          }
+        float acc[2][4][4] = {}, sm[2][4][4] = {};
+        const int at = item_at(i, r);
+        ring_block<PI, 2>(reader, at, w2a, two, acc, sm);
+        if (has_prev) ring_block<PH, 3>(reader, at, w2b, two, acc, sm);
+        const float2 bz = bias(1), br = bias(2), bi = bias(3), bh = bias(4);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = tile * MMA_ROWS + g + 8 * hf;
-        if (row < p.n_rows) store_pair(p.out + ((size_t)row * p.n_steps + t) * H + col, hn[hf * 2], hn[hf * 2 + 1]);
+        for (int tt = 0; tt < 2; ++tt) {
+          if (tt == 1 && !two) break;
+          float hn[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int e = q & 1;
+            const float z = sigmoid((sm[tt][0][q] + acc[tt][0][q]) + get(bz, e));
+            const float r2 = sigmoid((sm[tt][1][q] + acc[tt][1][q]) + get(br, e));
+            const float n = tanhf(((sm[tt][2][q] + acc[tt][2][q]) + get(bi, e)) +
+                                  r2 * ((sm[tt][3][q] + acc[tt][3][q]) + get(bh, e)));
+            hn[q] = (1.0f - z) * n + z * get(hold[tt][q >> 1], e);
+          }
+          const int tile = first + tt;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = tile * MMA_ROWS + g + 8 * hf;
+            if (row < p.n_rows)
+              store_pair(p.out + ((size_t)row * p.n_steps + t) * H + col, hn[hf * 2], hn[hf * 2 + 1]);
+          }
+          store_half3(p.xh, p.xl, xoff((t + 1) & 1, KS + kx, items.pairs, tile) + lane, half, hn);
+        }
       }
-      store_half3(p.x2h + cur, p.x2l + cur, tile * frag_u4 + own, half, hn);
     }
   }
-  if constexpr (CARRIED) {  // the final h1 from the thread's slots; h2 is out's last step
-    for (int i = warp; i < n_tiles; i += WARPS)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = (tile0 + i) * MMA_ROWS + g + 8 * (q >> 1);
-        if (row < p.n_rows) p.h1_T[(size_t)row * H + col + (q & 1)] = h1s[i * H3_SLOTS * 32 + q * 32 + lane];
-      }
-  }
+  // No member leaves while another may still signal its barriers.
+  cluster_sync();
   // The last of the row group's CTAs to check out leaves its counters at 0.
   if (threadIdx.x == 0) {
     unsigned int* counters = p.barrier + rg * BARRIER_STRIDE;
@@ -783,19 +1089,32 @@ __global__ void __launch_bounds__(THREADS, 1) gru_3x_kernel(Params3 p) {
 template <int PI, int PH>
 cudaError_t launch3(Params3 p, int row_groups, cudaStream_t stream) {
   void (*kernel)(Params3) = p.h1_0 ? gru_3x_kernel<PI, PH, true> : gru_3x_kernel<PI, PH, false>;
-  const int smem = W_BYTES + p.tiles_per_group * TILE3_BYTES;
   const int grid = UNIT_GROUPS3 * row_groups;
-  int dev = 0, coop = 0, sms = 0, blocks = 0;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = CLUSTER3;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(THREADS3);
+  config.dynamicSmemBytes = SMEM3;
+  config.stream = stream;
+  config.attrs = attrs;
+  config.numAttrs = 1;  // the occupancy query takes the cluster shape only
+  int dev = 0, coop = 0, clusters = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM3);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &config);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  if (blocks < 1 || grid > blocks * sms) return cudaErrorCooperativeLaunchTooLarge;
+  if (clusters * CLUSTER3 < grid) return cudaErrorCooperativeLaunchTooLarge;
+  config.numAttrs = 2;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args, smem, stream);
+  err = cudaLaunchKernelExC(&config, (const void*)kernel, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -857,39 +1176,41 @@ int fvad_gru_gates_p(int kind, int w_bf16, int gi_bf16, int out_bf16, const void
   return (int)err;
 }
 
-// Dynamic shared memory of a kernel-A launch whose CTAs hold tiles_per_group tiles.
-int fvad_gru_gates_3x_smem_bytes(int tiles_per_group) { return W_BYTES + tiles_per_group * TILE3_BYTES; }
+// Kernel A's plan constants: the dynamic shared memory of a CTA (the same
+// at any row count) and the CTAs of a cluster.
+int fvad_gru_gates_3x_smem_bytes(void) { return SMEM3; }
+int fvad_gru_gates_3x_cluster(void) { return CLUSTER3; }
 
 // Kernel A: kernel 5's function with passes_i bf16 passes for the gru_i
 // products (wp2's h1 rows) and passes_h for the gru_h ones (wp1, wp2's h2
 // rows), each 1 or 3, not both 1 (that is kernel 5: fvad_gru_gates_p). gz,
 // gr, gn [n_rows, n_steps, H] float32; w the per-unit-group packing
 // [50][75][32][12] of the hi and lo halves (models/nsnet2_gates_cuda.py::
-// pack_unit_groups with 8 units); b8 [8, H] float32; out [n_rows, n_steps,
-// H] float32; x1h, x1l, x2h, x2l each [2][tiles][25][32] uint4 of scratch;
-// barrier: row_groups x 32 unsigned ints, zero at launch and left zero;
-// h1_0, h2_0 [n_rows, H] float32 the carried state or null, and with a
-// state h1_T [n_rows, H] for the final h1 (the final h2 is out's last
-// step). All contiguous on the current device, 16-byte aligned. The plan
-// (tiles = ceil(n_rows / 16), row_groups x tiles_per_group covering them,
-// grid 50 x row_groups) comes from the host. Pass counts other than the
-// three mixes, a plan that does not cover the tiles exactly, a CTA of more
-// than MAX_TILES3 tiles, a refused shared-memory size, or a grid the
-// device cannot hold at once are refused before any launch. Launches
-// cooperatively on `stream`; returns the cudaError_t.
+// pack_unit_groups_3x); b8 [8, H] float32; out [n_rows, n_steps, H]
+// float32; xh, xl each [2][ceil(tiles / 2)][50][2][32] uint4 of scratch;
+// h1 [n_rows, H] float32, the running h1 (scratch, or the final h1 at
+// exit); barrier: row_groups x 32 unsigned ints, zero at launch and left
+// zero; h1_0, h2_0 [n_rows, H] float32 the carried state or null (the
+// final h2 is out's last step). All contiguous on the current device,
+// 16-byte aligned. The plan (tiles = ceil(n_rows / 16), row_groups x
+// tiles_per_group covering them, tiles_per_group even where it is above 9,
+// grid 50 x row_groups in clusters of 5) comes from the host. Pass counts
+// other than the three mixes, a plan that does not cover the tiles
+// exactly, a refused shared-memory size or cluster launch, or a grid whose
+// clusters the device cannot hold at once are refused before any launch.
+// Launches cooperatively, in clusters, on `stream`; returns the
+// cudaError_t.
 int fvad_gru_gates_3x(int passes_i, int passes_h, const float* gz, const float* gr, const float* gn, const void* w,
-                      const float* b8, float* out, void* x1h, void* x1l, void* x2h, void* x2l, unsigned int* barrier,
-                      const float* h1_0, const float* h2_0, float* h1_T, int n_rows, int n_steps, int tiles,
-                      int row_groups, int tiles_per_group, void* stream) {
-  const bool carried = h1_0 != nullptr;
-  if ((h2_0 != nullptr) != carried || (h1_T != nullptr) != carried || n_rows < 1 || n_steps < 1 ||
-      tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 || tiles_per_group > MAX_TILES3 ||
-      row_groups < 1 || (long long)row_groups * tiles_per_group < tiles ||
-      (long long)(row_groups - 1) * tiles_per_group >= tiles)
+                      const float* b8, float* out, void* xh, void* xl, float* h1, unsigned int* barrier,
+                      const float* h1_0, const float* h2_0, int n_rows, int n_steps, int tiles, int row_groups,
+                      int tiles_per_group, void* stream) {
+  if ((h2_0 != nullptr) != (h1_0 != nullptr) || h1 == nullptr || n_rows < 1 || n_steps < 1 ||
+      tiles != (n_rows + MMA_ROWS - 1) / MMA_ROWS || tiles_per_group < 1 ||
+      (tiles_per_group > MMA3 && tiles_per_group % 2) || row_groups < 1 ||
+      (long long)row_groups * tiles_per_group < tiles || (long long)(row_groups - 1) * tiles_per_group >= tiles)
     return (int)cudaErrorInvalidValue;
-  const Params3 p{gz, gr, gn, static_cast<const uint4*>(w), b8, out, static_cast<uint4*>(x1h),
-                  static_cast<uint4*>(x1l), static_cast<uint4*>(x2h), static_cast<uint4*>(x2l), barrier, h1_0,
-                  h2_0, h1_T, n_rows, n_steps, tiles, tiles_per_group};
+  const Params3 p{gz, gr, gn, static_cast<const uint4*>(w), b8, out, static_cast<uint4*>(xh), static_cast<uint4*>(xl),
+                  h1, barrier, h1_0, h2_0, n_rows, n_steps, tiles, tiles_per_group};
   const cudaStream_t st = (cudaStream_t)stream;
   if (passes_i == 3 && passes_h == 3) return (int)launch3<3, 3>(p, row_groups, st);
   if (passes_i == 1 && passes_h == 3) return (int)launch3<1, 3>(p, row_groups, st);

@@ -57,9 +57,10 @@ class, (gru_i, gru_h) each 'default' (one bf16 pass) or 'high' (bf16_3x,
 three): the 'high' tier's recurrence and its mixes with 'default'. Its
 body, in the same source, owns 8 hidden units a CTA so that the bf16 hi
 and lo halves of their weights fit in shared memory
-(``pack_unit_groups_3x``, ``p_launch_plan(..., P3_UNITS)``); its plain
-version is ``gru_gates_p_reference`` on the float32 weights at those
-levels.
+(``pack_unit_groups_3x``, ``p_launch_plan(..., P3_UNITS)``), and runs the
+50 CTAs of a row group in clusters of ``P3_CLUSTER`` that fetch each
+tile's h from L2 once (``plan_exchange_bytes_3x``); its plain version is
+``gru_gates_p_reference`` on the float32 weights at those levels.
 """
 
 from __future__ import annotations
@@ -91,11 +92,16 @@ P_MAX_TILES = 28
 P_W_BYTES = 3 * H * 3 * P_UNITS * 2  # 3,600 bf16 a unit: 115,200 bytes a group
 P_TILE_BYTES = {4: 1536 + 1024, 5: 3072 + 1024, 6: 1536 + 2 * 1024}
 # Kernel A (``gru_gates_3x``, the same source): a CTA owns P3_UNITS units,
-# whose hi and lo weights take P_W_BYTES too, and at most P3_MAX_TILES
-# tiles of P3_TILE_BYTES (float32 gi 1,536 and h1 512).
+# whose hi and lo weights take P_W_BYTES too, beside a ring of P3_SLOTS
+# stages of 18 KB and their three 8-byte mbarriers (P3_SMEM_BYTES at any
+# row count). The 50 CTAs of a row group run in clusters of P3_CLUSTER;
+# each of its P3_WARPS MMA warps takes a pair of tiles at a time where its
+# CTA holds more than P3_WARPS tiles, else one.
 P3_UNITS = 8
-P3_MAX_TILES = 57
-P3_TILE_BYTES = 1536 + 512
+P3_CLUSTER = 5
+P3_WARPS = 9
+P3_SLOTS = 6
+P3_SMEM_BYTES = P_W_BYTES + P3_SLOTS * (18432 + 3 * 8)
 # Kernel A's bf16 passes a product class at each level: 1 = bf16, 3 = bf16_3x.
 PASSES = {"default": 1, "high": 3}
 
@@ -379,7 +385,7 @@ class PLaunch:
 
     def smem_bytes(self, kind) -> int:
         """Dynamic shared memory of a CTA of kernel ``kind`` (4, 5, 6, or "A")."""
-        return P_W_BYTES + self.tiles_per_group * (P3_TILE_BYTES if kind == "A" else P_TILE_BYTES[kind])
+        return P3_SMEM_BYTES if kind == "A" else P_W_BYTES + self.tiles_per_group * P_TILE_BYTES[kind]
 
     def cta_span(self, block: int) -> tuple[range, range]:
         """The rows (of the whole call) and the hidden units of CTA ``block``."""
@@ -399,16 +405,22 @@ def p_launch_plan(n_rows: int, sm_count: int, units: int = P_UNITS) -> tuple[PLa
     allows, and over the row groups of each (1,680 rows on 132 SMs: one
     launch, 5 row groups of 21 tiles, 125 CTAs). Rows are independent, so a
     row's bits do not depend on the plan. ``units`` = P3_UNITS plans
-    kernel A: 50 unit groups, at most P3_MAX_TILES tiles a CTA (1,680 rows
-    on 132 SMs: one launch, 2 row groups of 53 tiles, 100 CTAs)."""
+    kernel A: 50 unit groups, no limit on a CTA's tiles (its shared memory
+    does not grow with them), so one launch; a group above P3_WARPS tiles
+    holds an even number, so that its pairs of tiles start on even tiles
+    (1,680 rows on 132 SMs: 2 row groups of 54 and 51 tiles, 100 CTAs)."""
     if units not in (P_UNITS, P3_UNITS):
         raise ValueError(f"p_launch_plan: units must be {P_UNITS} or {P3_UNITS}, got {units}")
-    groups, max_tiles = (P_UNIT_GROUPS, P_MAX_TILES) if units == P_UNITS else (H // P3_UNITS, P3_MAX_TILES)
+    groups = P_UNIT_GROUPS if units == P_UNITS else H // P3_UNITS
     if n_rows < 1 or sm_count < groups:
         raise ValueError(f"p_launch_plan: need n_rows >= 1 and sm_count >= {groups}, got {n_rows}, {sm_count}")
     slots = sm_count // groups
     tiles = -(-n_rows // P_ROWS)
-    n_launches = -(-tiles // (slots * max_tiles))
+    if units == P3_UNITS:
+        per = -(-tiles // min(slots, tiles))
+        per += per % 2 if per > P3_WARPS else 0
+        return (PLaunch(0, n_rows, tiles, -(-tiles // per), per, units),)
+    n_launches = -(-tiles // (slots * P_MAX_TILES))
     base, extra = divmod(tiles, n_launches)
     launches, tile0 = [], 0
     for i in range(n_launches):
@@ -427,10 +439,11 @@ def _lib() -> ctypes.CDLL:
     lib.fvad_gru_gates_p.restype = ctypes.c_int
     lib.fvad_gru_gates_p_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.fvad_gru_gates_p_smem_bytes.restype = ctypes.c_int
-    lib.fvad_gru_gates_3x.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fvad_gru_gates_3x.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fvad_gru_gates_3x.restype = ctypes.c_int
-    lib.fvad_gru_gates_3x_smem_bytes.argtypes = [ctypes.c_int]
-    lib.fvad_gru_gates_3x_smem_bytes.restype = ctypes.c_int
+    for name in ("fvad_gru_gates_3x_smem_bytes", "fvad_gru_gates_3x_cluster"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -555,37 +568,49 @@ def units_3x(net: NSNet2) -> torch.Tensor:
 
 
 def _launch_3x(wrapper, net: NSNet2, gi: tuple, passes: tuple, state: tuple | None = None):
-    """Kernel A (``csrc/gru_gates_p.cu``, ``fvad_gru_gates_3x``): one
-    cooperative launch per ``PLaunch`` of the card's 8-unit plan, each on
-    its rows' slices with its own exchange buffers (hi and lo of h1 and h2),
-    on the stream's barrier counters. Each launch is counted in
+    """Kernel A (``csrc/gru_gates_p.cu``, ``fvad_gru_gates_3x``): the one
+    cooperative cluster launch of the card's 8-unit plan, with its exchange
+    buffers (hi and lo of h), on the stream's barrier counters, counted in
     ``wrapper.launches``. -> out, and with ``state`` (out, final (h1, h2)):
-    h1 written by the kernel, h2 out's last step."""
+    h1 the kernel's running h1, h2 out's last step."""
     n, t, _ = gi[0].shape
     dev = gi[0].device
     units, b8 = units_3x(net), gate_weights(net, torch.float32).b8
     _check_weights(wrapper.__name__, dev, units=units, b8=b8)
     out = torch.empty((n, t, H), dtype=torch.float32, device=dev)
-    h1_t = None if state is None else torch.empty((n, H), dtype=torch.float32, device=dev)
+    h1 = torch.empty((n, H), dtype=torch.float32, device=dev)  # the running h1: scratch, or the final h1
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         barrier = _p_barrier(dev, stream)
-        for launch in device_p_plan(n, dev, P3_UNITS):
-            # x1h, x1l, x2h, x2l, each [2 ping-pong][tiles][25 K steps][32 lanes] x 16 bytes.
-            x = torch.empty((4, 2, launch.tiles, H // 16, 32, 4), dtype=torch.int32, device=dev)
-            rows = slice(launch.row0, launch.row0 + launch.n_rows)
-            carried = (None,) * 3
-            if state is not None:
-                carried = (state[0][rows].data_ptr(), state[1][rows].data_ptr(), h1_t[rows].data_ptr())
-            err = lib.fvad_gru_gates_3x(
-                *passes, *(g[rows].data_ptr() for g in gi), units.data_ptr(), b8.data_ptr(), out[rows].data_ptr(),
-                *(x[k].data_ptr() for k in range(4)), barrier.data_ptr(), *carried,
-                launch.n_rows, t, launch.tiles, launch.row_groups, launch.tiles_per_group, stream,
-            )
-            _build.check(lib, err, f"{wrapper.__name__} launch")
-            wrapper.launches += 1
-    return out if state is None else (out, (h1_t, out[:, -1].contiguous()))
+        (launch,) = device_p_plan(n, dev, P3_UNITS)
+        # xh, xl, each [2 ping-pong][50 K steps: h1, h2][pairs of tiles][2 tiles][32 lanes] x 16 bytes.
+        x = torch.empty((2, 2, 2 * H // 16, -(-launch.tiles // 2), 2, 32, 4), dtype=torch.int32, device=dev)
+        carried = (None,) * 2 if state is None else tuple(h.data_ptr() for h in state)
+        err = lib.fvad_gru_gates_3x(
+            *passes, *(g.data_ptr() for g in gi), units.data_ptr(), b8.data_ptr(), out.data_ptr(),
+            x[0].data_ptr(), x[1].data_ptr(), h1.data_ptr(), barrier.data_ptr(), *carried,
+            n, t, launch.tiles, launch.row_groups, launch.tiles_per_group, stream,
+        )
+        _build.check(lib, err, f"{wrapper.__name__} launch")
+        wrapper.launches += 1
+    return out if state is None else (out, (h1, out[:, -1].contiguous()))
+
+
+def plan_exchange_bytes_3x(n_rows: int, n_steps: int, levels: tuple, carried: bool = False,
+                           cluster: int = P3_CLUSTER) -> int:
+    """The plan's count, not a measurement, of the L2 bytes that kernel A's
+    CTAs read from the exchange of h in one call of ``n_rows`` x
+    ``n_steps``: every tile is fetched once a step by each
+    cluster of ``cluster`` CTAs of its row group's 50 (1: by every CTA, the
+    first design). A tile's K step is 512 bytes of hi, and as much of lo
+    for a class at 'high'; a step reads h1[t-1] (gru_h), h1[t] (gru_i) and
+    h2[t-1] (gru_h), but step 0 from h = 0 only h1[0]."""
+    level_i, level_h = levels
+    width = {level: 512 * 25 * (2 if PASSES[level] == 3 else 1) for level in levels}
+    first = width[level_i] + (2 * width[level_h] if carried else 0)
+    rest = width[level_i] + 2 * width[level_h]
+    return -(-n_rows // P_ROWS) * (H // P3_UNITS // cluster) * (first + (n_steps - 1) * rest)
 
 
 def _launch(wrapper, kind: int, net: NSNet2, gi: tuple, dtype: torch.dtype, out_dtype: torch.dtype,
@@ -670,8 +695,8 @@ def gru_gates_3x(net: NSNet2, gi_z, gi_r, gi_n, levels: tuple, state: tuple | No
 
     A CPU tensor runs the plain version, ``gru_gates_p_reference`` on the
     float32 weights at those levels; a CUDA tensor launches the kernel or
-    raises. ``gru_gates_3x.launches`` counts launches: one a ``PLaunch`` of
-    the 8-unit plan (more than one above 1,824 rows on 132 SMs)."""
+    raises. ``gru_gates_3x.launches`` counts launches: one a call (the
+    8-unit plan is one ``PLaunch`` at any row count)."""
     levels = tuple(levels)
     if len(levels) != 2 or levels == ("default", "default") or any(level not in PASSES for level in levels):
         raise ValueError(f"gru_gates_3x: levels must pair 'default' and 'high', not both 'default', got {levels}")

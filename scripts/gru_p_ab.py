@@ -1,10 +1,12 @@
 """Two checkouts' bf16 form of a per-gate GRU kernel side by side, in one
 process on one card, at the bf16 tier's shape [1680, 54]: kernel 5
 (``nsnet2_gates_cuda.gru_gates_p``, the default), 4 (``gru_gates``) or 6
-(``gru_gates_f``, bf16 out); or kernel 1 (``nsnet2_cuda.gru_stack``, the
-float tier's recurrence, on its float32 gi1 and within its 1e-4 bar).
+(``gru_gates_f``, bf16 out); kernel 1 (``nsnet2_cuda.gru_stack``, the
+float tier's recurrence, on its float32 gi1 and within its 1e-4 bar); or
+kernel A (``gru_gates_3x``, the 'high' tier's bf16_3x recurrence) at its
+three (gru_i, gru_h) level pairs, each stateless and from a carried state.
 
-    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8] [--kernel 1|4|5|6]
+    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8] [--kernel 1|4|5|6|A]
 
 Each ``--root`` names a checkout whose ``formula_vad_tpu_torch`` is loaded
 under a name of its own, so both versions of the wrapper and of the kernel
@@ -23,6 +25,19 @@ biases, the inputs of ``tests/test_torch_cuda.py``'s float32 ragged-shape
 test. Then ``--rounds`` rounds, each timing A B B A: a single call
 (``tools.cuda_ms``) and calls queued back to back (``tools.queued_ms``).
 Prints one line per round and one JSON line of the numbers.
+
+Kernel A: float32 gi as kernel 5's, run at each level pair (``A_LEVELS``)
+stateless and from a nonzero state (numpy seed 6, tanh of N(0, 0.8)),
+at [1680, 54] and at ``RANDOM_SHAPES``, the two checkouts compared bit for
+bit. At [1680, 54] each output (and the final h1) is held to the last
+checkout's plain version at the level pair (``gru_gates_p_reference(...,
+levels=)``) within ``chip_smoke.py``'s bars (max 5e-6 at all-'high', the
+bf16 bars where a class is 'default'); on random gi the distances are
+printed, as for the other kernels (a 'default' class's rounding cascade,
+ROADMAP fault 3, can miss the bf16 bars there). The timed rounds take each
+level pair stateless at [1680, 54], then all-'high' at ``A_SHAPES``: a
+chunk step [42, 54], a low-latency step [42, 1] from a state, and 4,000
+rows.
 """
 
 from __future__ import annotations
@@ -39,9 +54,12 @@ import numpy as np
 
 ROWS, STEPS = 1680, 54
 RANDOM_SHAPES = tuple((n, 54) for n in (1, 15, 17, 337, 1680, 4000))
-WRAPPERS = {1: "gru_stack", 4: "gru_gates", 5: "gru_gates_p", 6: "gru_gates_f"}
+WRAPPERS = {"1": "gru_stack", "4": "gru_gates", "5": "gru_gates_p", "6": "gru_gates_f", "A": "gru_gates_3x"}
 BF16_MEAN, BF16_MAX = 3e-5, 6e-3
 GRU_TOL = 1e-4  # kernel 1's bar (chip_smoke.py)
+A_HIGH_TOL = 5e-6  # kernel A's bar at all-'high' (chip_smoke.py)
+A_LEVELS = (("high", "high"), ("default", "high"), ("high", "default"))  # (gru_i, gru_h)
+A_SHAPES = ((42, 54, False), (42, 1, True), (4000, 54, False))  # rows, steps, from a state
 
 
 def _package(root: str, alias: str):
@@ -78,7 +96,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", action="append", required=True, help="a checkout (give two)")
     ap.add_argument("--rounds", type=int, default=8)
-    ap.add_argument("--kernel", type=int, choices=sorted(WRAPPERS), default=5)
+    ap.add_argument("--kernel", choices=sorted(WRAPPERS), default="5")
     args = ap.parse_args(argv)
     import torch
 
@@ -88,7 +106,9 @@ def main(argv=None) -> int:
         print("gru_p_ab: needs a CUDA device", file=sys.stderr)
         return 2
     pkgs = [_package(root, f"_gru_p_ab_checkout_{i}") for i, root in enumerate(args.root)]
-    module = "nsnet2_cuda" if args.kernel == 1 else "nsnet2_gates_cuda"
+    if args.kernel == "A":
+        return _kernel_a(args, pkgs)
+    module = "nsnet2_cuda" if args.kernel == "1" else "nsnet2_gates_cuda"
     kernels = [importlib.import_module(f"{p.__name__}.models.{module}") for p in pkgs]
     tools = importlib.import_module(f"{pkgs[-1].__name__}.tools")
     exp = importlib.import_module(f"{pkgs[-1].__name__}.tools.gru_kernel_exp")
@@ -97,7 +117,7 @@ def main(argv=None) -> int:
     wrappers = [getattr(k, name) for k in kernels]
     plain = getattr(kernels[-1], f"{name}_reference")
     bf16 = torch.bfloat16
-    if args.kernel == 1:  # float32 gi1 [N, T, 1200]; the plain version takes the network
+    if args.kernel == "1":  # float32 gi1 [N, T, 1200]; the plain version takes the network
         gi_dtype, gi_width, bar_max, bar_mean = torch.float32, 1200, GRU_TOL, GRU_TOL
 
         def run(w, net, gi):
@@ -109,7 +129,7 @@ def main(argv=None) -> int:
         def gi_of(net, feats):
             return ((net.fc_in(feats) @ net.gru1.wi + net.gru1.bi).contiguous(),)
     else:
-        gi_dtype = torch.float32 if args.kernel == 5 else bf16  # the kernel's own gi dtype
+        gi_dtype = torch.float32 if args.kernel == "5" else bf16  # the kernel's own gi dtype
         gi_width, bar_max, bar_mean = 400, BF16_MAX, BF16_MEAN
 
         def run(w, net, gi):
@@ -131,7 +151,7 @@ def main(argv=None) -> int:
         for n, t in RANDOM_SHAPES:
             rng = np.random.default_rng(n * t)
             rgi = [torch.from_numpy((rng.standard_normal((n, t, gi_width)) * 0.8).astype(np.float32)).to(dev, gi_dtype)
-                   for _ in range(1 if args.kernel == 1 else 3)]
+                   for _ in range(1 if args.kernel == "1" else 3)]
             want_random = reference(demos[-1], rgi)
             random_outs = [run(w, net, rgi) for w, net in zip(wrappers, demos)]
             random_gi[f"{n}x{t}"] = {"vs_plain": [_dist(o, want_random) for o in random_outs],
@@ -141,7 +161,7 @@ def main(argv=None) -> int:
                   "roots": [os.path.abspath(r) for r in args.root], "kernel": args.kernel, "shape": [ROWS, STEPS],
                   "vs_plain": [_dist(o, want) for o in outs], "random_gi": random_gi,
                   "between": _dist(outs[0], outs[1]), "identical": bool(torch.equal(outs[0], outs[1]))}
-        print(f"{result['card']}, kernel {args.kernel} ({name}) {'float32' if args.kernel == 1 else 'bf16'}: vs plain "
+        print(f"{result['card']}, kernel {args.kernel} ({name}) {'float32' if args.kernel == '1' else 'bf16'}: vs plain "
               f"(max, mean) {result['vs_plain']}; between the checkouts {result['between']}, identical "
               f"{result['identical']}", flush=True)
         for shape, r in random_gi.items():
@@ -157,12 +177,102 @@ def main(argv=None) -> int:
             row = [statistics.mean(single[j][-2:]) for j in (0, 1)], [statistics.mean(queued[j][-2:]) for j in (0, 1)]
             print(f"round {r}: single {row[0][0]:.3f} / {row[0][1]:.3f} ms, queued {row[1][0]:.3f} / "
                   f"{row[1][1]:.3f} ms ({' / '.join(args.root)})", flush=True)
-    result["single_ms"], result["queued_ms"] = single, queued
-    result["faster_rounds"] = sum(
-        statistics.mean(single[1][2 * r:2 * r + 2]) < statistics.mean(single[0][2 * r:2 * r + 2])
-        for r in range(args.rounds))
-    result["median_single_ms"] = [statistics.median(s) for s in single]
-    result["median_queued_ms"] = [statistics.median(q) for q in queued]
+    result.update(_summary(single, queued, args.rounds))
+    print(json.dumps(result))
+    return 0
+
+
+def _summary(single, queued, rounds) -> dict:
+    """The timed rounds' numbers: every time, the rounds in which the second
+    checkout's single call was faster, and each checkout's medians."""
+    return {"single_ms": single, "queued_ms": queued,
+            "faster_rounds": sum(statistics.mean(single[1][2 * r:2 * r + 2]) < statistics.mean(single[0][2 * r:2 * r + 2])
+                                 for r in range(rounds)),
+            "median_single_ms": [statistics.median(s) for s in single],
+            "median_queued_ms": [statistics.median(q) for q in queued]}
+
+
+def _kernel_a(args, pkgs) -> int:
+    """``--kernel A``: both checkouts' kernel A at each level pair,
+    stateless and carried, against the plain version and each other; then
+    the timed rounds, a level pair at a time."""
+    import torch
+
+    gates = [importlib.import_module(f"{p.__name__}.models.nsnet2_gates_cuda") for p in pkgs]
+    tools = importlib.import_module(f"{pkgs[-1].__name__}.tools")
+    exp = importlib.import_module(f"{pkgs[-1].__name__}.tools.gru_kernel_exp")
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    nets = [_net(p, dev) for p in pkgs]
+    demos = [_net(p, dev, "demo") for p in pkgs]
+
+    def state_of(n):
+        rng = np.random.default_rng(6)
+        return tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (n, 400))).astype(np.float32)).to(dev)
+                     for _ in range(2))
+
+    def compare(label, levels, gi, which, state=None, hold=True) -> dict:
+        """Both checkouts' outputs (and, with a state, final h1) against the
+        last one's plain version, held to its bars where ``hold``, and each
+        other."""
+        plain = gates[-1].gru_gates_p_reference(gates[-1].gate_weights(which[-1], f32), *gi, state=state,
+                                                levels=levels)
+        outs = [g.gru_gates_3x(net, *gi, levels, state=state) for g, net in zip(gates, which)]
+        if state is not None:  # (out, final h1) each
+            plain, outs = torch.cat([plain[0].flatten(), plain[1][0].flatten()]), [
+                torch.cat([o[0].flatten(), o[1][0].flatten()]) for o in outs]
+        row = {"vs_plain": [_dist(o, plain) for o in outs], "identical": bool(torch.equal(outs[0], outs[1]))}
+        for root, (worst, mean) in zip(args.root, row["vs_plain"] if hold else ()):
+            ok = worst <= BF16_MAX and mean <= BF16_MEAN if "default" in levels else worst <= A_HIGH_TOL
+            if not ok:
+                raise AssertionError(f"gru_p_ab: {root}'s kernel A misses its bars at {label}: max {worst}, mean {mean}")
+        print(f"kernel A {levels} {label}: vs plain (max, mean) {row['vs_plain']}, identical {row['identical']}",
+              flush=True)
+        return row
+
+    result = {"device": torch.cuda.get_device_name(0), "card": tools.card(),
+              "roots": [os.path.abspath(r) for r in args.root], "kernel": "A", "shape": [ROWS, STEPS], "levels": {}}
+    with torch.inference_mode():
+        gi = tuple(g.float().contiguous() for g in exp._gi_gates(nets[-1], exp.features(ROWS, dev)[0]))
+        state = state_of(ROWS)
+        for levels in A_LEVELS:
+            rows = {"stateless": compare(f"[{ROWS}, {STEPS}]", levels, gi, nets),
+                    "carried": compare(f"[{ROWS}, {STEPS}] from a state", levels, gi, nets, state)}
+            for n, t in RANDOM_SHAPES:
+                rng = np.random.default_rng(n * t)
+                rgi = tuple(torch.from_numpy((rng.standard_normal((n, t, 400)) * 0.8).astype(np.float32)).to(dev)
+                            for _ in range(3))
+                rows[f"random {n}x{t}"] = compare(f"random gi [{n}, {t}]", levels, rgi, demos, hold=False)
+                rows[f"random {n}x{t} carried"] = compare(f"random gi [{n}, {t}] from a state", levels, rgi, demos,
+                                                          state_of(n), hold=False)
+            result["levels"][" ".join(levels)] = {"checks": rows}
+        result["identical"] = all(r["identical"] for lv in result["levels"].values() for r in lv["checks"].values())
+
+        def rounds(label, calls) -> dict:
+            single, queued = [[], []], [[], []]
+            for r in range(args.rounds):
+                for j in (0, 1, 1, 0):
+                    single[j].append(tools.cuda_ms(calls[j]))
+                    queued[j].append(tools.queued_ms(calls[j]))
+                row = ([statistics.mean(single[j][-2:]) for j in (0, 1)],
+                       [statistics.mean(queued[j][-2:]) for j in (0, 1)])
+                print(f"kernel A {label} round {r}: single {row[0][0]:.3f} / {row[0][1]:.3f} ms, queued "
+                      f"{row[1][0]:.3f} / {row[1][1]:.3f} ms ({' / '.join(args.root)})", flush=True)
+            return _summary(single, queued, args.rounds)
+
+        for levels in A_LEVELS:
+            result["levels"][" ".join(levels)].update(rounds(f"{levels} [{ROWS}, {STEPS}]", [
+                lambda g=g, net=net, levels=levels: g.gru_gates_3x(net, *gi, levels) for g, net in zip(gates, nets)]))
+        result["shapes"] = {}
+        for n, t, carried in A_SHAPES:
+            sgi = tuple(g.float().contiguous() for g in exp._gi_gates(nets[-1], exp.features(n, dev)[0][:, :t]))
+            state = state_of(n) if carried else None
+            label = f"[{n}, {t}]{' from a state' if carried else ''}"
+            result["shapes"][label] = rounds(f"('high', 'high') {label}", [
+                lambda g=g, net=net: g.gru_gates_3x(net, *sgi, ("high", "high"), state=state)
+                for g, net in zip(gates, nets)])
+    print(f"{result['card']}: kernel A bit for bit between the checkouts at every check: {result['identical']}",
+          flush=True)
     print(json.dumps(result))
     return 0
 

@@ -1841,7 +1841,7 @@ def _nearer_than_other_levels(got, want, levels, plain_at):
 def test_kernel_a_matches_plain(net, cuda_device, levels, rows, steps):
     """Kernel A (``gru_gates_3x``) against its plain version on the
     per-gate gi of the fc_in output and N(0, 0.3) GRU biases (``_near``);
-    one count a launch of its 8-unit plan (three at 4,000 rows)."""
+    one count a launch of its 8-unit plan (one at any row count)."""
     net = _biased(net)
     gi = _gi3(net, rows, steps, rows * steps, cuda_device)
     before = gates.gru_gates_3x.launches
@@ -1872,6 +1872,38 @@ def test_kernel_a_on_random_gi(net, cuda_device):
         want = gates.gru_gates_p_reference(gates.gate_weights(net, torch.float32), *gi, levels=("high", "high"))
     torch.cuda.synchronize()
     _near(got, want, ("high", "high"), KERNEL_A_HIGH_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", KERNEL_A_LEVELS)
+@pytest.mark.parametrize("rows", [297, 1825])
+def test_kernel_a_partial_last_cluster(net, cuda_device, levels, rows):
+    """Row counts whose last row group's clusters hold a partial tile and
+    fewer or odd tiles: 297 rows (19 tiles: a group of 10 in 5 pairs, one
+    of 9 single tiles, 9 rows in the last) and 1,825 (115 tiles: 58 and 57,
+    the last pair one tile of one row), stateless and from a state. Against
+    the plain version (``_near``), and bit for bit with the same rows in a
+    call of their own, whose plan differs."""
+    (plan,) = gates.device_p_plan(rows, cuda_device, gates.P3_UNITS)
+    last = plan.tiles - (plan.row_groups - 1) * plan.tiles_per_group  # the last group's tiles
+    assert (last <= gates.P3_WARPS or last % 2) and rows % 16
+    net = _biased(net)
+    gi = _gi3(net, rows, 54, rows, cuda_device)
+    state = _state(rows, rows, cuda_device)
+    tail = slice(rows - 20, rows)
+    with torch.inference_mode():
+        got = gates.gru_gates_3x(net, *gi, levels=levels)
+        carried, (h1, h2) = gates.gru_gates_3x(net, *gi, levels=levels, state=state)
+        want = gates.gru_gates_p_reference(gates.gate_weights(net, torch.float32), *gi, levels=levels)
+        want_c, (w1, w2) = gates.gru_gates_p_reference(gates.gate_weights(net, torch.float32), *gi, state=state,
+                                                       levels=levels)
+        alone = gates.gru_gates_3x(net, *(g[tail].contiguous() for g in gi), levels=levels)
+        alone_c, (a1, _) = gates.gru_gates_3x(net, *(g[tail].contiguous() for g in gi), levels=levels,
+                                              state=tuple(h[tail].contiguous() for h in state))
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (carried, want_c), (h1, w1), (h2, w2)):
+        _near(a, b, levels, KERNEL_A_HIGH_TOL)
+    assert torch.equal(alone, got[tail]) and torch.equal(alone_c, carried[tail]) and torch.equal(a1, h1[tail])
 
 
 @pytest.mark.cuda
@@ -2052,10 +2084,12 @@ def test_lbr0_tiers_on_the_card(cuda_device, tier):
 
 @pytest.mark.cuda
 def test_kernel_a_shared_bytes_match_the_source(cuda_device):
-    """The host's kernel-A plan sizes shared memory with the source's sum."""
+    """The host's kernel-A plan takes the source's shared bytes a CTA and
+    its cluster size."""
     lib = gates._lib()
-    for per in (1, 53, gates.P3_MAX_TILES):
-        assert lib.fvad_gru_gates_3x_smem_bytes(per) == gates.PLaunch(0, 16, 1, 1, per, gates.P3_UNITS).smem_bytes("A")
+    for per in (1, 54, 126):
+        assert lib.fvad_gru_gates_3x_smem_bytes() == gates.PLaunch(0, 16, 1, 1, per, gates.P3_UNITS).smem_bytes("A")
+    assert lib.fvad_gru_gates_3x_cluster() == gates.P3_CLUSTER
 
 
 def test_wrappers_refuse_other_devices():
@@ -2089,27 +2123,28 @@ def test_resolve_refuses_cuda_without_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("rows", [1, 16, 17, 1680, 1824, 1825, 4000])
 def test_kernel_a_plan_covers_the_rows(rows):
-    """Kernel A's plan (pure, no GPU) on 132 SMs: launches of one wave, 2
-    row groups x 50 unit groups of 8 units at most, at most 57 tiles a CTA
-    beside its 115,200 bytes of weights, within a block's 232,448 bytes;
-    every row and unit covered once. 1,680 rows are one launch of 2 x 53
-    tiles, 100 CTAs; more than 1,824 rows take several. The old
-    instantiations keep their plan: kernel 5 at 1,680 rows is one launch of
-    5 row groups x 21 tiles, 201,216 bytes a CTA."""
+    """Kernel A's plan (pure, no GPU) on 132 SMs: one launch at any row
+    count, 2 row groups x 50 unit groups of 8 units at most, an even number
+    of tiles a group above 9, 115,200 bytes of weights and a ring of 6
+    stages (225,936 bytes a CTA, within a block's 232,448); every row and unit
+    covered once. 1,680 rows are 2 groups of 54 and 51 tiles, 100 CTAs.
+    The old instantiations keep their plan: kernel 5 at 1,680 rows is one
+    launch of 5 row groups x 21 tiles, 201,216 bytes a CTA."""
     plan = gates.p_launch_plan(rows, 132, gates.P3_UNITS)
     covered = []
+    assert len(plan) == 1
     for launch in plan:
         assert launch.units == 8 and launch.grid == 50 * launch.row_groups <= 132
-        assert launch.tiles_per_group <= gates.P3_MAX_TILES and launch.tiles == -(-launch.n_rows // 16)
-        assert launch.smem_bytes("A") == 115200 + 2048 * launch.tiles_per_group <= 232448
+        assert launch.tiles == -(-launch.n_rows // 16)
+        assert launch.tiles_per_group <= 9 or launch.tiles_per_group % 2 == 0
+        assert launch.smem_bytes("A") == 115200 + 6 * (18432 + 24) == 225936 <= 232448
         for block in range(launch.grid):
             r, u = launch.cta_span(block)
             assert len(u) == 8 and u.start == 8 * (block % 50)
             if block % 50 == 0:
                 covered += list(r)
     assert covered == list(range(rows))
-    assert len(plan) == -(-(-(-rows // 16)) // (2 * gates.P3_MAX_TILES))
     if rows == 1680:
-        assert [(p.row_groups, p.tiles_per_group, p.grid) for p in plan] == [(2, 53, 100)]
+        assert [(p.row_groups, p.tiles_per_group, p.grid) for p in plan] == [(2, 54, 100)]
         k5 = gates.p_launch_plan(rows, 132)
         assert [(p.row_groups, p.tiles_per_group, p.grid, p.smem_bytes(5)) for p in k5] == [(5, 21, 125, 201216)]

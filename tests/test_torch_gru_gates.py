@@ -393,6 +393,71 @@ def test_kernel_5_launch_plan_refuses_what_it_cannot_run():
             gates.p_launch_plan(n_rows, sms)
 
 
+KERNEL_A_ROWS = [1, 17, 42, 1680, 1825, 4000]
+
+
+@pytest.mark.parametrize("n_rows", KERNEL_A_ROWS)
+def test_kernel_a_plan_covers_every_tile_once(n_rows):
+    """Kernel A's plan on 132 SMs is one launch whose row groups hold every
+    tile of the call exactly once, each group at least one, and the rows of
+    every CTA of a group are the group's: a group above 9 tiles (a CTA's
+    MMA warps, which then take pairs of tiles) starts on an even tile."""
+    (launch,) = gates.p_launch_plan(n_rows, 132, gates.P3_UNITS)
+    assert launch.tiles == -(-n_rows // 16) and launch.grid == 50 * launch.row_groups
+    if launch.tiles_per_group > gates.P3_WARPS:
+        assert launch.tiles_per_group % 2 == 0
+    seen = []
+    for rg in range(launch.row_groups):
+        first = rg * launch.tiles_per_group
+        group = range(first, min(first + launch.tiles_per_group, launch.tiles))
+        assert len(group) >= 1
+        rows = range(16 * group[0], min(16 * (group[-1] + 1), n_rows))
+        assert {launch.cta_span(50 * rg + ug)[0] for ug in range(50)} == {rows}
+        seen += list(group)
+    assert seen == list(range(launch.tiles))
+
+
+@pytest.mark.parametrize("n_rows", KERNEL_A_ROWS)
+def test_kernel_a_cluster_divides_the_grid(n_rows):
+    """Kernel A's clusters: their size divides the 50 unit groups, so it
+    divides the grid, and the CTAs of a cluster (consecutive blocks) share
+    one row group's rows."""
+    (launch,) = gates.p_launch_plan(n_rows, 132, gates.P3_UNITS)
+    assert 50 % gates.P3_CLUSTER == 0 and launch.grid % gates.P3_CLUSTER == 0 and launch.grid <= 132
+    for block in range(0, launch.grid, gates.P3_CLUSTER):
+        assert len({launch.cta_span(b)[0] for b in range(block, block + gates.P3_CLUSTER)}) == 1
+
+
+@pytest.mark.parametrize("n_rows", KERNEL_A_ROWS)
+def test_kernel_a_shared_memory_within_a_block(n_rows):
+    """A kernel-A CTA's shared memory, its 115,200 bytes of weights and a
+    ring of 6 stages of 18 KB with three 8-byte mbarriers each, is the same
+    at every row count and within an H100 block's 232,448."""
+    (launch,) = gates.p_launch_plan(n_rows, 132, gates.P3_UNITS)
+    assert launch.smem_bytes("A") == gates.P3_SMEM_BYTES == 115200 + 6 * (18432 + 24) == 225936 <= 232448
+
+
+@pytest.mark.parametrize("levels", [("high", "high"), ("default", "high"), ("high", "default")])
+def test_kernel_a_exchange_bytes(levels):
+    """The plan's count of the L2 bytes of kernel A's exchange of h that
+    phase 17 logs (``plan_exchange_bytes_3x``, a count from the plan, not a
+    measurement): at [1,680, 54], 105 tiles x 50
+    unit groups x 512 bytes (x 2 for a 'high' class's lo) x 25 K steps of
+    h1[t] and, from step 1, of h1[t-1] and h2[t-1]; read once a CTA that is
+    21.50 GB at (3, 3) (the 22.0 GB a call counted for the first design),
+    and a cluster of P3_CLUSTER reads it once: at most 22.0 GB / P3_CLUSTER.
+    A carried state reads step 0 whole."""
+    width = {level: 512 * 25 * (2 if level == "high" else 1) for level in levels}
+    step = width[levels[0]] + 2 * width[levels[1]]
+    one = gates.plan_exchange_bytes_3x(1680, 54, levels, cluster=1)
+    assert one == 105 * 50 * (width[levels[0]] + 53 * step)
+    shared = gates.plan_exchange_bytes_3x(1680, 54, levels)
+    assert shared * gates.P3_CLUSTER == one and shared <= 22.0e9 / gates.P3_CLUSTER
+    if levels == ("high", "high"):
+        assert one == 21_504_000_000 and shared == 4_300_800_000
+    assert gates.plan_exchange_bytes_3x(42, 1, levels, carried=True) * gates.P3_CLUSTER == 3 * 50 * step
+
+
 def test_packed_weights_follow_in_place_updates(pair, gi):
     flat = _flat(pair[0])
     net = nsnet2.from_numpy(flat)
