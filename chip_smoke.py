@@ -246,11 +246,14 @@ runs nineteen phases; any failed check raises and the script exits non-zero.
    cuDNN's float32 GRU (TF32 off: another function) in the same process,
    and its single and queued times, bounds and L2 bytes at [42, 54], [42, 1]
    from a state and [4,000, 54]. (b) Kernel B (gru_stack_mixed,
-   kernel 1's float32 body with one class at 'high' or 'default'): the
-   stage audit's two mixes (one class at 'high') at the same shapes, bar
-   B_HIGH_TOL and control, the two with 'default' at [1,680, 54]; times
-   and bounds (a 'highest' class at the float32 rate, a 'high' or
-   'default' one as its bf16 passes at the tensor cores') of all four. (c)
+   csrc/gru_mixed.cu: kernel 1's tiles with the class at 'high' or
+   'default' on mma.sync): the stage audit's two mixes (one class at
+   'high') at the same shapes, bar B_HIGH_TOL and control, the two with
+   'default' at [1,680, 54]; times and bounds (a 'highest' class at the
+   float32 rate, a 'high' or 'default' one as its bf16 passes at the
+   tensor cores') of all four at [1,680, 54], [42, 54] and [42, 1] from a
+   state, each instantiation's registers and local (spill) bytes, and with
+   CHIP_SMOKE_PARENT the parent's kernel B beside this one. (c)
    Kernel 1 and kernel 5 in bf16 on fixed inputs give the parent tree's
    bits (PARENT_DIGESTS, for the nvcc release that recorded them; with
    CHIP_SMOKE_PARENT the parent's package built beside this one); it fails
@@ -314,6 +317,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
 import json
 import os
 import statistics
@@ -516,7 +520,7 @@ def phase_device() -> str:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, all at once
-        libs = (nsnet2_cuda._lib, fsm_cuda._lib, matmul_q8._lib, nsnet2_gates_cuda._lib)
+        libs = (nsnet2_cuda._lib, nsnet2_cuda._mixed_lib, fsm_cuda._lib, matmul_q8._lib, nsnet2_gates_cuda._lib)
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
     log(f"kernel build + load (parallel): {time.perf_counter() - t0:.2f} s")
@@ -3661,10 +3665,14 @@ def kernel_b_rows(net, dev, smi: str) -> dict:
     'highest' against ``gru_stack_reference`` at the same levels: at
     P17_SHAPES (N(0, 0.8) gi1, N(0, 0.3) GRU biases) and at [42, 1] from a
     nonzero state, and nearer it than the plain versions at other levels;
-    each instantiation's single and queued time at [1,680, 54] on the demo
-    weights beside kernel 1's and cuDNN's float32 GRU, and its bound (a
-    'highest' class at the float32 rate, a 'high' or 'default' one as its
-    bf16 passes at the tensor cores'). -> the kernels line's entry."""
+    each instantiation's registers and local (spill) bytes, which must be
+    0; its single and queued time at [1,680, 54] on the demo weights beside
+    kernel 1's and cuDNN's float32 GRU, and at [42, 54] and [42, 1] from a
+    state, each beside its bound (a 'highest' class at the float32 rate, a
+    'high' or 'default' one as its bf16 passes at the tensor cores'). With
+    CHIP_SMOKE_PARENT, the parent checkout's kernel B queued at the same
+    inputs in this process, its calls and this tree's in turn (A B B A).
+    -> the kernels line's entry."""
     import torch
 
     from formula_vad_tpu_torch.models import nsnet2_cuda
@@ -3707,49 +3715,118 @@ def kernel_b_rows(net, dev, smi: str) -> dict:
             err = max(err, near_plain(f"kernel B {levels} from a state at [{rows}, 1], {label}", a, b, levels,
                                       B_HIGH_TOL))
         errs[levels] = err
+    built = {levels: nsnet2_cuda.mixed_attributes(levels, dev) for levels in B_LEVELS}
+    log(f"kernel B's instantiations as built (registers a thread, local bytes a thread): "
+        + ", ".join(f"{levels} {a['registers']}, {a['local_bytes']}" for levels, a in built.items()))
+    if any(a["local_bytes"] for a in built.values()):
+        raise AssertionError(f"a kernel B instantiation spills to local memory: {built}")
 
+    width = {"highest": 4, "high": 4, "default": 2}  # bytes a weight as the kernel reads it ('high': hi and lo)
+
+    def b_bound(n, t, levels, carried):
+        """Bytes: gi1 in, out, a state's two rows in and the final h1 out,
+        the weights once at the width the kernel reads them; operations:
+        the three products a step, none with h = 0 (gru_h's two at step 0
+        of a stateless call), a 'highest' class at the float32 rate (67
+        TFLOP/s) on the FMA pipe, a 'high' one as three bf16 x bf16 passes
+        and a 'default' one as a pass, summed in float32, at the tensor
+        cores' 989 TFLOP/s; the two pipes run at once, so the operations
+        take the longer of the two times. -> (bound_ms, bound_by, float32
+        ops, bf16 ops)."""
+        product = 2 * n * 400 * 1200
+        # gru_i: h1 Wi2 every step; gru_h: h1 Wh1 and h2 Wh2 where h[t-1] exists.
+        classes = ((levels[0], t * product), (levels[1], 2 * (t if carried else t - 1) * product))
+        f32_ops = sum(ops for level, ops in classes if level == "highest")
+        bf16_ops = sum(ops * gates.PASSES[level] for level, ops in classes if level != "highest")
+        nbytes = (n * t * 1200 * 4 + n * t * 400 * 4 + (3 * n * 400 * 4 if carried else 0)
+                  + 400 * 1200 * (width[levels[0]] + 2 * width[levels[1]]))
+        ops_ms = max(f32_ops / F32_OPS_PER_MS, bf16_ops / BF16_OPS_PER_MS)
+        return (*bound(nbytes, ops_ms, 1.0), f32_ops, bf16_ops)  # the operations given as their time
+
+    parent = parent_port()
+    pcuda = importlib.import_module(f"{parent.__name__}.models.nsnet2_cuda") if parent else None
+    pnet = importlib.import_module(f"{parent.__name__}.models.registry").load_denoiser("demo", device=dev) if parent \
+        else None
     feats = torch.from_numpy(
         np.random.default_rng(0).normal(-3.0, 1.5, (GRU_ROWS, GRU_STEPS, 161)).astype(np.float32)).to(dev)
     gru = cudnn_gru(net, dev)
+    rng = np.random.default_rng(8)
+    rows = LL_ROWS[0]
+    state = tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (rows, 400))).astype(np.float32)).to(dev)
+                  for _ in range(2))
     with torch.inference_mode():
         x = net.fc_in(feats)
         gi1 = (x @ net.gru1.wi + net.gru1.bi).contiguous()
         k1_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack(net, gi1))
+        k1_queued = queued_ms(lambda: nsnet2_cuda.gru_stack(net, gi1))
         library_ms = cuda_ms(lambda: gru(x))
+        # A chunk step's rows (the slice's 21 streams x 2 channels) and a
+        # low-latency hop of theirs from a state.
+        shapes = ((GRU_ROWS, GRU_STEPS, gi1, None), (rows, GRU_STEPS, gi1[:rows].contiguous(), None),
+                  (rows, 1, gi1[:rows, :1].contiguous(), state))
         inst = []
         for levels in B_LEVELS:
-            ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_mixed(net, gi1, levels))
-            queued = queued_ms(lambda: nsnet2_cuda.gru_stack_mixed(net, gi1, levels))
-            plain_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_reference(net, gi1, levels=levels), reps=1)
-            # A 'highest' product is float32 (67 TFLOP/s); a 'high' one three
-            # bf16 x bf16 passes and a 'default' one a pass, summed in float32,
-            # which the tensor cores run at 989 TFLOP/s.
-            product = 2 * GRU_ROWS * GRU_STEPS * 400 * 1200
-            classes = ((levels[0], product), (levels[1], 2 * product))  # gru_i: h1 Wi2; gru_h: h1 Wh1, h2 Wh2
-            f32_ops = sum(ops for level, ops in classes if level == "highest")
-            bf16_ops = sum(ops * gates.PASSES[level] for level, ops in classes if level != "highest")
-            nbytes = gi1.nbytes + GRU_ROWS * GRU_STEPS * 400 * 4 + 3 * 400 * 1200 * 4
-            ops_ms = f32_ops / F32_OPS_PER_MS + bf16_ops / BF16_OPS_PER_MS
-            bound_ms, bound_by = bound(nbytes, ops_ms, 1.0)  # the operations given as their time
-            inst.append({"levels": list(levels), "ms": ms, "queued_ms": queued, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": errs[levels]})
-            log(f"kernel B {levels} at [{GRU_ROWS}, {GRU_STEPS}] (kernel 1's plan): {ms:.3f} ms single, {queued:.3f} "
-                f"queued, plain {plain_ms:.2f} ms; bound {bound_ms:.3f} ms by {bound_by} ({f32_ops / 1e9:.1f} GFLOP "
-                f"of float32 at 67 TFLOP/s, {bf16_ops / 1e9:.1f} of bf16 passes at 989); kernel 1 in this process "
-                f"{k1_ms:.3f}, cuDNN float32 GRU {library_ms:.3f}; on {smi}")
-    plan = nsnet2_cuda.device_plan(GRU_ROWS, dev)
-    log(f"kernel B's plan at [{GRU_ROWS}, {GRU_STEPS}] (kernel 1's): {plan.tiles} tiles of {plan.row_tile} rows x "
-        f"{plan.unit_tile} units, grid {plan.grid}")
+            row = {"levels": list(levels), "max_abs_err": errs[levels], **built[levels], "shapes": []}
+            for n, t, g, st in shapes:
+                ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_mixed(net, g, levels, st))
+                queued = queued_ms(lambda: nsnet2_cuda.gru_stack_mixed(net, g, levels, st))
+                bound_ms, bound_by, f32_ops, bf16_ops = b_bound(n, t, levels, st is not None)
+                at = {"shape": [n, t], "carried": st is not None, "ms": ms, "queued_ms": queued, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+                line = (f"kernel B {levels} at [{n}, {t}]{' from a state' if st is not None else ''}: {ms:.3f} ms "
+                        f"single, {queued:.3f} queued; bound {bound_ms:.4f} ms by {bound_by} ({f32_ops / 1e9:.2f} "
+                        f"GFLOP of float32 at 67 TFLOP/s, {bf16_ops / 1e9:.2f} of bf16 passes at 989, the longer "
+                        f"of the two)")
+                if pcuda is not None:  # the parent's kernel B and this one in turn: A B B A
+                    calls = (lambda: pcuda.gru_stack_mixed(pnet, g, levels, st),
+                             lambda: nsnet2_cuda.gru_stack_mixed(net, g, levels, st))
+                    times = [queued_ms(calls[j]) for j in (0, 1, 1, 0)]
+                    at["parent_queued_ms"], at["abba_queued_ms"] = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+                    line += (f"; A B B A queued, the parent's kernel B {at['parent_queued_ms']:.3f}, this one "
+                             f"{at['abba_queued_ms']:.3f}")
+                row["shapes"].append(at)
+                if n == GRU_ROWS:
+                    plain_ms = cuda_ms(lambda: nsnet2_cuda.gru_stack_reference(net, g, levels=levels), reps=1)
+                    row.update(ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    line += (f"; plain {plain_ms:.2f} ms; kernel 1 in this process {k1_ms:.3f} single, "
+                             f"{k1_queued:.3f} queued, cuDNN float32 GRU {library_ms:.3f}")
+                log(f"{line}; on {smi}")
+            inst.append(row)
+    plans = {levels: nsnet2_cuda.device_plan(GRU_ROWS, dev, levels) for levels in B_LEVELS}
+    plan = plans[B_LEVELS[0]]
+    log(f"kernel B's plan at [{GRU_ROWS}, {GRU_STEPS}] (its own occupancy, {nsnet2_cuda.MIXED_SMEM_BYTES} bytes "
+        f"of shared memory a CTA): {plan.tiles} tiles of {plan.row_tile} rows x "
+        f"{plan.unit_tile} units, grid {plan.grid}, the same at every mix: {len(set(plans.values())) == 1}")
     top = inst[0]
     return {
-        "name": "gru_stack_mixed", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_stack.cu",
+        "name": "gru_stack_mixed", "route": "cuda", "source": "formula_vad_tpu_torch/csrc/gru_mixed.cu",
         "replaces": "formula_vad_tpu/models/nsnet2_pallas.py:88", "max_abs_err": max(errs.values()),
         "ms": top["ms"], "queued_ms": top["queued_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": library_ms,
         "library": "cuDNN two-layer torch.nn.GRU, float32, TF32 off (another function: every product float32)",
-        "kernel_1_ms": k1_ms, "instantiations": inst, "tol_high": B_HIGH_TOL, "control_min_ratio": min(ratios),
-        "grid": plan.grid, "tiles": plan.tiles, "row_tile": plan.row_tile, "unit_tile": plan.unit_tile,
+        "kernel_1_ms": k1_ms, "kernel_1_queued_ms": k1_queued, "instantiations": inst, "tol_high": B_HIGH_TOL,
+        "control_min_ratio": min(ratios), "grid": plan.grid, "tiles": plan.tiles, "row_tile": plan.row_tile,
+        "unit_tile": plan.unit_tile, "smem_bytes": nsnet2_cuda.MIXED_SMEM_BYTES,
     }
+
+
+def parent_port():
+    """The package of the checkout CHIP_SMOKE_PARENT names, loaded once as
+    ``parent_port`` beside this one (its kernels built from its own
+    sources), or None where the variable is not set."""
+    import importlib.util
+
+    parent = os.environ.get("CHIP_SMOKE_PARENT")
+    if not parent:
+        return None
+    if "parent_port" not in sys.modules:
+        pkg = os.path.join(os.path.abspath(parent), "formula_vad_tpu_torch")
+        spec = importlib.util.spec_from_file_location("parent_port", os.path.join(pkg, "__init__.py"),
+                                                      submodule_search_locations=[pkg])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["parent_port"] = module
+        spec.loader.exec_module(module)
+    return sys.modules["parent_port"]
 
 
 def unchanged_outputs(pkg: str, dev) -> dict:
@@ -3793,8 +3870,6 @@ def check_unchanged(dev) -> dict:
     this one and built from its own sources. It fails where it can compare
     with neither (another nvcc release and no parent checkout). -> {"digests":
     this build's, "against": what they were compared with}."""
-    import importlib.util
-
     from formula_vad_tpu_torch import _build
 
     got = unchanged_outputs("formula_vad_tpu_torch", dev)
@@ -3807,13 +3882,7 @@ def check_unchanged(dev) -> dict:
         want = {}
     parent = os.environ.get("CHIP_SMOKE_PARENT")
     if parent:
-        pkg = os.path.join(os.path.abspath(parent), "formula_vad_tpu_torch")
-        spec = importlib.util.spec_from_file_location("parent_port", os.path.join(pkg, "__init__.py"),
-                                                      submodule_search_locations=[pkg])
-        module = importlib.util.module_from_spec(spec)
-        sys.modules["parent_port"] = module
-        spec.loader.exec_module(module)
-        beside = unchanged_outputs("parent_port", dev)
+        beside = unchanged_outputs(parent_port().__name__, dev)
         log(f"unchanged instantiations: the parent's build at {parent} gives {beside}")
         if want and beside != want:
             raise AssertionError(f"the parent's digests {beside} differ from PARENT_DIGESTS {want}")

@@ -22,8 +22,8 @@ h1 Wi2; ``gru_h``, h1 Wh1 and h2 Wh2) and the storage dtype:
 
 * both 'highest': ``nsnet2_cuda.gru_stack`` (kernel 1), float32.
 * one 'highest', the other 'high' or 'default' (a stage override):
-  ``nsnet2_cuda.gru_stack_mixed``, kernel 1's float32 body with each
-  class's products at its level.
+  ``nsnet2_cuda.gru_stack_mixed`` (kernel B): kernel 1's tiles, the
+  'highest' class on its FMA code and the other on the tensor cores.
 * both 'default' (the bf16 tier): ``nsnet2_gates_cuda.gru_gates_p``
   (kernel 5) in bf16, over per-gate input projections with the biases
   folded, as the JAX package's split3 scan rounds there.

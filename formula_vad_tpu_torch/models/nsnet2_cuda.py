@@ -22,12 +22,14 @@ The products fall in two classes (``precision.gru_levels``): ``gru_h``
 (h1 Wh1, h2 Wh2) and ``gru_i`` (h1 Wi2). ``gru_stack`` runs both at
 'highest'. ``gru_stack_mixed`` runs the mixes in which one class is
 'highest' and the other 'high' or 'default' (a stage override of
-``gru_i`` or ``gru_h``, as the stage audit sets them) on the same kernel,
-instantiated per pair of levels: its weights packed at their class's level
-(``pack_at``). The plain loop also serves linear_before_reset = 0 weights,
-which no kernel takes, at any levels and, under bf16 activation storage,
-in bf16 (every operand and op output rounded to bf16, as the JAX package
-runs its scan on bf16 arrays).
+``gru_i`` or ``gru_h``, as the stage audit sets them) on kernel B,
+``csrc/gru_mixed.cu``: kernel 1's tiles with the other class on the
+tensor cores, instantiated per pair of levels, its weights packed at their
+class's level (``pack_at``: B fragments for ``mma.sync``) and its plan
+from its own occupancy (``device_plan(..., levels)``). The plain loop
+also serves linear_before_reset = 0 weights, which no kernel takes, at any
+levels and, under bf16 activation storage, in bf16 (every operand and op
+output rounded to bf16, as the JAX package runs its scan on bf16 arrays).
 
 The same kernel runs the float32 forms of the per-gate kernels of
 ``nsnet2_gates_cuda`` (``gru_stack_gates``): their function is this one,
@@ -101,9 +103,15 @@ def gru_stack_reference(net: NSNet2, gi1: torch.Tensor, state: tuple | None = No
     return out if state is None else (out, (h1, h2))
 
 
-# The kernel's tile geometry (csrc/gru_stack.cu: UNIT_TILE, TR * RM).
+# The kernel's tile geometry (csrc/gru_tile.cuh: UNIT_TILE, TR * RM).
 UNIT_TILE = 40
 ROW_TILE_MAX = 144
+# Kernel B's shared memory a CTA (csrc/gru_mixed.cu, whose
+# fvad_gru_mixed_smem_bytes the GPU tests hold it to): kernel 1's two stages
+# of h rows (float32 at a pitch of 84, or bf16 hi | lo at 336 bytes) and a
+# K chunk of 80 weight rows, then the z and r sums kept past the float32
+# product (a pitch of 84).
+MIXED_SMEM_BYTES = 2 * (ROW_TILE_MAX * 84 + 80 * 3 * UNIT_TILE) * 4 + ROW_TILE_MAX * 84 * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,22 +176,32 @@ def pack(w: torch.Tensor) -> torch.Tensor:
 LEVEL_CODES = {"highest": 0, "high": 1, "default": 2}
 
 
+def _fragments(w: torch.Tensor) -> torch.Tensor:
+    """A bf16 ``pack``ed weight [10, 400, 120] in ``mma.sync.m16n8k16``
+    B-fragment order: int32 [10, 25 K steps, 15 n8 tiles, 32 lanes, 2].
+    Lane 4 g + q of (K step s, n8 tile n) holds, low half first,
+    (w[16 s + 2 q, 8 n + g], w[16 s + 2 q + 1, 8 n + g]) in its first word
+    and the same 8 rows further down in its second."""
+    x = w.contiguous().view(torch.int16).reshape(w.shape[0], HIDDEN // 16, 2, 4, 2, 3 * UNIT_TILE // 8, 8)
+    x = x.permute(0, 1, 5, 6, 3, 2, 4).contiguous()  # (group, s, n, g, q, half, pair)
+    return x.view(torch.int32).reshape(w.shape[0], HIDDEN // 16, 3 * UNIT_TILE // 8, 32, 2)
+
+
 def pack_at(w: torch.Tensor, level: str) -> torch.Tensor:
     """``pack(w)`` in the form a class at ``level`` reads: float32 at
-    'highest'; at 'default' its bf16 rounding, held in float32; at 'high'
-    one 32-bit word an element, bf16(w) in the high 16 bits and
-    bf16(w - bf16(w)) in the low 16 (int32)."""
+    'highest' (kernels 1 and B's FMA layout); at 'default' and 'high'
+    kernel B's ``mma.sync`` B fragments of each unit group (``_fragments``),
+    int32 [10, 25, 15, 32, words]: at 'default' 2 words of bf16(w), at
+    'high' 4, those of hi = bf16(w), then those of lo = bf16(w - hi)."""
     if level == "highest":
         return pack(w)
-    if level == "default":
-        return pack(precision.bf16_round(w))
-    if level != "high":
+    if level not in LEVEL_CODES:
         raise ValueError(f"pack_at: level must be one of {tuple(LEVEL_CODES)}, got {level!r}")
-    hi = w.float().to(torch.bfloat16)
-    lo = (w.float() - hi.float()).to(torch.bfloat16)
-    # Little-endian: the first int16 of a pair is the word's low half.
-    words = torch.stack([lo.view(torch.int16), hi.view(torch.int16)], dim=-1).view(torch.int32).squeeze(-1)
-    return pack(words)
+    hi = pack(w.float()).to(torch.bfloat16)
+    if level == "default":
+        return _fragments(hi)
+    lo = (pack(w.float()) - hi.float()).to(torch.bfloat16)
+    return torch.cat([_fragments(hi), _fragments(lo)], dim=-1)
 
 
 def packed_weights(net: NSNet2, levels: tuple = ("highest", "highest")) -> tuple[torch.Tensor, ...]:
@@ -206,7 +224,7 @@ def packed_weights(net: NSNet2, levels: tuple = ("highest", "highest")) -> tuple
 @functools.cache  # the lookup and the argtypes stay off the per-call path
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_stack")
-    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.fvad_gru_stack.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.fvad_gru_stack.restype = ctypes.c_int
     lib.fvad_gru_stack_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fvad_gru_stack_blocks_per_sm.restype = ctypes.c_int
@@ -214,22 +232,59 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _card(index: int) -> tuple[int, int]:
-    """(SM count, CTAs of the kernel one SM holds) of CUDA device ``index``."""
-    lib = _lib()
+def _mixed_lib() -> ctypes.CDLL:
+    lib = _build.load("gru_mixed")
+    lib.fvad_gru_mixed.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fvad_gru_mixed.restype = ctypes.c_int
+    lib.fvad_gru_mixed_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.fvad_gru_mixed_blocks_per_sm.restype = ctypes.c_int
+    lib.fvad_gru_mixed_attributes.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.fvad_gru_mixed_attributes.restype = ctypes.c_int
+    lib.fvad_gru_mixed_smem_bytes.argtypes = []
+    lib.fvad_gru_mixed_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.cache
+def _card(index: int, levels: tuple = ("highest", "highest")) -> tuple[int, int]:
+    """(SM count, CTAs one SM holds) of CUDA device ``index`` for kernel 1
+    or, at mixed ``levels``, kernel B's instantiation for them."""
     blocks = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        err = lib.fvad_gru_stack_blocks_per_sm(ctypes.byref(blocks))
-    _build.check(lib, err, "gru_stack occupancy query")
+    if levels == ("highest", "highest"):
+        lib, what = _lib(), "gru_stack"
+        with torch.cuda.device(index):
+            err = lib.fvad_gru_stack_blocks_per_sm(ctypes.byref(blocks))
+    else:
+        lib, what = _mixed_lib(), f"gru_mixed {levels}"
+        with torch.cuda.device(index):
+            err = lib.fvad_gru_mixed_blocks_per_sm(*(LEVEL_CODES[level] for level in levels), ctypes.byref(blocks))
+    _build.check(lib, err, f"{what} occupancy query")
     if blocks.value < 1:
-        raise RuntimeError("gru_stack: the kernel does not fit on one SM of this device")
+        raise RuntimeError(f"{what}: the kernel does not fit on one SM of this device")
     return torch.cuda.get_device_properties(index).multi_processor_count, blocks.value
 
 
-def device_plan(n_rows: int, dev: torch.device) -> LaunchPlan:
-    """``launch_plan`` for the card ``dev``: its SM count and the kernel's
-    occupancy, queried once per device."""
-    return launch_plan(n_rows, *_card(dev.index if dev.index is not None else torch.cuda.current_device()))
+def device_plan(n_rows: int, dev: torch.device, levels: tuple = ("highest", "highest")) -> LaunchPlan:
+    """``launch_plan`` for the card ``dev``: its SM count and the occupancy
+    of kernel 1 or, at mixed ``levels``, of kernel B's instantiation,
+    queried once per device."""
+    return launch_plan(n_rows, *_card(_index(dev), tuple(levels)))
+
+
+def mixed_attributes(levels: tuple, dev: torch.device) -> dict:
+    """Kernel B's instantiation at ``levels`` as built: {"registers": a
+    thread, "local_bytes": local memory (spills) a thread}."""
+    lib = _mixed_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(_index(dev)):
+        err = lib.fvad_gru_mixed_attributes(*(LEVEL_CODES[level] for level in levels), ctypes.byref(regs),
+                                            ctypes.byref(local))
+    _build.check(lib, err, f"gru_mixed {levels} attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _check_operand(what: str, name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -265,35 +320,46 @@ def _check_state(what: str, state: tuple | None, n: int, device: torch.device) -
 def _launch(gi: tuple[int, int, int], gi_stride: int, shape: tuple[int, int], dev: torch.device,
             net: NSNet2, biases: tuple, out_dtype: torch.dtype, state: tuple | None = None,
             levels: tuple = ("highest", "highest")):
-    """One launch of the kernel on checked operands: ``gi`` the addresses
-    of the z, r and n columns of row 0, step 0, each (row, step)
-    ``gi_stride`` floats after the last, the products at ``levels``
-    (gru_i, gru_h) -> (h2 [N, T, 400] in ``out_dtype`` (float32, or bf16
-    with h2 kept float32 inside), the final (h1, h2) in float32 where a
-    ``state`` was carried in, else None). Counts nothing: each caller
-    counts its own launches."""
+    """One launch of kernel 1 or, at mixed ``levels`` (gru_i, gru_h), of
+    kernel B (gi1's columns only, float32 out) on checked operands: ``gi``
+    the addresses of the z, r and n columns of row 0, step 0, each (row,
+    step) ``gi_stride`` floats after the last -> (h2 [N, T, 400] in
+    ``out_dtype`` (float32, or bf16 with h2 kept float32 inside), the final
+    (h1, h2) in float32 where a ``state`` was carried in, else None).
+    Counts nothing: each caller counts its own launches."""
     n, t = shape
     out = torch.empty((n, t, HIDDEN), dtype=out_dtype, device=dev)
     if n == 0 or t == 0:
         return out, state
-    lib = _lib()
-    plan = device_plan(n, dev)
+    mixed = levels != ("highest", "highest")
+    lib = _mixed_lib() if mixed else _lib()
+    plan = device_plan(n, dev, levels)
     wh1, wi2, wh2 = packed_weights(net, levels)
     bh1, bi2, bh2 = biases
     bf16_out = out_dtype == torch.bfloat16
     # h1 of steps t-1 and t, then (bf16 out only) h2 of steps t-1 and t.
     scratch = torch.empty((4 if bf16_out else 2, n, HIDDEN), dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    carried = (None, None) if state is None else (state[0].data_ptr(), state[1].data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fvad_gru_stack(
-            *gi, wh1.data_ptr(), bh1.data_ptr(), wi2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(), bh2.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), scratch[2].data_ptr() if bf16_out else None, barrier.data_ptr(),
-            *((None, None) if state is None else (state[0].data_ptr(), state[1].data_ptr())),
-            gi_stride, int(bf16_out), *(LEVEL_CODES[level] for level in levels), n, t, plan.row_tile,
-            plan.row_groups, plan.unit_groups, plan.grid, stream,
-        )
-    _build.check(lib, err, "gru_stack launch")
+        if mixed:
+            # bf16 hi (| lo) of h1 and h2, steps t-1 and t, as the bf16 class reads them.
+            split = torch.empty((2, 2, n, HIDDEN * (2 if "high" in levels else 1)), dtype=torch.bfloat16, device=dev)
+            err = lib.fvad_gru_mixed(
+                gi[0], wh1.data_ptr(), bh1.data_ptr(), wi2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(),
+                bh2.data_ptr(), out.data_ptr(), scratch.data_ptr(), split.data_ptr(), barrier.data_ptr(), *carried,
+                *(LEVEL_CODES[level] for level in levels), n, t, plan.row_tile, plan.row_groups, plan.unit_groups,
+                plan.grid, stream,
+            )
+        else:
+            err = lib.fvad_gru_stack(
+                *gi, wh1.data_ptr(), bh1.data_ptr(), wi2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(), bh2.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), scratch[2].data_ptr() if bf16_out else None, barrier.data_ptr(),
+                *carried, gi_stride, int(bf16_out), n, t, plan.row_tile, plan.row_groups, plan.unit_groups, plan.grid,
+                stream,
+            )
+    _build.check(lib, err, "gru_mixed launch" if mixed else "gru_stack launch")
     if state is None:
         return out, None
     # The final h1 is in its ping-pong slot of the scratch; the final h2 in
@@ -319,8 +385,9 @@ def gru_stack_mixed(net: NSNet2, gi1: torch.Tensor, levels: tuple, state: tuple 
     gru_h), one of them 'highest' and the other 'high' or 'default' (the
     mixes of a stage override): h1 Wi2 at the first, h1 Wh1 and h2 Wh2 at
     the second. A CPU tensor runs ``gru_stack_reference`` at those levels;
-    a CUDA tensor launches the kernel's instantiation for them (counted in
-    ``gru_stack_mixed.launches``) or raises."""
+    a CUDA tensor launches kernel B's instantiation for them
+    (``csrc/gru_mixed.cu``, counted in ``gru_stack_mixed.launches``) or
+    raises."""
     levels = tuple(levels)
     if len(levels) != 2 or "highest" not in levels or levels == ("highest", "highest") or any(
             level not in LEVEL_CODES for level in levels):

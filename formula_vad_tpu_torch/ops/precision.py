@@ -21,9 +21,9 @@ fall in two classes (``gru_levels``): ``gru_h`` (h1 Wh1, h2 Wh2) and
 ``models/nsnet2.py`` routes it by the two levels: both in {'default',
 'high'} to the tensor-core body (``nsnet2_gates_cuda.gru_gates_p`` at
 'default'/'default', ``gru_gates_3x`` otherwise: one bf16 pass a
-'default' product, three a 'high' one); either 'highest' to kernel 1's
-float32 body (``nsnet2_cuda.gru_stack``, or ``gru_stack_mixed`` where
-the other class is not 'highest').
+'default' product, three a 'high' one); both 'highest' to kernel 1's
+float32 body (``nsnet2_cuda.gru_stack``), one to ``gru_stack_mixed``
+(kernel B: kernel 1's tiles, the other class on the tensor cores).
 
 Orthogonally, ``set_io_dtype("bf16")`` (env ``FVAD_IO_DTYPE``) stores the
 denoiser path's big activations (spectra, features, GRU projections and

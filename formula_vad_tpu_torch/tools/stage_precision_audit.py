@@ -8,9 +8,9 @@ largest relative deviation of the window volume. The stages that stay
 bitwise form the composite ('parity_fast'), which is checked as a whole.
 Then it times 'highest', the composite (if any) and all-'high',
 interleaved. Under a ``gru_i`` or ``gru_h`` row the recurrence's two
-product classes run at different levels: ``gru_stack_mixed`` (kernel 1's
-float32 body, one class at 'high'), and all-'high' runs kernel A
-(``gru_gates_3x``); each row prints the recurrence's levels and, on the
+product classes run at different levels: ``gru_stack_mixed`` (kernel B:
+kernel 1's tiles, the class at 'high' on the tensor cores), and all-'high'
+runs kernel A (``gru_gates_3x``); each row prints the recurrence's levels and, on the
 card, the launches of each recurrence kernel.
 
     python -m formula_vad_tpu_torch.tools.stage_precision_audit [--device cpu]

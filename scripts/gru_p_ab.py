@@ -2,11 +2,13 @@
 process on one card, at the bf16 tier's shape [1680, 54]: kernel 5
 (``nsnet2_gates_cuda.gru_gates_p``, the default), 4 (``gru_gates``) or 6
 (``gru_gates_f``, bf16 out); kernel 1 (``nsnet2_cuda.gru_stack``, the
-float tier's recurrence, on its float32 gi1 and within its 1e-4 bar); or
+float tier's recurrence, on its float32 gi1 and within its 1e-4 bar);
 kernel A (``gru_gates_3x``, the 'high' tier's bf16_3x recurrence) at its
-three (gru_i, gru_h) level pairs, each stateless and from a carried state.
+three (gru_i, gru_h) level pairs, each stateless and from a carried state;
+or kernel B (``nsnet2_cuda.gru_stack_mixed``, a class at 'highest' beside
+one at 'high' or 'default') at its four mixes.
 
-    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8] [--kernel 1|4|5|6|A]
+    python3 scripts/gru_p_ab.py --root PARENT_CHECKOUT --root . [--rounds 8] [--kernel 1|4|5|6|A|B]
 
 Each ``--root`` names a checkout whose ``formula_vad_tpu_torch`` is loaded
 under a name of its own, so both versions of the wrapper and of the kernel
@@ -38,6 +40,16 @@ ROADMAP fault 3, can miss the bf16 bars there). The timed rounds take each
 level pair stateless at [1680, 54], then all-'high' at ``A_SHAPES``: a
 chunk step [42, 54], a low-latency step [42, 1] from a state, and 4,000
 rows.
+
+Kernel B: float32 gi1 as kernel 1's, at each mix (``B_LEVELS``), stateless
+and from a nonzero state at [1680, 54], each checkout's output (and final
+h1) held to the last checkout's ``gru_stack_reference`` at the mix within
+``chip_smoke.py``'s bars (max 2e-6 where no class is 'default', else the
+bf16 bars), with max |d| between the two checkouts (another summation
+order: not bit for bit). The timed rounds take each mix at ``B_SHAPES``:
+[1680, 54], a chunk step [42, 54], a low-latency step [42, 1] from a state
+and 4,000 rows; each round also times the last checkout's kernel 1 on the
+same gi1 (and state).
 """
 
 from __future__ import annotations
@@ -54,12 +66,16 @@ import numpy as np
 
 ROWS, STEPS = 1680, 54
 RANDOM_SHAPES = tuple((n, 54) for n in (1, 15, 17, 337, 1680, 4000))
-WRAPPERS = {"1": "gru_stack", "4": "gru_gates", "5": "gru_gates_p", "6": "gru_gates_f", "A": "gru_gates_3x"}
+WRAPPERS = {"1": "gru_stack", "4": "gru_gates", "5": "gru_gates_p", "6": "gru_gates_f", "A": "gru_gates_3x",
+            "B": "gru_stack_mixed"}
 BF16_MEAN, BF16_MAX = 3e-5, 6e-3
 GRU_TOL = 1e-4  # kernel 1's bar (chip_smoke.py)
 A_HIGH_TOL = 5e-6  # kernel A's bar at all-'high' (chip_smoke.py)
 A_LEVELS = (("high", "high"), ("default", "high"), ("high", "default"))  # (gru_i, gru_h)
 A_SHAPES = ((42, 54, False), (42, 1, True), (4000, 54, False))  # rows, steps, from a state
+B_HIGH_TOL = 2e-6  # kernel B's bar where no class is 'default' (chip_smoke.py)
+B_LEVELS = (("high", "highest"), ("highest", "high"), ("default", "highest"), ("highest", "default"))
+B_SHAPES = ((ROWS, STEPS, False), (42, 54, False), (42, 1, True), (4000, 54, False))
 
 
 def _package(root: str, alias: str):
@@ -108,6 +124,8 @@ def main(argv=None) -> int:
     pkgs = [_package(root, f"_gru_p_ab_checkout_{i}") for i, root in enumerate(args.root)]
     if args.kernel == "A":
         return _kernel_a(args, pkgs)
+    if args.kernel == "B":
+        return _kernel_b(args, pkgs)
     module = "nsnet2_cuda" if args.kernel == "1" else "nsnet2_gates_cuda"
     kernels = [importlib.import_module(f"{p.__name__}.models.{module}") for p in pkgs]
     tools = importlib.import_module(f"{pkgs[-1].__name__}.tools")
@@ -273,6 +291,80 @@ def _kernel_a(args, pkgs) -> int:
                 for g, net in zip(gates, nets)])
     print(f"{result['card']}: kernel A bit for bit between the checkouts at every check: {result['identical']}",
           flush=True)
+    print(json.dumps(result))
+    return 0
+
+
+def _kernel_b(args, pkgs) -> int:
+    """``--kernel B``: both checkouts' kernel B at each mix, stateless and
+    carried, against the plain version and each other; then the timed
+    rounds, a mix and a shape at a time, with kernel 1 in each round."""
+    import torch
+
+    cudas = [importlib.import_module(f"{p.__name__}.models.nsnet2_cuda") for p in pkgs]
+    tools = importlib.import_module(f"{pkgs[-1].__name__}.tools")
+    exp = importlib.import_module(f"{pkgs[-1].__name__}.tools.gru_kernel_exp")
+    dev = torch.device("cuda")
+    nets = [_net(p, dev) for p in pkgs]
+
+    def state_of(n):
+        rng = np.random.default_rng(6)
+        return tuple(torch.from_numpy(np.tanh(rng.normal(0.0, 0.8, (n, 400))).astype(np.float32)).to(dev)
+                     for _ in range(2))
+
+    def gi1_of(n, t):
+        net = nets[-1]
+        return (net.fc_in(exp.features(n, dev)[0][:, :t]) @ net.gru1.wi + net.gru1.bi).contiguous()
+
+    result = {"device": torch.cuda.get_device_name(0), "card": tools.card(),
+              "roots": [os.path.abspath(r) for r in args.root], "kernel": "B", "shape": [ROWS, STEPS], "levels": {}}
+    with torch.inference_mode():
+        gi1 = gi1_of(ROWS, STEPS)
+        for levels in B_LEVELS:
+            checks = {}
+            for label, state in (("stateless", None), ("carried", state_of(ROWS))):
+                plain = cudas[-1].gru_stack_reference(nets[-1], gi1, state, levels=levels)
+                outs = [c.gru_stack_mixed(net, gi1, levels, state) for c, net in zip(cudas, nets)]
+                if state is not None:  # (out, final h1) each
+                    plain = torch.cat([plain[0].flatten(), plain[1][0].flatten()])
+                    outs = [torch.cat([o[0].flatten(), o[1][0].flatten()]) for o in outs]
+                row = {"vs_plain": [_dist(o, plain) for o in outs], "between": _dist(outs[0], outs[1])}
+                for root, (worst, mean) in zip(args.root, row["vs_plain"]):
+                    ok = worst <= BF16_MAX and mean <= BF16_MEAN if "default" in levels else worst <= B_HIGH_TOL
+                    if not ok:
+                        raise AssertionError(f"gru_p_ab: {root}'s kernel B misses its bars at {levels} {label}: "
+                                             f"max {worst}, mean {mean}")
+                print(f"kernel B {levels} [{ROWS}, {STEPS}] {label}: vs plain (max, mean) {row['vs_plain']}, between "
+                      f"the checkouts {row['between']}", flush=True)
+                checks[label] = row
+            result["levels"][" ".join(levels)] = {"checks": checks, "shapes": {}}
+
+        for n, t, carried in B_SHAPES:
+            sgi = gi1 if (n, t) == (ROWS, STEPS) else gi1_of(n, t)
+            state = state_of(n) if carried else None
+            label = f"[{n}, {t}]{' from a state' if carried else ''}"
+            k1 = lambda: cudas[-1].gru_stack(nets[-1], sgi, state)  # noqa: E731
+            for levels in B_LEVELS:
+                calls = [lambda c=c, net=net: c.gru_stack_mixed(net, sgi, levels, state) for c, net in zip(cudas, nets)]
+                single, queued, k1_single, k1_queued = [[], []], [[], []], [], []
+                for r in range(args.rounds):
+                    for j in (0, 1, 1, 0):
+                        single[j].append(tools.cuda_ms(calls[j]))
+                        queued[j].append(tools.queued_ms(calls[j]))
+                    k1_single.append(tools.cuda_ms(k1))
+                    k1_queued.append(tools.queued_ms(k1))
+                    print(f"kernel B {levels} {label} round {r}: queued {statistics.mean(queued[0][-2:]):.3f} / "
+                          f"{statistics.mean(queued[1][-2:]):.3f} ms, single {statistics.mean(single[0][-2:]):.3f} / "
+                          f"{statistics.mean(single[1][-2:]):.3f} ({' / '.join(args.root)}); kernel 1 "
+                          f"{k1_queued[-1]:.3f} queued", flush=True)
+                row = _summary(single, queued, args.rounds)
+                row.update(kernel_1_median_single_ms=statistics.median(k1_single),
+                           kernel_1_median_queued_ms=statistics.median(k1_queued))
+                result["levels"][" ".join(levels)]["shapes"][label] = row
+                print(f"kernel B {levels} {label}: medians queued {row['median_queued_ms'][0]:.3f} / "
+                      f"{row['median_queued_ms'][1]:.3f} ms, single {row['median_single_ms'][0]:.3f} / "
+                      f"{row['median_single_ms'][1]:.3f}; kernel 1 {row['kernel_1_median_queued_ms']:.3f} / "
+                      f"{row['kernel_1_median_single_ms']:.3f}; on {result['card']}", flush=True)
     print(json.dumps(result))
     return 0
 

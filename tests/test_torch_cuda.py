@@ -20,10 +20,12 @@ quantization can move a value into the next int8 step; so under the bf16 and
 bf16-storage tiers, while 'high' (bf16_3x, kernel A) keeps the CPU run's
 segments. Kernel A (``gates.gru_gates_3x``: the bf16_3x recurrence and its
 mixes with 'default' on the tensor cores) and kernel B
-(``nsnet2_cuda.gru_stack_mixed``: kernel 1's float32 body with one class
-at 'high' or 'default') are within 5e-6 and 2e-6 of their plain versions
-where no class is 'default' (kernel 5's bf16 bars where one is), carrying
-a state too, and nearer them than the plain versions at other levels; the int8 tier under bf16 storage and lbr = 0 weights in the
+(``nsnet2_cuda.gru_stack_mixed``: kernel 1's tiles with one class at
+'high' or 'default' on mma.sync) are within 5e-6 and 2e-6 of their plain
+versions where no class is 'default' (kernel 5's bf16 bars where one is),
+carrying a state too, and nearer them than the plain versions at other
+levels; kernel B spills nothing and kernel 1 keeps the parent's bits; the
+int8 tier under bf16 storage and lbr = 0 weights in the
 bf16 tiers agree with the CPU.
 Each tier launches its recurrence kernel and the FSM and nothing else, and
 a 10-case tier-fuzz campaign on the card finds no deviation at 'high'.
@@ -1950,12 +1952,12 @@ def test_kernel_a_carries_a_state(net, cuda_device, levels, rows, steps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("levels", KERNEL_B_LEVELS)
-@pytest.mark.parametrize("rows, steps", [(1, 1), (37, 54), (1680, 54)])
+@pytest.mark.parametrize("rows, steps", [(1, 1), (37, 54), (1680, 54), (42, 54), (4000, 54)])
 def test_kernel_b_matches_plain(net, cuda_device, levels, rows, steps):
-    """Kernel B (``gru_stack_mixed``: kernel 1's float32 body with one
-    class at 'high' or 'default') against ``gru_stack_reference`` at the
-    same levels, on N(0, 0.8) gi1 and N(0, 0.3) GRU biases (``_near``),
-    one launch."""
+    """Kernel B (``gru_stack_mixed``, ``csrc/gru_mixed.cu``: kernel 1's
+    tiles with the class at 'high' or 'default' on mma.sync) against
+    ``gru_stack_reference`` at the same levels, on N(0, 0.8) gi1 and N(0,
+    0.3) GRU biases (``_near``), one launch."""
     net = _biased(net)
     gi1 = _gi1(rows, steps, rows + steps, cuda_device)
     before = (nsnet2_cuda.gru_stack_mixed.launches, nsnet2_cuda.gru_stack.launches)
@@ -1987,6 +1989,47 @@ def test_kernel_b_carries_a_state(net, cuda_device, levels):
     for a, b in ((got, want), (h1, w1), (h2, w2)):
         _near(a, b, levels, KERNEL_B_HIGH_TOL)
     assert torch.equal(zero, stateless)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", KERNEL_B_LEVELS)
+def test_kernel_b_does_not_spill(cuda_device, levels):
+    """Every kernel B instantiation, as built, keeps its registers: 0 bytes
+    of local memory a thread (``cudaFuncGetAttributes``)."""
+    built = nsnet2_cuda.mixed_attributes(levels, cuda_device)
+    assert built["local_bytes"] == 0 and 0 < built["registers"] <= 255, built
+
+
+@pytest.mark.cuda
+def test_kernel_b_shared_bytes_match_the_source(cuda_device):
+    """The host's ``MIXED_SMEM_BYTES`` (which the CPU plan test holds to a
+    block's 232,448 bytes) is the source's shared bytes a CTA."""
+    assert nsnet2_cuda._mixed_lib().fvad_gru_mixed_smem_bytes() == nsnet2_cuda.MIXED_SMEM_BYTES
+
+
+@pytest.mark.cuda
+def test_kernel_1_unchanged_by_kernel_b_split(cuda_device):
+    """Kernel 1 kept its bits when kernel B moved out of its source: its
+    outputs on ``chip_smoke.py``'s fixed inputs (``unchanged_outputs``:
+    [1,680, 54] and [42, 54] from a state, the demo weights) hash to the
+    parent tree's ``PARENT_DIGESTS`` under the nvcc release that recorded
+    them."""
+    import importlib.util
+    import subprocess
+    from pathlib import Path
+
+    from formula_vad_tpu_torch import _build
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_digests", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    release = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[-1]
+    if release != smoke.PARENT_DIGESTS_NVCC:
+        pytest.skip(f"PARENT_DIGESTS bind nvcc '{smoke.PARENT_DIGESTS_NVCC}', this is '{release}'")
+    got = smoke.unchanged_outputs("formula_vad_tpu_torch", cuda_device)
+    assert got["gru_stack"] == smoke.PARENT_DIGESTS["gru_stack"], got
 
 
 def _route(levels):
